@@ -1,0 +1,136 @@
+"""Architecture configurations of the port (its own copy of
+`repro/configs/base.py`, which the port never imports).
+
+Every architecture is a frozen ``ArchConfig`` registered under its
+public id.  The serving path reads only the projection widths
+(`runtime/integration.py:decode_step_descs`); ``reduced()`` derives the
+tiny same-family config the CPU parity tests use, with exactly the
+reference's rules so both packages plan the same GEMMs.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Dict
+
+_REGISTRY: Dict[str, "ArchConfig"] = {}
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+
+    # --- attention ---------------------------------------------------------
+    attn_type: str = "gqa"           # gqa | mla
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    sliding_window: int = 0          # 0 -> full attention
+    local_global_ratio: int = 0
+    rope_theta: float = 10_000.0
+
+    # --- MLA ----------------------------------------------------------------
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+    # --- MoE ----------------------------------------------------------------
+    n_routed_experts: int = 0
+    n_shared_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+
+    # --- SSM ----------------------------------------------------------------
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    attn_every: int = 0
+
+    # --- xLSTM ----------------------------------------------------------------
+    slstm_every: int = 0
+
+    # --- modality frontend stubs ---------------------------------------------
+    frontend: str = ""
+
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU tests (the reference's rules,
+        `repro/configs/base.py:183-219`)."""
+        kw = dict(
+            name=self.name + "-smoke",
+            n_layers=min(self.n_layers, 2 if self.attn_every == 0 else 4),
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2)
+            if self.n_kv_heads < self.n_heads
+            else 4,
+            d_ff=256 if self.d_ff else 0,
+            vocab_size=256,
+            head_dim=32 if self.head_dim else 0,
+        )
+        if self.attn_type == "mla":
+            kw.update(
+                kv_lora_rank=32,
+                q_lora_rank=32 if self.q_lora_rank else 0,
+                qk_rope_head_dim=16,
+                qk_nope_head_dim=32,
+                v_head_dim=32,
+            )
+        if self.family == "moe":
+            kw.update(
+                n_routed_experts=8,
+                moe_top_k=2,
+                n_shared_experts=min(self.n_shared_experts, 1),
+                moe_d_ff=64,
+                dense_d_ff=256 if self.dense_d_ff else 0,
+            )
+        if self.family in ("ssm", "hybrid"):
+            kw.update(ssm_state=16, ssm_head_dim=16)
+        if self.attn_every:
+            kw.update(attn_every=2)
+        if self.sliding_window:
+            kw.update(sliding_window=64)
+        return replace(self, **kw)
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    if cfg.name in _REGISTRY:
+        raise ValueError(f"duplicate arch {cfg.name}")
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_arch(name: str) -> ArchConfig:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def _ensure_loaded() -> None:
+    from repro_torch.configs import qwen3_14b  # noqa: F401  (registers)

@@ -1,0 +1,427 @@
+"""Analytical cost model, GEMM paths (`repro/core/cost_model.py`).
+
+The port plans exactly as the reference does: the model is the same
+float64 NumPy code over the same `TPUSpec`, so the tuner, the library
+and the scheduler reach bitwise-identical decisions in both packages
+(`tests/test_torch_core.py`).  Its constants describe the reference's
+target chip, not the H100; a spec for Hopper is a later item of the
+port.  Times are modeled seconds, used to rank candidates, never
+reported as measurements.
+
+Written once over struct-of-arrays (`DescBatch` × `TileBatch` ×
+broadcast budgets); the scalar functions wrap the same code, so batch
+and scalar results are bitwise equal.  `EVAL_COUNTER` counts every
+(GEMM, tile, budget) evaluation so the runtime's zero-evaluation
+cache-hit path is checkable.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+
+from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.kernels.gemm.ops import TileConfig
+
+
+@dataclass(frozen=True)
+class TPUSpec:
+    """The reference's modeled chip, unchanged so plans match."""
+
+    name: str = "tpu-v5e"
+    peak_flops_bf16: float = 197e12
+    peak_flops_fp32: float = 98.5e12
+    hbm_bw: float = 819e9            # B/s
+    vmem_bytes: int = 32 * 2**20
+    launch_overhead_s: float = 3e-6
+    pipeline_fill_tiles: int = 2
+    ici_bw: float = 50e9
+    mxu_dim: int = 128
+
+    def peak(self, dtype: str) -> float:
+        return self.peak_flops_fp32 if dtype == "f32" else self.peak_flops_bf16
+
+
+DEFAULT_SPEC = TPUSpec()
+RC_FRACTIONS = {"GPU": 1.0, "GPU/2": 0.5, "GPU/4": 0.25}
+
+_STRIDED_DMA = 1 / 0.85  # strided operand loses ~15% (paper Fig. 5(b) ③)
+
+
+class EvalCounter:
+    """Per-thread counts of cost-model evaluations: ``evals`` is the
+    number of (GEMM, tile, budget) tuples evaluated, ``calls`` the number
+    of entries into the model."""
+
+    __slots__ = ("_tls",)
+
+    def __init__(self) -> None:
+        self._tls = threading.local()
+
+    def _counts(self) -> list:
+        c = getattr(self._tls, "counts", None)
+        if c is None:
+            c = self._tls.counts = [0, 0]
+        return c
+
+    @property
+    def evals(self) -> int:
+        return self._counts()[0]
+
+    @property
+    def calls(self) -> int:
+        return self._counts()[1]
+
+    def add(self, n: int) -> None:
+        c = self._counts()
+        c[0] += int(n)
+        c[1] += 1
+
+    def reset(self) -> None:
+        self._tls.counts = [0, 0]
+
+    def snapshot(self) -> tuple[int, int]:
+        return tuple(self._counts())
+
+
+EVAL_COUNTER = EvalCounter()
+
+
+# --------------------------------------------------------- struct-of-arrays
+@dataclass(frozen=True)
+class TileBatch:
+    """Struct-of-arrays over candidate `TileConfig`s (int64 fields);
+    ``stream_k=None`` means an all-tile/split-K batch."""
+
+    bm: np.ndarray
+    bn: np.ndarray
+    bk: np.ndarray
+    split_k: np.ndarray
+    stream_k: np.ndarray | None = None
+
+    @staticmethod
+    def from_tiles(tiles: Sequence[TileConfig]) -> "TileBatch":
+        return TileBatch(
+            bm=np.asarray([t.bm for t in tiles], np.int64),
+            bn=np.asarray([t.bn for t in tiles], np.int64),
+            bk=np.asarray([t.bk for t in tiles], np.int64),
+            split_k=np.asarray([t.split_k for t in tiles], np.int64),
+            stream_k=np.asarray([t.stream_k for t in tiles], np.int64),
+        )
+
+    def vmem_bytes(self, in_bytes: int = 2, acc_bytes: int = 4) -> np.ndarray:
+        """Mirrors `TileConfig.vmem_bytes` (raw, unclamped dims)."""
+        ab = 2 * (self.bm * self.bk + self.bk * self.bn) * in_bytes
+        acc = self.bm * self.bn * acc_bytes
+        out = self.bm * self.bn * in_bytes
+        return ab + acc + out
+
+    def tile(self, i: int) -> TileConfig:
+        sk = 0 if self.stream_k is None else int(self.stream_k[i])
+        return TileConfig(int(self.bm[i]), int(self.bn[i]), int(self.bk[i]),
+                          int(self.split_k[i]), stream_k=sk)
+
+    def __len__(self) -> int:
+        return int(np.broadcast(self.bm, self.bn, self.bk, self.split_k).size)
+
+
+@dataclass(frozen=True)
+class DescBatch:
+    """Struct-of-arrays over `GemmDesc`s (heterogeneous group members)."""
+
+    M: np.ndarray
+    N: np.ndarray
+    K: np.ndarray
+    batch: np.ndarray
+    in_bytes: np.ndarray
+    ta: np.ndarray
+    tb: np.ndarray
+    f32: np.ndarray
+
+    @staticmethod
+    def from_descs(descs: Sequence[GemmDesc]) -> "DescBatch":
+        return DescBatch(
+            M=np.asarray([d.M for d in descs], np.int64),
+            N=np.asarray([d.N for d in descs], np.int64),
+            K=np.asarray([d.K for d in descs], np.int64),
+            batch=np.asarray([d.batch for d in descs], np.int64),
+            in_bytes=np.asarray([d.in_bytes for d in descs], np.int64),
+            ta=np.asarray([d.ta for d in descs], bool),
+            tb=np.asarray([d.tb for d in descs], bool),
+            f32=np.asarray([d.dtype == "f32" for d in descs], bool),
+        )
+
+    def peak(self, spec: TPUSpec) -> np.ndarray:
+        return np.where(self.f32, spec.peak_flops_fp32, spec.peak_flops_bf16)
+
+
+def _desc_fields(d):
+    # GemmDesc and DescBatch expose the same field names (scalar vs array).
+    return (d.M, d.N, d.K, d.batch, d.in_bytes, d.ta, d.tb)
+
+
+def _peak_of(d, spec: TPUSpec):
+    if isinstance(d, GemmDesc):
+        return spec.peak(d.dtype)
+    return d.peak(spec)
+
+
+@dataclass(frozen=True)
+class KernelStatsBatch:
+    """Per-(GEMM, tile) features — #WGs, waves, occupancy, traffic — as
+    broadcast NumPy arrays, one slot per evaluation."""
+
+    n_tiles: np.ndarray
+    waves: np.ndarray
+    occupancy: np.ndarray
+    vmem_bytes: np.ndarray
+    hbm_bytes: np.ndarray
+    flops: np.ndarray
+    mxu_util: np.ndarray
+    a_resident: np.ndarray
+    splits: np.ndarray
+    streams: np.ndarray
+
+
+# ------------------------------------------------------------- batched core
+@dataclass(frozen=True)
+class TilePrecomp:
+    """Budget-independent tile math, paid once per (desc, tiles) pair."""
+
+    tn: np.ndarray
+    splits: np.ndarray
+    streams: np.ndarray
+    n_tiles: np.ndarray
+    ws: np.ndarray
+    a_panel: np.ndarray
+    a_unit: np.ndarray
+    bc_bytes: np.ndarray
+    flops: np.ndarray
+    util: np.ndarray
+    peak: np.ndarray
+
+
+def tile_precompute(d, t, spec: TPUSpec = DEFAULT_SPEC) -> TilePrecomp:
+    M, N, K, batch, in_bytes, ta, tb = _desc_fields(d)
+    mxu = spec.mxu_dim
+    bm = np.minimum(t.bm, _round_up(M, mxu))
+    bn = np.minimum(t.bn, _round_up(N, mxu))
+    bk = np.minimum(t.bk, _round_up(K, mxu))
+    tm, tn, tk = _cdiv(M, bm), _cdiv(N, bn), _cdiv(K, bk)
+    s = np.minimum(t.split_k, tk)
+    n_tiles = tm * tn * s * batch
+    sk = np.asarray(t.stream_k if getattr(t, "stream_k", None) is not None
+                    else 0, np.int64)
+    total = tm * tn * tk * batch
+    ipw = _cdiv(total, np.maximum(np.minimum(sk, total), 1))
+    g_live = _cdiv(total, ipw)
+    n_tiles = np.where(sk > 0, g_live, n_tiles)
+    streams = np.where(sk > 0, g_live, np.zeros_like(g_live))
+
+    ws = (2 * (bm * bk + bk * bn) * in_bytes
+          + bm * bn * 4 + bm * bn * in_bytes)
+    a_panel = bm * K * in_bytes / s
+    if isinstance(d, GemmDesc):
+        a_stream = _STRIDED_DMA if ta else 1.0
+        b_stream = _STRIDED_DMA if tb else 1.0
+    else:
+        a_stream = np.where(ta, _STRIDED_DMA, 1.0)
+        b_stream = np.where(tb, _STRIDED_DMA, 1.0)
+    a_unit = M * K * in_bytes * batch * a_stream
+    b_bytes = tm * (K * N * in_bytes * batch) * b_stream
+    c_bytes = M * N * in_bytes * batch
+    part_bytes = np.where(s > 1, s * (2 * (M * N * 4) * batch), 0.0)
+    period = tk // np.gcd(ipw, tk)
+    straddle = (g_live - 1) - (g_live - 1) // period
+    part_bytes = np.where(sk > 0, straddle * (2.0 * (bm * bn * 4)),
+                          part_bytes)
+    bc_bytes = (b_bytes + c_bytes) + part_bytes
+
+    flops = 2.0 * (tm * bm) * (tn * bn) * (tk * bk) * batch
+    util = (
+        _align_eff(bm, mxu)
+        * _align_eff(bn, mxu)
+        * _align_eff(bk, mxu)
+    )
+    return TilePrecomp(
+        tn=tn, splits=s, streams=streams, n_tiles=n_tiles, ws=ws,
+        a_panel=a_panel, a_unit=np.asarray(a_unit), bc_bytes=bc_bytes,
+        flops=flops, util=util, peak=np.asarray(_peak_of(d, spec)),
+    )
+
+
+def kernel_stats_batch(
+    d, t, vmem_budget=None, spec: TPUSpec = DEFAULT_SPEC,
+    pre: TilePrecomp | None = None,
+) -> KernelStatsBatch:
+    """Per-(GEMM, tile, budget) features: ``d`` a `GemmDesc` or `DescBatch`, ``t``
+    a `TileConfig` or `TileBatch`, ``vmem_budget`` a scalar or array; all
+    broadcast together.  This is THE model — the scalar path wraps it."""
+    p = pre if pre is not None else tile_precompute(d, t, spec)
+    budget = spec.vmem_bytes if vmem_budget is None else vmem_budget
+
+    resid_frac = np.minimum(np.maximum(
+        (budget - p.ws) / p.a_panel, 0.0), 1.0)
+    a_resident = resid_frac >= 1.0
+    eff_reads = p.tn - resid_frac * (p.tn - 1)
+    hbm = eff_reads * p.a_unit + p.bc_bytes
+
+    slots = np.maximum(1, budget // p.ws)
+    waves = p.n_tiles / np.minimum(slots, spec.pipeline_fill_tiles * 4)
+    occ = np.minimum(1.0, (p.ws + resid_frac * p.a_panel) / budget)
+    EVAL_COUNTER.add(np.size(waves))
+    return KernelStatsBatch(
+        n_tiles=p.n_tiles,
+        waves=waves,
+        occupancy=occ,
+        vmem_bytes=p.ws + np.where(a_resident, p.a_panel, 0.0),
+        hbm_bytes=hbm,
+        flops=p.flops,
+        mxu_util=p.util,
+        a_resident=a_resident,
+        splits=p.splits,
+        streams=p.streams,
+    )
+
+
+def isolated_time_batch(
+    d, t, spec: TPUSpec = DEFAULT_SPEC, vmem_budget=None, bw_frac=1.0,
+    pre: TilePrecomp | None = None,
+) -> np.ndarray:
+    """Vectorized `isolated_time` (split-K and Stream-K kernels pay one
+    extra launch for their epilogue)."""
+    p = pre if pre is not None else tile_precompute(d, t, spec)
+    st = kernel_stats_batch(d, t, vmem_budget, spec, pre=p)
+    compute = st.flops / (p.peak * st.mxu_util)
+    bw = spec.hbm_bw * bw_frac
+    memory = st.hbm_bytes / bw
+    ramp = spec.pipeline_fill_tiles * (st.hbm_bytes / st.n_tiles / bw)
+    launches = np.where((st.splits > 1) | (st.streams > 0), 2.0, 1.0)
+    return (np.maximum(compute, memory) + ramp
+            + launches * spec.launch_overhead_s)
+
+
+def group_time_batch(
+    d: GemmDesc, t, cds, spec: TPUSpec = DEFAULT_SPEC,
+    pre: TilePrecomp | None = None, tiles_per_cd: bool = False,
+) -> np.ndarray:
+    """Vectorized homogeneous `group_time`: ``cd`` identical members per
+    group, one group per (cd, tile) pair; shape ``(len(cds), ...)``.
+    Member sums fold left-to-right like the scalar loop, so results are
+    bitwise equal to ``group_time([(d, tile)] * cd)``.
+    ``tiles_per_cd=True`` says the tile batch already carries the CD axis
+    as its leading dim (the tuner's per-CD Stream-K candidates)."""
+    cds = [int(c) for c in np.atleast_1d(cds)]
+    p = pre if pre is not None else tile_precompute(d, t, spec)
+    rest = np.broadcast_shapes(np.shape(p.ws), np.shape(p.n_tiles),
+                               np.shape(p.bc_bytes))
+    if tiles_per_cd:
+        if not rest or rest[0] != len(cds):
+            raise ValueError(
+                f"tiles_per_cd=True needs a leading CD axis of {len(cds)}, "
+                f"got batch shape {rest}")
+        shares = np.asarray([spec.vmem_bytes // c for c in cds],
+                            np.int64).reshape((len(cds),)
+                                              + (1,) * (len(rest) - 1))
+    else:
+        shares = np.asarray([spec.vmem_bytes // c for c in cds],
+                            np.int64).reshape((len(cds),) + (1,) * len(rest))
+    st = kernel_stats_batch(d, t, vmem_budget=shares, spec=spec, pre=p)
+    comp = np.broadcast_to(st.flops / (p.peak * st.mxu_util),
+                           st.hbm_bytes.shape)
+    mem = st.hbm_bytes / spec.hbm_bw
+    ramp = spec.pipeline_fill_tiles * (st.hbm_bytes / st.n_tiles
+                                       / spec.hbm_bw)
+    # Fold each row's cd copies left-to-right (NOT cd · x, which rounds
+    # differently than the scalar member loop).
+    quants = np.stack([comp, mem, np.maximum(comp, mem),
+                       np.broadcast_to(st.vmem_bytes, mem.shape)])
+    acc = quants.copy()
+    for r, cd in enumerate(cds):
+        row = quants[:, r]
+        arow = acc[:, r]
+        for _ in range(cd - 1):
+            arow += row
+    sum_c, sum_m, serial, total_ws = acc
+    pressure = total_ws / spec.vmem_bytes
+    overlap = np.minimum(1.0, 1.0 / pressure)
+    ideal = np.maximum(sum_c, sum_m)
+    t_exec = overlap * ideal + (1.0 - overlap) * (
+        serial * (1.0 + 0.25 * np.maximum(0.0, pressure - 1.0))
+    )
+    launches = np.where((st.splits > 1) | (st.streams > 0), 2.0, 1.0)
+    return t_exec + ramp + launches * spec.launch_overhead_s
+
+
+# ------------------------------------------------------------ scalar façade
+def isolated_time(
+    d: GemmDesc, t: TileConfig, spec: TPUSpec = DEFAULT_SPEC,
+) -> float:
+    """Modeled latency of one GEMM kernel run alone (one launch)."""
+    return float(isolated_time_batch(d, t, spec))
+
+
+def sequential_time(
+    members: Sequence[tuple[GemmDesc, TileConfig]],
+    spec: TPUSpec = DEFAULT_SPEC,
+) -> float:
+    if not members:
+        return 0.0
+    db = DescBatch.from_descs([d for d, _ in members])
+    tb = TileBatch.from_tiles([t for _, t in members])
+    return _fold(isolated_time_batch(db, tb, spec))
+
+
+def group_time(
+    members: Sequence[tuple[GemmDesc, TileConfig]],
+    spec: TPUSpec = DEFAULT_SPEC,
+) -> float:
+    """Modeled latency of one grouped launch executing all members: the
+    merged roofline ``max(Σ compute, Σ memory)`` degraded toward serial
+    execution as the aggregate working set overflows the budget."""
+    G = len(members)
+    if G == 0:
+        return 0.0
+    share = spec.vmem_bytes // G
+    db = DescBatch.from_descs([d for d, _ in members])
+    tb = TileBatch.from_tiles([t for _, t in members])
+    st = kernel_stats_batch(db, tb, vmem_budget=share, spec=spec)
+    comps = st.flops / (db.peak(spec) * st.mxu_util)
+    mems = st.hbm_bytes / spec.hbm_bw
+    ramps = spec.pipeline_fill_tiles * (st.hbm_bytes / st.n_tiles
+                                        / spec.hbm_bw)
+    sum_c = _fold(comps)
+    sum_m = _fold(mems)
+    serial = _fold(np.maximum(comps, mems))
+    total_ws = _fold(st.vmem_bytes)
+    pressure = total_ws / spec.vmem_bytes
+    overlap = min(1.0, 1.0 / pressure) if pressure > 0 else 1.0
+    ideal = max(sum_c, sum_m)
+    t_exec = overlap * ideal + (1.0 - overlap) * (
+        serial * (1.0 + 0.25 * max(0.0, pressure - 1.0))
+    )
+    any_epilogue = bool(np.any((st.splits > 1) | (st.streams > 0)))
+    launches = 2.0 if any_epilogue else 1.0
+    return t_exec + float(np.max(ramps)) + launches * spec.launch_overhead_s
+
+
+def _fold(x: np.ndarray) -> float:
+    acc = 0.0
+    for v in x:
+        acc += float(v)
+    return acc
+
+
+# ------------------------------------------------------------------ helpers
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _round_up(a, b):
+    return _cdiv(a, b) * b
+
+
+def _align_eff(dim, mxu):
+    return dim / (_cdiv(dim, mxu) * mxu)

@@ -1,0 +1,196 @@
+"""GO GEMM library, paper §4.2.2 (`repro/core/library.py`).
+
+Maps a GEMM to its isolated-tuned tile and, per concurrency degree, its
+globally-optimized (GO) tile.  The on-disk format is the reference's
+schema-v5 JSON, read and written unchanged, so both packages plan from
+the same entries (`results/golib.json` loads into either):
+
+- a bare v1 blob's entries were tuned on a pre-split-K space and are
+  discarded with a warning (re-tuned lazily);
+- v2–v4 entries are kept bitwise (short tile lists default
+  ``split_k=1``/``stream_k=0``), with a warning that the next `save`
+  rewrites the file at v5;
+- a corrupt or wrong-type file warns and leaves the library empty.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+import warnings
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+from repro_torch.core.cost_model import DEFAULT_SPEC, TPUSpec
+from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.core.tuner import GOEntry, tune_gemm, tune_gemm_batch
+from repro_torch.kernels.gemm.ops import TileConfig
+
+SCHEMA_VERSION = 5
+
+
+def _tile_to_list(t: TileConfig) -> list[int]:
+    return [t.bm, t.bn, t.bk, t.split_k, t.stream_k]
+
+
+def _tile_from_list(v) -> TileConfig:
+    return TileConfig(*v)
+
+
+class GOLibrary:
+    """Thread-safe, lazily-tuned, optionally disk-backed kernel library."""
+
+    def __init__(
+        self,
+        path: str | os.PathLike | None = None,
+        spec: TPUSpec = DEFAULT_SPEC,
+    ):
+        self.path = Path(path) if path else None
+        self.spec = spec
+        self._entries: Dict[str, GOEntry] = {}
+        self._lock = threading.Lock()
+        self.loaded_schema: Optional[int] = None
+        if self.path and self.path.exists():
+            self.load(self.path)
+
+    # -------------------------------------------------------------- access
+    def get(self, desc: GemmDesc) -> GOEntry:
+        key = desc.key()
+        with self._lock:
+            e = self._entries.get(key)
+        if e is not None:
+            return e
+        e = tune_gemm(desc, self.spec)
+        with self._lock:
+            return self._entries.setdefault(key, e)
+
+    def prewarm(self, descs: Sequence[GemmDesc]) -> int:
+        """Tune ahead of traffic in ONE `tune_gemm_batch` sweep; returns
+        the number of newly tuned entries (saved when disk-backed)."""
+        with self._lock:
+            missing = {d.key(): d for d in descs if d.key() not in self._entries}
+        if missing:
+            entries = tune_gemm_batch(list(missing.values()), self.spec)
+            with self._lock:
+                for e in entries:
+                    self._entries.setdefault(e.desc_key, e)
+        if missing and self.path:
+            self.save()
+        return len(missing)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def entries(self) -> Dict[str, GOEntry]:
+        return dict(self._entries)
+
+    # ----------------------------------------------------------- persist
+    def save(self, path: str | os.PathLike | None = None) -> None:
+        path = Path(path or self.path)
+
+        def _rec(e: GOEntry) -> dict:
+            rec = {
+                "family": e.family,
+                "isolated": _tile_to_list(e.isolated),
+                "go": {str(cd): _tile_to_list(t) for cd, t in e.go.items()},
+                "rc_source": e.rc_source,
+                "speedup": {str(cd): s for cd, s in e.speedup.items()},
+            }
+            if e.measured:
+                rec["measured"] = {str(cd): t for cd, t in e.measured.items()}
+                rec["measure"] = {
+                    "backend": e.measure_backend,
+                    "samples": e.measure_samples,
+                    "run_id": e.measure_run_id,
+                }
+            return rec
+
+        blob = {
+            "schema": SCHEMA_VERSION,
+            "entries": {k: _rec(e) for k, e in self._entries.items()},
+        }
+        tmp = path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(blob, separators=(",", ":")))
+        tmp.replace(path)
+
+    def load(self, path: str | os.PathLike) -> int:
+        """Parse a v1–v5 blob; returns the file's schema version (0 when
+        the file is unusable)."""
+        def _unusable(why: str) -> int:
+            warnings.warn(
+                f"GO library {path} is unusable ({why}); starting with an "
+                "empty library — entries re-tune lazily and the next save "
+                "rewrites the file.", stacklevel=3)
+            self.loaded_schema = None
+            return 0
+
+        try:
+            blob = json.loads(Path(path).read_text())
+        except (OSError, UnicodeDecodeError, ValueError) as e:
+            return _unusable(f"{type(e).__name__}: {e}")
+        if isinstance(blob, dict) and "schema" in blob:
+            try:
+                schema = int(blob["schema"])
+            except (TypeError, ValueError):
+                return _unusable(f"non-integer schema {blob['schema']!r}")
+            entries = blob.get("entries")
+        else:
+            schema, entries = 1, blob           # bare v1 mapping
+        if not isinstance(entries, dict):
+            return _unusable(
+                f"entries is {type(entries).__name__}, expected mapping")
+        self.loaded_schema = schema
+        if schema < 2:
+            warnings.warn(
+                f"GO library {path} has stale schema v{schema} (< "
+                f"v{SCHEMA_VERSION}); discarding {len(entries)} entries — "
+                "they will be re-tuned on the current search space.",
+                stacklevel=2,
+            )
+            return schema
+        if schema < SCHEMA_VERSION:
+            warnings.warn(
+                f"GO library {path} has schema v{schema} (< "
+                f"v{SCHEMA_VERSION}); migrating {len(entries)} entries "
+                "in place (GEMM family default) — the next save rewrites "
+                f"the file at v{SCHEMA_VERSION}.",
+                stacklevel=2,
+            )
+        bad = 0
+        for k, v in entries.items():
+            try:
+                meta = v.get("measure", {})
+                self._entries[k] = GOEntry(
+                    desc_key=k,
+                    isolated=_tile_from_list(v["isolated"]),
+                    go={int(cd): _tile_from_list(t)
+                        for cd, t in v["go"].items()},
+                    rc_source={int(c): s
+                               for c, s in v.get("rc_source", {}).items()},
+                    speedup={int(c): s
+                             for c, s in v.get("speedup", {}).items()},
+                    family=v.get("family", "gemm"),
+                    measured={int(c): float(t)
+                              for c, t in v.get("measured", {}).items()},
+                    measure_backend=meta.get("backend"),
+                    measure_samples=int(meta.get("samples", 0)),
+                    measure_run_id=meta.get("run_id"),
+                )
+            except (AttributeError, KeyError, TypeError, ValueError):
+                bad += 1       # malformed record — skip, re-tune lazily
+        if bad:
+            warnings.warn(
+                f"GO library {path}: skipped {bad} malformed entr"
+                f"{'y' if bad == 1 else 'ies'} — they re-tune lazily.",
+                stacklevel=2)
+        return schema
+
+
+_DEFAULT: Optional[GOLibrary] = None
+
+
+def default_library() -> GOLibrary:
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = GOLibrary()
+    return _DEFAULT

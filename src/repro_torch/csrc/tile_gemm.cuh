@@ -1,0 +1,248 @@
+// Shared CTA-level GEMM tile for the port's three kernels (gemm.cu,
+// grouped_gemm.cu): C[m0:m_end, n0:n0+64] = op(A) . op(B), f32
+// accumulation, output cast once.
+//
+// What bounds it on an H100: bytes.  The serving path's GEMMs are decode
+// steps (M = 4..16 rows per member) against weights of 26-178 MB, far
+// below the ~295 bf16 operations per byte at which the tensor cores and
+// not HBM become the limit.  So the design streams every weight element
+// from device memory exactly once per CTA row tile and keeps many bytes
+// in flight:
+//   - one CTA owns a 64-column stripe of the output and the (few) rows of
+//     its row tile; the K sweep (the TPU kernel's sequential k grid axis)
+//     is a loop inside the CTA;
+//   - each thread issues its next tile's loads as 16-byte vector loads
+//     into registers before computing on the current tile in shared
+//     memory (register double-buffering), so global loads overlap the
+//     math; BK is 128 for the 16-row bf16 tile so each CTA has 16 KB of
+//     weights in flight per step;
+//   - the ragged edges of M, N and K are masked at load (zero fill) and at
+//     store, so callers never pad operands.
+// bf16 runs on the tensor cores through WMMA 16x16x16 fragments (f32
+// accumulators); f32 runs as plain FMA, one output column and BM/2 rows
+// per thread.  wgmma, TMA and a deeper cp.async pipeline are later work.
+//
+// CTA tile rule (see kernels/gemm/kernel.py:cta_rows): a TileConfig row
+// block bm <= 16 maps to a 16-row CTA tile, any larger bm to a 64-row
+// tile; bn and bk are TPU VMEM tilings and do not carry over: every CTA
+// is 64 columns wide, and BK is 128 (bf16, 16 rows) or 64 (otherwise).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace repro {
+
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kBN = 64;        // CTA tile width (output columns)
+
+template <typename T, int BM, bool TA, bool TB>
+struct TileCfg {
+  static constexpr int BK = (sizeof(T) == 2 && BM == 16) ? 128 : 64;
+  static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte chunk
+  // Tiles sit in shared memory in their stored orientation: A is (BM, BK)
+  // or, transposed, (BK, BM); B is (BK, BN) or (BN, BK).  Each row is
+  // padded by one 16-byte chunk, which keeps rows 16-byte aligned and
+  // skews rows across banks.
+  static constexpr int A_R = TA ? BK : BM, A_C = TA ? BM : BK;
+  static constexpr int B_R = TB ? kBN : BK, B_C = TB ? BK : kBN;
+  static constexpr int A_LD = A_C + VEC, B_LD = B_C + VEC;
+  static constexpr int A_BYTES = A_R * A_LD * (int)sizeof(T);
+  static constexpr int B_OFF = (A_BYTES + 127) / 128 * 128;
+  static constexpr int AB_BYTES = B_OFF + B_R * B_LD * (int)sizeof(T);
+  static constexpr int C_LD = kBN + 4;  // f32 epilogue staging (bf16 path)
+  static constexpr int C_BYTES = BM * C_LD * 4;
+  static constexpr int SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
+  static_assert(SMEM <= 48 * 1024, "static shared memory limit");
+  static_assert(BM % 16 == 0, "CTA rows are a multiple of 16");
+};
+
+// A (TR x TC) tile of a row-major matrix with leading dimension `ld`,
+// whose element (r, c) exists for r < rows and c < cols; elements outside
+// read as zero.  Thread t loads chunks t, t + 128, ... of VEC consecutive
+// columns: one 16-byte load when the chunk is whole and aligned, element
+// loads otherwise.
+template <typename T, int TR, int TC>
+struct TileLoader {
+  using Bits = typename std::conditional<sizeof(T) == 2, unsigned short,
+                                         unsigned int>::type;
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int CPR = TC / VEC;  // chunks per row
+  static constexpr int PER_THREAD = TR * CPR / kThreads;
+  static_assert(TC % VEC == 0, "tile width is whole chunks");
+  static_assert((TR * CPR) % kThreads == 0, "chunks divide among threads");
+
+  uint4 regs[PER_THREAD];
+
+  __device__ __forceinline__ void load(const T* __restrict__ src, int64_t ld,
+                                       int64_t r0, int64_t c0, int64_t rows,
+                                       int64_t cols) {
+    const Bits* bits = reinterpret_cast<const Bits*>(src);
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) {
+      const int chunk = threadIdx.x + j * kThreads;
+      const int64_t r = r0 + chunk / CPR;
+      const int64_t c = c0 + (chunk % CPR) * VEC;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows && c < cols) {
+        const Bits* p = bits + r * ld + c;
+        if (c + VEC <= cols && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+          v = __ldg(reinterpret_cast<const uint4*>(p));
+        } else {
+          Bits* vb = reinterpret_cast<Bits*>(&v);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) vb[e] = (c + e < cols) ? p[e] : Bits(0);
+        }
+      }
+      regs[j] = v;
+    }
+  }
+
+  __device__ __forceinline__ void store(T* dst) const {  // row stride TC + VEC
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) {
+      const int chunk = threadIdx.x + j * kThreads;
+      *reinterpret_cast<uint4*>(dst + (chunk / CPR) * (TC + VEC) +
+                                (chunk % CPR) * VEC) = regs[j];
+    }
+  }
+};
+
+template <typename T, int BM, bool TA, bool TB>
+struct Math;
+
+// bf16: warp w owns output columns [16w, 16w + 16) of the CTA tile and all
+// BM rows, as BM/16 WMMA accumulators.
+template <int BM, bool TA, bool TB>
+struct Math<__nv_bfloat16, BM, TA, TB> {
+  using T = __nv_bfloat16;
+  using Cfg = TileCfg<T, BM, TA, TB>;
+  using LA = typename std::conditional<TA, nvcuda::wmma::col_major,
+                                       nvcuda::wmma::row_major>::type;
+  using LB = typename std::conditional<TB, nvcuda::wmma::col_major,
+                                       nvcuda::wmma::row_major>::type;
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
+      acc[BM / 16];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i) nvcuda::wmma::fill_fragment(acc[i], 0.f);
+  }
+
+  __device__ __forceinline__ void step(const T* As, const T* Bs) {
+    const int w = threadIdx.x / 32;
+#pragma unroll
+    for (int kk = 0; kk < Cfg::BK; kk += 16) {
+      nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, T, LB> bf;
+      nvcuda::wmma::load_matrix_sync(
+          bf, TB ? Bs + (w * 16) * Cfg::B_LD + kk : Bs + kk * Cfg::B_LD + w * 16,
+          Cfg::B_LD);
+#pragma unroll
+      for (int i = 0; i < BM / 16; ++i) {
+        nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, T, LA> af;
+        nvcuda::wmma::load_matrix_sync(
+            af, TA ? As + kk * Cfg::A_LD + i * 16 : As + (i * 16) * Cfg::A_LD + kk,
+            Cfg::A_LD);
+        nvcuda::wmma::mma_sync(acc[i], af, bf, acc[i]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(unsigned char* smem, T* C, int64_t ldc,
+                                         int64_t m0, int64_t m_end, int64_t n0,
+                                         int64_t N) {
+    const int w = threadIdx.x / 32;
+    float* Cs = reinterpret_cast<float*>(smem);
+    __syncthreads();  // every warp is done reading the last A/B tiles
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i)
+      nvcuda::wmma::store_matrix_sync(Cs + (i * 16) * Cfg::C_LD + w * 16, acc[i],
+                                      Cfg::C_LD, nvcuda::wmma::mem_row_major);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < BM * kBN; idx += kThreads) {
+      const int r = idx / kBN, c = idx % kBN;
+      if (m0 + r < m_end && n0 + c < N)
+        C[(m0 + r) * ldc + n0 + c] = __float2bfloat16(Cs[r * Cfg::C_LD + c]);
+    }
+  }
+};
+
+// f32: thread t owns output column t % 64 and rows [(t / 64) * BM/2, +BM/2).
+template <int BM, bool TA, bool TB>
+struct Math<float, BM, TA, TB> {
+  using Cfg = TileCfg<float, BM, TA, TB>;
+  static constexpr int RPT = BM * kBN / kThreads;
+  float acc[RPT];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) acc[j] = 0.f;
+  }
+
+  __device__ __forceinline__ void step(const float* As, const float* Bs) {
+    const int c = threadIdx.x % kBN, r0 = (threadIdx.x / kBN) * RPT;
+#pragma unroll 4
+    for (int k = 0; k < Cfg::BK; ++k) {
+      const float b = TB ? Bs[c * Cfg::B_LD + k] : Bs[k * Cfg::B_LD + c];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const float a = TA ? As[k * Cfg::A_LD + r0 + j] : As[(r0 + j) * Cfg::A_LD + k];
+        acc[j] = fmaf(a, b, acc[j]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(unsigned char*, float* C, int64_t ldc,
+                                         int64_t m0, int64_t m_end, int64_t n0,
+                                         int64_t N) {
+    const int c = threadIdx.x % kBN, r0 = (threadIdx.x / kBN) * RPT;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+      if (m0 + r0 + j < m_end && n0 + c < N) C[(m0 + r0 + j) * ldc + n0 + c] = acc[j];
+  }
+};
+
+// One CTA's output tile: rows [m0, m_end) and columns [n0, n0 + 64) of C
+// (row-major, leading dimension ldc).  A is stored (rows, K) with leading
+// dimension lda, or (K, rows) when TA; rows of A at or past m_end read as
+// zero.  B is stored (K, N), or (N, K) when TB.
+template <typename T, int BM, bool TA, bool TB>
+__device__ __forceinline__ void gemm_tile(const T* __restrict__ A, int64_t lda,
+                                          const T* __restrict__ B,
+                                          T* __restrict__ C, int64_t ldc,
+                                          int64_t m0, int64_t m_end, int64_t n0,
+                                          int64_t N, int64_t K) {
+  using Cfg = TileCfg<T, BM, TA, TB>;
+  __shared__ __align__(128) unsigned char smem[Cfg::SMEM];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = reinterpret_cast<T*>(smem + Cfg::B_OFF);
+  TileLoader<T, Cfg::A_R, Cfg::A_C> la;
+  TileLoader<T, Cfg::B_R, Cfg::B_C> lb;
+  Math<T, BM, TA, TB> math;
+  math.init();
+
+  auto load = [&](int64_t k0) {
+    if (TA) la.load(A, lda, k0, m0, K, m_end);  // rows k, columns m
+    else    la.load(A, lda, m0, k0, m_end, K);  // rows m, columns k
+    if (TB) lb.load(B, K, n0, k0, N, K);        // rows n, columns k
+    else    lb.load(B, N, k0, n0, K, N);        // rows k, columns n
+  };
+
+  const int64_t nk = (K + Cfg::BK - 1) / Cfg::BK;
+  if (nk > 0) load(0);
+  for (int64_t kt = 0; kt < nk; ++kt) {
+    __syncthreads();  // the previous step is done reading shared memory
+    la.store(As);
+    lb.store(Bs);
+    __syncthreads();
+    if (kt + 1 < nk) load((kt + 1) * Cfg::BK);  // in flight during the math
+    math.step(As, Bs);
+  }
+  math.finish(smem, C, ldc, m0, m_end, n0, N);
+}
+
+}  // namespace repro

@@ -1,0 +1,95 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface under `repro_torch/_build/`
+(listed in `.gitignore`).  A library's file name carries a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused.  `build` starts one ``nvcc`` per source, all together.  A failed
+build raises with the compiler's output; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = ("gemm", "grouped_gemm")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``PATH``, else from ``$CUDA_HOME`` or
+    ``/usr/local/cuda``; raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels need the "
+                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of `csrc/<name>.cu` lives for the current sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every named source whose library is missing, one ``nvcc``
+    process each, all started together; returns the library paths.  The
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    is kept beside each library as ``<name>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    procs = {}
+    for n, p in todo.items():
+        tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        (BUILD_DIR / f"{n}.log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"--- {n}.cu (exit {proc.returncode})\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            tmp.replace(todo[n])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed.
+    ``signatures`` maps each C function to ``(restype, argtypes)``."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = list(argtypes)
+            _LIBS[name] = lib
+        return lib

@@ -1,0 +1,113 @@
+"""Route a model's decode-step GEMMs through the serving runtime
+(`repro/runtime/integration.py`).
+
+Each decode step of each live request issues a bundle of small-M GEMMs
+(QKV, attention-out, FFN, or per-expert FFNs); how many are pending at
+once depends on traffic — the runtime-only-known parallelism of paper
+§4.4.  `decode_step_requests` enumerates one layer's GEMMs for an
+`ArchConfig` (M = live batch) after applying the §6.11 policy:
+shared-input projections (QKV; FFN gate+up) become one wide fused GEMM
+when the cost model prefers fusion, else separate concurrent GEMMs.
+"""
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import List, Sequence, Tuple
+
+from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.core.scheduler import ConcurrencyController, GemmRequest
+from repro_torch.runtime.runtime import Runtime
+
+
+def _shared_input_requests(
+    ctrl: ConcurrencyController,
+    descs: Sequence[GemmDesc],
+    tag: str,
+) -> List[GemmRequest]:
+    """Apply §6.11 to a shared-input bundle: one fused request or N grouped."""
+    if len(descs) < 2:
+        return [GemmRequest(desc=d, tag=tag) for d in descs]
+    choice, _, _ = ctrl.plan_shared_input(list(descs))
+    if choice == "fuse":
+        fused = replace(descs[0], N=sum(d.N for d in descs))
+        return [GemmRequest(desc=fused, tag=f"{tag}-fused")]
+    return [GemmRequest(desc=d, tag=tag) for d in descs]
+
+
+def decode_step_descs(cfg, batch: int, dtype: str = "bf16") -> List[Tuple[str, List[GemmDesc]]]:
+    """(tag, shared-input bundle) pairs for one decode step of one layer.
+    GEMMs listed together share their A operand (the hidden state)."""
+    M, D = batch, cfg.d_model
+    hd = cfg.resolved_head_dim
+    out: List[Tuple[str, List[GemmDesc]]] = []
+
+    if cfg.attn_type == "mla":
+        # MLA: low-rank KV/Q down-projections + up-projection.
+        q_n = cfg.n_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+        kv_n = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        if cfg.q_lora_rank:
+            out.append(("mla-down", [GemmDesc(M, cfg.q_lora_rank, D, dtype=dtype),
+                                     GemmDesc(M, kv_n, D, dtype=dtype)]))
+            out.append(("mla-q-up", [GemmDesc(M, q_n, cfg.q_lora_rank, dtype=dtype)]))
+        else:
+            out.append(("mla-down", [GemmDesc(M, q_n, D, dtype=dtype),
+                                     GemmDesc(M, kv_n, D, dtype=dtype)]))
+        out.append(("attn-out", [GemmDesc(M, D, cfg.n_heads * cfg.v_head_dim,
+                                          dtype=dtype)]))
+    elif cfg.family in ("ssm",) or (cfg.family == "hybrid" and cfg.ssm_state):
+        # Mamba2-style block: wide in-projection + out-projection.
+        out.append(("ssm-in", [GemmDesc(M, 2 * cfg.ssm_d_inner, D, dtype=dtype)]))
+        out.append(("ssm-out", [GemmDesc(M, D, cfg.ssm_d_inner, dtype=dtype)]))
+    else:
+        # GQA attention: Q + K + V share the hidden state (§6.11 QKV case).
+        out.append(("qkv", [GemmDesc(M, cfg.n_heads * hd, D, dtype=dtype),
+                            GemmDesc(M, cfg.n_kv_heads * hd, D, dtype=dtype),
+                            GemmDesc(M, cfg.n_kv_heads * hd, D, dtype=dtype)]))
+        out.append(("attn-out", [GemmDesc(M, D, cfg.n_heads * hd, dtype=dtype)]))
+
+    if cfg.n_routed_experts:
+        # Active routed experts are independent GEMMs (the §6.7 pool);
+        # gate+up share the expert input (§6.11).
+        ff = cfg.moe_d_ff
+        for e in range(cfg.moe_top_k):
+            out.append((f"expert{e}-up", [GemmDesc(M, ff, D, dtype=dtype),
+                                          GemmDesc(M, ff, D, dtype=dtype)]))
+            out.append((f"expert{e}-down", [GemmDesc(M, D, ff, dtype=dtype)]))
+        if cfg.n_shared_experts:
+            # shared experts run as ONE dense MLP of width n_shared · moe_d_ff
+            sff = cfg.n_shared_experts * ff
+            out.append(("shared-up", [GemmDesc(M, sff, D, dtype=dtype),
+                                      GemmDesc(M, sff, D, dtype=dtype)]))
+            out.append(("shared-down", [GemmDesc(M, D, sff, dtype=dtype)]))
+    elif cfg.d_ff > 0:  # xLSTM-style blocks have no separate FFN
+        ff = cfg.d_ff
+        out.append(("ffn-up", [GemmDesc(M, ff, D, dtype=dtype),
+                               GemmDesc(M, ff, D, dtype=dtype)]))
+        out.append(("ffn-down", [GemmDesc(M, D, ff, dtype=dtype)]))
+    return out
+
+
+def decode_step_requests(
+    ctrl: ConcurrencyController,
+    cfg,
+    batch: int,
+    dtype: str = "bf16",
+) -> List[GemmRequest]:
+    """One decode step's GEMM requests (operand-free), with §6.11 applied
+    to each shared-input bundle."""
+    reqs: List[GemmRequest] = []
+    for tag, bundle in decode_step_descs(cfg, batch, dtype):
+        reqs += _shared_input_requests(ctrl, bundle, tag)
+    return reqs
+
+
+def prewarm_decode(
+    runtime: Runtime, cfg, batches: Sequence[int], dtype: str = "bf16"
+) -> int:
+    """Tune every GEMM a decode workload can issue before traffic arrives."""
+    descs: List[GemmDesc] = []
+    for b in batches:
+        for r in decode_step_requests(runtime.ctrl, cfg, b, dtype):
+            descs.append(r.desc)
+    return runtime.prewarm(descs)
+

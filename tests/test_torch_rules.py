@@ -1,0 +1,86 @@
+"""Rules the port keeps: it imports nothing of JAX or of the JAX package,
+its entry points never carry on on the CPU when asked for CUDA, no `try`
+falls back to a plain version, and nothing is switched by an environment
+variable beyond the toolkit's location."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import GemmRequest, requests_from_numpy
+from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.kernels.gemm import TileConfig, gemm
+from repro_torch.runtime import Runtime
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_port_has_no_fallback_try_and_no_env_switch():
+    """The only `try` is the GO library's parse of its JSON file; the only
+    environment read is the CUDA toolkit's location for the build."""
+    tries, env = [], []
+    for path in PORT_FILES:
+        src = path.read_text()
+        for node in ast.walk(ast.parse(src)):
+            if isinstance(node, ast.Try):
+                tries.append(path.relative_to(PORT.parent).as_posix())
+        if "environ" in src or "getenv" in src:
+            env.append(path.relative_to(ROOT).as_posix())
+    assert set(tries) == {"repro_torch/core/library.py"}
+    assert env == ["src/repro_torch/kernels/_build.py"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_runtime_defaults_to_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Runtime()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Runtime(device="cuda:0")
+    assert Runtime(device="cpu").device == torch.device("cpu")
+
+
+def test_operands_from_numpy_raise_without_cuda(no_cuda):
+    req = GemmRequest(desc=GemmDesc(2, 4, 3, dtype="f32"))
+    ops = [(np.ones((2, 3), np.float32), np.ones((3, 4), np.float32))]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        requests_from_numpy([req], ops)
+    (r,) = requests_from_numpy([req], ops, device="cpu")
+    assert r.a.device.type == "cpu" and r.b.dtype == torch.float32
+
+
+@pytest.mark.parametrize("tile", [TileConfig(8, 128, 128, split_k=4),
+                                  TileConfig(8, 128, 128, stream_k=6)],
+                         ids=lambda t: t.key())
+def test_gemm_off_cpu_refuses_split_and_stream_k(tile):
+    """Off the CPU, `gemm` runs the kernel or raises: a split-K or Stream-K
+    tile names the missing kernel instead of being ignored."""
+    a = torch.empty((8, 64), device="meta")
+    b = torch.empty((64, 128), device="meta")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        gemm(a, b, tile=tile)
+    # the un-split tile goes to the CUDA launcher, which refuses meta tensors
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gemm(a, b, tile=TileConfig(8, 128, 128))
