@@ -5,16 +5,19 @@ the head's compatible followers (§6.7 classes: same N, K, layouts and
 dtype, any M), picks the concurrency degree from the GO library's
 modeled speedups (``CD_exec = min(CD_preferred, available)``), and emits
 one launch per group: ``grouped`` (identical members), ``ragged``
-(members differing in M) or ``single``.  `plan_shared_input` is the §6.11
+(members differing in M) or ``single``.  `plan_mixed` co-schedules a
+heterogeneous bundle (§14): each ``mixed`` group's members are distinct
+GEMMs, each at its own per-CD GO tile.  `plan_shared_input` is the §6.11
 fuse-vs-group policy for GEMMs sharing their input.  Planning is the
 reference's logic unchanged, so both packages produce identical
-`Schedule`s; `execute_schedule` runs one through the port's kernels.
+`Schedule`s; `execute_schedule` runs one through the port's kernels, a
+``mixed`` group's members at once on CUDA streams.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field, replace
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +27,7 @@ from repro_torch.core.gemm_desc import GemmDesc
 from repro_torch.core.library import GOLibrary, default_library
 from repro_torch.core.op_desc import family_of
 from repro_torch.core.tuner import CDS
-from repro_torch.kernels.gemm.ops import TileConfig, gemm
+from repro_torch.kernels.gemm.ops import TileConfig, gemm, gemm_buffers
 from repro_torch.kernels.grouped_gemm.ops import grouped_gemm, ragged_gemm
 
 # CP overhead (paper §5.4/§6.5): queue inspect + predict + packet rewrite.
@@ -70,8 +73,11 @@ class GroupPlan:
     indices: List[int]            # queue positions executed in this launch
     cd: int                       # concurrency degree of the launch
     tile: TileConfig
-    mode: str                     # "grouped" | "ragged" | "single"
+    mode: str                     # "grouped" | "ragged" | "single" | "mixed"
     modeled_time_s: float
+    # per-member tiles of a "mixed" launch, aligned with ``indices``;
+    # None for the single-tile modes
+    tiles: Optional[List[TileConfig]] = None
 
 
 @dataclass
@@ -183,6 +189,55 @@ class ConcurrencyController:
             sched.groups.append(gp)
         return sched
 
+    def plan_mixed(
+        self, descs: Sequence[GemmDesc], available: int | None = None,
+        ranks: Sequence[int] | None = None,
+    ) -> Schedule:
+        """Co-schedule a heterogeneous bundle (§14): the members are
+        distinct GEMMs that run at the same time on resource shares.
+        Every class-size chunking of the bundle (in order, or stable-sorted
+        by ``ranks``, lower = more urgent) is modeled and the fastest wins;
+        each chunk of two or more is one ``mixed`` group whose members run
+        at their own GO tile for the chunk's CD, a chunk of one a
+        ``single`` launch at its isolated tile."""
+        sched = Schedule(cp_overhead_s=CP_OVERHEAD_S)
+        n = len(descs)
+        if n == 0:
+            return sched
+        cap = self.max_cd if available is None else max(
+            1, min(self.max_cd, available))
+        entries = [self.lib.get(d) for d in descs]
+        order = (list(range(n)) if ranks is None
+                 else sorted(range(n), key=lambda i: ranks[i]))
+
+        def chunk_groups(size: int) -> List[GroupPlan]:
+            groups = []
+            for lo in range(0, n, size):
+                take = order[lo:min(lo + size, n)]
+                cd_exec = len(take)
+                if cd_exec == 1:
+                    i = take[0]
+                    groups.append(GroupPlan(
+                        indices=take, cd=1, tile=entries[i].isolated,
+                        mode="single",
+                        modeled_time_s=isolated_time(
+                            descs[i], entries[i].isolated, self.spec)))
+                    continue
+                tiles = [entries[i].tile_for_cd(cd_exec) for i in take]
+                members = [(descs[i], t) for i, t in zip(take, tiles)]
+                groups.append(GroupPlan(
+                    indices=take, cd=cd_exec, tile=tiles[0], mode="mixed",
+                    modeled_time_s=group_time(members, self.spec),
+                    tiles=tiles))
+            return groups
+
+        top = min(n, cap)
+        sizes = sorted({c for c in CLASSES if c <= top} | {1}
+                       | ({top} if top > 1 else set()))
+        sched.groups = min((chunk_groups(s) for s in sizes),
+                           key=lambda gs: sum(g.modeled_time_s for g in gs))
+        return sched
+
     def plan_shared_input(
         self, descs: Sequence[GemmDesc]
     ) -> tuple[str, float, float]:
@@ -208,11 +263,16 @@ def execute_schedule(
     concatenates the members' A rows, each padded with zeros to the
     tile's bm — the reference's launch shapes (`repro/core/scheduler.py:
     481-507`).  Stacking B copies every member's weight once per launch;
-    removing that copy is a later performance item."""
+    removing that copy is a later performance item.  A ``mixed`` group
+    runs each member through `gemm` at its own tile (`_run_mixed`)."""
     outs: List[Optional[torch.Tensor]] = [None] * len(requests)
     for gp in sched.groups:
         reqs = [requests[i] for i in gp.indices]
-        if gp.mode == "single" or len(reqs) == 1:
+        if gp.mode == "mixed":
+            tiles = gp.tiles or [gp.tile] * len(reqs)
+            for i, out in zip(gp.indices, _run_mixed(reqs, tiles)):
+                outs[i] = out
+        elif gp.mode == "single" or len(reqs) == 1:
             r = reqs[0]
             outs[gp.indices[0]] = gemm(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb,
                                        tile=gp.tile)
@@ -244,6 +304,54 @@ def execute_schedule(
         else:
             raise ValueError(f"launch mode {gp.mode!r} is not ported")
     return outs  # type: ignore[return-value]
+
+
+# Side streams of mixed launches, per CUDA device: one per member up to the
+# largest concurrency class, made at first use and kept.
+_STREAMS: Dict[torch.device, List[torch.cuda.Stream]] = {}
+
+
+def _member_streams(device: torch.device, n: int) -> List[torch.cuda.Stream]:
+    """The first ``n`` side streams of ``device``'s pool (a group larger
+    than the pool shares its streams round-robin)."""
+    pool = _STREAMS.get(device)
+    if pool is None:
+        pool = _STREAMS[device] = [torch.cuda.Stream(device)
+                                   for _ in range(max(CLASSES))]
+    return [pool[j % len(pool)] for j in range(n)]
+
+
+def _run_mixed(reqs: Sequence[GemmRequest],
+               tiles: Sequence[TileConfig]) -> List[torch.Tensor]:
+    """The members of one ``mixed`` group, each through `gemm` at its own
+    tile.  On the CPU they run in order, as in the reference.  On the
+    card they run at once, one side stream each: every output and partial
+    buffer is allocated on the launching stream first, the side streams
+    wait on an event recorded there, and the launching stream waits on
+    each member's end event before this returns — so no buffer is freed
+    while a side stream still uses it, and work queued after the launch
+    sees every result."""
+    dev = reqs[0].a.device
+    if dev.type != "cuda":
+        return [gemm(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=t)
+                for r, t in zip(reqs, tiles)]
+    bufs = [gemm_buffers(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=t)
+            for r, t in zip(reqs, tiles)]
+    launching = torch.cuda.current_stream(dev)
+    fork = torch.cuda.Event()
+    fork.record(launching)
+    outs, ends = [], []
+    for r, t, buf, s in zip(reqs, tiles, bufs, _member_streams(dev, len(reqs))):
+        s.wait_event(fork)
+        with torch.cuda.stream(s):
+            outs.append(gemm(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=t,
+                             buffers=buf))
+            end = torch.cuda.Event()
+            end.record(s)
+        ends.append(end)
+    for end in ends:
+        launching.wait_event(end)
+    return outs
 
 
 def _as_mk(r: GemmRequest) -> torch.Tensor:

@@ -20,7 +20,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t n0 = (int64_t)blockIdx.x * kBN;
   const int64_t m0 = (int64_t)blockIdx.y * BM;
   const int64_t m_end = m0 + BM < M ? m0 + BM : M;
-  gemm_tile<T, BM, TA, TB>(A, TA ? M : K, B, C, N, m0, m_end, n0, N, K);
+  gemm_tile<T, BM, TA, TB>(A, TA ? M : K, B, TB ? K : N, C, N, m0, m_end, n0,
+                           N, 0, K);
 }
 
 template <typename T, int BM, bool TA, bool TB>

@@ -29,8 +29,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t n0 = (int64_t)blockIdx.x * kBN;
   const int64_t m0 = (int64_t)blockIdx.y * BM;
   const int64_t m_end = m0 + BM < M ? m0 + BM : M;
-  gemm_tile<T, BM, false, false>(A + g * M * K, K, B + g * K * N, C + g * M * N,
-                                 N, m0, m_end, n0, N, K);
+  gemm_tile<T, BM, false, false>(A + g * M * K, K, B + g * K * N, N,
+                                 C + g * M * N, N, m0, m_end, n0, N, 0, K);
 }
 
 template <typename T, int BM>
@@ -45,7 +45,8 @@ __global__ void __launch_bounds__(kThreads)
   if (m_end <= r0) return;  // uniform across the CTA
   const int64_t g = block_group[i];
   const int64_t n0 = (int64_t)blockIdx.x * kBN;
-  gemm_tile<T, BM, false, false>(A, K, B + g * K * N, C, N, r0, m_end, n0, N, K);
+  gemm_tile<T, BM, false, false>(A, K, B + g * K * N, N, C, N, r0, m_end, n0, N,
+                                 0, K);
 }
 
 template <typename T, int BM>

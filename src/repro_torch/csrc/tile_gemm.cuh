@@ -1,6 +1,7 @@
-// Shared CTA-level GEMM tile for the port's three kernels (gemm.cu,
-// grouped_gemm.cu): C[m0:m_end, n0:n0+64] = op(A) . op(B), f32
-// accumulation, output cast once.
+// Shared CTA-level GEMM tile for the port's GEMM kernels (gemm.cu,
+// grouped_gemm.cu, gemm_split_k.cu, gemm_stream_k.cu):
+// C[m0:m_end, n0:n0+64] = op(A)[:, k0:k1] . op(B)[k0:k1, :], f32
+// accumulation, output cast once (or stored as f32 partials).
 //
 // What bounds it on an H100: bytes.  The serving path's GEMMs are decode
 // steps (M = 4..16 rows per member) against weights of 26-178 MB, far
@@ -39,6 +40,16 @@ namespace repro {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kBN = 64;        // CTA tile width (output columns)
+
+// f32 accumulator -> stored element (bf16 by round-to-nearest-even).
+template <typename OutT>
+__device__ __forceinline__ OutT from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 template <typename T, int BM, bool TA, bool TB>
 struct TileCfg {
@@ -152,9 +163,10 @@ struct Math<__nv_bfloat16, BM, TA, TB> {
     }
   }
 
-  __device__ __forceinline__ void finish(unsigned char* smem, T* C, int64_t ldc,
-                                         int64_t m0, int64_t m_end, int64_t n0,
-                                         int64_t N) {
+  template <typename OutT>
+  __device__ __forceinline__ void finish(unsigned char* smem, OutT* C,
+                                         int64_t ldc, int64_t m0, int64_t m_end,
+                                         int64_t n0, int64_t n_end) {
     const int w = threadIdx.x / 32;
     float* Cs = reinterpret_cast<float*>(smem);
     __syncthreads();  // every warp is done reading the last A/B tiles
@@ -165,8 +177,8 @@ struct Math<__nv_bfloat16, BM, TA, TB> {
     __syncthreads();
     for (int idx = threadIdx.x; idx < BM * kBN; idx += kThreads) {
       const int r = idx / kBN, c = idx % kBN;
-      if (m0 + r < m_end && n0 + c < N)
-        C[(m0 + r) * ldc + n0 + c] = __float2bfloat16(Cs[r * Cfg::C_LD + c]);
+      if (m0 + r < m_end && n0 + c < n_end)
+        C[(m0 + r) * ldc + n0 + c] = from_f32<OutT>(Cs[r * Cfg::C_LD + c]);
     }
   }
 };
@@ -196,26 +208,31 @@ struct Math<float, BM, TA, TB> {
     }
   }
 
-  __device__ __forceinline__ void finish(unsigned char*, float* C, int64_t ldc,
+  template <typename OutT>
+  __device__ __forceinline__ void finish(unsigned char*, OutT* C, int64_t ldc,
                                          int64_t m0, int64_t m_end, int64_t n0,
-                                         int64_t N) {
+                                         int64_t n_end) {
     const int c = threadIdx.x % kBN, r0 = (threadIdx.x / kBN) * RPT;
 #pragma unroll
     for (int j = 0; j < RPT; ++j)
-      if (m0 + r0 + j < m_end && n0 + c < N) C[(m0 + r0 + j) * ldc + n0 + c] = acc[j];
+      if (m0 + r0 + j < m_end && n0 + c < n_end)
+        C[(m0 + r0 + j) * ldc + n0 + c] = from_f32<OutT>(acc[j]);
   }
 };
 
-// One CTA's output tile: rows [m0, m_end) and columns [n0, n0 + 64) of C
-// (row-major, leading dimension ldc).  A is stored (rows, K) with leading
-// dimension lda, or (K, rows) when TA; rows of A at or past m_end read as
-// zero.  B is stored (K, N), or (N, K) when TB.
-template <typename T, int BM, bool TA, bool TB>
+// One CTA's output tile: rows [m0, m_end) and columns [n0, min(n0 + 64,
+// n_end)) of C (row-major, leading dimension ldc), summed over the K range
+// [k0, k1).  A is stored (rows, K) with leading dimension lda, or (K, rows)
+// when TA; B is stored (K, N) or, when TB, (N, K), with leading dimension
+// ldb.  Elements of A and B at or past m_end, n_end or k1 read as zero, so
+// an empty K range (k1 <= k0) stores zeros.  OutT is T, or float for the
+// f32 partials of the split-K and Stream-K kernels.
+template <typename T, int BM, bool TA, bool TB, typename OutT = T>
 __device__ __forceinline__ void gemm_tile(const T* __restrict__ A, int64_t lda,
-                                          const T* __restrict__ B,
-                                          T* __restrict__ C, int64_t ldc,
+                                          const T* __restrict__ B, int64_t ldb,
+                                          OutT* __restrict__ C, int64_t ldc,
                                           int64_t m0, int64_t m_end, int64_t n0,
-                                          int64_t N, int64_t K) {
+                                          int64_t n_end, int64_t k0, int64_t k1) {
   using Cfg = TileCfg<T, BM, TA, TB>;
   __shared__ __align__(128) unsigned char smem[Cfg::SMEM];
   T* As = reinterpret_cast<T*>(smem);
@@ -225,24 +242,47 @@ __device__ __forceinline__ void gemm_tile(const T* __restrict__ A, int64_t lda,
   Math<T, BM, TA, TB> math;
   math.init();
 
-  auto load = [&](int64_t k0) {
-    if (TA) la.load(A, lda, k0, m0, K, m_end);  // rows k, columns m
-    else    la.load(A, lda, m0, k0, m_end, K);  // rows m, columns k
-    if (TB) lb.load(B, K, n0, k0, N, K);        // rows n, columns k
-    else    lb.load(B, N, k0, n0, K, N);        // rows k, columns n
+  auto load = [&](int64_t k) {
+    if (TA) la.load(A, lda, k, m0, k1, m_end);   // rows k, columns m
+    else    la.load(A, lda, m0, k, m_end, k1);   // rows m, columns k
+    if (TB) lb.load(B, ldb, n0, k, n_end, k1);   // rows n, columns k
+    else    lb.load(B, ldb, k, n0, k1, n_end);   // rows k, columns n
   };
 
-  const int64_t nk = (K + Cfg::BK - 1) / Cfg::BK;
-  if (nk > 0) load(0);
+  const int64_t nk = k1 > k0 ? (k1 - k0 + Cfg::BK - 1) / Cfg::BK : 0;
+  if (nk > 0) load(k0);
   for (int64_t kt = 0; kt < nk; ++kt) {
     __syncthreads();  // the previous step is done reading shared memory
     la.store(As);
     lb.store(Bs);
     __syncthreads();
-    if (kt + 1 < nk) load((kt + 1) * Cfg::BK);  // in flight during the math
+    if (kt + 1 < nk) load(k0 + (kt + 1) * Cfg::BK);  // in flight during the math
     math.step(As, Bs);
   }
-  math.finish(smem, C, ldc, m0, m_end, n0, N);
+  math.template finish<OutT>(smem, C, ldc, m0, m_end, n0, n_end);
+}
+
+// Calls f(TypeTag<T>, BM, TA, TB) with the compile-time instance that the
+// runtime codes select: dtype 0 = bf16, 1 = f32; cta_m 16 or 64 rows;
+// ta/tb the storage layouts.  BM, TA and TB arrive as std::integral_constant.
+template <typename T>
+struct TypeTag {
+  using type = T;
+};
+
+template <typename F>
+int dispatch_tile(int dtype, int cta_m, int ta, int tb, F&& f) {
+  auto by_layout = [&](auto t, auto bm) {
+    if (ta && tb) return f(t, bm, std::true_type{}, std::true_type{});
+    if (ta) return f(t, bm, std::true_type{}, std::false_type{});
+    if (tb) return f(t, bm, std::false_type{}, std::true_type{});
+    return f(t, bm, std::false_type{}, std::false_type{});
+  };
+  auto by_rows = [&](auto t) {
+    return cta_m == 16 ? by_layout(t, std::integral_constant<int, 16>{})
+                       : by_layout(t, std::integral_constant<int, 64>{});
+  };
+  return dtype == 0 ? by_rows(TypeTag<__nv_bfloat16>{}) : by_rows(TypeTag<float>{});
 }
 
 }  // namespace repro

@@ -20,7 +20,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("gemm", "grouped_gemm")
+SOURCES = ("gemm", "gemm_split_k", "gemm_stream_k", "grouped_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,16 +1,26 @@
-"""Launcher of the single-GEMM CUDA kernel (`csrc/gemm.cu`).
+"""Launchers of the GEMM CUDA kernels, and the geometry they share with
+the plain versions.
 
-Replaces the TPU kernel `repro/kernels/gemm/kernel.py:45 _matmul_kernel`
-(split_k = 1).  The kernel is bound by bytes on the serving path (decode
-GEMMs stream weights far larger than their activations); `csrc/
-tile_gemm.cuh` says how its design answers that.  This module takes CUDA
-tensors only: the CPU path is the plain version in `ref.py`, chosen by
-`ops.gemm` from the tensors' device.
+- ``matmul`` (`csrc/gemm.cu`) replaces the TPU kernel
+  `repro/kernels/gemm/kernel.py:45 _matmul_kernel` (split_k = 1);
+- ``splitk_partials`` and ``splitk_reduce`` (`csrc/gemm_split_k.cu`)
+  replace `:65 _matmul_splitk_kernel` and `:86 _reduce_kernel`;
+- ``stream_k_partials`` and ``stream_k_fixup`` (`csrc/gemm_stream_k.cu`)
+  replace `:215 _stream_k_kernel` and `:247 _stream_k_fixup_kernel`.
+
+Every kernel is bound by bytes on the serving path (decode GEMMs stream
+weights far larger than their activations); the sources say how their
+design answers that.  This module takes CUDA tensors only: the CPU path
+is the plain versions in `ref.py`, chosen by `ops.gemm` from the
+tensors' device.  Each launcher writes into ``out`` when given (the
+mixed launch allocates every buffer before it forks onto its streams),
+else allocates it, and adds one to its ``launches`` count per launch.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -19,15 +29,29 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 CTA_COLS = 64
 MAX_GRID_Y = 65535
 
+_LL, _P, _I = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+_ERROR = {"repro_error_string": (ctypes.c_char_p, (_I,))}
 _SIGNATURES = {
-    "repro_matmul": (ctypes.c_int, (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p)),
-    "repro_error_string": (ctypes.c_char_p, (ctypes.c_int,)),
+    "repro_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _P)),
+    **_ERROR,
+}
+_SPLIT_K_SIGNATURES = {
+    "repro_splitk_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
+                                 _I, _LL, _P)),
+    "repro_splitk_reduce": (_I, (_P, _P, _I, _I, _LL, _P)),
+    **_ERROR,
+}
+_STREAM_K_SIGNATURES = {
+    "repro_stream_k_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
+                                   _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                                   _P)),
+    "repro_stream_k_fixup": (_I, (_P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL,
+                                  _P)),
+    **_ERROR,
 }
 
 
+# ---------------------------------------------------------------- geometry
 def cta_rows(bm: int) -> int:
     """The CTA row tile that runs a `TileConfig` row block ``bm``: 16 for
     bm ≤ 16 (the decode tiles, rows past M masked), else 64."""
@@ -47,23 +71,90 @@ def instantiation(dtype: torch.dtype, bm: int) -> str:
     return f"{name} {rows}x{CTA_COLS}x{cta_k(dtype, rows)}"
 
 
-def check_operands(*tensors: torch.Tensor) -> torch.dtype:
+def split_k_slices(K: int, bk: int, split_k: int) -> tuple[int, int]:
+    """``(split, slice_k)``: the effective split, never more slices than
+    k blocks (`repro/kernels/gemm/ops.py:106`), and the K length of one
+    slice, ⌈⌈K/bk⌉/split⌉·bk — the reference's slice of K padded to a
+    (bk·split) multiple.  Slice s is K range [s·slice_k, (s+1)·slice_k)
+    cut at K; the last slices may be short or empty."""
+    kb = -(-K // bk)
+    split = max(1, min(split_k, kb))
+    return split, -(-kb // split) * bk
+
+
+def stream_k_geometry(tm: int, tn: int, tk: int, grid_g: int):
+    """Static Stream-K launch geometry (`repro/kernels/gemm/kernel.py:
+    194-212`).  Returns ``(total, ipw, g_live, counts, slots)``: the MAC
+    iteration count ``total = tm·tn·tk``, iterations per workgroup
+    ``ipw = ⌈total / G⌉``, the live workgroup count ``⌈total / ipw⌉``,
+    the per-output-tile contributor counts (tm, tn) int32 the fixup
+    masks with, and the partial-slot depth ``slots = max(counts)``."""
+    total = tm * tn * tk
+    ipw = -(-total // max(1, min(grid_g, total)))
+    g_live = -(-total // ipw)
+    q = np.arange(tm * tn, dtype=np.int64)
+    g_first = (q * tk) // ipw
+    g_last = ((q + 1) * tk - 1) // ipw
+    counts = (g_last - g_first + 1).astype(np.int32).reshape(tm, tn)
+    return total, ipw, g_live, counts, int(counts.max())
+
+
+def stream_k_tiles(M: int, N: int, K: int, bm: int, bn: int, bk: int
+                   ) -> tuple[int, int, int]:
+    """``(tm, tn, tk)``: the output tiles and k blocks of an M×N×K GEMM in
+    `TileConfig` units (the reference's padded dims over the tile)."""
+    return -(-M // bm), -(-N // bn), -(-K // bk)
+
+
+def gemm_dims(a: torch.Tensor, b: torch.Tensor, ta: bool, tb: bool
+              ) -> tuple[int, int, int]:
+    """``(M, N, K)`` of op(a) @ op(b); raises unless both are 2-D with
+    matching inner dims."""
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"GEMM takes 2-D operands, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    K, M = a.shape if ta else a.shape[::-1]
+    N, Kb = b.shape if tb else b.shape[::-1]
+    if K != Kb:
+        raise ValueError(f"inner dims differ: {tuple(a.shape)} (ta={ta}) and "
+                         f"{tuple(b.shape)} (tb={tb})")
+    return M, N, K
+
+
+# ----------------------------------------------------------------- checks
+def check_operands(*tensors: torch.Tensor, what: str = "kernel"
+                   ) -> torch.dtype:
     """Raise unless every tensor is a contiguous CUDA tensor of one
     supported dtype on one device; returns the dtype."""
     t0 = tensors[0]
     for t in tensors:
         if t.device.type != "cuda":
-            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {t.device}")
+            raise ValueError(f"{what}: the CUDA kernel needs CUDA tensors, "
+                             f"got {t.device}")
         if t.device != t0.device:
-            raise ValueError(f"operands on {t.device} and {t0.device}")
+            raise ValueError(f"{what}: operands on {t.device} and {t0.device}")
         if t.dtype != t0.dtype:
-            raise ValueError(f"operand dtypes differ: {t.dtype} vs {t0.dtype}")
+            raise ValueError(f"{what}: operand dtypes differ: {t.dtype} vs "
+                             f"{t0.dtype}")
         if not t.is_contiguous():
-            raise ValueError("the CUDA kernel needs contiguous operands")
+            raise ValueError(f"{what}: the CUDA kernel needs contiguous operands")
     if t0.dtype not in DTYPE_CODES:
-        raise ValueError(f"unsupported dtype {t0.dtype}; the kernel takes "
-                         "bfloat16 or float32")
+        raise ValueError(f"{what}: unsupported dtype {t0.dtype}; the kernel "
+                         "takes bfloat16 or float32")
     return t0.dtype
+
+
+def output(out, shape, dtype, device, what: str) -> torch.Tensor:
+    """``out`` checked against the shape, dtype and device a launch
+    writes, or a new tensor of them."""
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be contiguous {dtype} of shape "
+                         f"{tuple(shape)} on {device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    return out
 
 
 def raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -72,36 +163,147 @@ def raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# -------------------------------------------------------------- launchers
 def matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
-           tb: bool = False, bm: int = 16) -> torch.Tensor:
+           tb: bool = False, bm: int = 16, out=None) -> torch.Tensor:
     """C[M,N] = op(a) @ op(b) on the card, f32 accumulation, output in the
     operands' dtype.  ``a`` is (M,K), or (K,M) when ``ta``; ``b`` is
     (K,N), or (N,K) when ``tb``.  ``bm`` is the `TileConfig` row block
-    (`cta_rows` maps it to the CTA tile).  Adds one to
-    ``matmul.launches`` per kernel launch."""
-    dtype = check_operands(a, b)
-    if a.dim() != 2 or b.dim() != 2:
-        raise ValueError(f"matmul takes 2-D operands, got {a.shape} and {b.shape}")
-    K, M = a.shape if ta else a.shape[::-1]
-    N, Kb = b.shape if tb else b.shape[::-1]
-    if K != Kb:
-        raise ValueError(f"inner dims differ: {a.shape} (ta={ta}) and "
-                         f"{b.shape} (tb={tb})")
+    (`cta_rows` maps it to the CTA tile)."""
+    dtype = check_operands(a, b, what="matmul")
+    M, N, K = gemm_dims(a, b, ta, tb)
     rows = cta_rows(bm)
     if -(-M // rows) > MAX_GRID_Y:
         raise ValueError(f"M={M} exceeds the kernel's grid ({MAX_GRID_Y} row tiles)")
-    c = torch.empty((M, N), dtype=dtype, device=a.device)
+    c = output(out, (M, N), dtype, a.device, "matmul")
     if c.numel() == 0:
         return c
     lib = _build.load("gemm", _SIGNATURES)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
         code = lib.repro_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                 DTYPE_CODES[dtype], int(ta), int(tb), rows,
-                                M, N, K, stream)
+                                M, N, K, _stream(a.device))
     raise_on_error(lib, code, "matmul")
     matmul.launches += 1
     return c
 
 
-matmul.launches = 0
+def splitk_partials(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
+                    tb: bool = False, bm: int = 16, split: int, slice_k: int,
+                    out=None) -> torch.Tensor:
+    """P[s] = op(a)[:, Ks] @ op(b)[Ks, :] in f32 on the card, for the K
+    slices Ks = [s·slice_k, (s+1)·slice_k) ∩ [0, K), s < split (a slice
+    past K stores zeros).  Returns P, (split, M, N) float32."""
+    dtype = check_operands(a, b, what="splitk_partials")
+    M, N, K = gemm_dims(a, b, ta, tb)
+    rows = cta_rows(bm)
+    if split < 1 or slice_k < 1:
+        raise ValueError(f"split={split} and slice_k={slice_k} must be ≥ 1")
+    if -(-M // rows) > MAX_GRID_Y or split > MAX_GRID_Y:
+        raise ValueError(f"M={M}, split={split} exceed the kernel's grid")
+    p = output(out, (split, M, N), torch.float32, a.device, "splitk_partials")
+    if p.numel() == 0:
+        return p
+    lib = _build.load("gemm_split_k", _SPLIT_K_SIGNATURES)
+    with torch.cuda.device(a.device):
+        code = lib.repro_splitk_matmul(a.data_ptr(), b.data_ptr(), p.data_ptr(),
+                                       DTYPE_CODES[dtype], int(ta), int(tb), rows,
+                                       M, N, K, split, slice_k, _stream(a.device))
+    raise_on_error(lib, code, "splitk_partials")
+    splitk_partials.launches += 1
+    return p
+
+
+def splitk_reduce(partials: torch.Tensor, dtype: torch.dtype, *, out=None
+                  ) -> torch.Tensor:
+    """C = Σ_s partials[s] in slot order, cast to ``dtype``: (split, M, N)
+    float32 → (M, N)."""
+    check_operands(partials, what="splitk_reduce")
+    if partials.dim() != 3 or partials.dtype != torch.float32:
+        raise ValueError(f"splitk_reduce takes (split, M, N) float32, got "
+                         f"{partials.dtype} {tuple(partials.shape)}")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"splitk_reduce: unsupported output dtype {dtype}")
+    split, M, N = partials.shape
+    c = output(out, (M, N), dtype, partials.device, "splitk_reduce")
+    if c.numel() == 0:
+        return c
+    lib = _build.load("gemm_split_k", _SPLIT_K_SIGNATURES)
+    with torch.cuda.device(partials.device):
+        code = lib.repro_splitk_reduce(partials.data_ptr(), c.data_ptr(),
+                                       DTYPE_CODES[dtype], split, M * N,
+                                       _stream(partials.device))
+    raise_on_error(lib, code, "splitk_reduce")
+    splitk_reduce.launches += 1
+    return c
+
+
+def stream_k_partials(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
+                      tb: bool = False, bm: int, bn: int, bk: int,
+                      grid_g: int, out=None) -> torch.Tensor:
+    """The Stream-K walk on the card: ``grid_g`` workgroups deal the
+    tile-major MAC iterations (`TileConfig` tiles bm×bn, k blocks bk) into
+    equal spans; each stores one f32 partial per tile it touches, at slot
+    g − first_contributor(tile).  Returns P, (slots, M, N) float32; the
+    slots of a tile past its contributor count are left unwritten."""
+    dtype = check_operands(a, b, what="stream_k_partials")
+    M, N, K = gemm_dims(a, b, ta, tb)
+    if min(bm, bn, bk, grid_g) < 1:
+        raise ValueError(f"bm={bm}, bn={bn}, bk={bk}, grid_g={grid_g} must be ≥ 1")
+    if M == 0 or N == 0 or K == 0:
+        raise ValueError(f"stream_k_partials: empty GEMM {M}x{N}x{K}")
+    tm, tn, tk = stream_k_tiles(M, N, K, bm, bn, bk)
+    total, ipw, g_live, _, slots = stream_k_geometry(tm, tn, tk, grid_g)
+    rows = cta_rows(bm)
+    if -(-bm // rows) > MAX_GRID_Y or -(-bn // CTA_COLS) > MAX_GRID_Y:
+        raise ValueError(f"tile {bm}x{bn} exceeds the kernel's grid")
+    p = output(out, (slots, M, N), torch.float32, a.device, "stream_k_partials")
+    lib = _build.load("gemm_stream_k", _STREAM_K_SIGNATURES)
+    with torch.cuda.device(a.device):
+        code = lib.repro_stream_k_matmul(
+            a.data_ptr(), b.data_ptr(), p.data_ptr(), DTYPE_CODES[dtype],
+            int(ta), int(tb), rows, M, N, K, bm, bn, bk, tn, tk, total, ipw,
+            g_live, _stream(a.device))
+    raise_on_error(lib, code, "stream_k_partials")
+    stream_k_partials.launches += 1
+    return p
+
+
+def stream_k_fixup(counts: torch.Tensor, partials: torch.Tensor, *, bm: int,
+                   bn: int, dtype: torch.dtype, out=None) -> torch.Tensor:
+    """Per element of tile (i, j), the sum of the first ``counts[i, j]``
+    slots of ``partials`` (slots, M, N) float32 in slot order, cast to
+    ``dtype``.  ``counts`` is (tm, tn) int32 on the partials' device."""
+    check_operands(partials, what="stream_k_fixup")
+    if partials.dim() != 3 or partials.dtype != torch.float32:
+        raise ValueError(f"stream_k_fixup takes (slots, M, N) float32, got "
+                         f"{partials.dtype} {tuple(partials.shape)}")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"stream_k_fixup: unsupported output dtype {dtype}")
+    slots, M, N = partials.shape
+    tm, tn = -(-M // bm), -(-N // bn)
+    if (counts.device != partials.device or counts.dtype != torch.int32
+            or tuple(counts.shape) != (tm, tn) or not counts.is_contiguous()):
+        raise ValueError(f"stream_k_fixup: counts must be contiguous int32 of "
+                         f"shape ({tm}, {tn}) on {partials.device}")
+    c = output(out, (M, N), dtype, partials.device, "stream_k_fixup")
+    if c.numel() == 0:
+        return c
+    lib = _build.load("gemm_stream_k", _STREAM_K_SIGNATURES)
+    with torch.cuda.device(partials.device):
+        code = lib.repro_stream_k_fixup(counts.data_ptr(), partials.data_ptr(),
+                                        c.data_ptr(), DTYPE_CODES[dtype], M, N,
+                                        bm, bn, tn, _stream(partials.device))
+    raise_on_error(lib, code, "stream_k_fixup")
+    stream_k_fixup.launches += 1
+    return c
+
+
+LAUNCHERS = (matmul, splitk_partials, splitk_reduce, stream_k_partials,
+             stream_k_fixup)
+for _fn in LAUNCHERS:
+    _fn.launches = 0

@@ -1,17 +1,40 @@
 """Public GEMM op: the tile config and the device dispatch
 (`repro/kernels/gemm/ops.py`).
 
-CPU tensors take the plain version; CUDA tensors take the hand-written
-kernel or raise.  The kernel masks ragged edges itself, so operands are
+`gemm` runs the decomposition the tile names, as the reference does
+(`repro/kernels/gemm/ops.py:83-125`): a Stream-K walk and its fixup for
+``stream_k > 0``, split-K partials and their reduce for an effective
+split above 1, else the single GEMM kernel.  CPU tensors take each
+kernel's plain version (`ref.py`), CUDA tensors the hand-written kernels
+or raise.  The kernels mask ragged edges themselves, so operands are
 never padded.  The backward pass (two independent GEMMs) belongs to
 training and is not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
-from repro_torch.kernels.gemm.kernel import matmul
-from repro_torch.kernels.gemm.ref import gemm_ref
+import torch
+
+from repro_torch.kernels.gemm.kernel import (
+    gemm_dims,
+    matmul,
+    split_k_slices,
+    splitk_partials,
+    splitk_reduce,
+    stream_k_fixup,
+    stream_k_geometry,
+    stream_k_partials,
+    stream_k_tiles,
+)
+from repro_torch.kernels.gemm.ref import (
+    gemm_ref,
+    splitk_partials_ref,
+    splitk_reduce_ref,
+    stream_k_fixup_ref,
+    stream_k_partials_ref,
+)
 
 
 @dataclass(frozen=True, order=True)
@@ -51,18 +74,67 @@ class TileConfig:
         return base
 
 
+class GemmBuffers(NamedTuple):
+    """Every tensor one `gemm` launch writes on the card: the output, the
+    f32 partials of a split-K or Stream-K tile, and a Stream-K tile's
+    contributor counts (int32, copied to the card here)."""
+
+    out: torch.Tensor
+    partials: Optional[torch.Tensor] = None
+    counts: Optional[torch.Tensor] = None
+
+
+def gemm_buffers(a, b, *, ta: bool = False, tb: bool = False,
+                 tile: TileConfig = TileConfig()) -> GemmBuffers:
+    """Allocate, on the current stream, the buffers `gemm` writes for
+    these operands and tile."""
+    M, N, K = gemm_dims(a, b, ta, tb)
+    dev = a.device
+    out = torch.empty((M, N), dtype=a.dtype, device=dev)
+    if tile.stream_k > 0:
+        tm, tn, tk = stream_k_tiles(M, N, K, tile.bm, tile.bn, tile.bk)
+        _, _, _, counts, slots = stream_k_geometry(tm, tn, tk, tile.stream_k)
+        return GemmBuffers(
+            out, torch.empty((slots, M, N), dtype=torch.float32, device=dev),
+            torch.from_numpy(counts).to(dev))
+    split, _ = split_k_slices(K, tile.bk, tile.split_k)
+    if split > 1:
+        return GemmBuffers(out, torch.empty((split, M, N), dtype=torch.float32,
+                                            device=dev))
+    return GemmBuffers(out)
+
+
 def gemm(a, b, *, ta: bool = False, tb: bool = False,
-         tile: TileConfig = TileConfig()):
-    """C = op(a) @ op(b) in the operands' dtype.  On CPU tensors: the
-    plain version.  On CUDA tensors: the CUDA kernel, which runs only the
-    un-split decomposition — a tile with ``split_k > 1`` or
-    ``stream_k > 0`` raises `NotImplementedError` (their kernels are later
-    items of ROADMAP.md queue B)."""
+         tile: TileConfig = TileConfig(), buffers: GemmBuffers | None = None):
+    """C = op(a) @ op(b) in the operands' dtype, by the decomposition the
+    tile names.  On CPU tensors: the plain versions of that
+    decomposition's kernels.  On CUDA tensors: its kernels, writing into
+    ``buffers`` when given (`gemm_buffers`), else into new ones."""
+    M, N, K = gemm_dims(a, b, ta, tb)
+    split, slice_k = split_k_slices(K, tile.bk, tile.split_k)
     if a.device.type == "cpu" and b.device.type == "cpu":
+        if tile.stream_k > 0:
+            tm, tn, tk = stream_k_tiles(M, N, K, tile.bm, tile.bn, tile.bk)
+            counts = stream_k_geometry(tm, tn, tk, tile.stream_k)[3]
+            p = stream_k_partials_ref(a, b, ta=ta, tb=tb, bm=tile.bm,
+                                      bn=tile.bn, bk=tile.bk,
+                                      grid_g=tile.stream_k)
+            return stream_k_fixup_ref(torch.from_numpy(counts), p, bm=tile.bm,
+                                      bn=tile.bn, dtype=a.dtype)
+        if split > 1:
+            p = splitk_partials_ref(a, b, ta=ta, tb=tb, split=split,
+                                    slice_k=slice_k, bk=tile.bk)
+            return splitk_reduce_ref(p, a.dtype)
         return gemm_ref(a, b, ta=ta, tb=tb)
-    if tile.split_k > 1 or tile.stream_k > 0:
-        raise NotImplementedError(
-            f"tile {tile.key()}: the split-K and Stream-K GEMM kernels are "
-            "not ported yet (ROADMAP.md queue B); the CUDA path runs "
-            "split_k=1, stream_k=0 tiles only")
-    return matmul(a, b, ta=ta, tb=tb, bm=tile.bm)
+    buf = buffers if buffers is not None else gemm_buffers(a, b, ta=ta, tb=tb,
+                                                           tile=tile)
+    if tile.stream_k > 0:
+        stream_k_partials(a, b, ta=ta, tb=tb, bm=tile.bm, bn=tile.bn,
+                          bk=tile.bk, grid_g=tile.stream_k, out=buf.partials)
+        return stream_k_fixup(buf.counts, buf.partials, bm=tile.bm, bn=tile.bn,
+                              dtype=a.dtype, out=buf.out)
+    if split > 1:
+        splitk_partials(a, b, ta=ta, tb=tb, bm=tile.bm, split=split,
+                        slice_k=slice_k, out=buf.partials)
+        return splitk_reduce(buf.partials, a.dtype, out=buf.out)
+    return matmul(a, b, ta=ta, tb=tb, bm=tile.bm, out=buf.out)

@@ -5,6 +5,7 @@ from repro_torch.runtime.integration import (
     prewarm_decode,
 )
 from repro_torch.runtime.runtime import (
+    MIXED_CLASS,
     Launch,
     NonFiniteOutput,
     Runtime,
@@ -15,7 +16,7 @@ from repro_torch.runtime.runtime import (
 from repro_torch.runtime.telemetry import GroupRecord, Telemetry
 
 __all__ = [
-    "GroupRecord", "Launch", "NonFiniteOutput", "Runtime", "RuntimeConfig",
-    "Telemetry", "Ticket", "decode_step_descs", "decode_step_requests",
+    "MIXED_CLASS", "GroupRecord", "Launch", "NonFiniteOutput", "Runtime",
+    "RuntimeConfig", "Telemetry", "Ticket", "decode_step_descs", "decode_step_requests",
     "prewarm_decode", "resolve_device",
 ]

@@ -1,14 +1,18 @@
 """Online concurrent-GEMM serving runtime (`repro/runtime/runtime.py`).
 
-- `submit()` admits `GemmRequest`s from tenants into per-compatibility-
-  class queues (`core.scheduler.compat_key`), each kept in canonical
-  order at admission so its plan-cache signature never needs a re-sort.
+- `submit()` admits a `GemmRequest` from a tenant into its compatibility
+  class's queue (`core.scheduler.compat_key`), or a sequence of them — a
+  heterogeneous bundle such as one layer's decode GEMMs (§14) — into the
+  shared ``MIXED_CLASS`` queue, returning one ``"bundle"`` ticket over
+  per-member tickets.  Each queue is kept in canonical order at
+  admission, so its plan-cache signature never needs a re-sort.
 - `flush()` serves every class whose head waited ``window_s``: it plans
-  the class queue through a plan cache keyed by the queue signature and
-  the available slots (a hit costs zero cost-model evaluations),
-  interleaves the classes' launches round-robin, and advances a modeled
-  device timeline.  With ``RuntimeConfig.execute`` each launch also runs
-  through the kernels.
+  each queue through a plan cache keyed by the queue signature and the
+  available slots (a hit costs zero cost-model evaluations) — class
+  queues with `ConcurrencyController.plan`, the bundle queue with
+  `plan_mixed` — interleaves the classes' launches round-robin, and
+  advances a modeled device timeline.  With ``RuntimeConfig.execute``
+  each launch also runs through the kernels.
 - `drain()` force-flushes until the queues are empty.
 
 Two departures from the reference.  There is no fallback ladder: a
@@ -16,14 +20,16 @@ launch that raises, or whose output is not finite, raises to the caller
 (the ladder, fault injection and quarantine are later items of the
 port).  And an executed launch's achieved time is device time: on the
 card it is read from CUDA events after a synchronise, since the host
-clock after an asynchronous launch would time only the enqueue.
+clock after an asynchronous launch would time only the enqueue.  A
+``mixed`` launch's time runs from its fork onto the member streams to
+its join.  Slicing, EDF ranks and graph submission are not ported.
 """
 from __future__ import annotations
 
 import bisect
 import time
 from collections import OrderedDict
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -42,6 +48,12 @@ from repro_torch.core.scheduler import (
 from repro_torch.runtime.telemetry import GroupRecord, Telemetry
 
 Signature = Tuple[Tuple[str, ...], int]
+
+# Class key of the heterogeneous-bundle queue (§14).  "!" never occurs in
+# a `compat_key`, so bundle tickets never share a class queue, and the
+# marker leads the queue's plan-cache signatures, so a bundle of GEMMs
+# never aliases a class queue's cached plan.
+MIXED_CLASS = "mixed!"
 
 
 class NonFiniteOutput(RuntimeError):
@@ -71,15 +83,20 @@ class RuntimeConfig:
 
 @dataclass
 class Ticket:
-    """Handle of one submitted request."""
+    """Handle of one submitted request, or (``kind="bundle"``) of a
+    submitted sequence: its ``members`` are the per-request tickets, and
+    it completes with its last member."""
 
     seq: int
     tenant: str
-    request: GemmRequest
+    request: Optional[GemmRequest]
     submit_t: float
     done_t: Optional[float] = None
     result: Optional[torch.Tensor] = None   # set when executed
     plan: Optional[GroupPlan] = None
+    kind: str = "op"                        # "op" | "bundle"
+    agg: Optional["Ticket"] = field(default=None, repr=False)
+    members: Optional[List["Ticket"]] = field(default=None, repr=False)
 
     @property
     def desc(self) -> GemmDesc:
@@ -88,6 +105,18 @@ class Ticket:
     @property
     def latency_s(self) -> Optional[float]:
         return None if self.done_t is None else self.done_t - self.submit_t
+
+    @property
+    def done(self) -> bool:
+        if self.members is not None:
+            return all(m.done_t is not None for m in self.members)
+        return self.done_t is not None
+
+    def __getitem__(self, i: int) -> "Ticket":
+        """A bundle's member ticket by position."""
+        if self.members is None:
+            raise TypeError(f"{self.kind!r} ticket has no members")
+        return self.members[i]
 
 
 @dataclass
@@ -161,14 +190,45 @@ class Runtime:
     # ------------------------------------------------------------- admit
     def submit(
         self,
-        request: GemmRequest,
+        work,
         tenant: str = "default",
         now: float | None = None,
     ) -> Ticket:
-        """Admit one GEMM into its class queue.  Operands, where given, lie
-        on the runtime's device.  With ``RuntimeConfig.execute`` every
-        request carries its operands and is a plain (batch 1) GEMM:
-        batched GEMMs have no kernel yet."""
+        """Admit one GEMM into its class queue, or a sequence of GEMMs — a
+        heterogeneous bundle — into the shared ``MIXED_CLASS`` queue, which
+        `flush` plans with `ConcurrencyController.plan_mixed`.  Returns one
+        ticket: the op's, or a ``"bundle"`` handle over the members'
+        tickets.  Operands, where given, lie on the runtime's device; with
+        ``RuntimeConfig.execute`` every request carries its operands and
+        is a plain (batch 1) GEMM: batched GEMMs have no kernel yet."""
+        now = self.clock() if now is None else now
+        if isinstance(work, (list, tuple)):
+            return self._submit_bundle(work, tenant, now)
+        request = self._admissible(work)
+        key = compat_key(request.desc)
+        q = self._queues.get(key)
+        if q is None:
+            q = self._queues[key] = _ClassQueue()
+            self._order.append(key)
+        return self._admit(q, request, tenant, now)
+
+    def _submit_bundle(self, work: Sequence, tenant: str, now: float) -> Ticket:
+        """Every member is one logical request (its own latency); the
+        returned handle completes with the last of them."""
+        requests = [self._admissible(r) for r in work]
+        q = self._queues.get(MIXED_CLASS)
+        if q is None:
+            q = self._queues[MIXED_CLASS] = _ClassQueue()
+            self._order.append(MIXED_CLASS)
+        members = [self._admit(q, r, tenant, now) for r in requests]
+        self._seq += 1
+        handle = Ticket(seq=self._seq, tenant=tenant, request=None,
+                        submit_t=now, kind="bundle", members=members)
+        for m in members:
+            m.agg = handle
+        return handle
+
+    def _admissible(self, request: GemmRequest) -> GemmRequest:
         if self.config.execute:
             if request.a is None or request.b is None:
                 raise ValueError(f"{request.desc.key()}: an executing "
@@ -181,18 +241,22 @@ class Runtime:
             if t is not None and t.device != self.device:
                 raise ValueError(f"operand on {t.device}, runtime on "
                                  f"{self.device}")
-        now = self.clock() if now is None else now
+        return request
+
+    def _admit(self, q: "_ClassQueue", request: GemmRequest, tenant: str,
+               now: float) -> Ticket:
         self._seq += 1
         ticket = Ticket(seq=self._seq, tenant=tenant, request=request,
                         submit_t=now)
-        key = compat_key(request.desc)
-        q = self._queues.get(key)
-        if q is None:
-            q = self._queues[key] = _ClassQueue()
-            self._order.append(key)
         q.add(ticket)
         self.telemetry.record_submit()
         return ticket
+
+    def set_available(self, n: int) -> None:
+        """Set the live available parallelism (slots other work holds are
+        not available).  Part of the plan-cache key, so a plan made for
+        another count is never reused."""
+        self.available = max(1, int(n))
 
     def queue_depths(self) -> Dict[str, int]:
         return {k: len(q) for k, q in self._queues.items() if q}
@@ -208,14 +272,33 @@ class Runtime:
         descs = list(descs)
         fresh = self.ctrl.lib.prewarm(descs)
         for key in {compat_key(d) for d in descs}:
-            members = [d for d in descs if compat_key(d) == key]
-            self.telemetry.record_sig_resort()
-            members = sorted(members, key=_canonical_order)
+            members = self._canonical_sort(
+                [d for d in descs if compat_key(d) == key])
             _, hit = self._plan_for_keys(
                 tuple(d.key() for d in members), lambda: members)
             if not hit:
                 self.telemetry.record_prewarm_plan(CP_OVERHEAD_S)
         return fresh
+
+    def prewarm_bundle(self, descs: Sequence[GemmDesc]) -> int:
+        """Tune a bundle's GEMMs ahead of traffic and seed the plan cache
+        with its ``MIXED_CLASS`` signature, so the first flush of the same
+        co-submitted set is a cache hit; returns the newly tuned entries."""
+        descs = list(descs)
+        fresh = self.ctrl.lib.prewarm(descs)
+        if descs:
+            self._seed_mixed_plan(descs)
+        return fresh
+
+    def _seed_mixed_plan(self, descs: List[GemmDesc]) -> None:
+        """Derive (and cache) the mixed-queue plan of one co-submitted
+        desc set, billed as prewarm overhead."""
+        members = self._canonical_sort(descs)
+        _, hit = self._plan_for_keys(
+            (MIXED_CLASS,) + tuple(d.key() for d in members),
+            lambda: members, planner=self.ctrl.plan_mixed)
+        if not hit:
+            self.telemetry.record_prewarm_plan(CP_OVERHEAD_S)
 
     # -------------------------------------------------------------- flush
     def flush(self, now: float | None = None, force: bool = False) -> List[Launch]:
@@ -243,8 +326,14 @@ class Runtime:
         planning_s = 0.0
         for key in rotated:
             tickets, sig_keys = self._queues[key].take_all()
-            sched, hit = self._plan_for_keys(
-                sig_keys, lambda: [t.desc for t in tickets])
+            if key == MIXED_CLASS:
+                sched, hit = self._plan_for_keys(
+                    (MIXED_CLASS,) + sig_keys,
+                    lambda: [t.desc for t in tickets],
+                    planner=self.ctrl.plan_mixed)
+            else:
+                sched, hit = self._plan_for_keys(
+                    sig_keys, lambda: [t.desc for t in tickets])
             self.telemetry.record_plan(hit, CP_OVERHEAD_S)
             if not hit:
                 planning_s += CP_OVERHEAD_S
@@ -267,6 +356,9 @@ class Runtime:
                 ticket.done_t = launch.end_t
                 ticket.plan = launch.plan
                 self.telemetry.record_latency(ticket.tenant, ticket.latency_s)
+                agg = ticket.agg
+                if agg is not None and agg.done_t is None and agg.done:
+                    agg.done_t = max(m.done_t for m in agg.members)
             # §6.11 fusion happens before admission (one wide request with
             # a "-fused" tag); surface it in telemetry instead of "single".
             mode = launch.plan.mode
@@ -299,19 +391,29 @@ class Runtime:
         return out
 
     # ---------------------------------------------------------- internals
-    def _plan_for_keys(self, keys: tuple, descs_fn) -> tuple[Schedule, bool]:
+    def _plan_for_keys(self, keys: tuple, descs_fn, planner=None
+                       ) -> tuple[Schedule, bool]:
         """Plan-cache probe; ``descs_fn`` materializes the descriptors only
-        on a miss, so a hit touches neither the planner nor the model."""
+        on a miss, so a hit touches neither the planner nor the model.
+        ``planner`` replaces the per-class `ConcurrencyController.plan`
+        (the bundle queue plans with `plan_mixed`)."""
         sig: Signature = (keys, self.available)
         cached = self._plan_cache.get(sig)
         if cached is not None:
             self._plan_cache.move_to_end(sig)
             return cached, True
-        sched = self.ctrl.plan(descs_fn(), available=self.available)
+        plan = planner if planner is not None else self.ctrl.plan
+        sched = plan(descs_fn(), available=self.available)
         self._plan_cache[sig] = sched
         while len(self._plan_cache) > self.config.plan_cache_capacity:
             self._plan_cache.popitem(last=False)
         return sched, False
+
+    def _canonical_sort(self, descs: Sequence[GemmDesc]) -> List[GemmDesc]:
+        """Canonical order of a desc list that did not come through an
+        admission-sorted queue (prewarm); every call is counted."""
+        self.telemetry.record_sig_resort()
+        return sorted(descs, key=_canonical_order)
 
     def _execute(self, launch: Launch) -> float:
         """Run one launch through the kernels; returns its device time in

@@ -19,7 +19,7 @@ class GroupRecord:
     class_key: str
     tenants: List[str]
     cd: int
-    mode: str                       # "grouped" | "ragged" | "single" | "fused"
+    mode: str       # "grouped" | "ragged" | "single" | "fused" | "mixed"
     modeled_time_s: float
     achieved_time_s: Optional[float] = None   # device time when executed
     cache_hit: bool = False
@@ -99,6 +99,7 @@ class Telemetry:
         return {k: self.depth_hist[k] for k in sorted(self.depth_hist, key=_bucket_lo)}
 
     def mode_counts(self) -> Dict[str, int]:
+        """Launches by mode (``mixed`` counts the bundle queue's groups)."""
         return dict(Counter(g.mode for g in self.groups))
 
     def mean_cd(self) -> float:

@@ -15,7 +15,16 @@ from repro.kernels.gemm import gemm as jgemm
 from repro.kernels.grouped_gemm import grouped_gemm as jgrouped
 from repro.kernels.grouped_gemm import ragged_gemm as jragged
 from repro_torch.kernels.gemm import TileConfig, gemm, gemm_ref
-from repro_torch.kernels.gemm.kernel import cta_rows, instantiation, matmul
+from repro_torch.kernels.gemm.kernel import (
+    LAUNCHERS,
+    cta_rows,
+    instantiation,
+    matmul,
+    splitk_partials,
+    splitk_reduce,
+    stream_k_fixup,
+    stream_k_partials,
+)
 from repro_torch.kernels.grouped_gemm import (
     block_groups,
     grouped_gemm,
@@ -140,12 +149,17 @@ def test_cta_row_tile_rule(bm, rows):
     lambda a: matmul(a, a),
     lambda a: grouped_matmul(a[None], a[None]),
     lambda a: ragged_matmul(a, a[None], torch.zeros(1, dtype=torch.int32), bm=8),
+    lambda a: splitk_partials(a, a, split=2, slice_k=4),
+    lambda a: splitk_reduce(a[None].float(), torch.bfloat16),
+    lambda a: stream_k_partials(a, a, bm=8, bn=8, bk=4, grid_g=2),
+    lambda a: stream_k_fixup(torch.ones((1, 1), dtype=torch.int32), a[None].float(),
+                             bm=8, bn=8, dtype=torch.bfloat16),
 ])
 def test_kernel_launchers_take_only_cuda_tensors(launch):
     """A launcher never runs a plain version: CPU tensors raise, and the
     launch counters stay where they were."""
-    before = (matmul.launches, grouped_matmul.launches, ragged_matmul.launches)
+    counters = LAUNCHERS + (grouped_matmul, ragged_matmul)
+    before = [fn.launches for fn in counters]
     with pytest.raises(ValueError, match="CUDA"):
         launch(torch.ones((8, 8), dtype=torch.bfloat16))
-    assert (matmul.launches, grouped_matmul.launches,
-            ragged_matmul.launches) == before
+    assert [fn.launches for fn in counters] == before

@@ -12,6 +12,7 @@ import torch
 from repro_torch.core import GemmRequest, requests_from_numpy
 from repro_torch.core.gemm_desc import GemmDesc
 from repro_torch.kernels.gemm import TileConfig, gemm
+from repro_torch.kernels.gemm.kernel import LAUNCHERS
 from repro_torch.runtime import Runtime
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,16 +72,38 @@ def test_operands_from_numpy_raise_without_cuda(no_cuda):
     assert r.a.device.type == "cpu" and r.b.dtype == torch.float32
 
 
-@pytest.mark.parametrize("tile", [TileConfig(8, 128, 128, split_k=4),
-                                  TileConfig(8, 128, 128, stream_k=6)],
-                         ids=lambda t: t.key())
-def test_gemm_off_cpu_refuses_split_and_stream_k(tile):
-    """Off the CPU, `gemm` runs the kernel or raises: a split-K or Stream-K
-    tile names the missing kernel instead of being ignored."""
-    a = torch.empty((8, 64), device="meta")
-    b = torch.empty((64, 128), device="meta")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+@pytest.mark.parametrize("tile,launcher", [
+    (TileConfig(8, 128, 128, split_k=4), "splitk_partials"),
+    (TileConfig(8, 128, 128, stream_k=6), "stream_k_partials"),
+], ids=lambda x: x.key() if isinstance(x, TileConfig) else x)
+def test_gemm_off_cpu_refuses_split_and_stream_k(tile, launcher):
+    """Off the CPU, `gemm` runs the tile's own kernels or raises: a split-K
+    or Stream-K tile reaches its own CUDA launcher, which refuses `meta`
+    tensors, and no launch is counted."""
+    a = torch.empty((8, 512), device="meta")
+    b = torch.empty((512, 128), device="meta")
+    before = [fn.launches for fn in LAUNCHERS]
+    with pytest.raises(ValueError, match=f"{launcher}: the CUDA kernel needs "
+                                         "CUDA tensors"):
         gemm(a, b, tile=tile)
-    # the un-split tile goes to the CUDA launcher, which refuses meta tensors
-    with pytest.raises(ValueError, match="CUDA tensors"):
+    # the un-split tile goes to the single-GEMM launcher
+    with pytest.raises(ValueError, match="matmul: the CUDA kernel needs CUDA"):
         gemm(a, b, tile=TileConfig(8, 128, 128))
+    assert [fn.launches for fn in LAUNCHERS] == before
+
+
+def _function(path: Path, name: str) -> ast.FunctionDef:
+    tree = ast.parse(path.read_text())
+    return next(n for n in ast.walk(tree)
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+def test_mixed_launch_has_no_try_and_forks_onto_streams():
+    """A `mixed` group on the card launches every member on its own
+    stream with no `try` around a launch: a failed member raises, and
+    nothing runs the members one after another instead."""
+    fn = _function(PORT / "core" / "scheduler.py", "_run_mixed")
+    assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)]
+    src = ast.unparse(fn)
+    assert "torch.cuda.stream(s)" in src and "wait_event" in src
+    assert "gemm_buffers" in src    # every buffer allocated before the fork
