@@ -38,7 +38,27 @@ Phases, each fatal on failure (nothing here catches an error):
    each timed on the card: the concurrent-versus-sequential ratios are
    printed, not gated; and each window runs once more under the
    profiler;
-6. one JSON line ``{"kernels": [...]}`` and, last, the device line.
+6. attention and scan kernels: the flash-attention and chunked-scan
+   kernels against their plain versions on small cases (GQA and MHA,
+   causal with ``q_offset``, a window, S not a multiple of ``bkv``,
+   prefill, dv ≠ dqk, strided q/k/v, bf16 and f32; T not a multiple of
+   the chunk, chunks 8-512, a nonzero initial state, a head-broadcast
+   B/C view), then timed at the path's shapes beside their plain
+   versions and, for attention, PyTorch's
+   ``scaled_dot_product_attention``;
+7. op-bundle serving: for Qwen3-14B (40 layers, context 4,096) and
+   Zamba2-1.2B (38 layers, context 2,048), at full width, every layer's
+   whole decode-step bundle (`decode_step_op_descs`: the GEMMs, the
+   attention read over the KV cache, and for Zamba2 the SSD state update)
+   submitted per tenant as one bundle and flushed per layer, with random
+   bf16 weights, queries and KV caches from a seed; one tenant at batch 1
+   with 16 slots, then tenants [4, 8, 8, 16] with 4, each cold then warm.
+   Every result is held against its plain version, and the counters,
+   zeroed before the phase, must show exactly one attention launch per
+   attention member and one scan launch per scan member.  Each warm
+   window is then timed concurrently and back to back (as in phase 5)
+   and profiled once;
+8. one JSON line ``{"kernels": [...]}`` and, last, the device line.
 
 Tolerance of every comparison of a GEMM or of partials (float32, kernel
 vs plain version on the same inputs): |kernel − plain| ≤ 2⁻⁷·|plain| +
@@ -54,6 +74,19 @@ at random signs these errors add like a random walk, ~√K·2⁻²⁴·Σ|a·b| 
 moves the result by far more.  The reduce and the fixup must equal their
 plain versions exactly: both add the same f32 partials in slot order and
 round once.
+
+Attention and scan kernels are held to their plain versions computed
+and kept in f32 on the same (exactly converted) inputs, within
+|kernel − plain| ≤ tol + (tol + h)·|plain|: tol is the reference tests'
+f32 tolerance (`tests/test_kernel_attention.py`: 2e-4;
+`tests/test_kernel_mamba.py`: 3e-4), which covers the f32 summation
+order, and h is, for a bf16 output, half a bf16 unit in the last place
+(2⁻⁸) for the kernel's one rounding of its f32 result, else 0
+(`flash_attention.ref.attention_tol`).  The reference tests' bf16
+attention tolerance, 3e-2 + 3e-2·|plain|, is as large as a decode
+output itself (~0.026 at 4,096 keys) and would pass a kernel that
+skipped a 64-key sub-tile; the kernel phase shows that this one fails
+such a kernel.
 """
 from __future__ import annotations
 
@@ -75,13 +108,24 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import (  # noqa: E402
+    AttentionDesc,
     ConcurrencyController,
     GemmDesc,
     GemmRequest,
+    ScanDesc,
     Schedule,
+    bind_operands,
     execute_schedule,
 )
+from repro_torch.core.library import default_library  # noqa: E402
+from repro_torch.core.scheduler import _run_op  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_tol,
+    flash_attention_fwd,
+    flash_ref,
+)
+from repro_torch.kernels.flash_attention.ops import attention_tiles  # noqa: E402
 from repro_torch.kernels.gemm import (  # noqa: E402
     TileConfig,
     gemm,
@@ -99,10 +143,13 @@ from repro_torch.kernels.grouped_gemm import (  # noqa: E402
 )
 from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel  # noqa: E402
 from repro_torch.kernels.grouped_gemm.ops import block_groups  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan_fwd, ssd_chunk_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan.ops import scan_chunk  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     Runtime,
     RuntimeConfig,
     decode_step_descs,
+    decode_step_op_descs,
     decode_step_requests,
 )
 
@@ -118,6 +165,8 @@ REPLACES = {
     "stream_k_fixup": "src/repro/kernels/gemm/kernel.py:247 _stream_k_fixup_kernel",
     "grouped_matmul": "src/repro/kernels/grouped_gemm/kernel.py:41 _grouped_kernel",
     "ragged_matmul": "src/repro/kernels/grouped_gemm/kernel.py:93 _ragged_kernel",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:23 _flash_kernel",
+    "mamba_scan": "src/repro/kernels/mamba_scan/kernel.py:24 _mamba_kernel",
 }
 SOURCES = {
     "matmul": "src/repro_torch/csrc/gemm.cu",
@@ -127,6 +176,8 @@ SOURCES = {
     "stream_k_fixup": "src/repro_torch/csrc/gemm_stream_k.cu",
     "grouped_matmul": "src/repro_torch/csrc/grouped_gemm.cu",
     "ragged_matmul": "src/repro_torch/csrc/grouped_gemm.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "mamba_scan": "src/repro_torch/csrc/mamba_scan.cu",
 }
 LAUNCHERS = {
     "matmul": gemm_kernel.matmul,
@@ -136,11 +187,14 @@ LAUNCHERS = {
     "stream_k_fixup": gemm_kernel.stream_k_fixup,
     "grouped_matmul": grouped_kernel.grouped_matmul,
     "ragged_matmul": grouped_kernel.ragged_matmul,
+    "flash_attention": flash_attention_fwd,
+    "mamba_scan": mamba_scan_fwd,
 }
 # Kernels each serving path must launch at least once.
 PER_CLASS_KERNELS = ("matmul", "grouped_matmul", "ragged_matmul")
 MIXED_KERNELS = ("matmul", "splitk_partials", "splitk_reduce",
                  "stream_k_partials", "stream_k_fixup")
+OP_BUNDLE_KERNELS = ("flash_attention", "mamba_scan")
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 SLEEP_CYCLES = 500_000_000   # ~0.25 s of the card's clock: time to queue work
 
@@ -260,7 +314,7 @@ def build_phase() -> None:
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", text))
         if regs:
             print(f"#   {name}.cu: {len(regs)} kernels, registers ≤ {max(regs)}, "
-                  f"static smem ≤ {max(smem)} B, spill stores {spills} B")
+                  f"static smem ≤ {max(smem, default=0)} B, spill stores {spills} B")
 
 
 # ---------------------------------------------------------------- kernels
@@ -620,7 +674,8 @@ KERNEL_KINDS = (("matmul_kernel", "matmul"), ("grouped_kernel", "grouped_matmul"
                 ("repro::reduce_kernel", "splitk_reduce"),
                 ("stream_k_kernel", "stream_k_partials"),
                 ("fixup_kernel", "stream_k_fixup"),
-                ("ragged_kernel", "ragged_matmul"), ("Cat", "stack/cat copy"),
+                ("ragged_kernel", "ragged_matmul"), ("flash_kernel", "flash_attention"),
+                ("mamba_kernel", "mamba_scan"), ("Cat", "stack/cat copy"),
                 ("reduce", "isfinite checks"))
 
 
@@ -817,7 +872,7 @@ def concurrency_ratio(launches, lib):
     def back_to_back(units, isolated: bool):
         for reqs, _, go, iso in units:
             for r, t in zip(reqs, iso if isolated else go):
-                gemm(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=t)
+                _run_op(r, t)
 
     fns = dict(concurrent=concurrent,
                back_to_back=lambda units: back_to_back(units, False),
@@ -895,6 +950,351 @@ def mixed_phase(device="cuda", cfg=None, layers=None) -> dict:
     return dict(counts=counts, windows=windows, model_gb=model_gb)
 
 
+# -------------------------------------------- attention and scan kernels
+SCAN_TOL = 3e-4
+# The reference tests' bf16 attention tolerance (atol = rtol): only for
+# SDPA, a library call with roundings of its own, timed beside the kernel.
+SDPA_TOL = 3e-2
+# (B, Hq, Hkv, T, S, D, Dv, causal, window, bq, bkv)
+ATTN_CASES = (
+    (2, 40, 8, 1, 4096, 128, 128, True, 0, 8, 128),   # GQA decode (Qwen3-14B)
+    (2, 32, 32, 1, 2048, 64, 64, True, 0, 8, 128),    # MHA decode (Zamba2)
+    (1, 4, 2, 37, 250, 32, 32, True, 0, 8, 128),      # q_offset 213, S % bkv != 0
+    (2, 4, 4, 64, 300, 64, 64, True, 16, 64, 128),    # window
+    (1, 8, 2, 130, 130, 128, 128, True, 0, 128, 512),  # prefill, q block > rows
+    (1, 2, 2, 20, 100, 32, 16, False, 0, 8, 256),     # dv != dqk, not causal
+    (1, 4, 4, 9, 140, 192, 128, True, 0, 8, 128),     # dv != dqk, 256-wide
+)
+# (B, T, H, P, N, chunk, initial state, head-broadcast B/C)
+SCAN_CASES = (
+    (2, 70, 3, 16, 8, 32, False, False),
+    (16, 1, 64, 64, 64, 32, False, True),     # the decode member (Zamba2)
+    (1, 600, 2, 64, 64, 512, True, False),
+    (1, 300, 2, 32, 16, 8, True, True),
+    (1, 200, 4, 64, 128, 64, False, False),
+    (2, 97, 2, 128, 32, 128, True, True),
+)
+
+
+def tol_excess(out, ref, atol: float, rtol: float, what: str) -> tuple[float, int]:
+    """The max |out − ref| and the number of elements beyond atol +
+    rtol·|ref|; ``out`` must be finite and of ``ref``'s shape."""
+    if out.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
+    o, r = out.float(), ref.float()
+    if not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = (o - r).abs()
+    return float(err.max()), int((err > atol + rtol * r.abs()).sum())
+
+
+def check_tol(out, ref, atol: float, rtol: float, what: str) -> float:
+    """|out − ref| ≤ atol + rtol·|ref| elementwise, both finite and of one
+    shape; returns the max absolute error."""
+    err, n_bad = tol_excess(out, ref, atol, rtol, what)
+    if n_bad:
+        raise AssertionError(f"{what}: {n_bad} elements beyond {atol} + {rtol}·|ref|, "
+                             f"max |err| {err:.4g}")
+    return err
+
+
+def attention_f32_ref(q, k, v, q_offset: int, **kw):
+    """`flash_ref` on f32 copies of the inputs, kept in f32."""
+    return flash_ref(q.float(), k.float(), v.float(), q_offset=q_offset, **kw)
+
+
+def check_attention(out, q, k, v, q_offset: int, what: str, **kw) -> float:
+    return check_tol(out, attention_f32_ref(q, k, v, q_offset, **kw),
+                     *attention_tol(out.dtype), what)
+
+
+def planted_fault(q, k, v, kw: dict, lo: int = 2048) -> None:
+    """The bf16 tolerance's power at the path's shape: the kernel run
+    without keys [lo, lo + 64) gives what a kernel that skipped that 64-key
+    sub-tile would; it must fail `check_attention`.  Prints how far off it
+    is, and how many of its outputs the reference tests' bf16 tolerance
+    (3e-2 + 3e-2·|ref|) would have let through."""
+    keep = torch.ones(k.shape[2], dtype=torch.bool, device=k.device)
+    keep[lo:lo + 64] = False
+    fault = flash_attention_fwd(q, k[:, :, keep], v[:, :, keep],
+                                **{**kw, "q_offset": kw["q_offset"] - 64})
+    ref = attention_f32_ref(q, k, v, kw["q_offset"])
+    err, n_bad = tol_excess(fault, ref, *attention_tol(fault.dtype), "planted fault")
+    _, n_loose = tol_excess(fault, ref, SDPA_TOL, SDPA_TOL, "planted fault")
+    atol, rtol = attention_tol(fault.dtype)
+    print(f"# planted fault (keys [{lo}, {lo + 64}) skipped) at the main shape: max |err| "
+          f"{err:.4g}; {n_bad} of {fault.numel()} outputs beyond {atol} + {rtol:.6g}·|ref| "
+          f"(3e-2 + 3e-2·|ref|: {n_loose})")
+    if not n_bad:
+        raise AssertionError("the attention tolerance lets a skipped kv sub-tile through")
+
+
+def check_scan(y, state, xd, da, bm, cm, s0, what: str) -> float:
+    """The plain version in f32 on the same inputs (bf16 converts exactly)."""
+    y_ref, s_ref = ssd_chunk_ref(xd.float(), da.float(), bm.float(), cm.float(),
+                                 chunk=64, initial_state=s0)
+    rtol = SCAN_TOL + (2.0 ** -8 if y.dtype == torch.bfloat16 else 0.0)
+    err = check_tol(y, y_ref, SCAN_TOL, rtol, what + " y")
+    check_tol(state, s_ref, SCAN_TOL, SCAN_TOL, what + " state")
+    return err
+
+
+def scan_inputs(B, T, H, P, N, gen, dtype, broadcast: bool):
+    """xd, da (≤ 0), and B/C (B,T,H,N) — as head-broadcast views of
+    (B,T,N) (head stride 0, Mamba2's group-shared layout) when asked."""
+    xd = randn((B, T, H, P), gen, dtype)
+    da = (torch.rand((B, T, H), generator=gen, device="cuda") * -0.5).to(dtype)
+    if broadcast:
+        bm, cm = (randn((B, T, N), gen, dtype, 0.5)[:, :, None].expand(B, T, H, N)
+                  for _ in range(2))
+    else:
+        bm, cm = randn((B, T, H, N), gen, dtype, 0.5), randn((B, T, H, N), gen, dtype, 0.5)
+    return xd, da, bm, cm
+
+
+def attention_scan_cases(gen) -> int:
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (B, Hq, Hkv, T, S, D, Dv, causal, window, bq, bkv) in enumerate(ATTN_CASES):
+            what = (f"flash B{B} Hq{Hq} Hkv{Hkv} T{T} S{S} D{D}/{Dv} causal{causal:d} "
+                    f"window{window} bq{bq} bkv{bkv} {dtype}")
+            if i % 2:   # strided: (B, T, H, D) storage read as (B, H, T, D)
+                q = randn((B, T, Hq, D), gen, dtype).transpose(1, 2)
+                k = randn((B, S, Hkv, D), gen, dtype).transpose(1, 2)
+                v = randn((B, S, Hkv, Dv), gen, dtype).transpose(1, 2)
+            else:
+                q, k, v = (randn((B, Hq, T, D), gen, dtype), randn((B, Hkv, S, D), gen, dtype),
+                           randn((B, Hkv, S, Dv), gen, dtype))
+            off = S - T if causal else 0
+            out = flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=off,
+                                      bq=bq, bkv=bkv)
+            check_attention(out, q, k, v, off, what, causal=causal, window=window)
+            n += 1
+        for (B, T, H, P, N, L, with_s0, bcast) in SCAN_CASES:
+            what = f"scan B{B} T{T} H{H} P{P} N{N} L{L} s0{with_s0:d} bcast{bcast:d} {dtype}"
+            xd, da, bm, cm = scan_inputs(B, T, H, P, N, gen, dtype, bcast)
+            s0 = randn((B, H, N, P), gen, torch.float32) if with_s0 else None
+            y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=L, initial_state=s0)
+            check_scan(y, state, xd, da, bm, cm, s0, what)
+            n += 1
+    return n
+
+
+def scan_flops(B, T, H, P, N, L) -> int:
+    """The chunked scan's multiply-adds ×2 for these shapes: per (batch,
+    head) and chunk of Lr rows, C·Bᵀ and the weighted xd over the lower
+    triangle, C·S_prev, and the state update."""
+    per = 0
+    for c0 in range(0, T, L):
+        lr = min(L, T - c0)
+        per += lr * (lr + 1) * (N + P) + 4 * lr * N * P + N * P
+    return B * H * per
+
+
+def attention_scan_kernels(gen, lib) -> dict:
+    """The op-bundle path's attention and scan members: Qwen3-14B's
+    tenant-16 attention (K+V 268 MB, beyond the 50 MB L2) and Zamba2's
+    tenant-16 scan, plus one long-prefill scan.  Each is compared, then
+    timed beside its plain version and, for attention, the PyTorch call
+    computing the same function."""
+    bf16 = torch.bfloat16
+    desc = AttentionDesc(16, 40, 8, 1, 4096, 128)
+    tile = lib.get(desc).isolated
+    kw = dict(q_offset=desc.Skv - desc.Sq, **attention_tiles(tile))
+    q = randn((desc.B, desc.Hq, desc.Sq, desc.D), gen)
+    k = randn((desc.B, desc.Hkv, desc.Skv, desc.D), gen)
+    v = randn((desc.B, desc.Hkv, desc.Skv, desc.D), gen)
+    out = flash_attention_fwd(q, k, v, **kw)
+    err = check_attention(out, q, k, v, kw["q_offset"], "flash main")
+    planted_fault(q, k, v, kw)
+    # Every key is visible to the decode row (q_offset = Skv − 1), so the
+    # non-causal SDPA call computes the same function.
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    check_tol(sdpa, attention_f32_ref(q, k, v, kw["q_offset"]), SDPA_TOL, SDPA_TOL,
+              "SDPA main")
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
+    rows = {"flash_attention": [dict(
+        shape=f"B{desc.B} Hq{desc.Hq} Hkv{desc.Hkv} Sq{desc.Sq} Skv{desc.Skv} D{desc.D} "
+              f"at {tile.key()} (bq {kw['bq']}, bkv {kw['bkv']})",
+        instantiation="bf16 head dim ≤ 128, 16 rows × 64-key sub-tiles", max_abs_err=err,
+        ms=time_ms(lambda: flash_attention_fwd(q, k, v, out=out, **kw)),
+        plain_ms=time_ms(lambda: flash_ref(q, k, v, q_offset=kw["q_offset"]), reps=3,
+                         warmup=1),
+        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True)),
+        bound=bound(nbytes, desc.flops, bf16))]}
+    del q, k, v, out, sdpa
+
+    rows["mamba_scan"] = []
+    sdesc = ScanDesc(16, 1, 64, 64, 64)
+    for (B, T, H, P, N), L in (((sdesc.B, sdesc.T, sdesc.H, sdesc.P, sdesc.N),
+                                scan_chunk(lib.get(sdesc).isolated)),
+                               ((1, 4096, 64, 64, 64), 128)):
+        xd, da, bm, cm = scan_inputs(B, T, H, P, N, gen, bf16, broadcast=True)
+        y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=L)
+        err = check_scan(y, state, xd, da, bm, cm, None, f"scan main T{T}")
+        # inputs read once (B/C: their (B,T,N) storage), y and the state written
+        nbytes = (xd.numel() + da.numel() + 2 * B * T * N + y.numel()) * 2 + state.numel() * 4
+        rows["mamba_scan"].append(dict(
+            shape=f"B{B} T{T} H{H} P{P} N{N} L{L}, B/C head-broadcast",
+            instantiation="bf16, 32-row sub-blocks", max_abs_err=err,
+            ms=time_ms(lambda: mamba_scan_fwd(xd, da, bm, cm, chunk=L, out=(y, state))),
+            plain_ms=time_ms(lambda: ssd_chunk_ref(xd, da, bm, cm, chunk=L), reps=3,
+                             warmup=1),
+            library_ms=None,
+            bound=bound(nbytes, scan_flops(B, T, H, P, N, L), bf16)))
+    for name, rs in rows.items():
+        for r in rs:
+            lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"# {name:<15} {r['shape']:<60} kernel {r['ms']:.4f} ms | plain "
+                  f"{r['plain_ms']:.4f} | torch {lib_ms} | bound {r['bound'][0]:.6f} "
+                  f"({r['bound'][1]}) | max err {r['max_abs_err']:.4g}")
+    return rows
+
+
+# --------------------------------------------------- op-bundle serving
+OP_CONFIGS = (("qwen3-14b", 4096), ("zamba2-1.2b", 2048))
+OP_WINDOWS = (([1], 16), ([4, 8, 8, 16], 4))
+
+
+def make_kv_caches(cfg, layers: int, batches, context: int, gen, device) -> list:
+    """Per layer and tenant, a random bf16 K and V cache (B, Hkv, S, D)."""
+    shape = (cfg.n_kv_heads, context, cfg.resolved_head_dim)
+    return [[tuple(torch.randn((b,) + shape, generator=gen, device=device,
+                               dtype=torch.bfloat16) for _ in range(2))
+             for b in batches] for _ in range(layers)]
+
+
+def op_request(d, weight, kv, gen, device):
+    """One bundle member with its operands: a GEMM's activations and
+    weight, the attention's query and KV cache, or the scan's inputs
+    (head-broadcast B/C, as Mamba2's group-shared layout)."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)
+
+    if d.family == "gemm":
+        return GemmRequest(desc=d, a=rnd(d.M, d.K), b=weight)
+    if d.family == "flash_attention":
+        k, v = kv
+        return bind_operands(d, (rnd(d.B, d.Hq, d.Sq, d.D), k[:d.B], v[:d.B]))
+    da = (torch.rand((d.B, d.T, d.H), generator=gen, device=device) * -0.5).to(torch.bfloat16)
+    bm, cm = (rnd(d.B, d.T, d.N)[:, :, None].expand(d.B, d.T, d.H, d.N) for _ in range(2))
+    return bind_operands(d, (rnd(d.B, d.T, d.H, d.P), da, bm, cm))
+
+
+def drive_op_bundles(rt: Runtime, cfg, weights, kv, batches, context: int, gen):
+    """Per layer, every tenant submits its whole decode-step bundle, and
+    the runtime drains.  Returns the bundle tickets, the wall time up to
+    the last result being ready, the window's records and launches."""
+    t0 = time.perf_counter()
+    n0 = len(rt.telemetry.groups)
+    handles, launches = [], []
+    for li, wl in enumerate(weights):
+        for ti, batch in enumerate(batches):
+            descs = decode_step_op_descs(cfg, batch, context)
+            ws = iter(wl)
+            reqs = [op_request(d, next(ws) if d.family == "gemm" else None, kv[li][ti],
+                               gen, rt.device) for d in descs]
+            handles.append(rt.submit(reqs, tenant=f"tenant{ti}"))
+        launches += rt.drain()
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    return handles, time.perf_counter() - t0, rt.telemetry.groups[n0:], launches
+
+
+def check_op_tickets(tickets) -> None:
+    for tk in tickets:
+        r, fam = tk.request, tk.desc.family
+        what = f"ticket {tk.seq} {tk.desc.key()} ({tk.plan.mode})"
+        if fam == "gemm":
+            check_close(tk.result, gemm_ref(r.a, r.b), abs_product(r.a, r.b), what)
+        elif fam == "flash_attention":
+            check_attention(tk.result, *r.inputs, tk.desc.Skv - tk.desc.Sq, what)
+        else:
+            check_tol(tk.result, ssd_chunk_ref(*(x.float() for x in r.inputs))[0],
+                      SCAN_TOL, SCAN_TOL + 2.0 ** -8, what)
+
+
+def op_bundle_window(rt, cfg, weights, kv, batches, context, gen) -> dict:
+    handles, wall, recs, launches = drive_op_bundles(rt, cfg, weights, kv, batches,
+                                                     context, gen)
+    if not all(h.done for h in handles):
+        raise AssertionError("a bundle was left unfinished")
+    tickets = [m for h in handles for m in h.members]
+    check_op_tickets(tickets)
+    fams = Counter(tk.desc.family for tk in tickets)
+    weight_b = sum(tk.request.b.numel() * 2 for tk in tickets if tk.desc.family == "gemm")
+    kv_b = sum((tk.request.inputs[1].numel() + tk.request.inputs[2].numel()) * 2
+               for tk in tickets if tk.desc.family == "flash_attention")
+    return dict(requests=len(tickets), families=dict(fams),
+                launches=dict(Counter(g.mode for g in recs)), wall_s=wall,
+                device_s=sum(g.achieved_time_s or 0.0 for g in recs),
+                weight_gb=weight_b / 1e9, kv_gb=kv_b / 1e9, launch_list=launches)
+
+
+def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
+                    reduced: bool = False) -> dict:
+    cfg = get_arch(name)
+    cfg = cfg.reduced() if reduced else cfg
+    layers = layers or cfg.n_layers
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    weights = make_unfused_weights(cfg, layers, gen, device)
+    tenants = max((b for b, _ in OP_WINDOWS), key=len)
+    kv = make_kv_caches(cfg, layers, tenants, context, gen, device)
+    model_gb = sum(w.numel() * 2 for wl in weights for w in wl) / 1e9
+    kv_gb = sum(t.numel() * 2 for lkv in kv for pair in lkv for t in pair) / 1e9
+    print(f"# op-bundle serving {cfg.name}: {layers} layers, context {context}, bundle "
+          f"{[d.key() for d in decode_step_op_descs(cfg, 1, context)]}; weights "
+          f"{model_gb:.2f} GB, KV caches {kv_gb:.2f} GB ({sum(tenants)} sequences) on {device}")
+    rt = Runtime(ConcurrencyController(),
+                 RuntimeConfig(window_s=0.0, execute=True), device=device)
+    reset_counts()
+    windows = []
+    for batches, available in OP_WINDOWS:
+        rt.set_available(available)
+        for run in ("cold", "warm"):
+            w = op_bundle_window(rt, cfg, weights, kv, batches, context, gen)
+            w.update(batches=batches, available=available, plans=run)
+            windows.append(w)
+            print(f"# {cfg.name} op-bundle window batches {batches} available {available} "
+                  f"({run} plans): {w['requests']} requests {w['families']}, launches "
+                  f"{w['launches']}, wall {w['wall_s']:.6f} s, device {w['device_s']:.6f} s; "
+                  f"weights {w['weight_gb']:.3f} GB + KV {w['kv_gb']:.3f} GB read, "
+                  f"{(w['weight_gb'] + w['kv_gb']) / w['wall_s']:.1f} GB/s of wall")
+    counts = {k: LAUNCHERS[k].launches for k in LAUNCHERS}
+    members = sum((Counter(w["families"]) for w in windows), Counter())
+    print(f"# {cfg.name} op-bundle modes {rt.telemetry.mode_counts()}; kernel launches "
+          f"{counts}; members {dict(members)}")
+    if device == "cuda" and (counts["flash_attention"] != members["flash_attention"]
+                             or counts["mamba_scan"] != members["mamba_scan"]):
+        raise AssertionError(f"{cfg.name}: attention/scan launches {counts} differ from "
+                             f"the members submitted {dict(members)}")
+    if device == "cuda":
+        for w in windows[1::2]:     # the warm windows
+            r = concurrency_ratio(w["launch_list"], rt.ctrl.lib)
+            what = (f"# {cfg.name} warm op-bundle window batches {w['batches']} available "
+                    f"{w['available']}, {len(w['launch_list'])} launches")
+            if r is None:
+                print(f"{what}: concurrent vs back to back not measured (the host "
+                      "could not queue a chunk ahead of the card)")
+                continue
+            gb = w["weight_gb"] + w["kv_gb"]
+            print(f"{what}: concurrent on streams {r['concurrent_s']:.6f} s, back to "
+                  f"back on one stream {r['back_to_back_s']:.6f} s (ratio "
+                  f"{r['ratio']:.4f}), back to back at isolated tiles "
+                  f"{r['isolated_s']:.6f} s (ratio {r['isolated_ratio']:.4f}), in "
+                  f"{r['chunks']} queued chunks; runs {r['runs']}; concurrent reads "
+                  f"{gb / r['concurrent_s']:.1f} GB/s of weights + KV")
+        for batches, available in OP_WINDOWS:
+            rt.set_available(available)
+            profile_window(f"{cfg.name} op-bundle window batches {batches} available "
+                           f"{available}", lambda: drive_op_bundles(
+                               rt, cfg, weights, kv, batches, context, gen)[1])
+    for w in windows:
+        del w["launch_list"]
+    return dict(counts=counts, windows=windows, model_gb=model_gb, kv_gb=kv_gb)
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -912,17 +1312,30 @@ def main() -> int:
     print(f"# kernels: {small_cases(gen)} small cases agree with their plain versions")
     print(f"# split-K and Stream-K kernels: {split_stream_cases(gen)} small cases "
           "agree with their plain versions")
+    print(f"# attention and scan kernels: {attention_scan_cases(gen)} small cases agree "
+          "with their plain versions")
     rows = {k: [r] for k, r in main_path_kernels(gen).items()}
     rows.update(split_stream_kernels(gen))
+    rows.update(attention_scan_kernels(gen, default_library()))
     torch.cuda.empty_cache()
     serving = serving_phase()
     gc.collect()
     torch.cuda.empty_cache()
     mixed = mixed_phase()
+    ops = {}
+    for name, context in OP_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops[name] = op_bundle_phase(name, context)
+    op_counts = {k: sum(o["counts"][k] for o in ops.values()) for k in OP_BUNDLE_KERNELS}
+    missing = [k for k in OP_BUNDLE_KERNELS if op_counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the op-bundle path never launched {missing}")
     kernels = []
     for name in LAUNCHERS:
         r, *more = rows[name]
-        path = serving if name in PER_CLASS_KERNELS else mixed
+        path = (serving if name in PER_CLASS_KERNELS else
+                {"counts": op_counts} if name in OP_BUNDLE_KERNELS else mixed)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "shape": r["shape"],

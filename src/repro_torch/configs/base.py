@@ -133,4 +133,4 @@ def get_arch(name: str) -> ArchConfig:
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import qwen3_14b  # noqa: F401  (registers)
+    from repro_torch.configs import qwen3_14b, zamba2_1p2b  # noqa: F401  (register)

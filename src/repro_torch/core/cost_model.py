@@ -1,4 +1,6 @@
-"""Analytical cost model, GEMM paths (`repro/core/cost_model.py`).
+"""Analytical cost model (`repro/core/cost_model.py`): the GEMM paths and
+the flash-attention and SSD-scan families (`:363-376, 407-420, 558-660,
+782-973`).
 
 The port plans exactly as the reference does: the model is the same
 float64 NumPy code over the same `TPUSpec`, so the tuner, the library
@@ -7,6 +9,13 @@ and the scheduler reach bitwise-identical decisions in both packages
 target chip, not the H100; a spec for Hopper is a later item of the
 port.  Times are modeled seconds, used to rank candidates, never
 reported as measurements.
+
+Non-GEMM descriptors dispatch at the top of `kernel_stats_batch` and
+`isolated_time_batch` to their family's struct-of-arrays model, and a
+group with any non-GEMM member takes `_group_time_mixed`; both group
+paths compose through `_compose_group_time`.  The float folds are the
+reference's (Python ``sum()`` in the mixed path, `_fold` in the GEMM
+path), so mixed plans match bitwise too.
 
 Written once over struct-of-arrays (`DescBatch` × `TileBatch` ×
 broadcast budgets); the scalar functions wrap the same code, so batch
@@ -23,6 +32,7 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.core.op_desc import AttentionDesc, ScanDesc, family_of
 from repro_torch.kernels.gemm.ops import TileConfig
 
 
@@ -169,6 +179,22 @@ def _peak_of(d, spec: TPUSpec):
 
 
 @dataclass(frozen=True)
+class KernelStats:
+    """One evaluation slot of `KernelStatsBatch` as Python scalars."""
+
+    n_tiles: int
+    waves: float
+    occupancy: float
+    vmem_bytes: float
+    hbm_bytes: float
+    flops: float
+    mxu_util: float
+    a_resident: bool
+    splits: int = 1
+    streams: int = 0
+
+
+@dataclass(frozen=True)
 class KernelStatsBatch:
     """Per-(GEMM, tile) features — #WGs, waves, occupancy, traffic — as
     broadcast NumPy arrays, one slot per evaluation."""
@@ -183,6 +209,20 @@ class KernelStatsBatch:
     a_resident: np.ndarray
     splits: np.ndarray
     streams: np.ndarray
+
+    def item(self, i=()) -> KernelStats:
+        return KernelStats(
+            n_tiles=int(self.n_tiles[i]),
+            waves=float(self.waves[i]),
+            occupancy=float(self.occupancy[i]),
+            vmem_bytes=float(self.vmem_bytes[i]),
+            hbm_bytes=float(self.hbm_bytes[i]),
+            flops=float(self.flops[i]),
+            mxu_util=float(self.mxu_util[i]),
+            a_resident=bool(self.a_resident[i]),
+            splits=int(self.splits[i]),
+            streams=int(self.streams[i]),
+        )
 
 
 # ------------------------------------------------------------- batched core
@@ -258,7 +298,10 @@ def kernel_stats_batch(
 ) -> KernelStatsBatch:
     """Per-(GEMM, tile, budget) features: ``d`` a `GemmDesc` or `DescBatch`, ``t``
     a `TileConfig` or `TileBatch`, ``vmem_budget`` a scalar or array; all
-    broadcast together.  This is THE model — the scalar path wraps it."""
+    broadcast together.  This is THE model — the scalar path wraps it.
+    Non-GEMM descriptors dispatch to their family's model."""
+    if not isinstance(d, (GemmDesc, DescBatch)):
+        return _FAMILY_STATS[family_of(d)](d, t, vmem_budget, spec)
     p = pre if pre is not None else tile_precompute(d, t, spec)
     budget = spec.vmem_bytes if vmem_budget is None else vmem_budget
 
@@ -291,7 +334,16 @@ def isolated_time_batch(
     pre: TilePrecomp | None = None,
 ) -> np.ndarray:
     """Vectorized `isolated_time` (split-K and Stream-K kernels pay one
-    extra launch for their epilogue)."""
+    extra launch for their epilogue).  Non-GEMM families share the same
+    roofline composition over their own stats."""
+    if not isinstance(d, (GemmDesc, DescBatch)):
+        st = kernel_stats_batch(d, t, vmem_budget, spec)
+        compute = st.flops / (spec.peak(_compute_dtype(d)) * st.mxu_util)
+        bw = spec.hbm_bw * bw_frac
+        memory = st.hbm_bytes / bw
+        ramp = spec.pipeline_fill_tiles * (st.hbm_bytes / st.n_tiles / bw)
+        return (np.maximum(compute, memory) + ramp
+                + spec.launch_overhead_s)
     p = pre if pre is not None else tile_precompute(d, t, spec)
     st = kernel_stats_batch(d, t, vmem_budget, spec, pre=p)
     compute = st.flops / (p.peak * st.mxu_util)
@@ -369,6 +421,11 @@ def sequential_time(
 ) -> float:
     if not members:
         return 0.0
+    if not _all_gemm(members):
+        acc = 0.0
+        for d, t in members:
+            acc += float(isolated_time_batch(d, t, spec))
+        return acc
     db = DescBatch.from_descs([d for d, _ in members])
     tb = TileBatch.from_tiles([t for _, t in members])
     return _fold(isolated_time_batch(db, tb, spec))
@@ -380,11 +437,15 @@ def group_time(
 ) -> float:
     """Modeled latency of one grouped launch executing all members: the
     merged roofline ``max(Σ compute, Σ memory)`` degraded toward serial
-    execution as the aggregate working set overflows the budget."""
+    execution as the aggregate working set overflows the budget.  A group
+    with a non-GEMM member takes the per-member loop of
+    `_group_time_mixed` through the same composition."""
     G = len(members)
     if G == 0:
         return 0.0
     share = spec.vmem_bytes // G
+    if not _all_gemm(members):
+        return _group_time_mixed(members, share, spec)
     db = DescBatch.from_descs([d for d, _ in members])
     tb = TileBatch.from_tiles([t for _, t in members])
     st = kernel_stats_batch(db, tb, vmem_budget=share, spec=spec)
@@ -396,15 +457,59 @@ def group_time(
     sum_m = _fold(mems)
     serial = _fold(np.maximum(comps, mems))
     total_ws = _fold(st.vmem_bytes)
+    return _compose_group_time(
+        sum_c, sum_m, serial, total_ws, float(np.max(ramps)),
+        bool(np.any((st.splits > 1) | (st.streams > 0))), spec,
+    )
+
+
+def _compose_group_time(
+    sum_c: float, sum_m: float, serial: float, total_ws: float,
+    max_ramp: float, any_epilogue: bool, spec: TPUSpec,
+) -> float:
+    """The overlap/pressure composition of one grouped launch, shared by
+    the GEMM fold (`group_time`) and the mixed-family member loop
+    (`_group_time_mixed`); `group_time_batch` carries the array form."""
     pressure = total_ws / spec.vmem_bytes
     overlap = min(1.0, 1.0 / pressure) if pressure > 0 else 1.0
     ideal = max(sum_c, sum_m)
     t_exec = overlap * ideal + (1.0 - overlap) * (
         serial * (1.0 + 0.25 * max(0.0, pressure - 1.0))
     )
-    any_epilogue = bool(np.any((st.splits > 1) | (st.streams > 0)))
     launches = 2.0 if any_epilogue else 1.0
-    return t_exec + float(np.max(ramps)) + launches * spec.launch_overhead_s
+    return t_exec + max_ramp + launches * spec.launch_overhead_s
+
+
+def _all_gemm(members) -> bool:
+    return all(isinstance(d, GemmDesc) for d, _ in members)
+
+
+def _compute_dtype(d) -> str:
+    """Dtype an op computes in: `ScanDesc` stages in f32 whatever the model
+    dtype; every other family computes at its dtype."""
+    return getattr(d, "compute_dtype", d.dtype)
+
+
+def _group_time_mixed(members, share: int, spec: TPUSpec) -> float:
+    """Heterogeneous-family grouped launch: per-member family stats fed
+    through the same overlap/pressure composition as the GEMM fold, each
+    member at a 1/G share of the budget."""
+    comps, mems, sers, wss, ramps = [], [], [], [], []
+    any_epilogue = False
+    for d, t in members:
+        st = kernel_stats_batch(d, t, vmem_budget=share, spec=spec).item()
+        peak = spec.peak(_compute_dtype(d))
+        comps.append(st.flops / (peak * st.mxu_util))
+        mems.append(st.hbm_bytes / spec.hbm_bw)
+        ramps.append(spec.pipeline_fill_tiles
+                     * (st.hbm_bytes / st.n_tiles / spec.hbm_bw))
+        sers.append(max(comps[-1], mems[-1]))
+        wss.append(st.vmem_bytes)
+        any_epilogue = any_epilogue or st.splits > 1 or st.streams > 0
+    return _compose_group_time(
+        sum(comps), sum(mems), sum(sers), sum(wss), max(ramps),
+        any_epilogue, spec,
+    )
 
 
 def _fold(x: np.ndarray) -> float:
@@ -412,6 +517,128 @@ def _fold(x: np.ndarray) -> float:
     for v in x:
         acc += float(v)
     return acc
+
+
+# ------------------------------------------------------- non-GEMM families
+# Flash attention and the SSD scan reuse the `TileConfig` container with
+# family meanings (attention: bm = q block, bn = kv block; scan: bm =
+# chunk length) and compose through the same rooflines as the GEMMs.
+def _tile_dims(t):
+    return np.asarray(t.bm), np.asarray(t.bn), np.asarray(t.bk)
+
+
+def _attn_geom(d: AttentionDesc, t, spec: TPUSpec):
+    """(bq, bkv, tq, tkv, ws, kv_panel) of the flash kernel: kv is the
+    sequential inner sweep, q blocks × (B·Hq) the parallel grid."""
+    bm, bn, _ = _tile_dims(t)
+    bq = np.minimum(bm, _round_up(d.Sq, 8))
+    bkv = np.minimum(bn, _round_up(d.Skv, spec.mxu_dim))
+    tq = _cdiv(d.Sq, bq)
+    tkv = _cdiv(d.Skv, bkv)
+    ib = d.in_bytes
+    # double-buffered K/V tiles + Q tile + online-softmax scratch
+    # (m, l replicated to 128 lanes; f32 acc) + output tile.
+    ws = (2 * (2 * bkv * d.D * ib) + bq * d.D * ib
+          + (2 * bq * 128 + bq * d.D) * 4 + bq * d.D * ib)
+    kv_panel = 2.0 * d.Skv * d.D * ib      # one head's K+V, residency unit
+    return bq, bkv, tq, tkv, ws, kv_panel
+
+
+def attention_stats_batch(
+    d: AttentionDesc, t, vmem_budget=None, spec: TPUSpec = DEFAULT_SPEC,
+) -> KernelStatsBatch:
+    """O(Sq·Skv) attention with causal credit: FLOPs and K/V traffic
+    scale by `causal_credit`; K/V residency in the share plays the GEMM
+    A-panel role, and losing it re-reads K/V once per q block."""
+    budget = spec.vmem_bytes if vmem_budget is None else vmem_budget
+    bq, bkv, tq, tkv, ws, kv_panel = _attn_geom(d, t, spec)
+    credit = d.causal_credit
+    n_tiles = d.B * d.Hq * tq
+    resid_frac = np.minimum(np.maximum(
+        (budget - ws) / kv_panel, 0.0), 1.0)
+    kv_resident = resid_frac >= 1.0
+    eff_reads = tq - resid_frac * (tq - 1)
+    kv_unit = d.B * d.Hkv * d.Skv * d.D * d.in_bytes * 2.0 * credit
+    qo_bytes = 2.0 * d.B * d.Hq * d.Sq * d.D * d.in_bytes
+    hbm = eff_reads * kv_unit + qo_bytes
+    flops = 4.0 * d.B * d.Hq * (tq * bq) * (tkv * bkv) * d.D * credit
+    util = (_align_eff(bq, spec.mxu_dim) * _align_eff(bkv, spec.mxu_dim)
+            * _align_eff(d.D, spec.mxu_dim))
+    slots = np.maximum(1, budget // ws)
+    waves = n_tiles / np.minimum(slots, spec.pipeline_fill_tiles * 4)
+    occ = np.minimum(1.0, (ws + resid_frac * kv_panel) / budget)
+    EVAL_COUNTER.add(np.size(waves))
+    return KernelStatsBatch(
+        n_tiles=np.asarray(n_tiles), waves=np.asarray(waves),
+        occupancy=np.asarray(occ),
+        vmem_bytes=np.asarray(ws + np.where(kv_resident, kv_panel, 0.0)),
+        hbm_bytes=np.asarray(hbm), flops=np.asarray(flops),
+        mxu_util=np.asarray(util), a_resident=np.asarray(kv_resident),
+        splits=np.ones_like(np.asarray(n_tiles)),
+        streams=np.zeros_like(np.asarray(n_tiles)),
+    )
+
+
+def _scan_geom(d: ScanDesc, t, spec: TPUSpec):
+    """(L, n_chunks, ws): the chunk length L is the tunable axis (bm);
+    the chunk sweep is sequential per (batch, head)."""
+    bm, _, _ = _tile_dims(t)
+    L = np.maximum(np.minimum(bm, _round_up(d.T, 8)), 8)
+    n_chunks = _cdiv(d.T, L)
+    ib = d.in_bytes                       # f32 staging (4 B)
+    # double-buffered chunk inputs (xd, da, B, C) + state scratch + y out
+    ws = 2 * (L * d.P + L + 2 * L * d.N) * ib + d.N * d.P * 4 + L * d.P * ib
+    return L, n_chunks, ws
+
+
+def scan_stats_batch(
+    d: ScanDesc, t, vmem_budget=None, spec: TPUSpec = DEFAULT_SPEC,
+) -> KernelStatsBatch:
+    """Chunked SSD scan: bandwidth-bound streaming of (xd, da, B, C, y)
+    with a sequential chunk sweep per (b, h), so parallelism is capped at
+    B·H and waves floor at n_chunks whatever the share."""
+    budget = spec.vmem_bytes if vmem_budget is None else vmem_budget
+    L, n_chunks, ws = _scan_geom(d, t, spec)
+    BH = d.B * d.H
+    ib = d.in_bytes
+    n_tiles = BH * n_chunks
+    hbm = (BH * ((2 * d.T * d.P + d.T + 2 * d.T * d.N) * ib
+                 + 2 * d.N * d.P * 4)) * np.ones_like(np.asarray(ws, float))
+    flops = BH * n_chunks * (2.0 * L * L * (d.N + d.P) + 4.0 * L * d.N * d.P)
+    util = (_align_eff(L, spec.mxu_dim) * _align_eff(d.N, spec.mxu_dim)
+            * _align_eff(d.P, spec.mxu_dim))
+    slots = np.maximum(1, budget // ws)
+    # sequential chunk dim: at least n_chunks waves even with free slots
+    waves = n_chunks * np.maximum(
+        1.0, BH / np.minimum(slots, spec.pipeline_fill_tiles * 4))
+    occ = np.minimum(1.0, ws / budget)
+    EVAL_COUNTER.add(np.size(waves))
+    return KernelStatsBatch(
+        n_tiles=np.asarray(n_tiles), waves=np.asarray(waves),
+        occupancy=np.asarray(occ), vmem_bytes=np.asarray(ws, float),
+        hbm_bytes=np.asarray(hbm), flops=np.asarray(flops),
+        mxu_util=np.asarray(util),
+        a_resident=np.zeros(np.shape(np.asarray(ws)), bool),
+        splits=np.ones_like(np.asarray(n_tiles)),
+        streams=np.zeros_like(np.asarray(n_tiles)),
+    )
+
+
+_FAMILY_STATS = {
+    "flash_attention": attention_stats_batch,
+    "mamba_scan": scan_stats_batch,
+}
+
+
+def op_tile_ws(d, t, spec: TPUSpec = DEFAULT_SPEC):
+    """Raw per-instance working set of a (desc, tile) pair for any ported
+    family — the tuner's feasibility predicate (``ws ≤ RC budget``)."""
+    fam = family_of(d)
+    if fam == "flash_attention":
+        return _attn_geom(d, t, spec)[4]
+    if fam == "mamba_scan":
+        return _scan_geom(d, t, spec)[2]
+    return t.vmem_bytes(d.in_bytes)
 
 
 # ------------------------------------------------------------------ helpers

@@ -1,6 +1,7 @@
-"""GO GEMM library, paper §4.2.2 (`repro/core/library.py`).
+"""GO library, paper §4.2.2 (`repro/core/library.py`).
 
-Maps a GEMM to its isolated-tuned tile and, per concurrency degree, its
+Maps an op (a GEMM, an attention or an SSD-scan descriptor) to its
+isolated-tuned tile and, per concurrency degree, its
 globally-optimized (GO) tile.  The on-disk format is the reference's
 schema-v5 JSON, read and written unchanged, so both packages plan from
 the same entries (`results/golib.json` loads into either):
@@ -23,7 +24,7 @@ from typing import Dict, Optional, Sequence
 
 from repro_torch.core.cost_model import DEFAULT_SPEC, TPUSpec
 from repro_torch.core.gemm_desc import GemmDesc
-from repro_torch.core.tuner import GOEntry, tune_gemm, tune_gemm_batch
+from repro_torch.core.tuner import GOEntry, tune_gemm, tune_gemm_batch, tune_op
 from repro_torch.kernels.gemm.ops import TileConfig
 
 SCHEMA_VERSION = 5
@@ -54,23 +55,31 @@ class GOLibrary:
             self.load(self.path)
 
     # -------------------------------------------------------------- access
-    def get(self, desc: GemmDesc) -> GOEntry:
+    def get(self, desc) -> GOEntry:
+        """GO entry of any ported family: GEMMs take `tune_gemm`, other
+        families `tune_op`."""
         key = desc.key()
         with self._lock:
             e = self._entries.get(key)
         if e is not None:
             return e
-        e = tune_gemm(desc, self.spec)
+        e = (tune_gemm(desc, self.spec) if isinstance(desc, GemmDesc)
+             else tune_op(desc, self.spec))
         with self._lock:
             return self._entries.setdefault(key, e)
 
-    def prewarm(self, descs: Sequence[GemmDesc]) -> int:
-        """Tune ahead of traffic in ONE `tune_gemm_batch` sweep; returns
+    def prewarm(self, descs: Sequence) -> int:
+        """Tune ahead of traffic: missing GEMMs in ONE `tune_gemm_batch`
+        sweep, other families through `tune_op` per descriptor; returns
         the number of newly tuned entries (saved when disk-backed)."""
         with self._lock:
             missing = {d.key(): d for d in descs if d.key() not in self._entries}
         if missing:
-            entries = tune_gemm_batch(list(missing.values()), self.spec)
+            entries = tune_gemm_batch(
+                [d for d in missing.values() if isinstance(d, GemmDesc)],
+                self.spec)
+            entries += [tune_op(d, self.spec) for d in missing.values()
+                        if not isinstance(d, GemmDesc)]
             with self._lock:
                 for e in entries:
                     self._entries.setdefault(e.desc_key, e)

@@ -11,24 +11,31 @@ GEMMs, each at its own per-CD GO tile.  `plan_shared_input` is the §6.11
 fuse-vs-group policy for GEMMs sharing their input.  Planning is the
 reference's logic unchanged, so both packages produce identical
 `Schedule`s; `execute_schedule` runs one through the port's kernels, a
-``mixed`` group's members at once on CUDA streams.
+``mixed`` group's members at once on CUDA streams.  A bundle's members
+may be of any ported family — GEMMs, flash attention, SSD scans — and
+each runs through its family op (`_run_op`).
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.cost_model import group_time, isolated_time
-from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.core.gemm_desc import TORCH_DTYPES, GemmDesc
 from repro_torch.core.library import GOLibrary, default_library
 from repro_torch.core.op_desc import family_of
 from repro_torch.core.tuner import CDS
+from repro_torch.kernels.flash_attention.ops import (
+    attention_buffers,
+    attention_for_desc,
+)
 from repro_torch.kernels.gemm.ops import TileConfig, gemm, gemm_buffers
 from repro_torch.kernels.grouped_gemm.ops import grouped_gemm, ragged_gemm
+from repro_torch.kernels.mamba_scan.ops import scan_buffers, scan_for_desc
 
 # CP overhead (paper §5.4/§6.5): queue inspect + predict + packet rewrite.
 CP_OVERHEAD_S = 8e-6
@@ -39,32 +46,80 @@ CLASSES = (1,) + tuple(CDS)
 
 @dataclass
 class GemmRequest:
-    """One GEMM ticket: the descriptor and, when it executes, its operands
-    (``a`` stored (M,K) or (K,M) when ``desc.ta``; ``b`` (K,N) or (N,K))."""
+    """One op ticket.  A GEMM carries its operands in ``a`` (stored (M,K),
+    or (K,M) when ``desc.ta``) and ``b`` ((K,N) or (N,K)); any other
+    family carries them in ``inputs``, in its family op's positional
+    order: (q, k, v) for attention, (xd, da, Bm, Cm) for the SSD scan."""
 
     desc: GemmDesc
     a: Optional[torch.Tensor] = None
     b: Optional[torch.Tensor] = None
     tag: str = ""
+    inputs: Optional[tuple] = None
+
+    @property
+    def operands(self) -> Optional[tuple]:
+        """The family op's positional operands: ``(a, b)`` for a GEMM,
+        ``inputs`` for any other family."""
+        return (self.a, self.b) if family_of(self.desc) == "gemm" else self.inputs
+
+
+# Non-GEMM requests are the same record; the alias marks intent at call
+# sites that submit heterogeneous ops.
+OpRequest = GemmRequest
+
+
+def bind_operands(desc, operands: Optional[tuple] = None,
+                  tag: str = "") -> GemmRequest:
+    """The family-correct request for ``desc`` from a positional operand
+    tuple: a GEMM's unpacks into ``a``/``b``, every other family's stays
+    in ``inputs``; ``operands=None`` is an operand-free request."""
+    if family_of(desc) == "gemm":
+        a, b = operands if operands is not None else (None, None)
+        return GemmRequest(desc=desc, a=a, b=b, tag=tag)
+    return GemmRequest(desc=desc, tag=tag, inputs=operands)
+
+
+@dataclass(frozen=True)
+class OpFamily:
+    """How the executor runs a member of one non-GEMM family:
+    ``run(desc, *inputs, tile=, out=)``, and ``buffers(*inputs)``, what
+    ``run`` writes, for the caller to allocate (on the launching stream,
+    before a mixed launch forks)."""
+
+    run: Callable
+    buffers: Callable
+
+
+# The ported families besides "gemm", whose requests carry ``a``/``b`` and
+# which has launch modes of its own (grouped, ragged).  A family is
+# admitted and executed iff it is "gemm" or a key here; its cost model and
+# tile space are the reference's tables (`cost_model._FAMILY_STATS`,
+# `tuner.FAMILY_TILES`).
+OP_FAMILIES: Dict[str, OpFamily] = {
+    "flash_attention": OpFamily(attention_for_desc, attention_buffers),
+    "mamba_scan": OpFamily(scan_for_desc, scan_buffers),
+}
 
 
 def requests_from_numpy(requests: Sequence[GemmRequest], operands,
                         device="cuda") -> List[GemmRequest]:
-    """Bind numpy operand pairs ``[(a, b), ...]`` to ``requests`` as
-    tensors of each desc's dtype on ``device`` — how the tests feed the
-    JAX package and the port the same numbers.  Float arrays round to
-    bf16 by round-to-nearest-even, as JAX's ``astype`` does.  Raises when
+    """Bind numpy operand tuples to ``requests`` as tensors of each desc's
+    dtype on ``device`` — how the tests feed the JAX package and the port
+    the same numbers: ``(a, b)`` for a GEMM, the family op's inputs (q, the
+    KV cache, the scan inputs) for any other.  Float arrays round to bf16
+    by round-to-nearest-even, as JAX's ``astype`` does.  Raises when
     ``device`` is CUDA and there is none."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
     out = []
-    for r, (a, b) in zip(requests, operands, strict=True):
-        dt = r.desc.torch_dtype()
-        out.append(replace(
-            r, a=torch.from_numpy(np.ascontiguousarray(a)).to(device, dt),
-            b=torch.from_numpy(np.ascontiguousarray(b)).to(device, dt)))
+    for r, ops in zip(requests, operands, strict=True):
+        dt = TORCH_DTYPES[r.desc.dtype]
+        tensors = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
+                        for x in ops)
+        out.append(bind_operands(r.desc, tensors, r.tag))
     return out
 
 
@@ -90,8 +145,11 @@ class Schedule:
         return sum(g.modeled_time_s for g in self.groups)
 
 
-def _compatible(a: GemmDesc, b: GemmDesc) -> bool:
-    """Groupable in one ragged launch: same K/N/transposes/dtype, any M."""
+def _compatible(a, b) -> bool:
+    """Groupable in one ragged launch: same K/N/transposes/dtype, any M.
+    Only plain GEMMs qualify."""
+    if not (isinstance(a, GemmDesc) and isinstance(b, GemmDesc)):
+        return False
     return (
         a.N == b.N and a.K == b.K and a.ta == b.ta and a.tb == b.tb
         and a.dtype == b.dtype and a.batch == b.batch == 1
@@ -264,7 +322,8 @@ def execute_schedule(
     tile's bm — the reference's launch shapes (`repro/core/scheduler.py:
     481-507`).  Stacking B copies every member's weight once per launch;
     removing that copy is a later performance item.  A ``mixed`` group
-    runs each member through `gemm` at its own tile (`_run_mixed`)."""
+    runs each member through its family op at its own tile (`_run_mixed`),
+    and a ``single`` launch of a non-GEMM member through `_run_op`."""
     outs: List[Optional[torch.Tensor]] = [None] * len(requests)
     for gp in sched.groups:
         reqs = [requests[i] for i in gp.indices]
@@ -273,9 +332,7 @@ def execute_schedule(
             for i, out in zip(gp.indices, _run_mixed(reqs, tiles)):
                 outs[i] = out
         elif gp.mode == "single" or len(reqs) == 1:
-            r = reqs[0]
-            outs[gp.indices[0]] = gemm(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb,
-                                       tile=gp.tile)
+            outs[gp.indices[0]] = _run_op(reqs[0], gp.tile)
         elif gp.mode == "grouped":
             a = torch.stack([_as_mk(r) for r in reqs])
             b = torch.stack([_as_kn(r) for r in reqs])
@@ -323,19 +380,22 @@ def _member_streams(device: torch.device, n: int) -> List[torch.cuda.Stream]:
 
 def _run_mixed(reqs: Sequence[GemmRequest],
                tiles: Sequence[TileConfig]) -> List[torch.Tensor]:
-    """The members of one ``mixed`` group, each through `gemm` at its own
-    tile.  On the CPU they run in order, as in the reference.  On the
-    card they run at once, one side stream each: every output and partial
-    buffer is allocated on the launching stream first, the side streams
+    """The members of one ``mixed`` group, each through its family op at
+    its own tile.  On the CPU they run in order, as in the reference.  On
+    the card they run at once, one side stream each: every buffer a
+    member writes (outputs, split-K and Stream-K partials, a scan's final
+    state) is allocated on the launching stream first, the side streams
     wait on an event recorded there, and the launching stream waits on
     each member's end event before this returns — so no buffer is freed
     while a side stream still uses it, and work queued after the launch
-    sees every result."""
-    dev = reqs[0].a.device
+    sees every result.  The attention and scan kernels read their inputs
+    through strides, so no member stages a copy on its side stream."""
+    dev = reqs[0].operands[0].device
     if dev.type != "cuda":
-        return [gemm(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=t)
-                for r, t in zip(reqs, tiles)]
+        return [_run_op(r, t) for r, t in zip(reqs, tiles)]
     bufs = [gemm_buffers(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=t)
+            if family_of(r.desc) == "gemm"
+            else OP_FAMILIES[family_of(r.desc)].buffers(*r.inputs)
             for r, t in zip(reqs, tiles)]
     launching = torch.cuda.current_stream(dev)
     fork = torch.cuda.Event()
@@ -344,14 +404,27 @@ def _run_mixed(reqs: Sequence[GemmRequest],
     for r, t, buf, s in zip(reqs, tiles, bufs, _member_streams(dev, len(reqs))):
         s.wait_event(fork)
         with torch.cuda.stream(s):
-            outs.append(gemm(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=t,
-                             buffers=buf))
+            outs.append(_run_op(r, t, buf))
             end = torch.cuda.Event()
             end.record(s)
         ends.append(end)
     for end in ends:
         launching.wait_event(end)
     return outs
+
+
+def _run_op(r: GemmRequest, tile: TileConfig, out=None):
+    """One member through its family op at ``tile``, writing into ``out``
+    (its `gemm_buffers` or its family's ``buffers``) when given; None for
+    an operand-free request, as in the reference
+    (`repro/core/scheduler.py:519-550`)."""
+    if r.operands is None or any(t is None for t in r.operands):
+        return None
+    if family_of(r.desc) == "gemm":
+        return gemm(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=tile,
+                    buffers=out)
+    return OP_FAMILIES[family_of(r.desc)].run(r.desc, *r.inputs, tile=tile,
+                                              out=out)
 
 
 def _as_mk(r: GemmRequest) -> torch.Tensor:

@@ -25,12 +25,15 @@ from repro_torch.core.cost_model import (
     DescBatch,
     TileBatch,
     TPUSpec,
+    group_time,
     group_time_batch,
     isolated_time,
     isolated_time_batch,
+    op_tile_ws,
     tile_precompute,
 )
 from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.core.op_desc import family_of
 from repro_torch.kernels.gemm.ops import TileConfig
 
 # Tuned concurrency degrees (dense 2-8 so odd groups plan at their CD).
@@ -42,6 +45,27 @@ CANDIDATE_TILES: tuple[TileConfig, ...] = tuple(
     for bn in (128, 256, 512)
     for bk in (128, 256, 512)
 )
+
+# Flash attention: bm = q block, bn = kv block (bk unused).  Small q blocks
+# are the decode shapes; the kv axis trades K/V re-reads against the
+# working set under a CD's share.
+ATTENTION_TILES: tuple[TileConfig, ...] = tuple(
+    TileConfig(bq, bkv, 128)
+    for bq in (8, 64, 128, 256)
+    for bkv in (128, 256, 512)
+)
+
+# SSD scan: bm = chunk length L (bn/bk unused).  Long chunks amortize the
+# sequential sweep, short ones shrink the working set.
+SCAN_TILES: tuple[TileConfig, ...] = tuple(
+    TileConfig(c, 128, 128) for c in (32, 64, 128, 256, 512)
+)
+
+FAMILY_TILES = {
+    "gemm": CANDIDATE_TILES,
+    "flash_attention": ATTENTION_TILES,
+    "mamba_scan": SCAN_TILES,
+}
 
 # Split-K enters at Step ② only; 1 first so argmin ties keep the
 # un-split kernel.
@@ -245,3 +269,39 @@ def _tune_gemm_infeasible(desc: GemmDesc, spec: TPUSpec) -> GOEntry:
 def tune_gemm(desc: GemmDesc, spec: TPUSpec = DEFAULT_SPEC) -> GOEntry:
     """Step ① + Step ② for one GEMM (the batched sweep on a pool of one)."""
     return tune_gemm_batch([desc], spec)[0]
+
+
+def tune_op(desc, spec: TPUSpec = DEFAULT_SPEC,
+            cds: Sequence[int] = CDS) -> GOEntry:
+    """Step ① + Step ② for any ported family: the best tile per RC
+    fraction on the family's tile axes, then per CD the fastest RC winner
+    in a group of ``cd`` copies.  GEMMs take `tune_gemm`."""
+    fam = family_of(desc)
+    if fam == "gemm":
+        return tune_gemm(desc, spec)
+    search = TileBatch.from_tiles(FAMILY_TILES[fam])
+    ws_raw = np.asarray(op_tile_ws(desc, search, spec))
+    winners: Dict[str, TileConfig] = {}
+    for name, frac in RC_FRACTIONS.items():
+        budget = int(spec.vmem_bytes * frac)
+        feasible = ws_raw <= budget
+        if not feasible.any():
+            winners[name] = FALLBACK_TILE
+            continue
+        times = isolated_time_batch(
+            desc, search, spec, vmem_budget=budget, bw_frac=frac)
+        winners[name] = search.tile(
+            int(np.where(feasible, times, np.inf).argmin()))
+    entry = GOEntry(desc_key=desc.key(), isolated=winners["GPU"], family=fam)
+    seq_1 = isolated_time(desc, entry.isolated, spec)
+    cand = list(winners.items())
+    for cd in cds:
+        best_name, best_tile, best_t = None, None, float("inf")
+        for name, tile in cand:
+            t = group_time([(desc, tile)] * cd, spec)
+            if t < best_t:
+                best_name, best_tile, best_t = name, tile, t
+        entry.go[cd] = best_tile
+        entry.rc_source[cd] = best_name
+        entry.speedup[cd] = (seq_1 * cd) / best_t
+    return entry

@@ -1,0 +1,16 @@
+from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fwd
+from repro_torch.kernels.mamba_scan.ops import (
+    mamba_chunk_scan,
+    scan_buffers,
+    scan_for_desc,
+    ssd_scan,
+)
+from repro_torch.kernels.mamba_scan.ref import (
+    mamba_chunk_ref,
+    ssd_chunk_ref,
+    ssd_scan_seq_ref,
+)
+
+__all__ = ["mamba_chunk_ref", "mamba_chunk_scan", "mamba_scan_fwd",
+           "scan_buffers", "scan_for_desc", "ssd_chunk_ref", "ssd_scan",
+           "ssd_scan_seq_ref"]

@@ -1,0 +1,58 @@
+"""Public SSD ops (`repro/kernels/mamba_scan/ops.py:67-115`).
+
+``ssd_scan``         — general gated linear recurrence.
+``mamba_chunk_scan`` — Mamba2 layout (dt/A, group-shared B/C).
+``scan_for_desc``    — the launch a `ScanDesc` describes, with the
+                       GO-tuned chunk length (`TileConfig.bm`).
+
+CPU tensors take the plain version (`ref.ssd_chunk_ref`); CUDA tensors
+take the hand-written kernel or raise.  The reference sends a call with
+an ``initial_state`` to its XLA version; here a CUDA call with one goes
+to the kernel's ``s0`` (the same function), since no plain path runs on
+the card.  The backward pass is not ported (serving needs none).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fwd, scan_shapes
+from repro_torch.kernels.mamba_scan.ref import _mamba_args, ssd_chunk_ref
+
+
+def ssd_scan(xd, da, Bm, Cm, *, chunk: int = 128, initial_state=None,
+             out=None):
+    """General SSD: xd (B,T,H,P); da (B,T,H); Bm/Cm (B,T,H,N).  Returns
+    (y, final_state); ``out`` (CUDA only) is a `scan_buffers` pair."""
+    if all(t.device.type == "cpu" for t in (xd, da, Bm, Cm)):
+        return ssd_chunk_ref(xd, da, Bm, Cm, chunk=chunk,
+                             initial_state=initial_state)
+    return mamba_scan_fwd(xd, da, Bm, Cm, chunk=chunk,
+                          initial_state=initial_state, out=out)
+
+
+def scan_buffers(xd, da, Bm, Cm) -> tuple[torch.Tensor, torch.Tensor]:
+    """Allocate, on the current stream, what a scan launch writes: y
+    (B,T,H,P) in xd's dtype and the final state (B,H,N,P) float32."""
+    B, T, H, P, N = scan_shapes(xd, da, Bm, Cm)
+    return (torch.empty((B, T, H, P), dtype=xd.dtype, device=xd.device),
+            torch.empty((B, H, N, P), dtype=torch.float32, device=xd.device))
+
+
+def scan_chunk(tile) -> int:
+    """The chunk length a GO `TileConfig` names (bm, clamped to [8, 512])."""
+    return 128 if tile is None else max(8, min(int(tile.bm), 512))
+
+
+def scan_for_desc(desc, xd, da, Bm, Cm, *, tile=None, out=None):
+    """Run the SSD-scan launch a `ScanDesc` describes at the group's GO
+    ``tile``; returns y."""
+    y, _ = ssd_scan(xd, da, Bm, Cm, chunk=scan_chunk(tile), out=out)
+    return y
+
+
+def mamba_chunk_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
+                     initial_state=None):
+    """Mamba2 SSD.  x (B,T,H,P); dt (B,T,H); A (H,); Bm/Cm (B,T,N)."""
+    y, S = ssd_scan(*_mamba_args(x, dt, A, Bm, Cm), chunk=chunk,
+                    initial_state=initial_state)
+    return y.to(x.dtype), S

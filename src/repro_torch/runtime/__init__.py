@@ -1,6 +1,7 @@
 """Online concurrent-GEMM serving runtime of the port."""
 from repro_torch.runtime.integration import (
     decode_step_descs,
+    decode_step_op_descs,
     decode_step_requests,
     prewarm_decode,
 )
@@ -17,6 +18,7 @@ from repro_torch.runtime.telemetry import GroupRecord, Telemetry
 
 __all__ = [
     "MIXED_CLASS", "GroupRecord", "Launch", "NonFiniteOutput", "Runtime",
-    "RuntimeConfig", "Telemetry", "Ticket", "decode_step_descs", "decode_step_requests",
+    "RuntimeConfig", "Telemetry", "Ticket", "decode_step_descs",
+    "decode_step_op_descs", "decode_step_requests",
     "prewarm_decode", "resolve_device",
 ]

@@ -1,4 +1,4 @@
-"""Route a model's decode-step GEMMs through the serving runtime
+"""Route a model's decode-step ops through the serving runtime
 (`repro/runtime/integration.py`).
 
 Each decode step of each live request issues a bundle of small-M GEMMs
@@ -8,6 +8,9 @@ once depends on traffic — the runtime-only-known parallelism of paper
 `ArchConfig` (M = live batch) after applying the §6.11 policy:
 shared-input projections (QKV; FFN gate+up) become one wide fused GEMM
 when the cost model prefers fusion, else separate concurrent GEMMs.
+`decode_step_op_descs` is one layer's whole decode-step bundle: its GEMMs
+plus the attention read over the KV cache and, for SSM/hybrid layers,
+the SSD state update (§14).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from dataclasses import replace
 from typing import List, Sequence, Tuple
 
 from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.core.op_desc import AttentionDesc, ScanDesc
 from repro_torch.core.scheduler import ConcurrencyController, GemmRequest
 from repro_torch.runtime.runtime import Runtime
 
@@ -99,6 +103,43 @@ def decode_step_requests(
     for tag, bundle in decode_step_descs(cfg, batch, dtype):
         reqs += _shared_input_requests(ctrl, bundle, tag)
     return reqs
+
+
+def decode_step_op_descs(cfg, batch: int, context: int = 1024,
+                         dtype: str = "bf16") -> List[object]:
+    """The whole decode-step op bundle of one layer
+    (`repro/runtime/integration.py:126-175`): the GEMMs of
+    `decode_step_descs` (unfused), the attention read over ``context``
+    cached tokens (`AttentionDesc`, Sq = 1 per sequence) and, for
+    SSM/hybrid blocks, the SSD state update (`ScanDesc`, T = 1).  A
+    routed-expert (MoE) configuration raises: its grouped expert GEMM
+    (`GroupedGemmDesc`) is ROADMAP A11."""
+    if cfg.n_routed_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the routed-expert pool (GroupedGemmDesc) is not "
+            "ported yet (ROADMAP A11)")
+    descs: List[object] = [
+        d for _, bundle in decode_step_descs(cfg, batch, dtype)
+        for d in bundle
+    ]
+    if cfg.attn_type == "mla":
+        hd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        descs.append(AttentionDesc(batch, cfg.n_heads, cfg.n_heads, 1,
+                                   context, hd, True, dtype))
+    elif not (cfg.family == "ssm"):
+        hd = cfg.resolved_head_dim
+        descs.append(AttentionDesc(batch, cfg.n_heads, cfg.n_kv_heads, 1,
+                                   context, hd, True, dtype))
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_state:
+        descs.append(ScanDesc(batch, 1, cfg.ssm_n_heads, cfg.ssm_head_dim,
+                              cfg.ssm_state, dtype))
+    elif cfg.family == "ssm":
+        # xLSTM-style blocks (ssm_state == 0): two SSD scans per step, the
+        # (N = P = 2D/H) C-matrix recurrence and the P = 1 normalizer.
+        hp = 2 * cfg.d_model // cfg.n_heads
+        descs.append(ScanDesc(batch, 1, cfg.n_heads, hp, hp, dtype))
+        descs.append(ScanDesc(batch, 1, cfg.n_heads, 1, hp, dtype))
+    return descs
 
 
 def prewarm_decode(

@@ -1,10 +1,12 @@
 """Online concurrent-GEMM serving runtime (`repro/runtime/runtime.py`).
 
-- `submit()` admits a `GemmRequest` from a tenant into its compatibility
-  class's queue (`core.scheduler.compat_key`), or a sequence of them — a
-  heterogeneous bundle such as one layer's decode GEMMs (§14) — into the
-  shared ``MIXED_CLASS`` queue, returning one ``"bundle"`` ticket over
-  per-member tickets.  Each queue is kept in canonical order at
+- `submit()` admits a GEMM `GemmRequest` from a tenant into its
+  compatibility class's queue (`core.scheduler.compat_key`), or a
+  sequence of requests — a heterogeneous bundle such as one layer's
+  decode-step ops (GEMMs, the attention read over the KV cache, the SSD
+  state update; §14) — into the shared ``MIXED_CLASS`` queue, returning
+  one ``"bundle"`` ticket over per-member tickets.  Attention and scan
+  ops run only in bundles.  Each queue is kept in canonical order at
   admission, so its plan-cache signature never needs a re-sort.
 - `flush()` serves every class whose head waited ``window_s``: it plans
   each queue through a plan cache keyed by the queue signature and the
@@ -36,8 +38,10 @@ import torch
 
 from repro_torch.core.cost_model import EVAL_COUNTER
 from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.core.op_desc import family_of
 from repro_torch.core.scheduler import (
     CP_OVERHEAD_S,
+    OP_FAMILIES,
     ConcurrencyController,
     GemmRequest,
     GroupPlan,
@@ -194,17 +198,22 @@ class Runtime:
         tenant: str = "default",
         now: float | None = None,
     ) -> Ticket:
-        """Admit one GEMM into its class queue, or a sequence of GEMMs — a
-        heterogeneous bundle — into the shared ``MIXED_CLASS`` queue, which
-        `flush` plans with `ConcurrencyController.plan_mixed`.  Returns one
-        ticket: the op's, or a ``"bundle"`` handle over the members'
-        tickets.  Operands, where given, lie on the runtime's device; with
-        ``RuntimeConfig.execute`` every request carries its operands and
-        is a plain (batch 1) GEMM: batched GEMMs have no kernel yet."""
+        """Admit one GEMM into its class queue, or a sequence of ops of any
+        ported family — a heterogeneous bundle — into the shared
+        ``MIXED_CLASS`` queue, which `flush` plans with
+        `ConcurrencyController.plan_mixed`.  Returns one ticket: the op's,
+        or a ``"bundle"`` handle over the members' tickets.  Operands,
+        where given, lie on the runtime's device; with
+        ``RuntimeConfig.execute`` every request carries its operands, and
+        a GEMM is a plain (batch 1) one: batched GEMMs have no kernel
+        yet."""
         now = self.clock() if now is None else now
         if isinstance(work, (list, tuple)):
             return self._submit_bundle(work, tenant, now)
         request = self._admissible(work)
+        if family_of(request.desc) != "gemm":
+            raise ValueError(f"{request.desc.key()}: a {request.desc.family} "
+                             "op runs in a bundle; submit a sequence")
         key = compat_key(request.desc)
         q = self._queues.get(key)
         if q is None:
@@ -229,15 +238,23 @@ class Runtime:
         return handle
 
     def _admissible(self, request: GemmRequest) -> GemmRequest:
+        """Check a request before admission: a ported family; with
+        ``execute``, its operands (a GEMM's ``a``/``b``, another family's
+        ``inputs``); every operand on the runtime's device."""
+        fam = family_of(request.desc)
+        if fam != "gemm" and fam not in OP_FAMILIES:
+            raise NotImplementedError(
+                f"{request.desc.key()}: the {fam} family is not ported")
+        operands = request.operands
         if self.config.execute:
-            if request.a is None or request.b is None:
+            if operands is None or any(t is None for t in operands):
                 raise ValueError(f"{request.desc.key()}: an executing "
                                  "runtime needs the request's operands")
-            if request.desc.batch != 1:
+            if fam == "gemm" and request.desc.batch != 1:
                 raise NotImplementedError(
                     f"{request.desc.key()}: batched GEMMs have no kernel "
                     "in the port yet")
-        for t in (request.a, request.b):
+        for t in operands or ():
             if t is not None and t.device != self.device:
                 raise ValueError(f"operand on {t.device}, runtime on "
                                  f"{self.device}")
@@ -280,8 +297,9 @@ class Runtime:
                 self.telemetry.record_prewarm_plan(CP_OVERHEAD_S)
         return fresh
 
-    def prewarm_bundle(self, descs: Sequence[GemmDesc]) -> int:
-        """Tune a bundle's GEMMs ahead of traffic and seed the plan cache
+    def prewarm_bundle(self, descs: Sequence) -> int:
+        """Tune a bundle's ops (any ported family) ahead of traffic and seed
+        the plan cache
         with its ``MIXED_CLASS`` signature, so the first flush of the same
         co-submitted set is a cache hit; returns the newly tuned entries."""
         descs = list(descs)
