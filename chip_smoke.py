@@ -14,7 +14,10 @@ Phases, each fatal on failure (nothing here catches an error):
    layout; split 2-8 with wholly empty slices, Stream-K with G from 1 to
    more workgroups than MAC iterations), then the serving path's shapes,
    where the kernel, its plain version and the one PyTorch call computing
-   the same function are timed with CUDA events;
+   the same function are timed with CUDA events.  The Stream-K walk is
+   held to its plain version at the card's geometry (`card_geometry`:
+   CTA tiles from M, W workgroups from the planner's G, the SM count and
+   the kernel's occupancy), and its grid and shared memory are printed;
 4. per-class serving: a full-width, full-depth Qwen3-14B weight set (40
    layers × the four fused bf16 decode GEMMs, ~26.4 GB, random from a
    seed) served through the port's `Runtime` to tenants at batches
@@ -45,7 +48,12 @@ Phases, each fatal on failure (nothing here catches an error):
    the chunk, chunks 8-512, a nonzero initial state, a head-broadcast
    B/C view), then timed at the path's shapes beside their plain
    versions and, for attention, PyTorch's
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``: Qwen3-14B's tenant-16 member and
+   its batch-1 member, each with its grid (CTAs, kv splits) and shared
+   memory printed.  Two planted faults must fail the attention check:
+   the kernel without one 64-key sub-tile (tenant 16), and the kernel's
+   split partials merged without one split (batch 1, 16 splits; the same
+   merge with every split must match the kernel's own output);
 7. op-bundle serving: for Qwen3-14B (40 layers, context 4,096) and
    Zamba2-1.2B (38 layers, context 2,048), at full width, every layer's
    whole decode-step bundle (`decode_step_op_descs`: the GEMMs, the
@@ -121,9 +129,17 @@ from repro_torch.core.library import default_library  # noqa: E402
 from repro_torch.core.scheduler import _run_op  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_buffers,
     attention_tol,
     flash_attention_fwd,
+    flash_combine_ref,
     flash_ref,
+)
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    kernel_resources,
+    split_geometry,
+    tma_loads,
+    width_for,
 )
 from repro_torch.kernels.flash_attention.ops import attention_tiles  # noqa: E402
 from repro_torch.kernels.gemm import (  # noqa: E402
@@ -460,6 +476,12 @@ STREAM_CASES = (  # M, N, K, bm, bn, bk, G
 )
 
 
+def walk_kw(geo) -> dict:
+    """The plain Stream-K walk's arguments for the card's geometry: CTA
+    tiles, the CTA's k step and W workgroups."""
+    return dict(bm=geo.rows, bn=geo.cols, bk=geo.bk, grid_g=geo.workgroups)
+
+
 def op_abs(a, b, ta, tb):
     """|op(a)|, |op(b)| in f32: the tolerance's scale, fed to a plain
     version to get |A|·|B| over exactly that version's K ranges."""
@@ -501,20 +523,19 @@ def split_stream_cases(gen) -> int:
             what = f"Stream-K {M}x{N}x{K} {bm}x{bn}x{bk}g{G} ta{ta:d} tb{tb:d} {dtype}"
             a = randn((K, M) if ta else (M, K), gen, dtype)
             b = randn((N, K) if tb else (K, N), gen, dtype)
-            tm, tn, tk = gemm_kernel.stream_k_tiles(M, N, K, bm, bn, bk)
-            _, _, _, counts, slots = gemm_kernel.stream_k_geometry(tm, tn, tk, G)
-            counts = torch.from_numpy(counts).to(a.device)
-            kw = dict(bm=bm, bn=bn, bk=bk, grid_g=G)
-            p = gemm_kernel.stream_k_partials(a, b, ta=ta, tb=tb, **kw)
-            written = torch.arange(slots, device=a.device)[:, None, None] < \
-                element_counts(counts, M, N, bm, bn)[None]
+            geo = gemm_kernel.card_geometry(M, N, K, dtype, ta, tb, G, a.device)
+            counts = torch.from_numpy(geo.counts).to(a.device)
+            kw = walk_kw(geo)    # the plain walk at the card's geometry
+            p = gemm_kernel.stream_k_partials(a, b, ta=ta, tb=tb, grid_g=G)
+            written = torch.arange(geo.slots, device=a.device)[:, None, None] < \
+                element_counts(counts, M, N, geo.rows, geo.cols)[None]
             aa, ab = op_abs(a, b, ta, tb)
             check_close(torch.where(written, p, 0.0),
                         stream_k_partials_ref(a, b, ta=ta, tb=tb, **kw),
                         stream_k_partials_ref(aa, ab, **kw), what + " partials")
-            check_equal(gemm_kernel.stream_k_fixup(counts, p, bm=bm, bn=bn, dtype=dtype),
-                        stream_k_fixup_ref(counts, p, bm=bm, bn=bn, dtype=dtype),
-                        what + " fixup")
+            fix = dict(bm=geo.rows, bn=geo.cols, dtype=dtype)
+            check_equal(gemm_kernel.stream_k_fixup(counts, p, **fix),
+                        stream_k_fixup_ref(counts, p, **fix), what + " fixup")
             check_close(gemm(a, b, ta=ta, tb=tb, tile=TileConfig(bm, bn, bk, stream_k=G)),
                         gemm_ref(a, b, ta=ta, tb=tb), aa @ ab, what + " gemm")
             n += 1
@@ -566,40 +587,45 @@ def split_stream_kernels(gen) -> dict:
 
     M, N, K, G = 32, 512, 17408, 8
     tile = TileConfig(32, 128, 128, stream_k=G)
-    kw = dict(bm=tile.bm, bn=tile.bn, bk=tile.bk, grid_g=G)
     sets = [(randn((M, K), gen), randn((K, N), gen, scale=K ** -0.5)) for _ in range(4)]
     a, b = sets[0]
-    tm, tn, tk = gemm_kernel.stream_k_tiles(M, N, K, tile.bm, tile.bn, tile.bk)
-    _, _, _, counts_np, slots = gemm_kernel.stream_k_geometry(tm, tn, tk, G)
-    counts = torch.from_numpy(counts_np).to(a.device)
-    written = element_counts(counts, M, N, tile.bm, tile.bn)
-    mask = torch.arange(slots, device=a.device)[:, None, None] < written[None]
-    p = gemm_kernel.stream_k_partials(a, b, **kw)
+    geo = gemm_kernel.card_geometry(M, N, K, bf16, False, False, G, a.device)
+    kw = walk_kw(geo)
+    per_sm, smem = gemm_kernel.walk_resources(a.device, bf16, False, False, geo.rows)
+    print(f"# stream_k_partials grid at {M}x{N}x{K} g{G}: W = {geo.workgroups} "
+          f"workgroups ({per_sm} CTAs of {smem} B shared memory per SM), "
+          f"{geo.live} live CTAs of {geo.rows}x{geo.cols}, k step {geo.bk}, "
+          f"{geo.ipw} iterations each, {geo.slots} slots")
+    counts = torch.from_numpy(geo.counts).to(a.device)
+    written = element_counts(counts, M, N, geo.rows, geo.cols)
+    mask = torch.arange(geo.slots, device=a.device)[:, None, None] < written[None]
+    p = gemm_kernel.stream_k_partials(a, b, grid_g=G)
     err = check_close(torch.where(mask, p, 0.0), stream_k_partials_ref(a, b, **kw),
                       stream_k_partials_ref(a.float().abs(), b.float().abs(), **kw),
                       "stream_k_partials main")
     part_bytes = int(written.sum()) * 4          # the slots this walk writes
     shape = f"{M}x{N}x{K} at {tile.key()}"
     rows["stream_k_partials"] = [dict(
-        shape=shape, instantiation=gemm_kernel.instantiation(bf16, tile.bm),
+        shape=shape, instantiation=(f"bf16 {geo.rows}x{geo.cols}x{geo.bk}, W {geo.workgroups} "
+                                    f"({geo.live} live), {smem} B shared"),
+        grid=dict(workgroups=geo.workgroups, live=geo.live, ctas_per_sm=per_sm,
+                  smem_bytes=smem),
         max_abs_err=err,
-        ms=time_ms(rotating(lambda x, y: gemm_kernel.stream_k_partials(x, y, out=p, **kw),
-                            sets)),
+        ms=time_ms(rotating(lambda x, y: gemm_kernel.stream_k_partials(x, y, grid_g=G,
+                                                                       out=p), sets)),
         plain_ms=time_ms(lambda: stream_k_partials_ref(a, b, **kw), reps=3, warmup=1,
-                         queued=False),   # 544 launches a call: more than the queue holds
+                         queued=False),   # thousands of launches a call
         library_ms=time_ms(rotating(torch.matmul, sets)),
         bound=bound((M * K + K * N) * 2 + part_bytes, 2 * M * N * K, bf16))]
-    out = gemm_kernel.stream_k_fixup(counts, p, bm=tile.bm, bn=tile.bn, dtype=bf16)
-    err = check_equal(out, stream_k_fixup_ref(counts, p, bm=tile.bm, bn=tile.bn,
-                                              dtype=bf16), "stream_k_fixup main")
+    fix = dict(bm=geo.rows, bn=geo.cols, dtype=bf16)
+    out = gemm_kernel.stream_k_fixup(counts, p, **fix)
+    err = check_equal(out, stream_k_fixup_ref(counts, p, **fix), "stream_k_fixup main")
     c = torch.empty_like(out)
     rows["stream_k_fixup"] = [dict(
-        shape=f"{slots}x{M}x{N} f32 partials -> bf16 ({shape})",
+        shape=f"{geo.slots}x{M}x{N} f32 partials -> bf16 ({shape})",
         instantiation="256 threads, grid-stride", max_abs_err=err,
-        ms=time_ms(lambda: gemm_kernel.stream_k_fixup(counts, p, bm=tile.bm, bn=tile.bn,
-                                                      dtype=bf16, out=c)),
-        plain_ms=time_ms(lambda: stream_k_fixup_ref(counts, p, bm=tile.bm, bn=tile.bn,
-                                                    dtype=bf16), reps=5),
+        ms=time_ms(lambda: gemm_kernel.stream_k_fixup(counts, p, out=c, **fix)),
+        plain_ms=time_ms(lambda: stream_k_fixup_ref(counts, p, **fix), reps=5),
         library_ms=time_ms(lambda: p.sum(0).to(bf16)),
         bound=bound(part_bytes + counts.numel() * 4 + M * N * 2, part_bytes // 4, f32))]
     for name, rs in rows.items():
@@ -674,7 +700,7 @@ KERNEL_KINDS = (("matmul_kernel", "matmul"), ("grouped_kernel", "grouped_matmul"
                 ("repro::reduce_kernel", "splitk_reduce"),
                 ("stream_k_kernel", "stream_k_partials"),
                 ("fixup_kernel", "stream_k_fixup"),
-                ("ragged_kernel", "ragged_matmul"), ("flash_kernel", "flash_attention"),
+                ("ragged_kernel", "ragged_matmul"), ("flash_bf16_kernel", "flash_attention"),
                 ("mamba_kernel", "mamba_scan"), ("Cat", "stack/cat copy"),
                 ("reduce", "isfinite checks"))
 
@@ -1091,39 +1117,91 @@ def scan_flops(B, T, H, P, N, L) -> int:
     return B * H * per
 
 
-def attention_scan_kernels(gen, lib) -> dict:
-    """The op-bundle path's attention and scan members: Qwen3-14B's
-    tenant-16 attention (K+V 268 MB, beyond the 50 MB L2) and Zamba2's
-    tenant-16 scan, plus one long-prefill scan.  Each is compared, then
-    timed beside its plain version and, for attention, the PyTorch call
-    computing the same function."""
+def dropped_split_fault(q, k, v, bufs, q_offset: int) -> None:
+    """The combine's check at a split shape of the path: the kernel's own split
+    partials merged in split order, as the kernel merges them, agree with
+    its output within a bf16 unit; merged without one split they must fail
+    `check_attention`.  Prints how far off that is."""
+    splits = bufs.part_acc.shape[0] if bufs.part_acc is not None else 1
+    if splits < 2:
+        raise AssertionError("this attention shape runs one kv split: no combine")
+    merged = flash_combine_ref(bufs.part_acc, bufs.part_ml, q.dtype)
+    check_tol(bufs.out, merged, 1e-6, 2.0 ** -7, "kernel merge vs plain combine")
+    drop = splits // 2
+    keep = [i for i in range(splits) if i != drop]
+    fault = flash_combine_ref(bufs.part_acc[keep], bufs.part_ml[keep], q.dtype)
+    ref = attention_f32_ref(q, k, v, q_offset)
+    err, n_bad = tol_excess(fault, ref, *attention_tol(fault.dtype), "dropped split")
+    print(f"# planted fault (the combine without split {drop} of {splits}) at "
+          f"{tuple(q.shape)}: max |err| {err:.4g}; {n_bad} of {fault.numel()} outputs "
+          "beyond the attention tolerance")
+    if not n_bad:
+        raise AssertionError("the attention tolerance lets a dropped kv split through")
+
+
+def attention_member(B: int, gen, lib) -> dict:
+    """Qwen3-14B's decode attention member at batch B (Hq 40, Hkv 8, Skv
+    4,096, D 128, bf16): compared, then timed beside its plain version and
+    SDPA, on operand sets rotating beyond the 50 MB L2 (K+V is 16.8 MB per
+    sequence).  A planted fault runs at each shape: skipped keys at batch
+    16, a dropped kv split at batch 1 (16 splits)."""
     bf16 = torch.bfloat16
-    desc = AttentionDesc(16, 40, 8, 1, 4096, 128)
+    desc = AttentionDesc(B, 40, 8, 1, 4096, 128)
     tile = lib.get(desc).isolated
     kw = dict(q_offset=desc.Skv - desc.Sq, **attention_tiles(tile))
-    q = randn((desc.B, desc.Hq, desc.Sq, desc.D), gen)
-    k = randn((desc.B, desc.Hkv, desc.Skv, desc.D), gen)
-    v = randn((desc.B, desc.Hkv, desc.Skv, desc.D), gen)
-    out = flash_attention_fwd(q, k, v, **kw)
-    err = check_attention(out, q, k, v, kw["q_offset"], "flash main")
-    planted_fault(q, k, v, kw)
+    sets = [(randn((desc.B, desc.Hq, desc.Sq, desc.D), gen),
+             randn((desc.B, desc.Hkv, desc.Skv, desc.D), gen),
+             randn((desc.B, desc.Hkv, desc.Skv, desc.D), gen))
+            for _ in range(-(-8 // B))]
+    q, k, v = sets[0]
+    bufs = attention_buffers(q, k, v)
+    out = flash_attention_fwd(q, k, v, out=bufs, **kw)
+    err = check_attention(out, q, k, v, kw["q_offset"], f"flash B{B}")
+    splits, split_len = split_geometry(q, k, v)
+    per_sm, smem = kernel_resources(q.device, bf16, width_for(desc.D, desc.D))
+    ctas = desc.B * desc.Hkv * -(-(desc.Hq // desc.Hkv * desc.Sq) // 16) * splits
+    print(f"# flash_attention grid at B{B}: {ctas} CTAs = {desc.B * desc.Hkv} (batch, kv "
+          f"head) x {splits} kv splits of {split_len} keys; {smem} B shared memory per "
+          f"CTA, {per_sm} CTAs per SM; K/V by {'TMA' if tma_loads(k, v) else 'registers'}")
+    if B == 16:
+        planted_fault(q, k, v, kw)
+    else:
+        dropped_split_fault(q, k, v, bufs, kw["q_offset"])
     # Every key is visible to the decode row (q_offset = Skv − 1), so the
     # non-causal SDPA call computes the same function.
     sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v, enable_gqa=True)
     check_tol(sdpa, attention_f32_ref(q, k, v, kw["q_offset"]), SDPA_TOL, SDPA_TOL,
-              "SDPA main")
+              f"SDPA B{B}")
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
-    rows = {"flash_attention": [dict(
+    return dict(
         shape=f"B{desc.B} Hq{desc.Hq} Hkv{desc.Hkv} Sq{desc.Sq} Skv{desc.Skv} D{desc.D} "
               f"at {tile.key()} (bq {kw['bq']}, bkv {kw['bkv']})",
-        instantiation="bf16 head dim ≤ 128, 16 rows × 64-key sub-tiles", max_abs_err=err,
-        ms=time_ms(lambda: flash_attention_fwd(q, k, v, out=out, **kw)),
+        instantiation=(f"bf16 head dim ≤ 128, {ctas} CTAs ({splits} splits of {split_len} "
+                       f"keys), {smem} B shared"),
+        grid=dict(ctas=ctas, splits=splits, split_len=split_len, ctas_per_sm=per_sm,
+                  smem_bytes=smem),
+        max_abs_err=err,
+        ms=time_ms(rotating(lambda x, y, z: flash_attention_fwd(x, y, z, out=bufs, **kw),
+                            sets)),
         plain_ms=time_ms(lambda: flash_ref(q, k, v, q_offset=kw["q_offset"]), reps=3,
                          warmup=1),
-        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, enable_gqa=True)),
-        bound=bound(nbytes, desc.flops, bf16))]}
-    del q, k, v, out, sdpa
+        library_ms=time_ms(rotating(
+            lambda x, y, z: torch.nn.functional.scaled_dot_product_attention(
+                x, y, z, enable_gqa=True), sets)),
+        bound=bound(nbytes, desc.flops, bf16))
+
+
+def attention_scan_kernels(gen, lib) -> dict:
+    """The op-bundle path's attention and scan members: Qwen3-14B's
+    tenant-16 attention (K+V 268 MB, beyond the 50 MB L2) and its batch-1
+    member (eight operand sets, 134 MB), Zamba2's tenant-16 scan, plus one
+    long-prefill scan.  Each is compared, then timed beside its plain
+    version and, for attention, the PyTorch call computing the same
+    function."""
+    bf16 = torch.bfloat16
+    rows = {"flash_attention": [attention_member(16, gen, lib),
+                                attention_member(1, gen, lib)]}
+    torch.cuda.empty_cache()
 
     rows["mamba_scan"] = []
     sdesc = ScanDesc(16, 1, 64, 64, 64)
@@ -1340,6 +1418,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "shape": r["shape"],
             "instantiation": r["instantiation"], "launches": path["counts"][name],
+            **({"grid": r["grid"]} if "grid" in r else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

@@ -383,12 +383,13 @@ def _run_mixed(reqs: Sequence[GemmRequest],
     """The members of one ``mixed`` group, each through its family op at
     its own tile.  On the CPU they run in order, as in the reference.  On
     the card they run at once, one side stream each: every buffer a
-    member writes (outputs, split-K and Stream-K partials, a scan's final
-    state) is allocated on the launching stream first, the side streams
-    wait on an event recorded there, and the launching stream waits on
-    each member's end event before this returns — so no buffer is freed
-    while a side stream still uses it, and work queued after the launch
-    sees every result.  The attention and scan kernels read their inputs
+    member writes (outputs, split-K and Stream-K partials, attention's
+    split partials and counters, a scan's final state) is allocated on
+    the launching stream first, the side streams wait on an event
+    recorded there, and the launching stream waits on each member's end
+    event before this returns — so no buffer is freed while a side
+    stream still uses it, and work queued after the launch sees every
+    result.  The attention and scan kernels read their inputs
     through strides, so no member stages a copy on its side stream."""
     dev = reqs[0].operands[0].device
     if dev.type != "cuda":

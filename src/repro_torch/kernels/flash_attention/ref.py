@@ -6,6 +6,10 @@
                 the CPU path of `ops.flash_attention` and the version
                 `chip_smoke.py` holds the CUDA kernel against, within
                 ``attention_tol``.
+``flash_split_ref`` / ``flash_combine_ref`` — the kernel's split-KV
+                arithmetic: per split of the kv range, each row's f32
+                (m, l, acc) in the kernel's partial layout, and their
+                merge in split order.
 
 Layouts: q (B, Hq, T, D); k, v (B, Hkv, S, D); GQA via Hq % Hkv == 0 (q
 head h reads kv head h // (Hq/Hkv)).  ``window > 0`` is sliding-window
@@ -84,6 +88,59 @@ def flash_ref(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
         m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l[..., None]).to(q.dtype)
+
+
+def flash_split_ref(q, k, v, *, split_len: int, causal=True, window=0,
+                    scale=None, q_offset=0):
+    """Per split [s·split_len, (s+1)·split_len) ∩ [0, S) of the keys, each
+    row's softmax state over the keys of the split it sees, in f32 and in
+    the CUDA kernel's partial layout: ``(part_acc, part_ml)``, (splits, B,
+    Hq, T, Dv) and (splits, B, Hq, T, 2).  m is the max of the row's
+    visible scores (-1e30 when it sees none), l = Σ e^(s − m) over them and
+    acc = Σ e^(s − m)·v; masked keys weigh 0, so a split a row cannot see
+    has l = 0 and acc = 0."""
+    B, Hq, T, D = q.shape
+    _, Hkv, S, _ = k.shape
+    Dv = v.shape[-1]
+    scale = scale if scale is not None else D ** -0.5
+    rep = Hq // Hkv
+    splits = max(1, -(-S // split_len))
+    qpos = torch.arange(T, device=q.device) + q_offset
+    qf = q.float() * scale
+    part_acc = q.new_zeros((splits, B, Hq, T, Dv), dtype=torch.float32)
+    part_ml = q.new_zeros((splits, B, Hq, T, 2), dtype=torch.float32)
+    for sp in range(splits):
+        lo, hi = sp * split_len, min((sp + 1) * split_len, S)
+        kpos = torch.arange(lo, hi, device=q.device)
+        krep = k[:, :, lo:hi].float().repeat_interleave(rep, dim=1)
+        vrep = v[:, :, lo:hi].float().repeat_interleave(rep, dim=1)
+        sc = torch.einsum("bhtd,bhsd->bhts", qf, krep)
+        msk = _mask(qpos, kpos, causal, window)[None, None]
+        m = torch.where(msk, sc, torch.tensor(NEG_INF, device=q.device))
+        m = m.amax(-1) if hi > lo else torch.full((B, Hq, T), NEG_INF,
+                                                   device=q.device)
+        p = torch.where(msk, torch.exp(sc - m[..., None]), 0.0)
+        part_ml[sp, ..., 0] = m
+        part_ml[sp, ..., 1] = p.sum(-1)
+        part_acc[sp] = torch.einsum("bhts,bhsd->bhtd", p, vrep)
+    return part_acc, part_ml
+
+
+def flash_combine_ref(part_acc, part_ml, dtype):
+    """The splits merged in split order: out = Σ_s e^(m_s − M)·acc_s /
+    Σ_s e^(m_s − M)·l_s with M = max_s m_s, cast once to ``dtype``; a
+    row whose l sums to 0 (it sees no key) gets 0, as the kernel writes."""
+    m = part_ml[..., 0]
+    big = m.amax(0)
+    l_sum = torch.zeros_like(big)
+    acc = torch.zeros_like(part_acc[0])
+    for sp in range(part_acc.shape[0]):
+        f = torch.exp(m[sp] - big)
+        l_sum = l_sum + part_ml[sp, ..., 1] * f
+        acc = acc + part_acc[sp] * f[..., None]
+    out = torch.where(l_sum[..., None] == 0, 0.0,
+                      acc / torch.where(l_sum == 0, 1.0, l_sum)[..., None])
+    return out.to(dtype)
 
 
 def attention_tol(dtype: torch.dtype) -> tuple[float, float]:

@@ -6,7 +6,10 @@ the plain versions.
 - ``splitk_partials`` and ``splitk_reduce`` (`csrc/gemm_split_k.cu`)
   replace `:65 _matmul_splitk_kernel` and `:86 _reduce_kernel`;
 - ``stream_k_partials`` and ``stream_k_fixup`` (`csrc/gemm_stream_k.cu`)
-  replace `:215 _stream_k_kernel` and `:247 _stream_k_fixup_kernel`.
+  replace `:215 _stream_k_kernel` and `:247 _stream_k_fixup_kernel`.  The
+  walk runs in the card's units (`card_geometry`): CTA tiles picked from
+  M, and W workgroups from the planner's G, the SM count and the
+  kernel's occupancy.
 
 Every kernel is bound by bytes on the serving path (decode GEMMs stream
 weights far larger than their activations); the sources say how their
@@ -19,6 +22,8 @@ else allocates it, and adds one to its ``launches`` count per launch.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,10 +48,11 @@ _SPLIT_K_SIGNATURES = {
 }
 _STREAM_K_SIGNATURES = {
     "repro_stream_k_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
-                                   _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
-                                   _P)),
+                                   _LL, _LL, _LL, _LL, _LL, _P)),
     "repro_stream_k_fixup": (_I, (_P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL,
                                   _P)),
+    "repro_stream_k_occupancy": (_I, (_I, _I, _I, _I, ctypes.POINTER(_I),
+                                      ctypes.POINTER(_I))),
     **_ERROR,
 }
 
@@ -102,8 +108,110 @@ def stream_k_geometry(tm: int, tn: int, tk: int, grid_g: int):
 def stream_k_tiles(M: int, N: int, K: int, bm: int, bn: int, bk: int
                    ) -> tuple[int, int, int]:
     """``(tm, tn, tk)``: the output tiles and k blocks of an M×N×K GEMM in
-    `TileConfig` units (the reference's padded dims over the tile)."""
+    units of bm×bn tiles and bk k blocks (the padded dims over the tile):
+    the planner's `TileConfig` or the card's CTA tile."""
     return -(-M // bm), -(-N // bn), -(-K // bk)
+
+
+def planner_g_max() -> int:
+    """G_max, the planner's cap on a Stream-K tile's workgroups
+    (`core/tuner.py:stream_k_grid`: pipeline_fill_tiles·4 = 8)."""
+    from repro_torch.core.cost_model import DEFAULT_SPEC
+    return DEFAULT_SPEC.pipeline_fill_tiles * 4
+
+
+def stream_k_workgroups(grid_g: int, g_max: int, sms: int, ctas_per_sm: int
+                        ) -> int:
+    """W = ⌈G / G_max · SMs · CTAs_per_SM⌉ (at least 1): the card's
+    workgroup count for a member the planner gave G of its G_max
+    workgroups, so that G = G_max fills the card and a smaller G takes
+    a proportional share of its SMs."""
+    return max(1, -(-grid_g * sms * ctas_per_sm // g_max))
+
+
+def walk_rows(M: int) -> int:
+    """The Stream-K walk's CTA row tile, from M (not from the tile's bm):
+    16 rows for M ≤ 16, 32 for M ≤ 32, else 64."""
+    return 16 if M <= 16 else 32 if M <= 32 else 64
+
+
+class StreamKGeometry(NamedTuple):
+    """The Stream-K walk in the card's units: CTA tiles of ``rows`` ×
+    ``cols`` with k step ``bk``, ``workgroups`` = W; and what
+    `stream_k_geometry` gives for them (``counts`` is (tm, tn) int32
+    numpy)."""
+
+    rows: int
+    cols: int
+    bk: int
+    workgroups: int
+    tm: int
+    tn: int
+    tk: int
+    total: int
+    ipw: int
+    live: int
+    counts: np.ndarray
+    slots: int
+
+
+def walk_geometry(M: int, N: int, K: int, dtype: torch.dtype, workgroups: int
+                  ) -> StreamKGeometry:
+    """The walk of an M×N×K GEMM over CTA tiles (`walk_rows` × 64, the
+    CTA's k step `cta_k`) by ``workgroups`` workgroups."""
+    rows = walk_rows(M)
+    bk = cta_k(dtype, rows)
+    tm, tn, tk = stream_k_tiles(M, N, K, rows, CTA_COLS, bk)
+    total, ipw, live, counts, slots = stream_k_geometry(tm, tn, tk, workgroups)
+    return StreamKGeometry(rows, CTA_COLS, bk, workgroups, tm, tn, tk, total,
+                           ipw, live, counts, slots)
+
+
+@lru_cache(maxsize=None)
+def walk_resources(device: torch.device, dtype: torch.dtype, ta: bool,
+                   tb: bool, rows: int) -> tuple[int, int]:
+    """``(ctas_per_sm, smem_bytes)`` of the walk kernel's instantiation:
+    the CTAs that fit on one SM at once
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) and one CTA's
+    shared memory (its ring of k-slab stages and its epilogue staging)."""
+    lib = _build.load("gemm_stream_k", _STREAM_K_SIGNATURES)
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = lib.repro_stream_k_occupancy(DTYPE_CODES[dtype], int(ta), int(tb),
+                                            rows, ctypes.byref(blocks),
+                                            ctypes.byref(smem))
+    raise_on_error(lib, code, "stream_k occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"the Stream-K walk ({dtype}, {rows} rows) fits no "
+                           "CTA on an SM")
+    return blocks.value, smem.value
+
+
+@lru_cache(maxsize=1024)
+def card_geometry(M: int, N: int, K: int, dtype: torch.dtype, ta: bool,
+                  tb: bool, grid_g: int, device: torch.device
+                  ) -> StreamKGeometry:
+    """The walk a Stream-K tile of ``grid_g`` workgroups runs on this
+    card: W from `stream_k_workgroups` with the device's SM count and
+    the kernel's occupancy."""
+    if M == 0 or N == 0 or K == 0:
+        raise ValueError(f"stream_k_partials: empty GEMM {M}x{N}x{K}")
+    if grid_g < 1:
+        raise ValueError(f"grid_g={grid_g} must be ≥ 1")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = walk_rows(M)
+    w = stream_k_workgroups(grid_g, planner_g_max(), sms,
+                            walk_resources(device, dtype, ta, tb, rows)[0])
+    return walk_geometry(M, N, K, dtype, w)
+
+
+@lru_cache(maxsize=1024)
+def card_counts(M: int, N: int, K: int, dtype: torch.dtype, ta: bool,
+                tb: bool, grid_g: int, device: torch.device) -> torch.Tensor:
+    """`card_geometry`'s contributor counts as an int32 tensor on the
+    card, copied there once per (device, geometry)."""
+    geo = card_geometry(M, N, K, dtype, ta, tb, grid_g, device)
+    return torch.from_numpy(geo.counts).to(device)
 
 
 def gemm_dims(a: torch.Tensor, b: torch.Tensor, ta: bool, tb: bool
@@ -243,31 +351,27 @@ def splitk_reduce(partials: torch.Tensor, dtype: torch.dtype, *, out=None
 
 
 def stream_k_partials(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
-                      tb: bool = False, bm: int, bn: int, bk: int,
-                      grid_g: int, out=None) -> torch.Tensor:
-    """The Stream-K walk on the card: ``grid_g`` workgroups deal the
-    tile-major MAC iterations (`TileConfig` tiles bm×bn, k blocks bk) into
-    equal spans; each stores one f32 partial per tile it touches, at slot
+                      tb: bool = False, grid_g: int, out=None) -> torch.Tensor:
+    """The Stream-K walk on the card for a tile of ``grid_g`` planner
+    workgroups: W = `card_geometry(...).workgroups` workgroups deal the
+    tile-major MAC iterations of the card's CTA tiles into equal spans;
+    each stores one f32 partial per tile it touches, at slot
     g − first_contributor(tile).  Returns P, (slots, M, N) float32; the
     slots of a tile past its contributor count are left unwritten."""
     dtype = check_operands(a, b, what="stream_k_partials")
     M, N, K = gemm_dims(a, b, ta, tb)
-    if min(bm, bn, bk, grid_g) < 1:
-        raise ValueError(f"bm={bm}, bn={bn}, bk={bk}, grid_g={grid_g} must be ≥ 1")
-    if M == 0 or N == 0 or K == 0:
-        raise ValueError(f"stream_k_partials: empty GEMM {M}x{N}x{K}")
-    tm, tn, tk = stream_k_tiles(M, N, K, bm, bn, bk)
-    total, ipw, g_live, _, slots = stream_k_geometry(tm, tn, tk, grid_g)
-    rows = cta_rows(bm)
-    if -(-bm // rows) > MAX_GRID_Y or -(-bn // CTA_COLS) > MAX_GRID_Y:
-        raise ValueError(f"tile {bm}x{bn} exceeds the kernel's grid")
-    p = output(out, (slots, M, N), torch.float32, a.device, "stream_k_partials")
+    geo = card_geometry(M, N, K, dtype, ta, tb, grid_g, a.device)
+    if geo.total >= 2 ** 31:
+        raise ValueError(f"stream_k_partials: {geo.total} MAC iterations exceed "
+                         "the kernel's 32-bit walk")
+    p = output(out, (geo.slots, M, N), torch.float32, a.device,
+               "stream_k_partials")
     lib = _build.load("gemm_stream_k", _STREAM_K_SIGNATURES)
     with torch.cuda.device(a.device):
         code = lib.repro_stream_k_matmul(
             a.data_ptr(), b.data_ptr(), p.data_ptr(), DTYPE_CODES[dtype],
-            int(ta), int(tb), rows, M, N, K, bm, bn, bk, tn, tk, total, ipw,
-            g_live, _stream(a.device))
+            int(ta), int(tb), geo.rows, M, N, K, geo.tn, geo.tk, geo.total,
+            geo.ipw, geo.live, _stream(a.device))
     raise_on_error(lib, code, "stream_k_partials")
     stream_k_partials.launches += 1
     return p
@@ -275,9 +379,11 @@ def stream_k_partials(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
 
 def stream_k_fixup(counts: torch.Tensor, partials: torch.Tensor, *, bm: int,
                    bn: int, dtype: torch.dtype, out=None) -> torch.Tensor:
-    """Per element of tile (i, j), the sum of the first ``counts[i, j]``
-    slots of ``partials`` (slots, M, N) float32 in slot order, cast to
-    ``dtype``.  ``counts`` is (tm, tn) int32 on the partials' device."""
+    """Per element of tile (i, j) of bm×bn, the sum of the first
+    ``counts[i, j]`` slots of ``partials`` (slots, M, N) float32 in slot
+    order, cast to ``dtype``.  ``counts`` is (tm, tn) int32 on the
+    partials' device; on the kernels' path bm×bn is the walk's CTA tile
+    (`card_geometry`)."""
     check_operands(partials, what="stream_k_fixup")
     if partials.dim() != 3 or partials.dtype != torch.float32:
         raise ValueError(f"stream_k_fixup takes (slots, M, N) float32, got "

@@ -6,9 +6,12 @@
 ``stream_k > 0``, split-K partials and their reduce for an effective
 split above 1, else the single GEMM kernel.  CPU tensors take each
 kernel's plain version (`ref.py`), CUDA tensors the hand-written kernels
-or raise.  The kernels mask ragged edges themselves, so operands are
-never padded.  The backward pass (two independent GEMMs) belongs to
-training and is not ported yet.
+or raise.  The Stream-K walk keeps the reference's geometry (the tile's
+bm×bn×bk and G) on the CPU; on the card it runs in the card's units
+(`kernel.card_geometry`), which regroups the f32 partials and so the
+summation order, not the function.  The kernels mask ragged edges
+themselves, so operands are never padded.  The backward pass (two
+independent GEMMs) belongs to training and is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.gemm.kernel import (
+    card_counts,
+    card_geometry,
     gemm_dims,
     matmul,
     split_k_slices,
@@ -77,7 +82,8 @@ class TileConfig:
 class GemmBuffers(NamedTuple):
     """Every tensor one `gemm` launch writes on the card: the output, the
     f32 partials of a split-K or Stream-K tile, and a Stream-K tile's
-    contributor counts (int32, copied to the card here)."""
+    contributor counts (int32; on the card, kept per geometry by
+    `card_counts`)."""
 
     out: torch.Tensor
     partials: Optional[torch.Tensor] = None
@@ -87,16 +93,23 @@ class GemmBuffers(NamedTuple):
 def gemm_buffers(a, b, *, ta: bool = False, tb: bool = False,
                  tile: TileConfig = TileConfig()) -> GemmBuffers:
     """Allocate, on the current stream, the buffers `gemm` writes for
-    these operands and tile."""
+    these operands and tile.  A Stream-K tile's partials and counts
+    follow the decomposition the device runs: on the card the walk's
+    `card_geometry`, on the CPU the planner's tile and G."""
     M, N, K = gemm_dims(a, b, ta, tb)
     dev = a.device
     out = torch.empty((M, N), dtype=a.dtype, device=dev)
     if tile.stream_k > 0:
-        tm, tn, tk = stream_k_tiles(M, N, K, tile.bm, tile.bn, tile.bk)
-        _, _, _, counts, slots = stream_k_geometry(tm, tn, tk, tile.stream_k)
+        if dev.type == "cuda":
+            key = (M, N, K, a.dtype, ta, tb, tile.stream_k, dev)
+            slots, counts = card_geometry(*key).slots, card_counts(*key)
+        else:
+            tm, tn, tk = stream_k_tiles(M, N, K, tile.bm, tile.bn, tile.bk)
+            _, _, _, cnt, slots = stream_k_geometry(tm, tn, tk, tile.stream_k)
+            counts = torch.from_numpy(cnt).to(dev)
         return GemmBuffers(
             out, torch.empty((slots, M, N), dtype=torch.float32, device=dev),
-            torch.from_numpy(counts).to(dev))
+            counts)
     split, _ = split_k_slices(K, tile.bk, tile.split_k)
     if split > 1:
         return GemmBuffers(out, torch.empty((split, M, N), dtype=torch.float32,
@@ -129,10 +142,11 @@ def gemm(a, b, *, ta: bool = False, tb: bool = False,
     buf = buffers if buffers is not None else gemm_buffers(a, b, ta=ta, tb=tb,
                                                            tile=tile)
     if tile.stream_k > 0:
-        stream_k_partials(a, b, ta=ta, tb=tb, bm=tile.bm, bn=tile.bn,
-                          bk=tile.bk, grid_g=tile.stream_k, out=buf.partials)
-        return stream_k_fixup(buf.counts, buf.partials, bm=tile.bm, bn=tile.bn,
-                              dtype=a.dtype, out=buf.out)
+        stream_k_partials(a, b, ta=ta, tb=tb, grid_g=tile.stream_k,
+                          out=buf.partials)
+        geo = card_geometry(M, N, K, a.dtype, ta, tb, tile.stream_k, a.device)
+        return stream_k_fixup(buf.counts, buf.partials, bm=geo.rows,
+                              bn=geo.cols, dtype=a.dtype, out=buf.out)
     if split > 1:
         splitk_partials(a, b, ta=ta, tb=tb, bm=tile.bm, split=split,
                         slice_k=slice_k, out=buf.partials)

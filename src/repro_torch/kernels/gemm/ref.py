@@ -8,6 +8,12 @@ function, so the CPU path runs the decomposition the card runs and
 `splitk_partials_ref`/`splitk_reduce_ref` and
 `stream_k_partials_ref`/`stream_k_fixup_ref`.  Partials sum their k
 blocks of ``bk`` in K order, as the reference's sequential k grid does.
+
+The Stream-K versions take their geometry explicitly: tiles of bm×bn, k
+blocks of bk and ``grid_g`` workgroups.  The CPU path of `ops.gemm`
+passes the planner's `TileConfig` and G (what the JAX package computes);
+`chip_smoke.py` passes the card's walk (`kernel.card_geometry`: CTA
+tiles, the CTA's k step and W) to hold the kernel to its plain version.
 """
 from __future__ import annotations
 
@@ -61,9 +67,9 @@ def splitk_reduce_ref(partials, dtype) -> torch.Tensor:
 def stream_k_partials_ref(a, b, *, ta: bool = False, tb: bool = False,
                           bm: int, bn: int, bk: int, grid_g: int
                           ) -> torch.Tensor:
-    """(slots, M, N) f32: per output tile q and each workgroup g that
-    walks part of it, the sum of its iterations' block products at slot
-    g − first_contributor(q).  Slots past a tile's count hold zeros (the
+    """(slots, M, N) f32: per bm×bn output tile q and each of the
+    ``grid_g`` workgroups g that walks part of it, the sum of its
+    iterations' bk-block products at slot g − first_contributor(q).  Slots past a tile's count hold zeros (the
     kernel leaves them unwritten; the fixup never reads them)."""
     M, N, K = gemm_dims(a, b, ta, tb)
     if M == 0 or N == 0 or K == 0:

@@ -7,7 +7,10 @@ the CUDA kernel itself runs only on the card (`chip_smoke.py`).
 Tolerances are the reference tests' own (`tests/test_kernel_attention.py`):
 2e-4 in f32, 3e-2 in bf16.  Every compared row sees at least one key
 (the kernels and the plain versions differ on rows that see none;
-ROADMAP queue C)."""
+ROADMAP queue C).  The CUDA kernel splits the kv range over CTAs and
+merges the splits in split order; its plain split version
+(`flash_split_ref` and `flash_combine_ref`) is held here to the Pallas
+body, with splits that some rows cannot see at all."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +27,10 @@ from repro_torch.kernels.flash_attention import (
     attention_tol,
     flash_attention,
     flash_attention_fwd,
+    flash_combine_ref,
     flash_ref,
+    flash_split_ref,
+    kv_splits,
     mha_ref,
 )
 from repro_torch.kernels.flash_attention.kernel import attention_shapes, width_for
@@ -159,3 +165,81 @@ def test_kernel_tolerance_passes_reordered_sums_and_fails_a_skipped_subtile(dtyp
     keep[2048:2112] = False
     skipped = flash_ref(q, k[:, :, keep], v[:, :, keep], q_offset=S - 65).to(TDT[dtype])
     assert beyond(skipped) > 0.25 * skipped.numel()
+
+
+# --------------------------------------------------------- split-KV arithmetic
+# (B, Hq, Hkv, T, S, D, Dv, causal, window, q_offset, bq, bkv)
+SPLIT_CASES = {
+    "decode-gqa": (2, 10, 2, 1, 1024, 64, 64, True, 0, 1023, 8, 128),
+    "prefill-causal": (1, 4, 2, 96, 1024, 32, 32, True, 0, 0, 64, 128),
+    "window": (1, 4, 4, 40, 1024, 32, 32, True, 96, 984, 64, 128),
+    "negative-q-offset": (1, 4, 2, 48, 1024, 32, 16, True, 0, -8, 64, 256),
+}
+
+
+def _split_len(S, splits):
+    """Keys per split for ``splits`` splits, a multiple of the kernel's
+    64-key tile (as `kv_splits` cuts them)."""
+    return -(-(-(-S // splits)) // 64) * 64
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("splits", [1, 3, 16])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=list(SPLIT_CASES))
+def test_split_kv_plain_version_matches_pallas_interpret(case, splits, dtype):
+    """Per-split (m, l, acc) merged in split order equals the Pallas
+    body's attention on every row that sees a key, including splits a row
+    cannot see (past the causal frontier, before the window, or wholly
+    past a row at a negative offset): those splits carry l = 0."""
+    B, Hq, Hkv, T, S, D, Dv, causal, window, off, bq, bkv = SPLIT_CASES[case]
+    (q, k, v), (jq, jk, jv) = _both(_qkv(17 + splits, B, Hq, Hkv, T, S, D, Dv), dtype)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    split_len = _split_len(S, splits)
+    part_acc, part_ml = flash_split_ref(q, k, v, split_len=split_len, **kw)
+    assert part_acc.shape == (splits, B, Hq, T, Dv) and part_ml.shape[0] == splits
+    got = flash_combine_ref(part_acc, part_ml, TDT[dtype])
+    want = jflash_attention(jq, jk, jv, bq=bq, bkv=bkv, interpret=True, **kw)
+    seen = np.arange(T) + off >= 0
+    np.testing.assert_allclose(
+        got.float().numpy()[:, :, seen],
+        np.asarray(jnp.asarray(want).astype(jnp.float32))[:, :, seen],
+        rtol=TOL[dtype], atol=TOL[dtype])
+    if splits > 1 and case != "decode-gqa":   # a split some row cannot see: l = 0
+        assert (part_ml[..., 1] == 0).any()
+        masked = part_ml[..., 1] == 0
+        assert not part_acc[masked].any()
+
+
+def test_dropping_a_split_fails_the_kernel_tolerance():
+    """`attention_tol` catches a combine that leaves out one split: at the
+    decode member's widths with 16 splits of 256 keys, most outputs move
+    beyond it."""
+    B, Hq, Hkv, S, D = 1, 40, 8, 4096, 128
+    g = torch.Generator().manual_seed(15)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).float()
+               for shape in ((B, Hq, 1, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    part_acc, part_ml = flash_split_ref(q, k, v, split_len=256, q_offset=S - 1)
+    ref = flash_ref(q, k, v, q_offset=S - 1)
+    atol, rtol = attention_tol(torch.bfloat16)
+    full = flash_combine_ref(part_acc, part_ml, torch.bfloat16).float()
+    assert ((full - ref).abs() <= atol + rtol * ref.abs()).all()
+    keep = [i for i in range(16) if i != 8]
+    fault = flash_combine_ref(part_acc[keep], part_ml[keep], torch.bfloat16).float()
+    assert ((fault - ref).abs() > atol + rtol * ref.abs()).float().mean() > 0.25
+
+
+@pytest.mark.parametrize("B,Hkv,rep,T,S,slots,want", [
+    (16, 8, 5, 1, 4096, 264, (2, 2048)),    # Qwen3-14B decode, tenant 16
+    (8, 8, 5, 1, 4096, 264, (4, 1024)),
+    (1, 8, 5, 1, 4096, 264, (16, 256)),     # batch 1: splits of 256 keys
+    (16, 32, 1, 1, 2048, 396, (1, 2048)),   # Zamba2 (reference bundle): no split
+    (1, 32, 1, 1, 2048, 396, (8, 256)),
+    (1, 2, 1, 1, 100, 264, (1, 128)),       # short: one split of the whole range
+    (1, 1, 1, 1, 100000, 264, (63, 1600)),  # at most 64 splits
+    (1, 4, 2, 300, 3000, 264, (1, 3008)),   # 152 CTAs of 16 prefill rows: no split
+])
+def test_kv_splits_fill_one_wave(B, Hkv, rep, T, S, slots, want):
+    """The launcher's split count: (batch, kv head, 16-row tile) CTAs
+    times the splits fit one wave of the card's resident CTAs, no split
+    under 256 keys, split lengths in 64-key tiles."""
+    assert kv_splits(B, Hkv, rep, T, S, slots) == want

@@ -151,7 +151,7 @@ def test_cta_row_tile_rule(bm, rows):
     lambda a: ragged_matmul(a, a[None], torch.zeros(1, dtype=torch.int32), bm=8),
     lambda a: splitk_partials(a, a, split=2, slice_k=4),
     lambda a: splitk_reduce(a[None].float(), torch.bfloat16),
-    lambda a: stream_k_partials(a, a, bm=8, bn=8, bk=4, grid_g=2),
+    lambda a: stream_k_partials(a, a, grid_g=2),
     lambda a: stream_k_fixup(torch.ones((1, 1), dtype=torch.int32), a[None].float(),
                              bm=8, bn=8, dtype=torch.bfloat16),
 ])

@@ -2,19 +2,26 @@
 JAX package: `stream_k_geometry` bitwise, and `gemm` at split and
 Stream-K tiles — which runs the plain versions of the partial and reduce
 (or walk and fixup) kernels — against JAX `gemm(..., interpret=True)`,
-which runs the Pallas bodies, and against JAX `gemm_stream_k_ref`.
+which runs the Pallas bodies, and against JAX `gemm_stream_k_ref`.  The
+card runs the Stream-K walk in its own units (CTA tiles, the CTA's k step
+and W workgroups from the SM count): the plain walk at that geometry is
+held to the JAX Stream-K GEMM too, and the W mapping is a pure function
+checked here.
 
 Inputs are made with numpy from a seed.  Integer-valued float32 operands
 make every f32 sum exact whatever its order, so those cases are bitwise;
 bf16 cases hold to the reference tests' 3e-2 (`tests/test_kernel_gemm.py`).
 """
 import itertools
+from functools import lru_cache
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.tuner import DEFAULT_SPEC as JSPEC
+from repro.core.tuner import stream_k_grid as jstream_k_grid
 from repro.kernels.gemm import TileConfig as JTile
 from repro.kernels.gemm import gemm as jgemm
 from repro.kernels.gemm import gemm_stream_k_ref as jstream_ref
@@ -30,7 +37,14 @@ from repro_torch.kernels.gemm import (
     stream_k_geometry,
     stream_k_partials_ref,
 )
-from repro_torch.kernels.gemm.kernel import LAUNCHERS, split_k_slices
+from repro_torch.kernels.gemm.kernel import (
+    LAUNCHERS,
+    planner_g_max,
+    split_k_slices,
+    stream_k_workgroups,
+    walk_geometry,
+    walk_rows,
+)
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
@@ -181,3 +195,74 @@ def test_cpu_decompositions_launch_no_kernel(tile):
     before = [fn.launches for fn in LAUNCHERS]
     assert torch.equal(gemm(a, b, tile=tile), a @ b)
     assert [fn.launches for fn in LAUNCHERS] == before
+
+
+# ------------------------------------------------ the card's Stream-K walk
+@pytest.mark.parametrize("G,g_max,sms,per_sm,want", [
+    (8, 8, 132, 2, 264), (8, 8, 132, 3, 396), (4, 8, 132, 2, 132),
+    (1, 8, 132, 3, 50), (3, 8, 132, 1, 50), (40, 8, 132, 3, 1980),
+    (1, 8, 1, 1, 1), (7, 8, 1, 1, 1), (1, 4, 132, 2, 66),
+])
+def test_stream_k_workgroups_scale_the_card_by_the_planner_share(G, g_max, sms, per_sm,
+                                                                  want):
+    """W = ⌈G / G_max · SMs · CTAs_per_SM⌉, at least 1: G = G_max fills
+    the card's resident CTAs, a smaller G takes its share of them."""
+    assert stream_k_workgroups(G, g_max, sms, per_sm) == want
+
+
+def test_planner_g_max_is_the_tuners_stream_k_cap():
+    """G_max is the cap `stream_k_grid` puts on G (TPU pipeline slots)."""
+    assert planner_g_max() == JSPEC.pipeline_fill_tiles * 4 == 8
+    assert int(jstream_k_grid(1, 10 ** 12)) == planner_g_max()
+
+
+def test_walk_geometry_of_the_timed_member():
+    """32×512×17408 bf16 in the card's units: 32-row CTA tiles 64 wide,
+    k step 64, so 8 tiles × 272 k steps; at W = 264, 9 iterations a
+    workgroup, 242 live and at most 32 slots a tile."""
+    geo = walk_geometry(32, 512, 17408, torch.bfloat16, 264)
+    assert (geo.rows, geo.cols, geo.bk) == (32, 64, 64)
+    assert (geo.tm, geo.tn, geo.tk, geo.total) == (1, 8, 272, 2176)
+    assert (geo.ipw, geo.live, geo.slots) == (9, 242, 32)
+    assert geo.counts.shape == (1, 8) and geo.counts.sum() >= geo.live
+    assert [walk_rows(m) for m in (1, 16, 17, 32, 33, 200)] == [16, 16, 32, 32, 64, 64]
+    assert walk_geometry(8, 64, 640, torch.bfloat16, 7).bk == 128
+    assert walk_geometry(8, 64, 640, torch.float32, 7).bk == 64
+
+
+CARD_CASES = [  # (M, N, K), layout
+    ((20, 200, 700), 0),
+    ((9, 130, 1100), 3),
+]
+
+
+@lru_cache(maxsize=None)
+def _jax_stream_k(case: int, G: int, dtype: str) -> np.ndarray:
+    (M, N, K), layout = CARD_CASES[case]
+    ta, tb = LAYOUTS[layout]
+    (ja, jb), _ = _operands([M, N, K, case], M, N, K, ta, tb, dtype)
+    out = jgemm(ja, jb, ta=ta, tb=tb, tile=JTile(16, 128, 128, stream_k=G),
+                interpret=True)
+    return np.asarray(jnp.asarray(out).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("W", [1, 7, 132, 264])
+@pytest.mark.parametrize("case", range(len(CARD_CASES)))
+def test_plain_walk_at_card_geometry_matches_jax_stream_k(case, W, G, dtype):
+    """The walk the card runs for a tile of G planner workgroups — CTA
+    tiles from M, the CTA's k step and W workgroups — computes the same
+    GEMM as the JAX Stream-K kernel at G: bitwise on integer-valued f32,
+    within 3e-2 in bf16."""
+    (M, N, K), layout = CARD_CASES[case]
+    ta, tb = LAYOUTS[layout]
+    _, (pa, pb) = _operands([M, N, K, case], M, N, K, ta, tb, dtype)
+    geo = walk_geometry(M, N, K, DTYPES[dtype][1], W)
+    out = gemm_stream_k_ref(pa, pb, bm=geo.rows, bn=geo.cols, bk=geo.bk,
+                            grid_g=geo.workgroups, ta=ta, tb=tb)
+    assert out.dtype == DTYPES[dtype][1]
+    _assert_match(out, _jax_stream_k(case, G, dtype), dtype)
+    p = stream_k_partials_ref(pa, pb, ta=ta, tb=tb, bm=geo.rows, bn=geo.cols,
+                              bk=geo.bk, grid_g=geo.workgroups)
+    assert p.shape == (geo.slots, M, N)
