@@ -12,12 +12,18 @@ Phases, each fatal on failure (nothing here catches an error):
    inputs — a few dozen small cases with ragged M/N/K (and, for the
    single GEMM and the split-K and Stream-K kernels, every ``ta``/``tb``
    layout; split 2-8 with wholly empty slices, Stream-K with G from 1 to
-   more workgroups than MAC iterations), then the serving path's shapes,
-   where the kernel, its plain version and the one PyTorch call computing
-   the same function are timed with CUDA events.  The Stream-K walk is
-   held to its plain version at the card's geometry (`card_geometry`:
-   CTA tiles from M, W workgroups from the planner's G, the SM count and
-   the kernel's occupancy), and its grid and shared memory are printed;
+   more workgroups than MAC iterations; the grouped and ragged kernels
+   with their weights in each pointer form — one stacked tensor,
+   per-member tensors with one weight shared, per-member transposed
+   views — and with more members than the pointer table holds; every
+   GEMM kernel also with float32 output from bf16 operands), then the
+   serving path's shapes, where the kernel, its plain version and the one
+   PyTorch call computing the same function are timed with CUDA events.
+   The Stream-K walk is held to its plain version at the card's geometry
+   (`card_geometry`: CTA tiles from M, W workgroups from the planner's G,
+   the SM count and the kernel's occupancy); its grid and shared memory
+   are printed, and so are the ragged walk's (CTAs per SM and shared
+   memory from the occupancy query, tiles, iterations per CTA);
 4. per-class serving: a full-width, full-depth Qwen3-14B weight set (40
    layers × the four fused bf16 decode GEMMs, ~26.4 GB, random from a
    seed) served through the port's `Runtime` to tenants at batches
@@ -158,7 +164,6 @@ from repro_torch.kernels.grouped_gemm import (  # noqa: E402
     ragged_gemm_ref,
 )
 from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel  # noqa: E402
-from repro_torch.kernels.grouped_gemm.ops import block_groups  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan_fwd, ssd_chunk_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import scan_chunk  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
@@ -334,8 +339,24 @@ def build_phase() -> None:
 
 
 # ---------------------------------------------------------------- kernels
+def weight_forms(G: int, K: int, N: int, gen, dtype) -> dict:
+    """The members' weights in both pointer forms: one stacked (G, K, N)
+    tensor; per-member (K, N) tensors, the second member sharing the
+    first's weight; and per-member transposed views of (N, K) storage
+    (the kernels' TB layout), again with one weight shared."""
+    rows = [randn((K, N), gen, dtype) for _ in range(G)]
+    cols = [randn((N, K), gen, dtype).T for _ in range(G)]
+    if G > 1:
+        rows[1], cols[1] = rows[0], cols[0]
+    return {"stacked": randn((G, K, N), gen, dtype), "per-member": rows,
+            "transposed": cols}
+
+
 def small_cases(gen) -> int:
-    """Ragged shapes in every layout and type, against the plain versions."""
+    """Ragged shapes in every layout and type, against the plain versions;
+    the grouped and ragged kernels with their weights in each pointer
+    form, and every GEMM kernel also with float32 output from bf16
+    operands (`out_dtype`)."""
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
         for (M, N, K) in ((1, 1, 1), (5, 70, 33), (16, 64, 128), (17, 129, 300),
@@ -352,31 +373,77 @@ def small_cases(gen) -> int:
                                 f"matmul {M}x{N}x{K} ta{ta:d} tb{tb:d} {dtype}")
                     n += 1
         for (G, M, N, K, bm) in ((1, 3, 10, 7, 8), (3, 16, 64, 128, 16),
-                                 (4, 9, 130, 200, 8), (2, 70, 100, 96, 64)):
+                                 (4, 9, 130, 200, 8), (2, 70, 100, 96, 64),
+                                 (20, 5, 64, 96, 8)):   # G above the table's 16
             a = randn((G, M, K), gen, dtype)
-            b = randn((G, K, N), gen, dtype)
-            out = grouped_kernel.grouped_matmul(a, b, bm=bm)
-            check_close(out, grouped_gemm_ref(a, b), abs_product(a, b),
-                        f"grouped G{G} {M}x{N}x{K} bm{bm} {dtype}")
-            n += 1
+            for form, b in weight_forms(G, K, N, gen, dtype).items():
+                out = grouped_kernel.grouped_matmul(a, b, bm=bm)
+                check_close(out, grouped_gemm_ref(a, b), grouped_abs(a, b),
+                            f"grouped G{G} {M}x{N}x{K} bm{bm} {form} {dtype}")
+                n += 1
         for (sizes, N, K, bm) in (([8, 8], 64, 64, 8), ([16, 0, 32], 100, 130, 16),
                                   ([8, 24, 8, 8], 65, 257, 8),
-                                  ([32, 64], 70, 96, 32), ([128, 256], 64, 80, 128)):
+                                  ([32, 64], 70, 96, 32), ([128, 256], 64, 80, 128),
+                                  ([16, 8, 8, 8, 8], 5120, 300, 8),   # 480 tiles > CTAs
+                                  ([16] * 18 + [0, 32], 96, 200, 16)):  # 20 members
             G, Mtotal = len(sizes), sum(sizes)
             a = randn((Mtotal, K), gen, dtype)
-            b = randn((G, K, N), gen, dtype)
-            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-            bg = block_groups(gs, -(-Mtotal // bm), bm, G)
-            out = grouped_kernel.ragged_matmul(a, b, bg, bm=bm)
-            check_close(out, ragged_gemm_ref(a, b, gs), ragged_abs(a, b, gs),
-                        f"ragged {sizes} N{N} K{K} bm{bm} {dtype}")
+            for form, b in weight_forms(G, K, N, gen, dtype).items():
+                out = grouped_kernel.ragged_matmul(a, b, sizes, bm=bm)
+                check_close(out, ragged_gemm_ref(a, b, sizes), ragged_abs(a, b, sizes),
+                            f"ragged {sizes} N{N} K{K} bm{bm} {form} {dtype}")
+                n += 1
+    return n + f32_output_cases(gen)
+
+
+def f32_output_cases(gen) -> int:
+    """bf16 operands, float32 output (`out_dtype`): each GEMM kernel
+    against its plain version at the same output dtype (the tolerance's
+    bf16 rounding term is then 0).  Split-K and Stream-K run through
+    `gemm`, whose reduce and fixup store the f32 sums."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    n = 0
+    for (M, N, K), (ta, tb) in zip(((5, 70, 600), (16, 129, 300), (33, 64, 1000)),
+                                   LAYOUTS):
+        a = randn((K, M) if ta else (M, K), gen)
+        b = randn((N, K) if tb else (K, N), gen)
+        a_, b_ = (a.T if ta else a), (b.T if tb else b)
+        want = gemm_ref(a, b, ta=ta, tb=tb, out_dtype=f32)
+        for tile in (TileConfig(8, 128, 128), TileConfig(8, 128, 128, split_k=3),
+                     TileConfig(16, 128, 128, stream_k=5)):
+            out = gemm(a, b, ta=ta, tb=tb, tile=tile, out_dtype=f32)
+            if out.dtype != f32:
+                raise AssertionError(f"gemm at {tile.key()} stored {out.dtype}")
+            check_close(out, want, abs_product(a_, b_),
+                        f"gemm {M}x{N}x{K} at {tile.key()} ta{ta:d} tb{tb:d} -> f32")
             n += 1
+    a = randn((3, 9, 200), gen)
+    for form, b in weight_forms(3, 200, 70, gen, bf16).items():
+        check_close(grouped_kernel.grouped_matmul(a, b, bm=8, out_dtype=f32),
+                    grouped_gemm_ref(a, b, out_dtype=f32), grouped_abs(a, b),
+                    f"grouped G3 9x70x200 {form} -> f32")
+        n += 1
+    sizes = [16, 8, 0, 24]
+    a = randn((sum(sizes), 300), gen)
+    for form, b in weight_forms(4, 300, 130, gen, bf16).items():
+        check_close(grouped_kernel.ragged_matmul(a, b, sizes, bm=8, out_dtype=f32),
+                    ragged_gemm_ref(a, b, sizes, out_dtype=f32), ragged_abs(a, b, sizes),
+                    f"ragged {sizes} N130 K300 {form} -> f32")
+        n += 1
     return n
+
+
+def grouped_abs(a, b):
+    """|A[g]|·|B[g]| in f32 (the grouped tolerance's scale)."""
+    return grouped_gemm_ref(a.float().abs(), [w.float().abs() for w in
+                                              grouped_kernel.member_weights(b)])
 
 
 def ragged_abs(a, b, group_sizes):
     """|A|·|B[g]| row by row, in f32 (the ragged tolerance's scale)."""
-    return ragged_gemm_ref(a.float().abs(), b.float().abs(), group_sizes)
+    return ragged_gemm_ref(a.float().abs(), [w.float().abs() for w in
+                                             grouped_kernel.member_weights(b)],
+                           group_sizes)
 
 
 def main_path_kernels(gen) -> dict:
@@ -400,29 +467,29 @@ def main_path_kernels(gen) -> dict:
         library_ms=time_ms(lambda: torch.matmul(a, b)),
         bound=bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf16))
 
-    # grouped: four tenants' ffn-down at batch 8
+    # grouped: four tenants' ffn-down at batch 8, each weight by pointer
     G, M, N, K = 4, 8, 5120, 17408
     a, b = randn((G, M, K), gen), randn((G, K, N), gen, scale=K ** -0.5)
-    out = grouped_kernel.grouped_matmul(a, b, bm=8)
-    err = check_close(out, grouped_gemm_ref(a, b), abs_product(a, b),
+    ws = list(b.unbind(0))
+    out = grouped_kernel.grouped_matmul(a, ws, bm=8)
+    err = check_close(out, grouped_gemm_ref(a, ws), grouped_abs(a, ws),
                       "grouped main")
     rows["grouped_matmul"] = dict(
         shape=f"G{G} {M}x{N}x{K}",
         instantiation=gemm_kernel.instantiation(bf16, 8),
         max_abs_err=err,
-        ms=time_ms(lambda: grouped_kernel.grouped_matmul(a, b, bm=8)),
-        plain_ms=time_ms(lambda: grouped_gemm_ref(a, b), reps=5),
+        ms=time_ms(lambda: grouped_kernel.grouped_matmul(a, ws, bm=8)),
+        plain_ms=time_ms(lambda: grouped_gemm_ref(a, ws), reps=5),
         library_ms=time_ms(lambda: torch.bmm(a, b)),
         bound=bound(G * (M * K + K * N + M * N) * 2, 2 * G * M * N * K, bf16))
-    # The scheduler's torch.stack of the members' B for such a launch.
-    ws = [b[g].clone() for g in range(G)]
+    # The copy the scheduler made before weights went by pointer: a
+    # torch.stack of the members' B for such a launch.
     stack_ms = time_ms(lambda: torch.stack(ws), reps=5)
-    stack_gb = G * K * N * 2 / 1e9
-    print(f"# stack copy of B for a grouped ffn-down launch (G={G}, "
-          f"{stack_gb:.3f} GB): {stack_ms:.4f} ms")
-    del ws
+    print(f"# torch.stack of B for a grouped ffn-down launch (G={G}, "
+          f"{G * K * N * 2 / 1e9:.3f} GB), no longer made: {stack_ms:.4f} ms")
 
-    # ragged: five tenants' ffn-down at batches [16, 8, 8, 8, 4], bm = 16
+    # ragged: five tenants' ffn-down at batches [16, 8, 8, 8, 4], bm = 16,
+    # five distinct weights by pointer
     sizes, bm, N, K = [16, 8, 8, 8, 4], 16, 5120, 17408
     padded = [-(-s // bm) * bm for s in sizes]
     G, Mtotal = len(sizes), sum(padded)
@@ -432,19 +499,30 @@ def main_path_kernels(gen) -> dict:
         a[off:off + s] = randn((s, K), gen)
         off += p
     b = randn((G, K, N), gen, scale=K ** -0.5)
-    gs = torch.tensor(padded, dtype=torch.int32, device="cuda")
-    bg = block_groups(gs, Mtotal // bm, bm, G)
-    out = grouped_kernel.ragged_matmul(a, b, bg, bm=bm)
-    err = check_close(out, ragged_gemm_ref(a, b, gs), ragged_abs(a, b, gs),
+    ws = list(b.unbind(0))
+    out = grouped_kernel.ragged_matmul(a, ws, padded, bm=bm)
+    err = check_close(out, ragged_gemm_ref(a, ws, padded), ragged_abs(a, ws, padded),
                       "ragged main")
+    per_sm, smem = grouped_kernel.ragged_resources(a.device, bf16, bf16, False, 16)
+    geo = grouped_kernel.ragged_walk(
+        Mtotal, N, K, bf16, bm,
+        grouped_kernel.ragged_workgroups(a.device, bf16, bf16, False, 16))
+    tiles = geo.tm * geo.tn
+    print(f"# ragged_matmul grid at sizes {sizes} N{N} K{K}: {geo.live} CTAs "
+          f"({per_sm} CTAs of {smem} B shared memory per SM) walk {tiles} tiles of "
+          f"{geo.rows}x64, k step {geo.bk}, {geo.tk} steps each: {geo.total} "
+          f"iterations, {geo.ipw} per CTA")
     # The padded members are all bm rows, so one bmm computes the same
     # function on these inputs.
     rows["ragged_matmul"] = dict(
         shape=f"sizes {sizes} (padded to {bm}) N{N} K{K}",
-        instantiation=gemm_kernel.instantiation(bf16, bm),
+        instantiation=(f"bf16 {geo.rows}x64x{geo.bk} walk, {geo.live} CTAs, "
+                       f"{smem} B shared"),
+        grid=dict(ctas=geo.live, ctas_per_sm=per_sm, smem_bytes=smem, tiles=tiles,
+                  iterations=geo.total, ipw=geo.ipw),
         max_abs_err=err,
-        ms=time_ms(lambda: grouped_kernel.ragged_matmul(a, b, bg, bm=bm)),
-        plain_ms=time_ms(lambda: ragged_gemm_ref(a, b, gs), reps=5, queued=False),
+        ms=time_ms(lambda: grouped_kernel.ragged_matmul(a, ws, padded, bm=bm)),
+        plain_ms=time_ms(lambda: ragged_gemm_ref(a, ws, padded), reps=5, queued=False),
         library_ms=time_ms(lambda: torch.bmm(a.view(G, bm, K), b)),
         bound=bound((Mtotal * K + G * K * N + Mtotal * N) * 2,
                     2 * Mtotal * N * K, bf16))

@@ -317,13 +317,18 @@ def execute_schedule(
 ) -> List[torch.Tensor]:
     """Run a `Schedule` through the kernels, one launch per group.
 
-    ``grouped`` stacks the members' A and B and ``ragged`` stacks B and
-    concatenates the members' A rows, each padded with zeros to the
-    tile's bm — the reference's launch shapes (`repro/core/scheduler.py:
-    481-507`).  Stacking B copies every member's weight once per launch;
-    removing that copy is a later performance item.  A ``mixed`` group
-    runs each member through its family op at its own tile (`_run_mixed`),
-    and a ``single`` launch of a non-GEMM member through `_run_op`."""
+    ``grouped`` stacks the members' A and ``ragged`` concatenates their A
+    rows, each padded with zeros to the tile's bm — the reference's
+    launch shapes (`repro/core/scheduler.py:481-507`), a few MB at decode
+    M.  Both hand the kernels each member's B where it lies, as the
+    (K, N) view `_as_kn` gives (a transposed weight stays in its stored
+    orientation), and copy no weight: the kernels take the members'
+    weights by pointer (`kernels/grouped_gemm/kernel.py`).  The requests
+    own those weights, and every launch is queued on the current stream,
+    so a caller keeps the requests alive until that stream's work has
+    run, as it does for any operand.  A ``mixed`` group runs each member
+    through its family op at its own tile (`_run_mixed`), and a
+    ``single`` launch of a non-GEMM member through `_run_op`."""
     outs: List[Optional[torch.Tensor]] = [None] * len(requests)
     for gp in sched.groups:
         reqs = [requests[i] for i in gp.indices]
@@ -335,8 +340,7 @@ def execute_schedule(
             outs[gp.indices[0]] = _run_op(reqs[0], gp.tile)
         elif gp.mode == "grouped":
             a = torch.stack([_as_mk(r) for r in reqs])
-            b = torch.stack([_as_kn(r) for r in reqs])
-            res = grouped_gemm(a, b, tile=gp.tile)
+            res = grouped_gemm(a, [_as_kn(r) for r in reqs], tile=gp.tile)
             for j, i in enumerate(gp.indices):
                 outs[i] = res[j]
         elif gp.mode == "ragged":
@@ -349,11 +353,8 @@ def execute_schedule(
                     m = torch.cat([m, m.new_zeros((pad, m.shape[1]))])
                 rows.append(m)
                 sizes.append(m.shape[0])
-            a = torch.cat(rows)
-            b = torch.stack([_as_kn(r) for r in reqs])
-            res = ragged_gemm(
-                a, b, torch.tensor(sizes, dtype=torch.int32, device=a.device),
-                tile=gp.tile)
+            res = ragged_gemm(torch.cat(rows), [_as_kn(r) for r in reqs], sizes,
+                              tile=gp.tile)
             off = 0
             for j, i in enumerate(gp.indices):
                 outs[i] = res[off: off + requests[i].desc.M]
@@ -379,33 +380,43 @@ def _member_streams(device: torch.device, n: int) -> List[torch.cuda.Stream]:
 
 
 def _run_mixed(reqs: Sequence[GemmRequest],
-               tiles: Sequence[TileConfig]) -> List[torch.Tensor]:
+               tiles: Sequence[TileConfig]) -> List[Optional[torch.Tensor]]:
     """The members of one ``mixed`` group, each through its family op at
-    its own tile.  On the CPU they run in order, as in the reference.  On
-    the card they run at once, one side stream each: every buffer a
-    member writes (outputs, split-K and Stream-K partials, attention's
-    split partials and counters, a scan's final state) is allocated on
-    the launching stream first, the side streams wait on an event
-    recorded there, and the launching stream waits on each member's end
-    event before this returns — so no buffer is freed while a side
-    stream still uses it, and work queued after the launch sees every
-    result.  The attention and scan kernels read their inputs
-    through strides, so no member stages a copy on its side stream."""
-    dev = reqs[0].operands[0].device
+    its own tile; None for an operand-free member, before any device,
+    buffer or stream work, as in the reference (`_run_op`).  The device
+    is the first member's with operands; a group with none runs nothing.
+    On the CPU the members run in order, as in the reference.  On the
+    card they run at once, one side stream each: every buffer a member
+    writes (outputs, split-K and Stream-K partials, attention's split
+    partials and counters, a scan's final state) is allocated on the
+    launching stream first, the side streams wait on an event recorded
+    there, and the launching stream waits on each member's end event
+    before this returns — so no buffer is freed while a side stream
+    still uses it, and work queued after the launch sees every result.
+    The attention and scan kernels read their inputs through strides, so
+    no member stages a copy on its side stream."""
+    outs: List[Optional[torch.Tensor]] = [None] * len(reqs)
+    live = [j for j, r in enumerate(reqs) if _has_operands(r)]
+    if not live:
+        return outs
+    dev = reqs[live[0]].operands[0].device
     if dev.type != "cuda":
-        return [_run_op(r, t) for r, t in zip(reqs, tiles)]
-    bufs = [gemm_buffers(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=t)
-            if family_of(r.desc) == "gemm"
-            else OP_FAMILIES[family_of(r.desc)].buffers(*r.inputs)
-            for r, t in zip(reqs, tiles)]
+        for j in live:
+            outs[j] = _run_op(reqs[j], tiles[j])
+        return outs
+    bufs = {j: gemm_buffers(reqs[j].a, reqs[j].b, ta=reqs[j].desc.ta,
+                            tb=reqs[j].desc.tb, tile=tiles[j])
+            if family_of(reqs[j].desc) == "gemm"
+            else OP_FAMILIES[family_of(reqs[j].desc)].buffers(*reqs[j].inputs)
+            for j in live}
     launching = torch.cuda.current_stream(dev)
     fork = torch.cuda.Event()
     fork.record(launching)
-    outs, ends = [], []
-    for r, t, buf, s in zip(reqs, tiles, bufs, _member_streams(dev, len(reqs))):
+    ends = []
+    for j, s in zip(live, _member_streams(dev, len(live))):
         s.wait_event(fork)
         with torch.cuda.stream(s):
-            outs.append(_run_op(r, t, buf))
+            outs[j] = _run_op(reqs[j], tiles[j], bufs[j])
             end = torch.cuda.Event()
             end.record(s)
         ends.append(end)
@@ -414,12 +425,16 @@ def _run_mixed(reqs: Sequence[GemmRequest],
     return outs
 
 
+def _has_operands(r: GemmRequest) -> bool:
+    return r.operands is not None and all(t is not None for t in r.operands)
+
+
 def _run_op(r: GemmRequest, tile: TileConfig, out=None):
     """One member through its family op at ``tile``, writing into ``out``
     (its `gemm_buffers` or its family's ``buffers``) when given; None for
     an operand-free request, as in the reference
     (`repro/core/scheduler.py:519-550`)."""
-    if r.operands is None or any(t is None for t in r.operands):
+    if not _has_operands(r):
         return None
     if family_of(r.desc) == "gemm":
         return gemm(r.a, r.b, ta=r.desc.ta, tb=r.desc.tb, tile=tile,

@@ -27,7 +27,8 @@
 //     occupancy (repro_stream_k_occupancy).  A member planned at G = G_max
 //     fills the card; a smaller G takes a proportional share of its SMs.
 //   - each CTA streams its span's A and B k-slabs through a ring of
-//     kStages shared-memory stages filled by cp.async (copy_tile), so
+//     kStages shared-memory stages filled by cp.async (copy_tile,
+//     cp_async.cuh), so
 //     kStages - 1 slabs (3 x 13.5 KB at 32 rows) are in flight while the
 //     tensor cores (WMMA, tile_gemm.cuh's Math) work on the oldest.  The
 //     ring runs on across tile frontiers: a segment's partial is staged
@@ -37,78 +38,10 @@
 // most of its rows; WMMA 16x16x16 keeps the product on the tensor cores.
 //
 // Plain C interface, loaded with ctypes by kernels/gemm/kernel.py.
+#include "cp_async.cuh"
 #include "tile_gemm.cuh"
 
 namespace repro {
-
-// cp.async: 16-byte copies from device memory into shared memory that
-// bypass the registers and L1 (`cp.async.cg`), grouped and waited on as
-// a ring of stages.  `copy_chunk` moves one 16-byte chunk of a row-major
-// (rows, cols) matrix: by cp.async when the chunk lies wholly inside the
-// matrix and its source is 16-byte aligned, else by element loads (zero
-// past the edges) and a plain shared-memory store.  Both land before the
-// consumer's `cp_async_wait` + `__syncthreads`, so a stage may mix them.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Chunk (r, c..c+VEC) of a row-major matrix `src` with leading dimension
-// `ld` whose element (r, c) exists for r < rows and c < cols, into `dst`
-// (16-byte aligned shared memory).
-template <typename T>
-__device__ __forceinline__ void copy_chunk(T* dst, const T* __restrict__ src,
-                                           int64_t ld, int64_t r, int64_t c,
-                                           int64_t rows, int64_t cols) {
-  using Bits = typename std::conditional<sizeof(T) == 2, unsigned short,
-                                         unsigned int>::type;
-  constexpr int VEC = 16 / sizeof(T);
-  const Bits* p = reinterpret_cast<const Bits*>(src) + r * ld + c;
-  if (r < rows && c + VEC <= cols &&
-      (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    cp_async16(dst, p);
-    return;
-  }
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (r < rows && c < cols) {
-    Bits* vb = reinterpret_cast<Bits*>(&v);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) vb[e] = (c + e < cols) ? p[e] : Bits(0);
-  }
-  *reinterpret_cast<uint4*>(dst) = v;
-}
-
-// A (TR x TC) tile of a row-major matrix, chunk by chunk over NT threads,
-// into shared memory with row stride LD elements (LD·sizeof(T) a multiple
-// of 16); tile row i is matrix row r0 + i.
-template <typename T, int TR, int TC, int LD, int NT>
-__device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ src,
-                                          int64_t ld, int64_t r0, int64_t c0,
-                                          int64_t rows, int64_t cols) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = TC / VEC;  // chunks per row
-  static_assert(TC % VEC == 0, "tile width is whole chunks");
-  static_assert((TR * CPR) % NT == 0, "chunks divide among threads");
-  static_assert((LD * sizeof(T)) % 16 == 0, "rows stay 16-byte aligned");
-#pragma unroll
-  for (int j = 0; j < TR * CPR / NT; ++j) {
-    const int chunk = threadIdx.x + j * NT;
-    const int i = chunk / CPR, cc = (chunk % CPR) * VEC;
-    copy_chunk<T>(dst + i * LD + cc, src, ld, r0 + i, c0 + cc, rows, cols);
-  }
-}
-
-constexpr int kStages = 4;  // shared-memory ring depth of the walk
 
 template <typename T, int BM, bool TA, bool TB>
 struct WalkCfg {

@@ -37,7 +37,7 @@ MAX_GRID_Y = 65535
 _LL, _P, _I = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 _ERROR = {"repro_error_string": (ctypes.c_char_p, (_I,))}
 _SIGNATURES = {
-    "repro_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _P)),
+    "repro_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _P)),
     **_ERROR,
 }
 _SPLIT_K_SIGNATURES = {
@@ -277,24 +277,29 @@ def _stream(device: torch.device) -> int:
 
 # -------------------------------------------------------------- launchers
 def matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
-           tb: bool = False, bm: int = 16, out=None) -> torch.Tensor:
-    """C[M,N] = op(a) @ op(b) on the card, f32 accumulation, output in the
-    operands' dtype.  ``a`` is (M,K), or (K,M) when ``ta``; ``b`` is
-    (K,N), or (N,K) when ``tb``.  ``bm`` is the `TileConfig` row block
-    (`cta_rows` maps it to the CTA tile)."""
+           tb: bool = False, bm: int = 16, out_dtype=None, out=None
+           ) -> torch.Tensor:
+    """C[M,N] = op(a) @ op(b) on the card, f32 accumulation, output in
+    ``out_dtype`` (default: the operands' dtype).  ``a`` is (M,K), or
+    (K,M) when ``ta``; ``b`` is (K,N), or (N,K) when ``tb``.  ``bm`` is
+    the `TileConfig` row block (`cta_rows` maps it to the CTA tile)."""
     dtype = check_operands(a, b, what="matmul")
+    out_dtype = dtype if out_dtype is None else out_dtype
+    if out_dtype not in DTYPE_CODES:
+        raise ValueError(f"matmul: unsupported output dtype {out_dtype}")
     M, N, K = gemm_dims(a, b, ta, tb)
     rows = cta_rows(bm)
     if -(-M // rows) > MAX_GRID_Y:
         raise ValueError(f"M={M} exceeds the kernel's grid ({MAX_GRID_Y} row tiles)")
-    c = output(out, (M, N), dtype, a.device, "matmul")
+    c = output(out, (M, N), out_dtype, a.device, "matmul")
     if c.numel() == 0:
         return c
     lib = _build.load("gemm", _SIGNATURES)
     with torch.cuda.device(a.device):
         code = lib.repro_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                DTYPE_CODES[dtype], int(ta), int(tb), rows,
-                                M, N, K, _stream(a.device))
+                                DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+                                int(ta), int(tb), rows, M, N, K,
+                                _stream(a.device))
     raise_on_error(lib, code, "matmul")
     matmul.launches += 1
     return c

@@ -91,14 +91,14 @@ class GemmBuffers(NamedTuple):
 
 
 def gemm_buffers(a, b, *, ta: bool = False, tb: bool = False,
-                 tile: TileConfig = TileConfig()) -> GemmBuffers:
+                 tile: TileConfig = TileConfig(), out_dtype=None) -> GemmBuffers:
     """Allocate, on the current stream, the buffers `gemm` writes for
-    these operands and tile.  A Stream-K tile's partials and counts
-    follow the decomposition the device runs: on the card the walk's
-    `card_geometry`, on the CPU the planner's tile and G."""
+    these operands, tile and output dtype.  A Stream-K tile's partials
+    and counts follow the decomposition the device runs: on the card the
+    walk's `card_geometry`, on the CPU the planner's tile and G."""
     M, N, K = gemm_dims(a, b, ta, tb)
     dev = a.device
-    out = torch.empty((M, N), dtype=a.dtype, device=dev)
+    out = torch.empty((M, N), dtype=out_dtype or a.dtype, device=dev)
     if tile.stream_k > 0:
         if dev.type == "cuda":
             key = (M, N, K, a.dtype, ta, tb, tile.stream_k, dev)
@@ -118,11 +118,14 @@ def gemm_buffers(a, b, *, ta: bool = False, tb: bool = False,
 
 
 def gemm(a, b, *, ta: bool = False, tb: bool = False,
-         tile: TileConfig = TileConfig(), buffers: GemmBuffers | None = None):
-    """C = op(a) @ op(b) in the operands' dtype, by the decomposition the
-    tile names.  On CPU tensors: the plain versions of that
-    decomposition's kernels.  On CUDA tensors: its kernels, writing into
-    ``buffers`` when given (`gemm_buffers`), else into new ones."""
+         tile: TileConfig = TileConfig(), out_dtype=None,
+         buffers: GemmBuffers | None = None):
+    """C = op(a) @ op(b) in ``out_dtype`` (default: the operands' dtype),
+    by the decomposition the tile names.  On CPU tensors: the plain
+    versions of that decomposition's kernels.  On CUDA tensors: its
+    kernels, writing into ``buffers`` when given (`gemm_buffers`), else
+    into new ones."""
+    out_dtype = out_dtype or a.dtype
     M, N, K = gemm_dims(a, b, ta, tb)
     split, slice_k = split_k_slices(K, tile.bk, tile.split_k)
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -133,22 +136,23 @@ def gemm(a, b, *, ta: bool = False, tb: bool = False,
                                       bn=tile.bn, bk=tile.bk,
                                       grid_g=tile.stream_k)
             return stream_k_fixup_ref(torch.from_numpy(counts), p, bm=tile.bm,
-                                      bn=tile.bn, dtype=a.dtype)
+                                      bn=tile.bn, dtype=out_dtype)
         if split > 1:
             p = splitk_partials_ref(a, b, ta=ta, tb=tb, split=split,
                                     slice_k=slice_k, bk=tile.bk)
-            return splitk_reduce_ref(p, a.dtype)
-        return gemm_ref(a, b, ta=ta, tb=tb)
-    buf = buffers if buffers is not None else gemm_buffers(a, b, ta=ta, tb=tb,
-                                                           tile=tile)
+            return splitk_reduce_ref(p, out_dtype)
+        return gemm_ref(a, b, ta=ta, tb=tb, out_dtype=out_dtype)
+    buf = buffers if buffers is not None else gemm_buffers(
+        a, b, ta=ta, tb=tb, tile=tile, out_dtype=out_dtype)
     if tile.stream_k > 0:
         stream_k_partials(a, b, ta=ta, tb=tb, grid_g=tile.stream_k,
                           out=buf.partials)
         geo = card_geometry(M, N, K, a.dtype, ta, tb, tile.stream_k, a.device)
         return stream_k_fixup(buf.counts, buf.partials, bm=geo.rows,
-                              bn=geo.cols, dtype=a.dtype, out=buf.out)
+                              bn=geo.cols, dtype=out_dtype, out=buf.out)
     if split > 1:
         splitk_partials(a, b, ta=ta, tb=tb, bm=tile.bm, split=split,
                         slice_k=slice_k, out=buf.partials)
-        return splitk_reduce(buf.partials, a.dtype, out=buf.out)
-    return matmul(a, b, ta=ta, tb=tb, bm=tile.bm, out=buf.out)
+        return splitk_reduce(buf.partials, out_dtype, out=buf.out)
+    return matmul(a, b, ta=ta, tb=tb, bm=tile.bm, out_dtype=out_dtype,
+                  out=buf.out)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the GEMM kernels (f32 accumulation, output
-cast once to the operands' dtype) — `repro/kernels/gemm/ref.py`.
+cast once to ``out_dtype``, by default the operands' dtype) —
+`repro/kernels/gemm/ref.py`.
 
 Beside `gemm_ref` (the un-split kernel) each kernel of the split-K and
 Stream-K decompositions has its own plain version computing the same
@@ -26,10 +27,10 @@ from repro_torch.kernels.gemm.kernel import (
 )
 
 
-def gemm_ref(a, b, *, ta: bool = False, tb: bool = False):
+def gemm_ref(a, b, *, ta: bool = False, tb: bool = False, out_dtype=None):
     a_ = a.T if ta else a
     b_ = b.T if tb else b
-    return torch.matmul(a_.float(), b_.float()).to(a.dtype)
+    return torch.matmul(a_.float(), b_.float()).to(out_dtype or a.dtype)
 
 
 def _k_blocks(A, B, lo: int, hi: int, bk: int) -> torch.Tensor:
@@ -112,7 +113,8 @@ def stream_k_fixup_ref(counts, partials, *, bm: int, bn: int, dtype
 
 
 def gemm_stream_k_ref(a, b, *, bm: int, bn: int, bk: int, grid_g: int,
-                      ta: bool = False, tb: bool = False) -> torch.Tensor:
+                      ta: bool = False, tb: bool = False, out_dtype=None
+                      ) -> torch.Tensor:
     """The Stream-K decomposition end to end (`repro/kernels/gemm/ref.py:
     16-58`): per output tile, each contributing workgroup's span sums its
     block products in K order into an f32 partial, and the partials sum
@@ -122,4 +124,4 @@ def gemm_stream_k_ref(a, b, *, bm: int, bn: int, bk: int, grid_g: int,
     counts = torch.from_numpy(stream_k_geometry(tm, tn, tk, grid_g)[3])
     p = stream_k_partials_ref(a, b, ta=ta, tb=tb, bm=bm, bn=bn, bk=bk,
                               grid_g=grid_g)
-    return stream_k_fixup_ref(counts, p, bm=bm, bn=bn, dtype=a.dtype)
+    return stream_k_fixup_ref(counts, p, bm=bm, bn=bn, dtype=out_dtype or a.dtype)

@@ -1,6 +1,7 @@
-"""The redesigned Stream-K walk and split-KV flash-attention kernels held
-to their plain versions on the card.  Every test here needs an NVIDIA GPU
-and skips without one; on the card (no JAX needed) run
+"""The redesigned Stream-K walk, split-KV flash-attention and ragged-walk
+kernels, and the grouped kernel's weights by pointer, held to their plain
+versions on the card.  Every test here needs an NVIDIA GPU and skips
+without one; on the card (no JAX needed) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_card.py
 
@@ -12,6 +13,13 @@ within `attention_tol`; its split partials must match `flash_split_ref`,
 its output (merged in the kernel by the last CTA of each row group) must
 match `flash_combine_ref` on the kernel's own partials, and the row
 groups' counters must be zero again after the launch.
+
+The grouped and ragged kernels take each member's weight by pointer:
+transposed members (the TB layout), members sharing one weight, more
+members than the pointer table's 16 (consecutive launches), float32
+output, and a weight neither row- nor column-contiguous, which must
+raise and launch nothing.  The ragged walk must give the same bits on a
+second call (its partials sum in a fixed order).
 
 GEMM tolerance (as in `chip_smoke.py`): |kernel − plain| ≤ 2⁻⁷·|plain|
 (bf16 outputs only: one rounding each) + 2⁻¹⁶·|A|·|B| (f32 summation
@@ -47,6 +55,8 @@ from repro_torch.kernels.gemm import (
 )
 from repro_torch.kernels.gemm import kernel as gk
 from repro_torch.kernels.gemm.ref import element_counts
+from repro_torch.kernels.grouped_gemm import grouped_gemm_ref, ragged_gemm_ref
+from repro_torch.kernels.grouped_gemm import kernel as ggk
 
 pytestmark = pytest.mark.cuda
 
@@ -177,3 +187,105 @@ def test_split_counts_fill_one_wave_of_the_card(card):
     for B in (1, 4, 8, 16):
         n, _ = kv_splits(B, 8, 5, 1, 4096, slots)
         assert 1 <= n <= 16 and (n == 1 or B * 8 * n <= slots)
+
+
+# ------------------------------------------------ grouped and ragged by pointer
+def _members(card, G, K, N, dtype, tb, shared, seed):
+    """G weights as (K, N) tensors: row-major, or transposed views of (N, K)
+    storage when ``tb``; with ``shared``, members 1 and G - 1 reuse
+    member 0's weight."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    ws = [torch.randn((N, K) if tb else (K, N), generator=g, device=card,
+                      dtype=dtype) for _ in range(G)]
+    ws = [w.T for w in ws] if tb else ws
+    if shared:
+        ws[1] = ws[-1] = ws[0]
+    return ws
+
+
+def _abs(ws):
+    return [w.float().abs() for w in ws]
+
+
+GROUPED_CASES = [  # G, M, N, K, bm, tb, shared, out_dtype
+    (4, 8, 5120, 2048, 8, False, False, None),    # path widths, K cut
+    (3, 9, 130, 200, 8, True, False, None),       # transposed members
+    (5, 16, 96, 300, 16, False, True, None),      # shared weights
+    (20, 5, 64, 96, 8, False, False, None),       # G above the table's 16
+    (20, 5, 64, 96, 8, True, True, torch.float32),
+    (2, 70, 100, 96, 64, False, False, torch.float32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", GROUPED_CASES, ids=str)
+def test_grouped_weights_by_pointer_match_plain(card, case, dtype):
+    G, M, N, K, bm, tb, shared, out_dtype = case
+    g = torch.Generator(device=card).manual_seed(G * M + K)
+    a = torch.randn((G, M, K), generator=g, device=card, dtype=dtype)
+    ws = _members(card, G, K, N, dtype, tb, shared, G + N)
+    before = ggk.grouped_matmul.launches
+    out = ggk.grouped_matmul(a, ws, bm=bm, out_dtype=out_dtype)
+    assert ggk.grouped_matmul.launches == before + -(-G // ggk.MAX_MEMBERS)
+    assert out.dtype == (out_dtype or dtype)
+    _close(out, grouped_gemm_ref(a, ws, out_dtype=out_dtype),
+           grouped_gemm_ref(a.float().abs(), _abs(ws)), "grouped")
+
+
+RAGGED_CASES = [  # sizes (bm multiples), extra rows, N, K, bm, tb, shared, out_dtype
+    ([16, 16, 16, 16, 16], 0, 5120, 2048, 16, False, False, None),  # path widths
+    ([16, 0, 32], 16, 100, 130, 16, True, False, None),   # zero size, rows past the end
+    ([8, 24, 8, 8], 0, 65, 257, 8, False, True, None),    # shared weights
+    ([16] * 18 + [0, 32], 16, 96, 200, 16, True, True, None),  # 20 members
+    ([128, 256], 64, 64, 80, 128, False, False, torch.float32),
+    ([16, 8, 8, 8, 8], 0, 5120, 300, 8, True, False, torch.float32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", RAGGED_CASES, ids=str)
+def test_ragged_walk_by_pointer_matches_plain(card, case, dtype):
+    sizes, extra, N, K, bm, tb, shared, out_dtype = case
+    G, Mtotal = len(sizes), sum(sizes) + extra
+    g = torch.Generator(device=card).manual_seed(Mtotal * N + K)
+    a = torch.randn((Mtotal, K), generator=g, device=card, dtype=dtype)
+    ws = _members(card, G, K, N, dtype, tb, shared, G + K)
+    chunks = ggk.ragged_chunks(ggk.row_ends(sizes), Mtotal, bm)
+    before = ggk.ragged_matmul.launches
+    out = ggk.ragged_matmul(a, ws, sizes, bm=bm, out_dtype=out_dtype)
+    assert ggk.ragged_matmul.launches == before + len(chunks)
+    assert out.dtype == (out_dtype or dtype)
+    _close(out, ragged_gemm_ref(a, ws, sizes, out_dtype=out_dtype),
+           ragged_gemm_ref(a.float().abs(), _abs(ws), sizes), "ragged")
+    again = ggk.ragged_matmul(a, ws, sizes, bm=bm, out_dtype=out_dtype)
+    assert torch.equal(again, out)   # the partials sum in a fixed order
+
+
+def test_ragged_walk_fills_the_card(card):
+    """W = SMs × the walk's occupancy; the timed shape's 54,400
+    iterations are dealt in equal spans to W CTAs."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    per_sm, smem = ggk.ragged_resources(card, torch.bfloat16, torch.bfloat16,
+                                        False, 16)
+    w = ggk.ragged_workgroups(card, torch.bfloat16, torch.bfloat16, False, 16)
+    assert w == sms * per_sm and per_sm >= 1 and smem > 48 * 1024
+    geo = ggk.ragged_walk(80, 5120, 17408, torch.bfloat16, 16, w)
+    assert geo.total == 5 * 80 * 136 and geo.live <= w
+    assert geo.ipw * (geo.live - 1) < geo.total <= geo.ipw * geo.live
+
+
+def test_weight_neither_row_nor_column_contiguous_raises(card):
+    a = torch.randn((3, 8, 64), device=card, dtype=torch.bfloat16)
+    ws = [torch.randn((64, 32), device=card, dtype=torch.bfloat16) for _ in range(3)]
+    strided = torch.randn((128, 64), device=card, dtype=torch.bfloat16)[::2, ::2]
+    mixed = torch.randn((32, 64), device=card, dtype=torch.bfloat16).T
+    before = (ggk.grouped_matmul.launches, ggk.ragged_matmul.launches)
+    with pytest.raises(ValueError, match="member 1's weight .* neither row- nor "
+                                         "column-contiguous"):
+        ggk.grouped_matmul(a, [ws[0], strided, ws[2]])
+    with pytest.raises(ValueError, match="member 1's weight"):
+        ggk.ragged_matmul(a.view(24, 64), [ws[0], strided, ws[2]], [8, 8, 8], bm=8)
+    with pytest.raises(ValueError, match="member 2's weight is stored .*one launch "
+                                         "has one layout"):
+        ggk.grouped_matmul(a, [ws[0], ws[1], mixed])
+    assert (ggk.grouped_matmul.launches, ggk.ragged_matmul.launches) == before
