@@ -7,11 +7,14 @@ Phases, each fatal on failure (nothing here catches an error):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build: every CUDA source of the port compiled with ``nvcc``, one
-   process per source, all started together;
+   process per source, all started together; then the card-only tests
+   (`tests/test_torch_card.py`, marker ``cuda``) in a pytest process of
+   their own, every one of which must pass;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs — a few dozen small cases with ragged M/N/K (and, for the
    single GEMM and the split-K and Stream-K kernels, every ``ta``/``tb``
-   layout; split 2-8 with wholly empty slices, Stream-K with G from 1 to
+   layout; split 2-8 with wholly empty slices, held to the plain partials
+   and reduce and run twice for the same bits, Stream-K with G from 1 to
    more workgroups than MAC iterations; the grouped and ragged kernels
    with their weights in each pointer form — one stacked tensor,
    per-member tensors with one weight shared, per-member transposed
@@ -23,7 +26,11 @@ Phases, each fatal on failure (nothing here catches an error):
    (`card_geometry`: CTA tiles from M, W workgroups from the planner's G,
    the SM count and the kernel's occupancy); its grid and shared memory
    are printed, and so are the ragged walk's (CTAs per SM and shared
-   memory from the occupancy query, tiles, iterations per CTA);
+   memory from the occupancy query, tiles, iterations per CTA) and, for
+   the ring-fed grouped and split-K kernels at their timed shapes, the
+   residency: CTAs, resident slots (CTAs per SM × SMs; for split-K also
+   the resident clusters), waves, dynamic shared memory and bytes in
+   flight per SM;
 4. per-class serving: a full-width, full-depth Qwen3-14B weight set (40
    layers × the four fused bf16 decode GEMMs, ~26.4 GB, random from a
    seed) served through the port's `Runtime` to tenants at batches
@@ -40,13 +47,15 @@ Phases, each fatal on failure (nothing here catches an error):
    with 4, and the same with 2 — each cold then warm, plus one planned
    mixed schedule that carries Stream-K members; every result is held
    against the plain version, and the counters, zeroed before the first
-   of these windows, must show the single, split-K partial and reduce,
-   and Stream-K walk and fixup kernels.  Then each warm window's
+   of these windows, must show the single, split-K (one launch per
+   split-K GEMM planned, no partials, no reduce launch), and Stream-K
+   walk and fixup kernels.  Then each warm window's
    launches run again, concurrently on streams, back to back on one
    stream at the same tiles, and back to back at the isolated tiles,
    each timed on the card: the concurrent-versus-sequential ratios are
    printed, not gated; and each window runs once more under the
-   profiler;
+   profiler, which counts its split-K launches beside the split-K GEMMs
+   planned and finds no reduce kernel;
 6. attention and scan kernels: the flash-attention and chunked-scan
    kernels against their plain versions on small cases (GQA and MHA,
    causal with ``q_offset``, a window, S not a multiple of ``bkv``,
@@ -85,9 +94,11 @@ the kernel sums 16-wide tensor-core products in K order, the plain
 version in cuBLAS's order, each add rounding at 2⁻²⁴ of its partial sum;
 at random signs these errors add like a random walk, ~√K·2⁻²⁴·Σ|a·b| ≤
 2⁻¹⁶·Σ|a·b| for K ≤ 2¹⁶.  A dropped or doubled k tile or a wrong group
-moves the result by far more.  The reduce and the fixup must equal their
-plain versions exactly: both add the same f32 partials in slot order and
-round once.
+moves the result by far more.  The split-K kernel is held to its plain
+partials and reduce, which sum the slices' f32 tiles in slice order as
+its cluster epilogue does, with |A|·|B| over all of K.  The fixup must
+equal its plain version exactly: both add the same f32 partials in slot
+order and round once.
 
 Attention and scan kernels are held to their plain versions computed
 and kept in f32 on the same (exactly converted) inputs, within
@@ -178,21 +189,23 @@ SEED = 0
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and operations/s by type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-REPLACES = {
-    "matmul": "src/repro/kernels/gemm/kernel.py:45 _matmul_kernel",
-    "splitk_partials": "src/repro/kernels/gemm/kernel.py:65 _matmul_splitk_kernel",
-    "splitk_reduce": "src/repro/kernels/gemm/kernel.py:86 _reduce_kernel",
-    "stream_k_partials": "src/repro/kernels/gemm/kernel.py:215 _stream_k_kernel",
-    "stream_k_fixup": "src/repro/kernels/gemm/kernel.py:247 _stream_k_fixup_kernel",
-    "grouped_matmul": "src/repro/kernels/grouped_gemm/kernel.py:41 _grouped_kernel",
-    "ragged_matmul": "src/repro/kernels/grouped_gemm/kernel.py:93 _ragged_kernel",
-    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:23 _flash_kernel",
-    "mamba_scan": "src/repro/kernels/mamba_scan/kernel.py:24 _mamba_kernel",
-}
+# The nine Pallas bodies and the launcher of the kernel that replaces each
+# on the card.  Split-K's partials and reduce (rows 2 and 3) are one
+# kernel, `splitk_matmul`: the reduce is its cluster epilogue.
+REPLACES = (
+    ("matmul", "src/repro/kernels/gemm/kernel.py:45 _matmul_kernel"),
+    ("splitk_matmul", "src/repro/kernels/gemm/kernel.py:65 _matmul_splitk_kernel"),
+    ("splitk_matmul", "src/repro/kernels/gemm/kernel.py:86 _reduce_kernel"),
+    ("stream_k_partials", "src/repro/kernels/gemm/kernel.py:215 _stream_k_kernel"),
+    ("stream_k_fixup", "src/repro/kernels/gemm/kernel.py:247 _stream_k_fixup_kernel"),
+    ("grouped_matmul", "src/repro/kernels/grouped_gemm/kernel.py:41 _grouped_kernel"),
+    ("ragged_matmul", "src/repro/kernels/grouped_gemm/kernel.py:93 _ragged_kernel"),
+    ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:23 _flash_kernel"),
+    ("mamba_scan", "src/repro/kernels/mamba_scan/kernel.py:24 _mamba_kernel"),
+)
 SOURCES = {
     "matmul": "src/repro_torch/csrc/gemm.cu",
-    "splitk_partials": "src/repro_torch/csrc/gemm_split_k.cu",
-    "splitk_reduce": "src/repro_torch/csrc/gemm_split_k.cu",
+    "splitk_matmul": "src/repro_torch/csrc/gemm_split_k.cu",
     "stream_k_partials": "src/repro_torch/csrc/gemm_stream_k.cu",
     "stream_k_fixup": "src/repro_torch/csrc/gemm_stream_k.cu",
     "grouped_matmul": "src/repro_torch/csrc/grouped_gemm.cu",
@@ -202,8 +215,7 @@ SOURCES = {
 }
 LAUNCHERS = {
     "matmul": gemm_kernel.matmul,
-    "splitk_partials": gemm_kernel.splitk_partials,
-    "splitk_reduce": gemm_kernel.splitk_reduce,
+    "splitk_matmul": gemm_kernel.splitk_matmul,
     "stream_k_partials": gemm_kernel.stream_k_partials,
     "stream_k_fixup": gemm_kernel.stream_k_fixup,
     "grouped_matmul": grouped_kernel.grouped_matmul,
@@ -213,8 +225,7 @@ LAUNCHERS = {
 }
 # Kernels each serving path must launch at least once.
 PER_CLASS_KERNELS = ("matmul", "grouped_matmul", "ragged_matmul")
-MIXED_KERNELS = ("matmul", "splitk_partials", "splitk_reduce",
-                 "stream_k_partials", "stream_k_fixup")
+MIXED_KERNELS = ("matmul", "splitk_matmul", "stream_k_partials", "stream_k_fixup")
 OP_BUNDLE_KERNELS = ("flash_attention", "mamba_scan")
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 SLEEP_CYCLES = 500_000_000   # ~0.25 s of the card's clock: time to queue work
@@ -338,6 +349,23 @@ def build_phase() -> None:
                   f"static smem ≤ {max(smem, default=0)} B, spill stores {spills} B")
 
 
+def card_tests_phase() -> str:
+    """The card-only tests in a pytest process of their own (no JAX there:
+    ``--noconftest``), on the libraries just built; fails unless every
+    test passes and none skips.  Returns pytest's summary line."""
+    args = ["--noconftest", "-p", "no:cacheprovider", "-m", "cuda", "-q",
+            str(ROOT / "tests" / "test_torch_card.py")]
+    code = (f"import sys; sys.path.insert(0, {str(ROOT / 'src')!r}); import pytest; "
+            f"sys.exit(pytest.main({args!r}))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True)
+    summary = (r.stdout.strip().splitlines() or ["(no output)"])[-1]
+    if r.returncode != 0 or "skipped" in summary or "passed" not in summary:
+        print(r.stdout[-6000:], r.stderr[-2000:], sep="\n")
+        raise AssertionError(f"card-only tests: {summary}")
+    return summary
+
+
 # ---------------------------------------------------------------- kernels
 def weight_forms(G: int, K: int, N: int, gen, dtype) -> dict:
     """The members' weights in both pointer forms: one stacked (G, K, N)
@@ -446,6 +474,32 @@ def ragged_abs(a, b, group_sizes):
                            group_sizes)
 
 
+def residency(name: str, shape: str, ctas: int, res, split: int = 0) -> dict:
+    """Print and return how a ring-fed kernel's grid of ``ctas`` CTAs sits
+    on the card (``res``: `RingResidency`): resident slots (CTAs per SM ×
+    SMs; for split-K the resident clusters × their CTAs too, whichever is
+    fewer), waves = CTAs / slots, dynamic shared memory, and the operand
+    bytes in flight per SM, (stages − 1) slabs × the CTAs an SM holds of
+    this grid (its occupancy, or ⌈CTAs / SMs⌉ when the grid is smaller)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = res.ctas_per_sm * sms
+    if split:
+        slots = min(slots, res.clusters * split)
+    per_sm = min(res.ctas_per_sm, -(-ctas // sms))
+    out = dict(ctas=ctas, ctas_per_sm=res.ctas_per_sm, sms=sms, slots=slots,
+               clusters=res.clusters, waves=ctas / slots, smem_bytes=res.smem_bytes,
+               stages=res.stages, slab_bytes=res.slab_bytes,
+               in_flight_per_sm=per_sm * (res.stages - 1) * res.slab_bytes)
+    clusters = (f", {res.clusters} resident clusters of {split} "
+                f"({res.clusters * split} CTAs)" if split else "")
+    print(f"# {name} residency at {shape}: {ctas} CTAs; {res.ctas_per_sm} CTAs per "
+          f"SM x {sms} SMs{clusters}: {slots} resident slots, {out['waves']:.3f} "
+          f"waves; {res.smem_bytes} B dynamic shared memory per CTA, a "
+          f"{res.stages}-stage ring of {res.slab_bytes} B slabs; "
+          f"{out['in_flight_per_sm']} B in flight per SM")
+    return out
+
+
 def main_path_kernels(gen) -> dict:
     """The serving path's shapes: compare, then time kernel, plain version
     and the PyTorch call computing the same function.  Every operand set
@@ -474,9 +528,13 @@ def main_path_kernels(gen) -> dict:
     out = grouped_kernel.grouped_matmul(a, ws, bm=8)
     err = check_close(out, grouped_gemm_ref(a, ws), grouped_abs(a, ws),
                       "grouped main")
+    res = grouped_kernel.grouped_residency(a.device, bf16, bf16, False, 16)
     rows["grouped_matmul"] = dict(
         shape=f"G{G} {M}x{N}x{K}",
-        instantiation=gemm_kernel.instantiation(bf16, 8),
+        instantiation=(f"{gemm_kernel.instantiation(bf16, 8)}, {res.stages}-stage "
+                       f"cp.async ring, {res.smem_bytes} B shared"),
+        grid=residency("grouped_matmul", f"G{G} {M}x{N}x{K}",
+                       G * -(-M // 16) * -(-N // 64), res),
         max_abs_err=err,
         ms=time_ms(lambda: grouped_kernel.grouped_matmul(a, ws, bm=8)),
         plain_ms=time_ms(lambda: grouped_gemm_ref(a, ws), reps=5),
@@ -576,8 +634,9 @@ def check_equal(out, ref, what: str) -> float:
 
 def split_stream_cases(gen) -> int:
     """The split-K and Stream-K kernels against their own plain versions:
-    partials (Stream-K: the written slots only), then the reduce and the
-    fixup on the kernels' own partials, then `gemm` end to end."""
+    `splitk_matmul` against the plain partials and reduce, twice for the
+    same bits; the Stream-K partials (the written slots only), then the
+    fixup on the kernel's own partials; then `gemm` end to end."""
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
         for (M, N, K, bm, bk, split_k), (ta, tb) in zip(SPLIT_CASES, cycle(LAYOUTS)):
@@ -585,14 +644,13 @@ def split_stream_cases(gen) -> int:
             a = randn((K, M) if ta else (M, K), gen, dtype)
             b = randn((N, K) if tb else (K, N), gen, dtype)
             split, slice_k = gemm_kernel.split_k_slices(K, bk, split_k)
-            p = gemm_kernel.splitk_partials(a, b, ta=ta, tb=tb, bm=bm, split=split,
-                                            slice_k=slice_k)
-            kw = dict(split=split, slice_k=slice_k, bk=bk)
+            kw = dict(ta=ta, tb=tb, split=split, slice_k=slice_k)
             aa, ab = op_abs(a, b, ta, tb)
-            check_close(p, splitk_partials_ref(a, b, ta=ta, tb=tb, **kw),
-                        splitk_partials_ref(aa, ab, **kw), what + " partials")
-            check_equal(gemm_kernel.splitk_reduce(p, dtype),
-                        splitk_reduce_ref(p, dtype), what + " reduce")
+            out = gemm_kernel.splitk_matmul(a, b, bm=bm, **kw)
+            check_close(out, splitk_reduce_ref(splitk_partials_ref(a, b, bk=bk, **kw),
+                                               dtype), aa @ ab, what)
+            check_equal(gemm_kernel.splitk_matmul(a, b, bm=bm, **kw), out,
+                        what + " second run")
             check_close(gemm(a, b, ta=ta, tb=tb,
                              tile=TileConfig(bm, 128, bk, split_k=split_k)),
                         gemm_ref(a, b, ta=ta, tb=tb), aa @ ab, what + " gemm")
@@ -626,8 +684,9 @@ def split_stream_kernels(gen) -> dict:
     the planner gives a 32×512×17408 member at CD 6-8 (17.8 MB of
     weights: four operand sets rotate, 71 MB together).  Each kernel,
     its plain version and the PyTorch call beside it are timed on the
-    same inputs.  The reduce and the fixup read partials of well under
-    1 MB, which sit in L2 on the path too (written just before)."""
+    same inputs: for split-K the whole GEMM, one launch, against
+    `torch.matmul`.  The fixup reads partials of well under 1 MB, which
+    sit in L2 on the path too (written just before)."""
     rows = {}
     bf16, f32 = torch.bfloat16, torch.float32
     for (M, N, K, split_k) in ((8, 5120, 17408, 4), (1, 5120, 17408, 8)):
@@ -635,33 +694,27 @@ def split_stream_kernels(gen) -> dict:
         tile = TileConfig(8, 128, 128, split_k=split_k)
         split, slice_k = gemm_kernel.split_k_slices(K, tile.bk, split_k)
         kw = dict(split=split, slice_k=slice_k)
-        p = gemm_kernel.splitk_partials(a, b, bm=8, **kw)
-        p_ref = splitk_partials_ref(a, b, bk=tile.bk, **kw)
-        err = check_close(p, p_ref, splitk_partials_ref(a.float().abs(), b.float().abs(),
-                                                        bk=tile.bk, **kw),
-                          f"splitk_partials {M}x{N}x{K}s{split}")
+        out = gemm_kernel.splitk_matmul(a, b, bm=8, **kw)
+
+        def plain():
+            return splitk_reduce_ref(splitk_partials_ref(a, b, bk=tile.bk, **kw), bf16)
+
         shape = f"{M}x{N}x{K} at {tile.key()}"
-        row = dict(
-            shape=shape, instantiation=gemm_kernel.instantiation(bf16, 8),
+        err = check_close(out, plain(), abs_product(a, b), f"splitk_matmul {shape}")
+        res = gemm_kernel.splitk_residency(a.device, bf16, bf16, False, False, 16, split)
+        rows.setdefault("splitk_matmul", []).append(dict(
+            shape=shape,
+            instantiation=(f"{gemm_kernel.instantiation(bf16, 8)}, {res.stages}-stage "
+                           f"cp.async ring, clusters of {split}, {res.smem_bytes} B "
+                           "shared"),
+            grid=residency("splitk_matmul", shape, -(-N // 64) * -(-M // 16) * split,
+                           res, split),
             max_abs_err=err,
-            ms=time_ms(lambda: gemm_kernel.splitk_partials(a, b, bm=8, out=p, **kw)),
-            plain_ms=time_ms(lambda: splitk_partials_ref(a, b, bk=tile.bk, **kw),
-                             reps=3, warmup=1),
+            ms=time_ms(lambda: gemm_kernel.splitk_matmul(a, b, bm=8, out=out, **kw)),
+            plain_ms=time_ms(plain, reps=3, warmup=1),
             library_ms=time_ms(lambda: torch.matmul(a, b)),
-            bound=bound((M * K + K * N) * 2 + split * M * N * 4, 2 * M * N * K, bf16))
-        rows.setdefault("splitk_partials", []).append(row)
-        out = gemm_kernel.splitk_reduce(p, bf16)
-        err = check_equal(out, splitk_reduce_ref(p, bf16), f"splitk_reduce {shape}")
-        c = torch.empty_like(out)
-        row = dict(
-            shape=f"{split}x{M}x{N} f32 partials -> bf16 ({shape})",
-            instantiation="256 threads, grid-stride", max_abs_err=err,
-            ms=time_ms(lambda: gemm_kernel.splitk_reduce(p, bf16, out=c)),
-            plain_ms=time_ms(lambda: splitk_reduce_ref(p, bf16), reps=5),
-            library_ms=time_ms(lambda: p.sum(0).to(bf16)),
-            bound=bound(split * M * N * 4 + M * N * 2, split * M * N, f32))
-        rows.setdefault("splitk_reduce", []).append(row)
-        del a, b, p, p_ref
+            bound=bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf16)))
+        del a, b, out
 
     M, N, K, G = 32, 512, 17408, 8
     tile = TileConfig(32, 128, 128, stream_k=G)
@@ -774,8 +827,7 @@ def serve_window(rt: Runtime, cfg, weights: list, batches, gen) -> dict:
 KERNEL_OF_MODE = {"single": "matmul", "grouped": "grouped_matmul",
                   "ragged": "ragged_matmul"}
 KERNEL_KINDS = (("matmul_kernel", "matmul"), ("grouped_kernel", "grouped_matmul"),
-                ("splitk_kernel", "splitk_partials"),
-                ("repro::reduce_kernel", "splitk_reduce"),
+                ("splitk_kernel", "splitk_matmul"),
                 ("stream_k_kernel", "stream_k_partials"),
                 ("fixup_kernel", "stream_k_fixup"),
                 ("ragged_kernel", "ragged_matmul"), ("flash_bf16_kernel", "flash_attention"),
@@ -783,18 +835,38 @@ KERNEL_KINDS = (("matmul_kernel", "matmul"), ("grouped_kernel", "grouped_matmul"
                 ("reduce", "isfinite checks"))
 
 
+def planned_split_k(launches) -> int:
+    """The split-K GEMMs among a window's launches: the members of mixed
+    launches, and single launches, whose tile splits K (a grouped or
+    ragged launch of several members runs its own kernel)."""
+    n = 0
+    for ln in launches:
+        if ln.plan.mode == "mixed":
+            pairs = zip(ln.tickets, ln.plan.tiles or [ln.plan.tile] * len(ln.tickets))
+        elif ln.plan.mode == "single" or len(ln.tickets) == 1:
+            pairs = [(ln.tickets[0], ln.plan.tile)]
+        else:
+            continue
+        n += sum(tk.desc.family == "gemm" and
+                 decomposition(tk.desc, t).startswith("split-K") for tk, t in pairs)
+    return n
+
+
 def profile_window(label: str, drive) -> None:
     """One more warm window under `torch.profiler` (``drive`` runs it and
-    returns its wall time): device time by kernel kind, and the device's
-    busy and idle shares of the window's wall time.  Busy time is the
-    union of the kernels' intervals, so kernels that overlap on streams
-    count once; the profiler's own overhead lengthens the wall time."""
+    returns its wall time and launches): device time by kernel kind, and
+    the device's busy and idle shares of the window's wall time.  Busy
+    time is the union of the kernels' intervals, so kernels that overlap
+    on streams count once; the profiler's own overhead lengthens the wall
+    time.  It also prints the split-K kernel's launches beside the
+    split-K GEMMs the window planned, and the port's reduce kernels seen
+    (none since split-K sums its slices in its cluster epilogue)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = drive()
-    by_kind, total = {}, 0.0
+        wall, launches = drive()
+    by_kind, total, split_k, reduces = {}, 0.0, 0, 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -802,6 +874,8 @@ def profile_window(label: str, drive) -> None:
         total += us
         kind = next((k for pat, k in KERNEL_KINDS if pat in evt.key), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
+        split_k += evt.count if kind == "splitk_matmul" else 0
+        reduces += evt.count if "repro::reduce" in evt.key else 0
     if total == 0.0:
         print(f"# profiled {label}: the profiler recorded no device time "
               "(per-launch CUDA-event times are above)")
@@ -815,7 +889,9 @@ def profile_window(label: str, drive) -> None:
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / total:.1%})"
                       for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]))
     print(f"# profiled {label}: wall {wall:.6f} s, kernel time {total / 1e6:.6f} s, "
-          f"device busy {busy / 1e6:.6f} s (idle {1 - busy / 1e6 / wall:.1%}); {parts}")
+          f"device busy {busy / 1e6:.6f} s (idle {1 - busy / 1e6 / wall:.1%}); {parts}; "
+          f"split-K kernel launches {split_k} for {planned_split_k(launches)} split-K "
+          f"GEMMs planned; split-K reduce kernels {reduces}")
 
 
 def serving_phase(device="cuda", cfg=None, layers=None) -> dict:
@@ -853,7 +929,7 @@ def serving_phase(device="cuda", cfg=None, layers=None) -> dict:
     if device == "cuda":
         for batches in ([8, 8, 8, 8], [4, 8, 8, 8, 16]):
             profile_window(f"window batches {batches}", lambda: drive_window(
-                rt, cfg, weights, batches, gen)[1])
+                rt, cfg, weights, batches, gen)[1::2])
     return dict(counts=counts, windows=windows, model_gb=model_gb)
 
 
@@ -924,16 +1000,17 @@ def mixed_window(rt: Runtime, cfg, weights: list, batches, gen) -> dict:
     members = Counter(decomposition(tk.desc, t) for ln in launches
                       for tk, t in zip(ln.tickets, ln.plan.tiles or [ln.plan.tile]))
     return dict(requests=len(tickets), launches=dict(Counter(g.mode for g in recs)),
-                members=dict(members), wall_s=wall,
+                members=dict(members), split_k=planned_split_k(launches), wall_s=wall,
                 device_s=sum(g.achieved_time_s or 0.0 for g in recs),
                 request_weight_gb=sum(tk.request.b.numel() * 2 for tk in tickets) / 1e9,
                 launch_list=launches)
 
 
-def stream_k_schedule(rt: Runtime, gen) -> None:
+def stream_k_schedule(rt: Runtime, gen) -> int:
     """One mixed schedule the planner makes for a bundle of four
     32×512×17408 GEMMs and three 1×5120×17408 ones: a CD-7 group whose
-    members run Stream-K (32x128x128g8) and split-K tiles at once."""
+    members run Stream-K (32x128x128g8) and split-K tiles at once.
+    Returns the split-K GEMMs it ran."""
     descs = [GemmDesc(32, 512, 17408)] * 4 + [GemmDesc(1, 5120, 17408)] * 3
     sched = rt.ctrl.plan_mixed(descs, available=16)
     tiles = [t for g in sched.groups for t in (g.tiles or [g.tile])]
@@ -946,6 +1023,8 @@ def stream_k_schedule(rt: Runtime, gen) -> None:
                     f"mixed member {r.desc.key()}")
     print(f"# mixed Stream-K schedule: {[(g.mode, g.cd) for g in sched.groups]}, "
           f"member tiles {[t.key() for t in tiles]}")
+    return sum(decomposition(descs[i], t).startswith("split-K") for g in sched.groups
+               for i, t in zip(g.indices, g.tiles or [g.tile] * len(g.indices)))
 
 
 def concurrency_ratio(launches, lib):
@@ -1024,12 +1103,17 @@ def mixed_phase(device="cuda", cfg=None, layers=None) -> dict:
                   f"members {w['members']}, wall {w['wall_s']:.6f} s, device "
                   f"{w['device_s']:.6f} s, {w['request_weight_gb'] / w['wall_s']:.1f} "
                   f"request-weight GB/s, {model_gb / w['wall_s']:.1f} model-weight GB/s")
-    stream_k_schedule(rt, torch.Generator(device=device).manual_seed(SEED + 2))
+    planned = sum(w["split_k"] for w in windows) + stream_k_schedule(
+        rt, torch.Generator(device=device).manual_seed(SEED + 2))
     counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
-    print(f"# bundle serving modes {rt.telemetry.mode_counts()}; kernel launches {counts}")
+    print(f"# bundle serving modes {rt.telemetry.mode_counts()}; kernel launches {counts}; "
+          f"split-K GEMMs planned {planned}")
     missing = [k for k in MIXED_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"the bundle path never launched {missing}")
+    if device == "cuda" and counts["splitk_matmul"] != planned:
+        raise AssertionError(f"{counts['splitk_matmul']} split-K launches for {planned} "
+                             "split-K GEMMs planned: a split-K GEMM is one launch")
     if device == "cuda":
         for w in windows[1::2]:     # the warm windows
             r = w["ratio"] = concurrency_ratio(w["launch_list"], rt.ctrl.lib)
@@ -1048,7 +1132,7 @@ def mixed_phase(device="cuda", cfg=None, layers=None) -> dict:
         for batches, available in MIXED_WINDOWS:
             rt.set_available(available)
             profile_window(f"bundle window batches {batches} available {available}",
-                           lambda: drive_bundles(rt, cfg, weights, batches, gen)[1])
+                           lambda: drive_bundles(rt, cfg, weights, batches, gen)[1::2])
     for w in windows:
         del w["launch_list"]
     return dict(counts=counts, windows=windows, model_gb=model_gb)
@@ -1445,7 +1529,7 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
             rt.set_available(available)
             profile_window(f"{cfg.name} op-bundle window batches {batches} available "
                            f"{available}", lambda: drive_op_bundles(
-                               rt, cfg, weights, kv, batches, context, gen)[1])
+                               rt, cfg, weights, kv, batches, context, gen)[1::2])
     for w in windows:
         del w["launch_list"]
     return dict(counts=counts, windows=windows, model_gb=model_gb, kv_gb=kv_gb)
@@ -1464,6 +1548,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     build_phase()
+    print(f"# card-only tests: {card_tests_phase()}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     print(f"# kernels: {small_cases(gen)} small cases agree with their plain versions")
     print(f"# split-K and Stream-K kernels: {split_stream_cases(gen)} small cases "
@@ -1488,20 +1573,24 @@ def main() -> int:
     if missing:
         raise AssertionError(f"the op-bundle path never launched {missing}")
     kernels = []
-    for name in LAUNCHERS:
+    for name, replaces in REPLACES:
         r, *more = rows[name]
         path = (serving if name in PER_CLASS_KERNELS else
                 {"counts": op_counts} if name in OP_BUNDLE_KERNELS else mixed)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "shape": r["shape"],
+            "replaces": replaces, "shape": r["shape"],
+            **({"folded": "the reduce is splitk_matmul's cluster epilogue; the row "
+                          "times the whole one-launch GEMM"}
+               if replaces.endswith("_reduce_kernel") else {}),
             "instantiation": r["instantiation"], "launches": path["counts"][name],
             **({"grid": r["grid"]} if "grid" in r else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **({"more_shapes": [{
-                "shape": m["shape"], "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "shape": m["shape"], **({"grid": m["grid"]} if "grid" in m else {}),
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
                 "bound_by": m["bound"][1], "library_ms": m["library_ms"]}
                 for m in more]} if more else {}),

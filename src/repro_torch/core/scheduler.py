@@ -387,10 +387,10 @@ def _run_mixed(reqs: Sequence[GemmRequest],
     is the first member's with operands; a group with none runs nothing.
     On the CPU the members run in order, as in the reference.  On the
     card they run at once, one side stream each: every buffer a member
-    writes (outputs, split-K and Stream-K partials, attention's split
-    partials and counters, a scan's final state) is allocated on the
-    launching stream first, the side streams wait on an event recorded
-    there, and the launching stream waits on each member's end event
+    writes (outputs, Stream-K partials, attention's split partials and
+    counters, a scan's final state) is allocated on the launching
+    stream first, the side streams wait on an event recorded there,
+    and the launching stream waits on each member's end event
     before this returns — so no buffer is freed while a side stream
     still uses it, and work queued after the launch sees every result.
     The attention and scan kernels read their inputs through strides, so

@@ -15,8 +15,11 @@
 // `_grouped_kernel`: G same-shape GEMMs (G,M,K) x B[g] -> (G,M,N).  The
 // TPU kernel interleaves members on its (m, n, G, k) grid; here the member
 // is the grid's z axis and every (member, row tile, 64-column stripe) is an
-// independent CTA on tile_gemm.cuh's tile, so the members' weight streams
-// run side by side on the SMs.
+// independent CTA, so the members' weight streams run side by side on the
+// SMs.  Each CTA sweeps all of K through tile_gemm.cuh's cp.async ring
+// (`ring_tile`, kRingStages stages, B evict-first, A evict-last).  Three
+// CTAs fit on an SM, so at G4 8 x 5120 x 17408 the 320 CTAs run in one
+// wave of 396 slots (tile_gemm.cuh says why the ring is not deeper).
 //
 // ragged_matmul replaces src/repro/kernels/grouped_gemm/kernel.py:93
 // `_ragged_kernel`: A (Mtotal, K) holds the members' rows concatenated;
@@ -38,10 +41,12 @@
 //     iterations (row tile, 64-column stripe, k step) into equal
 //     contiguous spans, as the Stream-K walk does, so every SM carries
 //     the same bytes whatever the shape;
-//   - each CTA streams its span's A and B k-slabs through the kStages
-//     cp.async ring of cp_async.cuh (copy_tile), so kStages - 1 slabs
+//   - each CTA streams its span's A and B k-slabs through a kStages
+//     cp.async ring (tile_gemm.cuh's `load_slabs`), so kStages - 1 slabs
 //     (3 x 22 KB at 16 rows) are in flight per CTA while the tensor cores
-//     (WMMA, tile_gemm.cuh's Math) work on the oldest;
+//     (WMMA, tile_gemm.cuh's Math) work on the oldest.  The ring runs on
+//     across tile frontiers, so the walk keeps its own loop: `ring_tile`
+//     drains its ring at the end of every tile;
 //   - B, read once, is loaded with an L2 evict-first policy and A with
 //     evict-last: every stripe's CTAs read the same A slabs, at times
 //     spread over the whole walk, and B streaming through L2 would
@@ -72,50 +77,34 @@ struct Members {
   int count;
 };
 
+template <typename T, int BM, bool TB>
+using GroupedRing = RingCfg<T, BM, false, TB, kRingStages>;
+
 template <typename T, int BM, bool TB, typename OutT>
 __global__ void __launch_bounds__(kThreads)
     grouped_kernel(const T* __restrict__ A, OutT* __restrict__ C, int64_t M,
                    int64_t N, int64_t K, const __grid_constant__ Members mem) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int64_t g = blockIdx.z;
   const int64_t n0 = (int64_t)blockIdx.x * kBN;
   const int64_t m0 = (int64_t)blockIdx.y * BM;
   const int64_t m_end = m0 + BM < M ? m0 + BM : M;
-  gemm_tile<T, BM, false, TB, OutT>(A + g * M * K, K,
-                                    static_cast<const T*>(mem.b[g]), mem.ldb[g],
-                                    C + g * M * N, N, m0, m_end, n0, N, 0, K);
+  Math<T, BM, false, TB> math;
+  math.init();
+  ring_tile<T, BM, false, TB, kRingStages>(
+      smem, math, A + g * M * K, K, static_cast<const T*>(mem.b[g]), mem.ldb[g],
+      m0, m_end, n0, N, 0, K);
+  math.template finish<OutT>(smem, C + g * M * N, N, m0, m_end, n0, N);
 }
 
 template <typename T, int BM, bool TB>
 struct RaggedCfg {
   using Cfg = TileCfg<T, BM, false, TB>;
-  static constexpr int STAGE = (Cfg::AB_BYTES + 127) / 128 * 128;
+  static constexpr int STAGE = RingCfg<T, BM, false, TB, kStages>::STAGE;
   static constexpr int RING = kStages * STAGE;
   static constexpr int SMEM = RING + Cfg::C_BYTES;  // + the f32 tile
   static constexpr int TILE = BM * kBN;             // floats of a partial
 };
-
-// The CTA's f32 accumulator tile into shared memory, row-major with the
-// row stride TileCfg::C_LD.
-template <int BM, bool TB>
-__device__ __forceinline__ void stage_acc(
-    const Math<__nv_bfloat16, BM, false, TB>& m, float* Cs) {
-  constexpr int LD = TileCfg<__nv_bfloat16, BM, false, TB>::C_LD;
-  const int w = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i)
-    nvcuda::wmma::store_matrix_sync(Cs + (i * 16) * LD + w * 16, m.acc[i], LD,
-                                    nvcuda::wmma::mem_row_major);
-}
-
-template <int BM, bool TB>
-__device__ __forceinline__ void stage_acc(const Math<float, BM, false, TB>& m,
-                                          float* Cs) {
-  constexpr int LD = TileCfg<float, BM, false, TB>::C_LD;
-  constexpr int RPT = Math<float, BM, false, TB>::RPT;
-  const int c = threadIdx.x % kBN, r0 = (threadIdx.x / kBN) * RPT;
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) Cs[(r0 + j) * LD + c] = m.acc[j];
-}
 
 // The walk over tiles q = (row tile, 64-column stripe), tn stripes per
 // row tile, in row-major order; row tile i is rows [row_lo + i * rows,
@@ -182,13 +171,9 @@ __global__ void __launch_bounds__(kThreads)
     const Step st = j == 0 ? step_of(0) : next(ls, j);
     if (st.q != ls.q) lt = tile_of(st.q);
     ls = st;
-    const int64_t k0 = (int64_t)st.k * Cfg::BK;
-    copy_tile<T, Cfg::A_R, Cfg::A_C, Cfg::A_LD, kThreads>(
-        stage_a(s), A, K, lt.r0, k0, lt.r_end, K, keep);      // rows m, columns k
-    if (TB) copy_tile<T, Cfg::B_R, Cfg::B_C, Cfg::B_LD, kThreads>(
-        stage_b(s), lt.B, lt.ldb, lt.n0, k0, N, K, stream);   // rows n, columns k
-    else    copy_tile<T, Cfg::B_R, Cfg::B_C, Cfg::B_LD, kThreads>(
-        stage_b(s), lt.B, lt.ldb, k0, lt.n0, K, N, stream);   // rows k, columns n
+    load_slabs<T, BM, false, TB>(stage_a(s), stage_b(s), A, K, lt.B, lt.ldb,
+                                 lt.r0, lt.r_end, lt.n0, N,
+                                 (int64_t)st.k * Cfg::BK, K, keep, stream);
   };
 
   Math<T, BM, false, TB> math;
@@ -216,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
     const Tile t = tile_of(q);
     const int first = (int)((int64_t)q * tk / ipw);
     const int last = (int)(((int64_t)q * tk + tk - 1) / ipw);
-    stage_acc(math, Cs);
+    math.stage(Cs);
     __syncthreads();
     math.init();
     if (first == last) {  // the whole tile lies in this span
@@ -291,6 +276,26 @@ int with_ragged(int dtype, int out_dtype, int cta_m, int tb, F&& f) {
   });
 }
 
+// The grouped kernel of one instantiation with its dynamic shared memory
+// allowed: f(kernel pointer, GroupedRing<...>{}, TypeTag<T>,
+// TypeTag<OutT>).
+template <typename F>
+int with_grouped(int dtype, int out_dtype, int cta_m, int tb, F&& f) {
+  return dispatch_members(dtype, out_dtype, cta_m, tb, [&](auto t, auto o,
+                                                           auto bm, auto tb_) {
+    using T = typename decltype(t)::type;
+    using OutT = typename decltype(o)::type;
+    constexpr int BM = decltype(bm)::value;
+    constexpr bool TB = decltype(tb_)::value;
+    using R = GroupedRing<T, BM, TB>;
+    auto kernel = grouped_kernel<T, BM, TB, OutT>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    return f(kernel, R{}, t, o);
+  });
+}
+
 // The table of `count` members from the caller's arrays (row_end may be
 // null); cudaErrorInvalidValue for a count outside [1, kMaxMembers].
 inline int fill_members(Members& m, const void* const* b, const long long* ldb,
@@ -322,17 +327,33 @@ extern "C" int repro_grouped_matmul(const void* a, const void* const* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   repro::Members mem;
   if (int e = repro::fill_members(mem, b, ldb, nullptr, G)) return e;
-  return repro::dispatch_members(dtype, out_dtype, cta_m, tb, [&](auto t, auto o,
-                                                                  auto bm, auto tb_) {
+  return repro::with_grouped(dtype, out_dtype, cta_m, tb, [&](auto kernel, auto r,
+                                                              auto t, auto o) {
     using T = typename decltype(t)::type;
     using OutT = typename decltype(o)::type;
-    constexpr int BM = decltype(bm)::value;
+    using R = decltype(r);
     dim3 grid((unsigned)((N + repro::kBN - 1) / repro::kBN),
-              (unsigned)((M + BM - 1) / BM), (unsigned)G);
-    repro::grouped_kernel<T, BM, decltype(tb_)::value, OutT>
-        <<<grid, repro::kThreads, 0, s>>>(static_cast<const T*>(a),
-                                          static_cast<OutT*>(c), M, N, K, mem);
+              (unsigned)((M + R::ROWS - 1) / R::ROWS), (unsigned)G);
+    kernel<<<grid, repro::kThreads, R::SMEM, s>>>(
+        static_cast<const T*>(a), static_cast<OutT*>(c), M, N, K, mem);
     return (int)cudaGetLastError();
+  });
+}
+
+// CTAs of the grouped kernel that fit on one SM at once (its occupancy),
+// one CTA's dynamic shared memory, its ring's stages and the operand
+// bytes one stage brings in.  Returns the cudaError_t of the query.
+extern "C" int repro_grouped_occupancy(int dtype, int out_dtype, int tb,
+                                       int cta_m, int* blocks, int* smem_bytes,
+                                       int* stages, int* slab_bytes) {
+  return repro::with_grouped(dtype, out_dtype, cta_m, tb, [&](auto kernel, auto r,
+                                                              auto, auto) {
+    using R = decltype(r);
+    *smem_bytes = R::SMEM;
+    *stages = R::RING / R::STAGE;
+    *slab_bytes = R::SLAB;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, repro::kThreads, R::SMEM);
   });
 }
 

@@ -1,7 +1,7 @@
 // Shared CTA-level GEMM tile for the port's GEMM kernels (gemm.cu,
 // grouped_gemm.cu, gemm_split_k.cu, gemm_stream_k.cu):
 // C[m0:m_end, n0:n0+64] = op(A)[:, k0:k1] . op(B)[k0:k1, :], f32
-// accumulation, output cast once (or stored as f32 partials).
+// accumulation, output cast once (or kept as an f32 tile).
 //
 // What bounds it on an H100: bytes.  The serving path's GEMMs are decode
 // steps (M = 4..16 rows per member) against weights of 26-178 MB, far
@@ -12,16 +12,25 @@
 //   - one CTA owns a 64-column stripe of the output and the (few) rows of
 //     its row tile; the K sweep (the TPU kernel's sequential k grid axis)
 //     is a loop inside the CTA;
-//   - each thread issues its next tile's loads as 16-byte vector loads
-//     into registers before computing on the current tile in shared
-//     memory (register double-buffering), so global loads overlap the
-//     math; BK is 128 for the 16-row bf16 tile so each CTA has 16 KB of
-//     weights in flight per step;
+//   - the K loop comes in two forms.  `ring_tile` streams the A and B
+//     k-slabs through a ring of shared-memory stages filled by cp.async
+//     (cp_async.cuh), so all but one stage are in flight while the math
+//     works on the oldest (`kRingStages` says how deep, and why); B, read
+//     once, is loaded evict-first and A evict-last.  The split-K and grouped kernels run it; the
+//     ragged walk, whose ring runs on across tiles, uses its slab loader
+//     (`load_slabs`).
+//     `gemm_tile` is the older register path: each thread loads its next
+//     k-slab into registers as 16-byte vector loads while the math runs on
+//     the current one in shared memory, one slab in flight per CTA.
+//     `matmul` (gemm.cu) is its last user; it moves to the ring next, and
+//     the register loader (`TileLoader`) then goes;
+//   - BK is 128 for the 16-row bf16 tile (16 KB of weights per slab), else
+//     64;
 //   - the ragged edges of M, N and K are masked at load (zero fill) and at
 //     store, so callers never pad operands.
 // bf16 runs on the tensor cores through WMMA 16x16x16 fragments (f32
 // accumulators); f32 runs as plain FMA, one output column and BM/2 rows
-// per thread.  wgmma, TMA and a deeper cp.async pipeline are later work.
+// per thread.  wgmma and TMA are later work.
 //
 // CTA tile rule (see kernels/gemm/kernel.py:cta_rows): a TileConfig row
 // block bm <= 16 maps to a 16-row CTA tile, any larger bm to a 64-row
@@ -35,6 +44,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "cp_async.cuh"
 
 namespace repro {
 
@@ -163,6 +174,16 @@ struct Math<__nv_bfloat16, BM, TA, TB> {
     }
   }
 
+  // The f32 accumulator tile into shared memory, row-major with the row
+  // stride Cfg::C_LD.
+  __device__ __forceinline__ void stage(float* Cs) const {
+    const int w = threadIdx.x / 32;
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i)
+      nvcuda::wmma::store_matrix_sync(Cs + (i * 16) * Cfg::C_LD + w * 16, acc[i],
+                                      Cfg::C_LD, nvcuda::wmma::mem_row_major);
+  }
+
   template <typename OutT>
   __device__ __forceinline__ void finish(unsigned char* smem, OutT* C,
                                          int64_t ldc, int64_t m0, int64_t m_end,
@@ -208,6 +229,12 @@ struct Math<float, BM, TA, TB> {
     }
   }
 
+  __device__ __forceinline__ void stage(float* Cs) const {
+    const int c = threadIdx.x % kBN, r0 = (threadIdx.x / kBN) * RPT;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) Cs[(r0 + j) * Cfg::C_LD + c] = acc[j];
+  }
+
   template <typename OutT>
   __device__ __forceinline__ void finish(unsigned char*, OutT* C, int64_t ldc,
                                          int64_t m0, int64_t m_end, int64_t n0,
@@ -220,13 +247,112 @@ struct Math<float, BM, TA, TB> {
   }
 };
 
+// ------------------------------------------------------ the cp.async ring
+// The ring depth of the split-K and grouped kernels: two stages, one k-slab
+// in flight per CTA while the math works on the other.  What decides it is
+// HBM, not latency: at the decode shapes the grids are a few hundred CTAs
+// (grouped G4 and split-K s4 at 5120 x 17408: 320; s8: 640), three of them
+// per SM (registers cap the 16-row bf16 tile at three, whatever the depth),
+// so two stages already keep 6-7 MB in flight across the card.  Measured on an
+// H100 SXM at 700 W (PERF.md section 6): three stages ran 4-9% slower than
+// two for grouped and split-K s4 and 1.5% faster for s8; four stages leave
+// room for only two CTAs per SM, and G4's 320 CTAs then take two waves of
+// 264 slots (1.4x slower); more CTAs per SM (smaller k steps, or registers
+// capped) were slower still.
+constexpr int kRingStages = 2;
+
+// A ring of STAGES stages, each one A and one B k-slab (128-byte
+// aligned), whose bytes, once the K loop has drained, hold the epilogue's
+// f32 tile (SMEM, the dynamic shared memory of a CTA that runs it).
+template <typename T, int BM, bool TA, bool TB, int STAGES>
+struct RingCfg {
+  using Cfg = TileCfg<T, BM, TA, TB>;
+  static constexpr int ROWS = BM;
+  static constexpr int STAGE = (Cfg::AB_BYTES + 127) / 128 * 128;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int SMEM = RING > Cfg::C_BYTES ? RING : Cfg::C_BYTES;
+  // Operand bytes one stage brings in (the slabs without row padding).
+  static constexpr int SLAB =
+      (Cfg::A_R * Cfg::A_C + Cfg::B_R * Cfg::B_C) * (int)sizeof(T);
+};
+
+// One stage's A and B k-slabs at k by cp.async: A's rows [m0, m_end)
+// (columns, when TA) and B's columns [n0, n_end) over k steps [k, k + BK)
+// masked at k1 (zero fill past every edge).  B, read once, carries the
+// L2 policy `stream` (evict-first); A, read again by every stripe's CTAs,
+// `keep` (evict-last).
+template <typename T, int BM, bool TA, bool TB>
+__device__ __forceinline__ void load_slabs(T* As, T* Bs, const T* __restrict__ A,
+                                           int64_t lda, const T* __restrict__ B,
+                                           int64_t ldb, int64_t m0, int64_t m_end,
+                                           int64_t n0, int64_t n_end, int64_t k,
+                                           int64_t k1, uint64_t keep,
+                                           uint64_t stream) {
+  using Cfg = TileCfg<T, BM, TA, TB>;
+  if (TA) copy_tile<T, Cfg::A_R, Cfg::A_C, Cfg::A_LD, kThreads>(
+      As, A, lda, k, m0, k1, m_end, keep);     // rows k, columns m
+  else    copy_tile<T, Cfg::A_R, Cfg::A_C, Cfg::A_LD, kThreads>(
+      As, A, lda, m0, k, m_end, k1, keep);     // rows m, columns k
+  if (TB) copy_tile<T, Cfg::B_R, Cfg::B_C, Cfg::B_LD, kThreads>(
+      Bs, B, ldb, n0, k, n_end, k1, stream);   // rows n, columns k
+  else    copy_tile<T, Cfg::B_R, Cfg::B_C, Cfg::B_LD, kThreads>(
+      Bs, B, ldb, k, n0, k1, n_end, stream);   // rows k, columns n
+}
+
+// One output tile's K sweep [k0, k1) through a STAGES-deep cp.async ring
+// in `smem` (RingCfg::RING bytes, 128-byte aligned): STAGES - 1 k-slabs
+// in flight while `math` works on the oldest.  A and B as for gemm_tile.
+// It adds to math's f32 accumulator and leaves the epilogue to the
+// caller; on return every copy has landed and every thread is done with
+// the ring, so the caller may reuse its bytes.  An empty range (k1 <= k0)
+// adds nothing.
+template <typename T, int BM, bool TA, bool TB, int STAGES>
+__device__ __forceinline__ void ring_tile(unsigned char* smem,
+                                          Math<T, BM, TA, TB>& math,
+                                          const T* __restrict__ A, int64_t lda,
+                                          const T* __restrict__ B, int64_t ldb,
+                                          int64_t m0, int64_t m_end, int64_t n0,
+                                          int64_t n_end, int64_t k0, int64_t k1) {
+  using Cfg = TileCfg<T, BM, TA, TB>;
+  using R = RingCfg<T, BM, TA, TB, STAGES>;
+  static_assert(STAGES >= 2, "a ring of one stage keeps nothing in flight");
+  const uint64_t stream = l2_policy<true>(), keep = l2_policy<false>();
+  auto as = [&](int s) { return reinterpret_cast<T*>(smem + s * R::STAGE); };
+  auto bs = [&](int s) {
+    return reinterpret_cast<T*>(smem + s * R::STAGE + Cfg::B_OFF);
+  };
+  auto load = [&](int s, int kt) {  // k step kt into stage s
+    load_slabs<T, BM, TA, TB>(as(s), bs(s), A, lda, B, ldb, m0, m_end, n0, n_end,
+                              k0 + (int64_t)kt * Cfg::BK, k1, keep, stream);
+  };
+  const int nk = k1 > k0 ? (int)((k1 - k0 + Cfg::BK - 1) / Cfg::BK) : 0;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  int use = 0, fill = STAGES - 1;  // the stage computed on, the stage refilled
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // k step kt's slabs have landed
+    __syncthreads();              // ... for every thread; step kt - 1's stage is free
+    if (kt + STAGES - 1 < nk) load(fill, kt + STAGES - 1);
+    cp_async_commit();
+    math.step(as(use), bs(use));
+    use = use + 1 == STAGES ? 0 : use + 1;
+    fill = fill + 1 == STAGES ? 0 : fill + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// -------------------------------------------------- the register path
 // One CTA's output tile: rows [m0, m_end) and columns [n0, min(n0 + 64,
 // n_end)) of C (row-major, leading dimension ldc), summed over the K range
 // [k0, k1).  A is stored (rows, K) with leading dimension lda, or (K, rows)
 // when TA; B is stored (K, N) or, when TB, (N, K), with leading dimension
 // ldb.  Elements of A and B at or past m_end, n_end or k1 read as zero, so
-// an empty K range (k1 <= k0) stores zeros.  OutT is T, or float for the
-// f32 partials of the split-K and Stream-K kernels.
+// an empty K range (k1 <= k0) stores zeros.  OutT is the output's type
+// (T, or float).  `matmul` is its last user.
 template <typename T, int BM, bool TA, bool TB, typename OutT = T>
 __device__ __forceinline__ void gemm_tile(const T* __restrict__ A, int64_t lda,
                                           const T* __restrict__ B, int64_t ldb,

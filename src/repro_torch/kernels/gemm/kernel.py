@@ -3,8 +3,10 @@ the plain versions.
 
 - ``matmul`` (`csrc/gemm.cu`) replaces the TPU kernel
   `repro/kernels/gemm/kernel.py:45 _matmul_kernel` (split_k = 1);
-- ``splitk_partials`` and ``splitk_reduce`` (`csrc/gemm_split_k.cu`)
-  replace `:65 _matmul_splitk_kernel` and `:86 _reduce_kernel`;
+- ``splitk_matmul`` (`csrc/gemm_split_k.cu`) replaces `:65
+  _matmul_splitk_kernel` and, in its cluster epilogue, `:86
+  _reduce_kernel`: one launch, the K slices of an output tile one
+  thread-block cluster of ``split`` CTAs (at most `MAX_CLUSTER`);
 - ``stream_k_partials`` and ``stream_k_fixup`` (`csrc/gemm_stream_k.cu`)
   replace `:215 _stream_k_kernel` and `:247 _stream_k_fixup_kernel`.  The
   walk runs in the card's units (`card_geometry`): CTA tiles picked from
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,11 +43,14 @@ _SIGNATURES = {
     **_ERROR,
 }
 _SPLIT_K_SIGNATURES = {
-    "repro_splitk_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
+    "repro_splitk_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
                                  _I, _LL, _P)),
-    "repro_splitk_reduce": (_I, (_P, _P, _I, _I, _LL, _P)),
+    "repro_splitk_occupancy": (_I, (_I,) * 6 + (ctypes.POINTER(_I),) * 5),
     **_ERROR,
 }
+# The H100's largest thread-block cluster (non-portable above 8 CTAs):
+# `splitk_matmul` runs one cluster of `split` CTAs per output tile.
+MAX_CLUSTER = 16
 _STREAM_K_SIGNATURES = {
     "repro_stream_k_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
                                    _LL, _LL, _LL, _LL, _LL, _P)),
@@ -305,53 +310,75 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
     return c
 
 
-def splitk_partials(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
-                    tb: bool = False, bm: int = 16, split: int, slice_k: int,
-                    out=None) -> torch.Tensor:
-    """P[s] = op(a)[:, Ks] @ op(b)[Ks, :] in f32 on the card, for the K
-    slices Ks = [s·slice_k, (s+1)·slice_k) ∩ [0, K), s < split (a slice
-    past K stores zeros).  Returns P, (split, M, N) float32."""
-    dtype = check_operands(a, b, what="splitk_partials")
+class RingResidency(NamedTuple):
+    """What the card holds at once of a ring-fed kernel's instantiation:
+    CTAs per SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), for
+    split-K the clusters resident on the card at once
+    (`cudaOccupancyMaxActiveClusters`, else None), one CTA's dynamic
+    shared memory, its ring's stages and the operand bytes one stage
+    brings in."""
+
+    ctas_per_sm: int
+    clusters: Optional[int]
+    smem_bytes: int
+    stages: int
+    slab_bytes: int
+
+
+@lru_cache(maxsize=None)
+def splitk_residency(device: torch.device, dtype: torch.dtype,
+                     out_dtype: torch.dtype, ta: bool, tb: bool, rows: int,
+                     split: int) -> RingResidency:
+    """`RingResidency` of the split-K kernel at ``rows`` CTA rows and
+    clusters of ``split``."""
+    lib = _build.load("gemm_split_k", _SPLIT_K_SIGNATURES)
+    out = [ctypes.c_int(0) for _ in range(5)]
+    with torch.cuda.device(device):
+        code = lib.repro_splitk_occupancy(DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+                                          int(ta), int(tb), rows, split,
+                                          *(ctypes.byref(x) for x in out))
+    raise_on_error(lib, code, "splitk_matmul occupancy query")
+    blocks, clusters, smem, stages, slab = (x.value for x in out)
+    return RingResidency(blocks, clusters, smem, stages, slab)
+
+
+def splitk_matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
+                  tb: bool = False, bm: int = 16, split: int, slice_k: int,
+                  out_dtype=None, out=None) -> torch.Tensor:
+    """C = Σ_s op(a)[:, Ks] @ op(b)[Ks, :] on the card, for the K slices
+    Ks = [s·slice_k, (s+1)·slice_k) ∩ [0, K), s < ``split`` (a slice past
+    K adds zeros), summed in f32 in slice order and stored once in
+    ``out_dtype`` (default: the operands' dtype).  One launch: each K
+    slice of an output tile is a CTA, and the ``split`` CTAs of the tile
+    form one cluster that sums their tiles in its epilogue, so no f32
+    partial is allocated.  A split outside 1-`MAX_CLUSTER` raises: the
+    H100 has no larger cluster (the reference and the plain version take
+    any split; ROADMAP queue C)."""
+    if not 1 <= split <= MAX_CLUSTER:
+        raise ValueError(f"splitk_matmul: split={split} exceeds the largest "
+                         f"thread-block cluster, {MAX_CLUSTER} CTAs, that runs "
+                         "the K slices of one output tile")
+    dtype = check_operands(a, b, what="splitk_matmul")
+    out_dtype = dtype if out_dtype is None else out_dtype
+    if out_dtype not in DTYPE_CODES:
+        raise ValueError(f"splitk_matmul: unsupported output dtype {out_dtype}")
     M, N, K = gemm_dims(a, b, ta, tb)
     rows = cta_rows(bm)
-    if split < 1 or slice_k < 1:
-        raise ValueError(f"split={split} and slice_k={slice_k} must be ≥ 1")
-    if -(-M // rows) > MAX_GRID_Y or split > MAX_GRID_Y:
-        raise ValueError(f"M={M}, split={split} exceed the kernel's grid")
-    p = output(out, (split, M, N), torch.float32, a.device, "splitk_partials")
-    if p.numel() == 0:
-        return p
-    lib = _build.load("gemm_split_k", _SPLIT_K_SIGNATURES)
-    with torch.cuda.device(a.device):
-        code = lib.repro_splitk_matmul(a.data_ptr(), b.data_ptr(), p.data_ptr(),
-                                       DTYPE_CODES[dtype], int(ta), int(tb), rows,
-                                       M, N, K, split, slice_k, _stream(a.device))
-    raise_on_error(lib, code, "splitk_partials")
-    splitk_partials.launches += 1
-    return p
-
-
-def splitk_reduce(partials: torch.Tensor, dtype: torch.dtype, *, out=None
-                  ) -> torch.Tensor:
-    """C = Σ_s partials[s] in slot order, cast to ``dtype``: (split, M, N)
-    float32 → (M, N)."""
-    check_operands(partials, what="splitk_reduce")
-    if partials.dim() != 3 or partials.dtype != torch.float32:
-        raise ValueError(f"splitk_reduce takes (split, M, N) float32, got "
-                         f"{partials.dtype} {tuple(partials.shape)}")
-    if dtype not in DTYPE_CODES:
-        raise ValueError(f"splitk_reduce: unsupported output dtype {dtype}")
-    split, M, N = partials.shape
-    c = output(out, (M, N), dtype, partials.device, "splitk_reduce")
+    if slice_k < 1:
+        raise ValueError(f"splitk_matmul: slice_k={slice_k} must be ≥ 1")
+    if -(-M // rows) > MAX_GRID_Y:
+        raise ValueError(f"M={M} exceeds the kernel's grid ({MAX_GRID_Y} row tiles)")
+    c = output(out, (M, N), out_dtype, a.device, "splitk_matmul")
     if c.numel() == 0:
         return c
     lib = _build.load("gemm_split_k", _SPLIT_K_SIGNATURES)
-    with torch.cuda.device(partials.device):
-        code = lib.repro_splitk_reduce(partials.data_ptr(), c.data_ptr(),
-                                       DTYPE_CODES[dtype], split, M * N,
-                                       _stream(partials.device))
-    raise_on_error(lib, code, "splitk_reduce")
-    splitk_reduce.launches += 1
+    with torch.cuda.device(a.device):
+        code = lib.repro_splitk_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                       DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+                                       int(ta), int(tb), rows, M, N, K, split,
+                                       slice_k, _stream(a.device))
+    raise_on_error(lib, code, "splitk_matmul")
+    splitk_matmul.launches += 1
     return c
 
 
@@ -414,7 +441,6 @@ def stream_k_fixup(counts: torch.Tensor, partials: torch.Tensor, *, bm: int,
     return c
 
 
-LAUNCHERS = (matmul, splitk_partials, splitk_reduce, stream_k_partials,
-             stream_k_fixup)
+LAUNCHERS = (matmul, splitk_matmul, stream_k_partials, stream_k_fixup)
 for _fn in LAUNCHERS:
     _fn.launches = 0

@@ -6,12 +6,16 @@
 ``stream_k > 0``, split-K partials and their reduce for an effective
 split above 1, else the single GEMM kernel.  CPU tensors take each
 kernel's plain version (`ref.py`), CUDA tensors the hand-written kernels
-or raise.  The Stream-K walk keeps the reference's geometry (the tile's
-bm×bn×bk and G) on the CPU; on the card it runs in the card's units
-(`kernel.card_geometry`), which regroups the f32 partials and so the
-summation order, not the function.  The kernels mask ragged edges
-themselves, so operands are never padded.  The backward pass (two
-independent GEMMs) belongs to training and is not ported yet.
+or raise.  On the card split-K is one kernel, `splitk_matmul`, whose
+cluster epilogue is the reduce: it computes what the plain partials and
+reduce compute (the slices' f32 sums added in slice order, cast once),
+with no partials in device memory.  The Stream-K walk keeps the
+reference's geometry (the tile's bm×bn×bk and G) on the CPU; on the
+card it runs in the card's units (`kernel.card_geometry`), which
+regroups the f32 partials and so the summation order, not the
+function.  The kernels mask ragged edges themselves, so operands are
+never padded.  The backward pass (two independent GEMMs) belongs to
+training and is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,8 +30,7 @@ from repro_torch.kernels.gemm.kernel import (
     gemm_dims,
     matmul,
     split_k_slices,
-    splitk_partials,
-    splitk_reduce,
+    splitk_matmul,
     stream_k_fixup,
     stream_k_geometry,
     stream_k_partials,
@@ -80,10 +83,10 @@ class TileConfig:
 
 
 class GemmBuffers(NamedTuple):
-    """Every tensor one `gemm` launch writes on the card: the output, the
-    f32 partials of a split-K or Stream-K tile, and a Stream-K tile's
-    contributor counts (int32; on the card, kept per geometry by
-    `card_counts`)."""
+    """Every tensor one `gemm` launch writes on the card: the output, and
+    a Stream-K tile's f32 partials and contributor counts (int32; on the
+    card, kept per geometry by `card_counts`).  A split-K tile writes the
+    output alone: its slices are summed in the kernel."""
 
     out: torch.Tensor
     partials: Optional[torch.Tensor] = None
@@ -110,10 +113,6 @@ def gemm_buffers(a, b, *, ta: bool = False, tb: bool = False,
         return GemmBuffers(
             out, torch.empty((slots, M, N), dtype=torch.float32, device=dev),
             counts)
-    split, _ = split_k_slices(K, tile.bk, tile.split_k)
-    if split > 1:
-        return GemmBuffers(out, torch.empty((split, M, N), dtype=torch.float32,
-                                            device=dev))
     return GemmBuffers(out)
 
 
@@ -151,8 +150,7 @@ def gemm(a, b, *, ta: bool = False, tb: bool = False,
         return stream_k_fixup(buf.counts, buf.partials, bm=geo.rows,
                               bn=geo.cols, dtype=out_dtype, out=buf.out)
     if split > 1:
-        splitk_partials(a, b, ta=ta, tb=tb, bm=tile.bm, split=split,
-                        slice_k=slice_k, out=buf.partials)
-        return splitk_reduce(buf.partials, out_dtype, out=buf.out)
+        return splitk_matmul(a, b, ta=ta, tb=tb, bm=tile.bm, split=split,
+                             slice_k=slice_k, out_dtype=out_dtype, out=buf.out)
     return matmul(a, b, ta=ta, tb=tb, bm=tile.bm, out_dtype=out_dtype,
                   out=buf.out)

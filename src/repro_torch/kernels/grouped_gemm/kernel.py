@@ -2,7 +2,9 @@
 (`csrc/grouped_gemm.cu`).
 
 ``grouped_matmul`` replaces `repro/kernels/grouped_gemm/kernel.py:41
-_grouped_kernel` and ``ragged_matmul`` replaces `:93 _ragged_kernel`.
+_grouped_kernel` (one CTA per member, row tile and 64-column stripe, its
+K loop fed by a cp.async ring) and ``ragged_matmul`` replaces `:93
+_ragged_kernel` (a walk of SMs × occupancy CTAs).
 Both are bound by bytes on the serving path: a group of decode GEMMs
 streams one weight matrix per member; the source says how each kernel
 answers that.
@@ -36,6 +38,7 @@ from repro_torch.kernels.gemm.kernel import (
     CTA_COLS,
     DTYPE_CODES,
     MAX_GRID_Y,
+    RingResidency,
     check_operands,
     cta_k,
     cta_rows,
@@ -51,6 +54,7 @@ _SIGNATURES = {
                                  _LL, _LL, _P)),
     "repro_ragged_occupancy": (_I, (_I, _I, _I, _I, ctypes.POINTER(_I),
                                     ctypes.POINTER(_I))),
+    "repro_grouped_occupancy": (_I, (_I,) * 4 + (ctypes.POINTER(_I),) * 4),
     "repro_error_string": (ctypes.c_char_p, (_I,)),
 }
 MAX_MEMBERS = 16    # `kMaxMembers` of csrc/grouped_gemm.cu: max(CLASSES)
@@ -175,6 +179,23 @@ def grouped_matmul(a: torch.Tensor, b, *, bm: int = 16, out_dtype=None
 
 
 grouped_matmul.launches = 0
+
+
+@lru_cache(maxsize=None)
+def grouped_residency(device: torch.device, dtype: torch.dtype,
+                      out_dtype: torch.dtype, tb: bool, rows: int
+                      ) -> RingResidency:
+    """`RingResidency` of the grouped kernel's instantiation (its ring is
+    `csrc/tile_gemm.cuh`'s `ring_tile`; ``clusters`` is None)."""
+    lib = _build.load("grouped_gemm", _SIGNATURES)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        code = lib.repro_grouped_occupancy(DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+                                           int(tb), rows,
+                                           *(ctypes.byref(x) for x in out))
+    raise_on_error(lib, code, "grouped occupancy query")
+    blocks, smem, stages, slab = (x.value for x in out)
+    return RingResidency(blocks, None, smem, stages, slab)
 
 
 # ------------------------------------------------------------------ ragged

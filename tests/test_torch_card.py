@@ -1,6 +1,6 @@
 """The redesigned Stream-K walk, split-KV flash-attention and ragged-walk
-kernels, and the grouped kernel's weights by pointer, held to their plain
-versions on the card.  Every test here needs an NVIDIA GPU and skips
+kernels, the one-launch split-K kernel and the ring-fed grouped kernel
+with its weights by pointer, held to their plain versions on the card.  Every test here needs an NVIDIA GPU and skips
 without one; on the card (no JAX needed) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_card.py
@@ -13,6 +13,15 @@ within `attention_tol`; its split partials must match `flash_split_ref`,
 its output (merged in the kernel by the last CTA of each row group) must
 match `flash_combine_ref` on the kernel's own partials, and the row
 groups' counters must be zero again after the launch.
+
+Split-K (`splitk_matmul`) is one launch: the K slices of an output tile
+are one thread-block cluster, which sums their f32 tiles in slice order
+through distributed shared memory.  It must match the plain partials and
+reduce (`splitk_reduce_ref(splitk_partials_ref(...))`) at splits 2, 3, 4,
+8 and 16 (a non-portable cluster), with slices wholly past K, in every
+layout, bf16 and f32 operands and outputs, and M not a multiple of the
+CTA rows; give the same bits on a second call and through `gemm`; be
+exact on integer-valued operands; and refuse split 17.
 
 The grouped and ragged kernels take each member's weight by pointer:
 transposed members (the TB layout), members sharing one weight, more
@@ -49,6 +58,8 @@ from repro_torch.kernels.gemm import (
     gemm,
     gemm_buffers,
     gemm_ref,
+    splitk_partials_ref,
+    splitk_reduce_ref,
     stream_k_fixup_ref,
     stream_k_partials_ref,
     stream_k_workgroups,
@@ -122,6 +133,80 @@ def test_stream_k_walk_matches_plain_at_card_geometry(card, case, dtype):
     assert buf.counts is gemm_buffers(a, b, ta=ta, tb=tb, tile=tile).counts
     _close(gemm(a, b, ta=ta, tb=tb, tile=tile, buffers=buf),
            gemm_ref(a, b, ta=ta, tb=tb), A @ B, "gemm")
+
+
+# ----------------------------------------------------------------- split-K
+SPLITK_CASES = [  # M, N, K, bm, bk, split_k, ta, tb
+    (8, 5120, 17408, 8, 128, 4, False, False),   # the timed shapes
+    (1, 5120, 17408, 8, 128, 8, False, False),
+    (5, 70, 600, 8, 128, 4, False, True),        # slice 3 wholly past K
+    (17, 129, 1100, 8, 128, 8, True, False),     # two 16-row tiles; slices 5-7 empty
+    (70, 200, 300, 64, 64, 3, True, True),       # 64-row tiles, M ragged
+    (16, 64, 257, 16, 128, 2, False, False),
+    (3, 100, 4096, 8, 128, 16, False, True),     # a non-portable cluster of 16
+    (9, 64, 1000, 64, 64, 16, True, True),       # 16 k blocks, 16 slices
+]
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", SPLITK_CASES, ids=str)
+def test_splitk_matmul_matches_plain_partials_and_reduce(card, case, dtype, out_dtype):
+    M, N, K, bm, bk, split_k, ta, tb = case
+    g = torch.Generator(device=card).manual_seed(M * N + K + split_k)
+    a = torch.randn((K, M) if ta else (M, K), generator=g, device=card, dtype=dtype)
+    b = torch.randn((N, K) if tb else (K, N), generator=g, device=card, dtype=dtype)
+    split, slice_k = gk.split_k_slices(K, bk, split_k)
+    kw = dict(ta=ta, tb=tb, split=split, slice_k=slice_k)
+    before = gk.splitk_matmul.launches
+    out = gk.splitk_matmul(a, b, bm=bm, out_dtype=out_dtype, **kw)
+    assert gk.splitk_matmul.launches == before + 1
+    assert out.dtype == (out_dtype or dtype) and out.shape == (M, N)
+    plain = splitk_reduce_ref(splitk_partials_ref(a, b, bk=bk, **kw), out.dtype)
+    A, B = (a.T if ta else a).float().abs(), (b.T if tb else b).float().abs()
+    _close(out, plain, A @ B, "splitk_matmul")
+    assert torch.equal(gk.splitk_matmul(a, b, bm=bm, out_dtype=out_dtype, **kw), out)
+    tile = TileConfig(bm, 128, bk, split_k=split_k)
+    buf = gemm_buffers(a, b, ta=ta, tb=tb, tile=tile, out_dtype=out_dtype)
+    assert buf.partials is None          # no f32 partials in device memory
+    assert torch.equal(gemm(a, b, ta=ta, tb=tb, tile=tile, out_dtype=out_dtype,
+                            buffers=buf), out)
+    assert gk.splitk_matmul.launches == before + 3
+
+
+@pytest.mark.parametrize("split", [2, 3, 4, 8, 16])
+def test_splitk_matmul_is_exact_on_integer_operands(card, split):
+    """Integer-valued operands: every f32 sum is exact whatever its
+    order, so the kernel equals the plain GEMM bit for bit."""
+    g = torch.Generator(device=card).manual_seed(split)
+    M, N, K = 9, 200, 3000
+    a = torch.randint(-4, 5, (M, K), generator=g, device=card).to(torch.bfloat16)
+    b = torch.randint(-4, 5, (K, N), generator=g, device=card).to(torch.bfloat16)
+    s, slice_k = gk.split_k_slices(K, 128, split)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = gk.splitk_matmul(a, b, bm=8, split=s, slice_k=slice_k,
+                               out_dtype=out_dtype)
+        assert torch.equal(out, gemm_ref(a, b, out_dtype=out_dtype))
+
+
+def test_splitk_matmul_refuses_split_17(card):
+    a = torch.ones((8, 2048), device=card, dtype=torch.bfloat16)
+    b = torch.ones((2048, 64), device=card, dtype=torch.bfloat16)
+    before = gk.splitk_matmul.launches
+    with pytest.raises(ValueError, match="split=17 exceeds the largest thread-block "
+                                         "cluster, 16 CTAs"):
+        gk.splitk_matmul(a, b, split=17, slice_k=128)
+    assert gk.splitk_matmul.launches == before
+
+
+@pytest.mark.parametrize("split", [2, 4, 8, 16])
+def test_splitk_residency_holds_a_cluster(card, split):
+    """The card holds at least one cluster of every split the kernel
+    takes, and the ring keeps at least one slab in flight."""
+    r = gk.splitk_residency(card, torch.bfloat16, torch.bfloat16, False, False, 16,
+                            split)
+    assert r.ctas_per_sm >= 1 and r.clusters >= 1
+    assert 2 <= r.stages <= 4 and r.smem_bytes >= r.stages * r.slab_bytes
 
 
 # --------------------------------------------------------------- attention
@@ -214,6 +299,9 @@ GROUPED_CASES = [  # G, M, N, K, bm, tb, shared, out_dtype
     (20, 5, 64, 96, 8, False, False, None),       # G above the table's 16
     (20, 5, 64, 96, 8, True, True, torch.float32),
     (2, 70, 100, 96, 64, False, False, torch.float32),
+    (1, 8, 5120, 4096, 8, True, False, None),     # one member, transposed
+    (16, 8, 640, 1024, 8, False, True, torch.float32),   # a full table, shared
+    (16, 3, 130, 200, 16, True, True, None),
 ]
 
 
@@ -230,6 +318,8 @@ def test_grouped_weights_by_pointer_match_plain(card, case, dtype):
     assert out.dtype == (out_dtype or dtype)
     _close(out, grouped_gemm_ref(a, ws, out_dtype=out_dtype),
            grouped_gemm_ref(a.float().abs(), _abs(ws)), "grouped")
+    r = ggk.grouped_residency(card, dtype, out.dtype, tb, gk.cta_rows(bm))
+    assert r.ctas_per_sm >= 1 and 2 <= r.stages <= 4
 
 
 RAGGED_CASES = [  # sizes (bm multiples), extra rows, N, K, bm, tb, shared, out_dtype

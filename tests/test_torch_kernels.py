@@ -20,8 +20,7 @@ from repro_torch.kernels.gemm.kernel import (
     cta_rows,
     instantiation,
     matmul,
-    splitk_partials,
-    splitk_reduce,
+    splitk_matmul,
     stream_k_fixup,
     stream_k_partials,
 )
@@ -149,8 +148,8 @@ def test_cta_row_tile_rule(bm, rows):
     lambda a: matmul(a, a),
     lambda a: grouped_matmul(a[None], a[None]),
     lambda a: ragged_matmul(a, a[None], torch.zeros(1, dtype=torch.int32), bm=8),
-    lambda a: splitk_partials(a, a, split=2, slice_k=4),
-    lambda a: splitk_reduce(a[None].float(), torch.bfloat16),
+    lambda a: splitk_matmul(a, a, ta=True, split=2, slice_k=4),
+    lambda a: splitk_matmul(a, a, split=2, slice_k=4, out_dtype=torch.float32),
     lambda a: stream_k_partials(a, a, grid_g=2),
     lambda a: stream_k_fixup(torch.ones((1, 1), dtype=torch.int32), a[None].float(),
                              bm=8, bn=8, dtype=torch.bfloat16),

@@ -39,8 +39,10 @@ from repro_torch.kernels.gemm import (
 )
 from repro_torch.kernels.gemm.kernel import (
     LAUNCHERS,
+    MAX_CLUSTER,
     planner_g_max,
     split_k_slices,
+    splitk_matmul,
     stream_k_workgroups,
     walk_geometry,
     walk_rows,
@@ -125,6 +127,43 @@ def test_split_k_partials_cover_k_once_and_leave_an_empty_slice_zero():
     assert torch.equal(splitk_reduce_ref(p, torch.float32), a @ b)
 
 
+@pytest.mark.parametrize("layout", range(4))
+@pytest.mark.parametrize("split_k", range(2, 9))
+def test_cpu_split_k_gemm_is_the_plain_partials_and_reduce_bitwise(split_k, layout):
+    """On the CPU, `gemm` at a split-K tile is exactly the plain version
+    of `splitk_matmul`: `splitk_reduce_ref(splitk_partials_ref(...))`,
+    the slices' f32 sums added in slice order and cast once.  K is
+    split + 1 k blocks, the last one ragged, so from split 3 up the last
+    slices lie wholly past K; bf16 operands with bf16 and f32 output."""
+    ta, tb = LAYOUTS[layout]
+    M, N, bk = 5, 70, 128
+    K = split_k * bk + 37
+    split, slice_k = split_k_slices(K, bk, split_k)
+    assert split == split_k
+    assert split_k == 2 or (split - 1) * slice_k >= K    # the last slice is empty
+    _, (a, b) = _operands([split_k, layout], M, N, K, ta, tb, "bf16")
+    p = splitk_partials_ref(a, b, ta=ta, tb=tb, split=split, slice_k=slice_k, bk=bk)
+    tile = TileConfig(8, 128, bk, split_k=split_k)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        out = gemm(a, b, ta=ta, tb=tb, tile=tile, out_dtype=out_dtype)
+        assert out.dtype == out_dtype
+        assert torch.equal(out, splitk_reduce_ref(p, out_dtype))
+
+
+@pytest.mark.parametrize("split", [0, 17, 64])
+def test_splitk_matmul_refuses_a_split_past_the_largest_cluster(split):
+    """The K slices of an output tile are one thread-block cluster, at
+    most 16 CTAs on the H100: a split outside 1-16 raises, naming the
+    limit, before anything else is checked, and launches nothing."""
+    a = torch.ones((8, 64), dtype=torch.bfloat16)
+    before = [fn.launches for fn in LAUNCHERS]
+    with pytest.raises(ValueError, match=f"split={split} exceeds the largest "
+                                         "thread-block cluster, 16 CTAs"):
+        splitk_matmul(a, a.T, split=split, slice_k=32)
+    assert [fn.launches for fn in LAUNCHERS] == before
+    assert MAX_CLUSTER == 16
+
+
 # ----------------------------------------------------------------- Stream-K
 STREAM_CASES = [  # (M, N, K, tile bm/bn/bk, layout)
     ((16, 256, 1024), (8, 128, 256), 0),
@@ -176,10 +215,14 @@ def test_stream_k_partials_fill_only_their_contributors_slots():
 
 
 def test_gemm_buffers_match_the_decomposition():
+    """Split-K sums its slices in the kernel (`splitk_matmul`'s cluster
+    epilogue), so a split-K tile gets its output alone; Stream-K still
+    gets partials and counts."""
     a, b = torch.empty((8, 4096)), torch.empty((4096, 130))
     assert gemm_buffers(a, b, tile=TileConfig(8, 128, 128)).partials is None
     buf = gemm_buffers(a, b, tile=TileConfig(8, 128, 128, split_k=4))
-    assert buf.out.shape == (8, 130) and buf.partials.shape == (4, 8, 130)
+    assert buf.out.shape == (8, 130)
+    assert buf.partials is None and buf.counts is None
     buf = gemm_buffers(a, b, tile=TileConfig(8, 128, 128, stream_k=8))
     _, _, _, counts, slots = stream_k_geometry(1, 2, 32, 8)
     assert buf.partials.shape == (slots, 8, 130)
