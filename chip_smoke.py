@@ -19,9 +19,15 @@ Phases, each fatal on failure (nothing here catches an error):
    with their weights in each pointer form — one stacked tensor,
    per-member tensors with one weight shared, per-member transposed
    views — and with more members than the pointer table holds; every
-   GEMM kernel also with float32 output from bf16 operands), then the
-   serving path's shapes, where the kernel, its plain version and the one
-   PyTorch call computing the same function are timed with CUDA events.
+   GEMM kernel also with float32 output from bf16 operands; `matmul` on
+   both of its feeds, TMA boxes and the `cp.async` ring, each of which
+   must run), then the serving path's shapes, where the kernel, its plain
+   version and the one PyTorch call computing the same function are
+   timed with CUDA events.  `matmul` is timed at the four Qwen3-14B
+   decode shapes 8 x {34816, 17408, 5120, 1024} x 5120 on the feed the
+   rule gives them (TMA) and, on the same values through an odd-offset
+   view of A, on the ring feed, both held to the plain version, with the
+   TMA instantiation's residency.
    The Stream-K walk is held to its plain version at the card's geometry
    (`card_geometry`: CTA tiles from M, W workgroups from the planner's G,
    the SM count and the kernel's occupancy); its grid and shared memory
@@ -38,7 +44,9 @@ Phases, each fatal on failure (nothing here catches an error):
    launches), each window run twice (cold plan cache, then warm); every
    result is held against the plain version, and the launch counters,
    zeroed just before the first window, must show the single, grouped
-   and ragged kernels;
+   and ragged kernels, and no `matmul` launch on the ring feed (every
+   serving shape is aligned bf16, which takes the TMA feed; the same
+   holds in phases 5 and 7);
 5. bundle (mixed) serving: the fused weights freed, the seven unfused
    decode GEMMs of every layer (q, k, v, o, gate, up, down; the same
    26.4 GB) submitted per tenant and layer as one bundle
@@ -330,6 +338,19 @@ def bound(bytes_: int, flops: int, dtype) -> tuple[float, str]:
 def reset_counts() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
+    gemm_kernel.matmul.feeds.update(dict.fromkeys(gemm_kernel.matmul.feeds, 0))
+
+
+def check_feeds(label: str, device) -> dict:
+    """Print `matmul`'s launches per feed since `reset_counts`; on the card,
+    fail if any took the ring feed: every serving shape is aligned bf16,
+    which `matmul_feed` gives the TMA feed."""
+    feeds = dict(gemm_kernel.matmul.feeds)
+    print(f"# {label}: matmul launches per feed {feeds}")
+    if device == "cuda" and feeds["ring"]:
+        raise AssertionError(f"{label}: {feeds['ring']} matmul launches took the ring "
+                             "feed; every serving shape is aligned bf16 (TMA feed)")
+    return feeds
 
 
 # ------------------------------------------------------------------ build
@@ -386,9 +407,11 @@ def small_cases(gen) -> int:
     form, and every GEMM kernel also with float32 output from bf16
     operands (`out_dtype`)."""
     n = 0
+    feeds = dict(gemm_kernel.matmul.feeds)
     for dtype in (torch.bfloat16, torch.float32):
         for (M, N, K) in ((1, 1, 1), (5, 70, 33), (16, 64, 128), (17, 129, 300),
-                          (70, 200, 257), (130, 65, 64)):
+                          (70, 200, 257), (130, 65, 64), (8, 136, 200),
+                          (72, 328, 1000), (8, 17408, 320)):
             for ta in (False, True):
                 for tb in (False, True):
                     bm = 8 if (M + K) % 2 else 64
@@ -421,6 +444,10 @@ def small_cases(gen) -> int:
                 check_close(out, ragged_gemm_ref(a, b, sizes), ragged_abs(a, b, sizes),
                             f"ragged {sizes} N{N} K{K} bm{bm} {form} {dtype}")
                 n += 1
+    used = {k: v - feeds[k] for k, v in gemm_kernel.matmul.feeds.items()}
+    print(f"# small matmul cases per feed: {used}")
+    if not all(used.values()):
+        raise AssertionError(f"the small cases did not run both matmul feeds: {used}")
     return n + f32_output_cases(gen)
 
 
@@ -505,21 +532,9 @@ def main_path_kernels(gen) -> dict:
     and the PyTorch call computing the same function.  Every operand set
     holds ≥ 178 MB of weights, beyond the 50 MB L2, so each timed call
     streams its weights from HBM."""
-    rows = {}
+    rows = {"matmul": [matmul_shape(N, gen) for N in MATMUL_NS]}
+    rows["matmul"][0]["host_us"] = launcher_host_us(gen)
     bf16 = torch.bfloat16
-
-    # single: the fused FFN gate+up of one tenant at batch 8
-    M, N, K = 8, 34816, 5120
-    a, b = randn((M, K), gen), randn((K, N), gen, scale=K ** -0.5)
-    out = gemm_kernel.matmul(a, b, bm=8)
-    err = check_close(out, gemm_ref(a, b), abs_product(a, b), "matmul main")
-    rows["matmul"] = dict(
-        shape=f"{M}x{N}x{K}", instantiation=gemm_kernel.instantiation(bf16, 8),
-        max_abs_err=err,
-        ms=time_ms(lambda: gemm_kernel.matmul(a, b, bm=8)),
-        plain_ms=time_ms(lambda: gemm_ref(a, b), reps=5),
-        library_ms=time_ms(lambda: torch.matmul(a, b)),
-        bound=bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf16))
 
     # grouped: four tenants' ffn-down at batch 8, each weight by pointer
     G, M, N, K = 4, 8, 5120, 17408
@@ -529,7 +544,7 @@ def main_path_kernels(gen) -> dict:
     err = check_close(out, grouped_gemm_ref(a, ws), grouped_abs(a, ws),
                       "grouped main")
     res = grouped_kernel.grouped_residency(a.device, bf16, bf16, False, 16)
-    rows["grouped_matmul"] = dict(
+    rows["grouped_matmul"] = [dict(
         shape=f"G{G} {M}x{N}x{K}",
         instantiation=(f"{gemm_kernel.instantiation(bf16, 8)}, {res.stages}-stage "
                        f"cp.async ring, {res.smem_bytes} B shared"),
@@ -539,7 +554,7 @@ def main_path_kernels(gen) -> dict:
         ms=time_ms(lambda: grouped_kernel.grouped_matmul(a, ws, bm=8)),
         plain_ms=time_ms(lambda: grouped_gemm_ref(a, ws), reps=5),
         library_ms=time_ms(lambda: torch.bmm(a, b)),
-        bound=bound(G * (M * K + K * N + M * N) * 2, 2 * G * M * N * K, bf16))
+        bound=bound(G * (M * K + K * N + M * N) * 2, 2 * G * M * N * K, bf16))]
     # The copy the scheduler made before weights went by pointer: a
     # torch.stack of the members' B for such a launch.
     stack_ms = time_ms(lambda: torch.stack(ws), reps=5)
@@ -572,7 +587,7 @@ def main_path_kernels(gen) -> dict:
           f"iterations, {geo.ipw} per CTA")
     # The padded members are all bm rows, so one bmm computes the same
     # function on these inputs.
-    rows["ragged_matmul"] = dict(
+    rows["ragged_matmul"] = [dict(
         shape=f"sizes {sizes} (padded to {bm}) N{N} K{K}",
         instantiation=(f"bf16 {geo.rows}x64x{geo.bk} walk, {geo.live} CTAs, "
                        f"{smem} B shared"),
@@ -583,13 +598,94 @@ def main_path_kernels(gen) -> dict:
         plain_ms=time_ms(lambda: ragged_gemm_ref(a, ws, padded), reps=5, queued=False),
         library_ms=time_ms(lambda: torch.bmm(a.view(G, bm, K), b)),
         bound=bound((Mtotal * K + G * K * N + Mtotal * N) * 2,
-                    2 * Mtotal * N * K, bf16))
-    for name, r in rows.items():
-        print(f"# {name:<15} {r['shape']:<40} [{r['instantiation']}] kernel "
-              f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} | torch "
-              f"{r['library_ms']:.4f} | bound {r['bound'][0]:.4f} "
-              f"({r['bound'][1]}) | max err {r['max_abs_err']:.4g}")
+                    2 * Mtotal * N * K, bf16))]
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"# {name:<15} {r['shape']:<40} [{r['instantiation']}] kernel "
+                  f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} | torch "
+                  f"{r['library_ms']:.4f} | bound {r['bound'][0]:.4f} "
+                  f"({r['bound'][1]}) | max err {r['max_abs_err']:.4g}")
     return rows
+
+
+# The serving path's `matmul` shapes, 8 x N x 5120 bf16 (Qwen3-14B at batch
+# 8): fused gate+up, gate or up, q or o, k or v.
+MATMUL_NS = (34816, 17408, 5120, 1024)
+
+
+def odd_copy(x):
+    """``x``'s values in a view one element past an aligned base: the
+    same operand, which `matmul_feed` gives the ring feed."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def launcher_host_us(gen, calls: int = 2000) -> float:
+    """Host time of one `matmul` call (checks, feed rule, tensor-map
+    encoding, launch), µs: ``calls`` launches at 8 x 1024 x 5120 queued
+    without a synchronize, the best of three runs."""
+    a, b = randn((8, 5120), gen), randn((5120, 1024), gen)
+    c = torch.empty((8, 1024), device="cuda", dtype=torch.bfloat16)
+    for _ in range(50):
+        gemm_kernel.matmul(a, b, bm=8, out=c)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            gemm_kernel.matmul(a, b, bm=8, out=c)
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    print(f"# matmul launcher host time: {min(runs):.2f} µs per call ({calls} calls "
+          f"queued, runs {[round(r, 2) for r in runs]})")
+    return min(runs)
+
+
+def matmul_shape(N: int, gen, M: int = 8, K: int = 5120) -> dict:
+    """`matmul` at 8 x N x 5120: both feeds held to `gemm_ref` (the ring
+    feed on the same values through an odd-offset view of A), then the
+    rule's feed, the ring feed, the plain version and `torch.matmul`
+    timed with operand sets rotating beyond the 50 MB L2, and the
+    residency of the TMA instantiation the rule picked."""
+    bf16 = torch.bfloat16
+    nsets = max(2, -(-200_000_000 // (N * K * 2)))
+    sets = [(randn((M, K), gen), randn((K, N), gen, scale=K ** -0.5),
+             torch.empty((M, N), device="cuda", dtype=bf16)) for _ in range(nsets)]
+    odd = [(odd_copy(x), y, z) for x, y, z in sets]
+    a, b, _ = sets[0]
+    shape = f"{M}x{N}x{K}"
+    feed = gemm_kernel.matmul_feed(a, b, False, False)
+    if feed != "tma" or gemm_kernel.matmul_feed(odd[0][0], b, False, False) != "ring":
+        raise AssertionError(f"matmul {shape}: the feeds are not TMA and ring")
+    want, scale = gemm_ref(a, b), abs_product(a, b)
+    err = check_close(gemm_kernel.matmul(a, b, bm=8), want, scale, f"matmul {shape} tma")
+    check_close(gemm_kernel.matmul(odd[0][0], b, bm=8), want, scale,
+                f"matmul {shape} ring feed")
+    ctas = -(-N // gemm_kernel.CTA_COLS) * -(-M // 16)
+    ring = gemm_kernel.matmul_ring(ctas, gemm_kernel.sm_count(a.device))
+    res = gemm_kernel.matmul_residency(a.device, bf16, bf16, False, False, 16, feed,
+                                       ring)
+
+    def run(x, y, z):
+        return gemm_kernel.matmul(x, y, bm=8, out=z)
+
+    row = dict(
+        shape=shape, feed=feed,
+        instantiation=(f"bf16 16x64 CTA tile, TMA feed: {res.stages}-stage ring of "
+                       f"64-deep k-slabs, {ring[1]} consumer group(s), "
+                       f"{res.smem_bytes} B shared"),
+        grid=residency("matmul", shape, ctas, res), max_abs_err=err,
+        ms=time_ms(rotating(run, sets)),
+        ring_ms=time_ms(rotating(run, odd)),
+        plain_ms=time_ms(lambda: gemm_ref(a, b), reps=5),
+        library_ms=time_ms(rotating(lambda x, y, z: torch.matmul(x, y, out=z), sets)),
+        bound=bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf16))
+    print(f"# matmul {shape}: {feed} feed {row['ms']:.4f} ms, ring feed "
+          f"{row['ring_ms']:.4f} ms on the same values, torch.matmul "
+          f"{row['library_ms']:.4f} ms")
+    return row
 
 
 # ------------------------------------------------- split-K and Stream-K
@@ -918,6 +1014,7 @@ def serving_phase(device="cuda", cfg=None, layers=None) -> dict:
     counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
     modes = rt.telemetry.mode_counts()
     print(f"# serving modes {modes}; kernel launches {counts}")
+    check_feeds("per-class serving", device)
     missing = [k for k in PER_CLASS_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"the per-class serving path never launched {missing}")
@@ -1108,6 +1205,7 @@ def mixed_phase(device="cuda", cfg=None, layers=None) -> dict:
     counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
     print(f"# bundle serving modes {rt.telemetry.mode_counts()}; kernel launches {counts}; "
           f"split-K GEMMs planned {planned}")
+    check_feeds("bundle serving", device)
     missing = [k for k in MIXED_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"the bundle path never launched {missing}")
@@ -1505,6 +1603,7 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
     members = sum((Counter(w["families"]) for w in windows), Counter())
     print(f"# {cfg.name} op-bundle modes {rt.telemetry.mode_counts()}; kernel launches "
           f"{counts}; members {dict(members)}")
+    check_feeds(f"{cfg.name} op-bundle serving", device)
     if device == "cuda" and (counts["flash_attention"] != members["flash_attention"]
                              or counts["mamba_scan"] != members["mamba_scan"]):
         raise AssertionError(f"{cfg.name}: attention/scan launches {counts} differ from "
@@ -1555,7 +1654,7 @@ def main() -> int:
           "agree with their plain versions")
     print(f"# attention and scan kernels: {attention_scan_cases(gen)} small cases agree "
           "with their plain versions")
-    rows = {k: [r] for k, r in main_path_kernels(gen).items()}
+    rows = main_path_kernels(gen)
     rows.update(split_stream_kernels(gen))
     rows.update(attention_scan_kernels(gen, default_library()))
     torch.cuda.empty_cache()
@@ -1588,8 +1687,11 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"feed": r["feed"], "ring_ms": r["ring_ms"]} if "feed" in r else {}),
+            **({"host_us": r["host_us"]} if "host_us" in r else {}),
             **({"more_shapes": [{
                 "shape": m["shape"], **({"grid": m["grid"]} if "grid" in m else {}),
+                **({"feed": m["feed"], "ring_ms": m["ring_ms"]} if "feed" in m else {}),
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
                 "bound_by": m["bound"][1], "library_ms": m["library_ms"]}

@@ -80,7 +80,11 @@
 
 #include <type_traits>
 
+#include "tma.cuh"
+
 namespace repro_fa {
+
+using namespace repro;  // tma.cuh: mbarriers, TMA boxes, ldmatrix, mma.sync
 
 constexpr int kRows = 16;          // query rows per CTA
 constexpr float kNeg = -1e30f;     // running-max start, as the Pallas body's
@@ -295,79 +299,9 @@ __device__ __forceinline__ int swz(int row, int col) {
          ((((col % 64) / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Arrive and add `bytes` to the phase's expected transaction count.
-__device__ __forceinline__ void mbar_arrive_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// One 64 x 64 box of a 4-D tensor map (d, key, kv head, batch) into
-// shared memory by the TMA unit (elements past the tensor read as zero);
-// completes on `bar`'s transaction count.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int d, int key, int head, int batch,
-                                        unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(d),
-        "r"(key), "r"(head), "r"(batch), "r"(bar) : "memory");
-}
-
 // A barrier of the consumer warps only (the producer warp has left).
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned& r0, unsigned& r1,
-                                        unsigned& r2, unsigned& r3,
-                                        const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned& r0, unsigned& r1,
-                                          unsigned& r2, unsigned& r3,
-                                          const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_u32(p)));
-}
-
-// d[4] += A (16x16 bf16, a[4]) . B (16x8 bf16, b0 b1), f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  repro::consumers_sync<32 * kConsumers>();
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -590,6 +524,7 @@ __global__ void __launch_bounds__(kBfThreads, 1)
         mma_bf16(acc[nt + 1], pl, b[2], b[3]);
       }
     }
+    fence_proxy_async();  // the reads above precede the stage's next boxes
     __syncwarp();
     if (lane == 0) mbar_arrive(bar0 + 8 * (Cfg::STAGES + s));  // stage s is free
   }
@@ -819,34 +754,6 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(Params p) {
   }
   if (p.nsplit > 1)  // the tiles are read: reuse their shared memory
     merge_splits<float>(p, cta, tid, kF32Threads, [] { __syncthreads(); }, fsmem);
-}
-
-// cuTensorMapEncodeTiled, from the CUDA driver through the runtime (no
-// link against libcuda); null when the CUDA driver does not offer it.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                         cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      f = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      f = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
 }
 
 // The tensor map of a bf16 K or V cache (B, Hkv, S, cols) with element

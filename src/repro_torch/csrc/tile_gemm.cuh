@@ -4,7 +4,7 @@
 // accumulation, output cast once (or kept as an f32 tile).
 //
 // What bounds it on an H100: bytes.  The serving path's GEMMs are decode
-// steps (M = 4..16 rows per member) against weights of 26-178 MB, far
+// steps (M = 4..16 rows per member) against weights of 10-356 MB, far
 // below the ~295 bf16 operations per byte at which the tensor cores and
 // not HBM become the limit.  So the design streams every weight element
 // from device memory exactly once per CTA row tile and keeps many bytes
@@ -12,25 +12,23 @@
 //   - one CTA owns a 64-column stripe of the output and the (few) rows of
 //     its row tile; the K sweep (the TPU kernel's sequential k grid axis)
 //     is a loop inside the CTA;
-//   - the K loop comes in two forms.  `ring_tile` streams the A and B
-//     k-slabs through a ring of shared-memory stages filled by cp.async
-//     (cp_async.cuh), so all but one stage are in flight while the math
-//     works on the oldest (`kRingStages` says how deep, and why); B, read
-//     once, is loaded evict-first and A evict-last.  The split-K and grouped kernels run it; the
-//     ragged walk, whose ring runs on across tiles, uses its slab loader
-//     (`load_slabs`).
-//     `gemm_tile` is the older register path: each thread loads its next
-//     k-slab into registers as 16-byte vector loads while the math runs on
-//     the current one in shared memory, one slab in flight per CTA.
-//     `matmul` (gemm.cu) is its last user; it moves to the ring next, and
-//     the register loader (`TileLoader`) then goes;
+//   - the K loops that run on this file's tile: `ring_tile` streams the A
+//     and B k-slabs through a ring of shared-memory stages filled by
+//     cp.async (cp_async.cuh), so all but one stage are in flight while
+//     the math works on the oldest (`kRingStages` says how deep, and why);
+//     B, read once, is loaded evict-first and A evict-last.  The split-K
+//     and grouped kernels run it, and so does `matmul`'s ring feed.  The
+//     Stream-K and ragged walks, whose rings run on across tiles, keep
+//     their own loops on its slab loader (`load_slabs`).  `matmul`'s
+//     other feed, for aligned bf16 operands, is a TMA ring with its own
+//     mma.sync tile (gemm.cu, tma.cuh);
 //   - BK is 128 for the 16-row bf16 tile (16 KB of weights per slab), else
 //     64;
 //   - the ragged edges of M, N and K are masked at load (zero fill) and at
 //     store, so callers never pad operands.
 // bf16 runs on the tensor cores through WMMA 16x16x16 fragments (f32
 // accumulators); f32 runs as plain FMA, one output column and BM/2 rows
-// per thread.  wgmma and TMA are later work.
+// per thread.
 //
 // CTA tile rule (see kernels/gemm/kernel.py:cta_rows): a TileConfig row
 // block bm <= 16 maps to a 16-row CTA tile, any larger bm to a 64-row
@@ -78,60 +76,7 @@ struct TileCfg {
   static constexpr int AB_BYTES = B_OFF + B_R * B_LD * (int)sizeof(T);
   static constexpr int C_LD = kBN + 4;  // f32 epilogue staging (bf16 path)
   static constexpr int C_BYTES = BM * C_LD * 4;
-  static constexpr int SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-  static_assert(SMEM <= 48 * 1024, "static shared memory limit");
   static_assert(BM % 16 == 0, "CTA rows are a multiple of 16");
-};
-
-// A (TR x TC) tile of a row-major matrix with leading dimension `ld`,
-// whose element (r, c) exists for r < rows and c < cols; elements outside
-// read as zero.  Thread t loads chunks t, t + 128, ... of VEC consecutive
-// columns: one 16-byte load when the chunk is whole and aligned, element
-// loads otherwise.
-template <typename T, int TR, int TC>
-struct TileLoader {
-  using Bits = typename std::conditional<sizeof(T) == 2, unsigned short,
-                                         unsigned int>::type;
-  static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int CPR = TC / VEC;  // chunks per row
-  static constexpr int PER_THREAD = TR * CPR / kThreads;
-  static_assert(TC % VEC == 0, "tile width is whole chunks");
-  static_assert((TR * CPR) % kThreads == 0, "chunks divide among threads");
-
-  uint4 regs[PER_THREAD];
-
-  __device__ __forceinline__ void load(const T* __restrict__ src, int64_t ld,
-                                       int64_t r0, int64_t c0, int64_t rows,
-                                       int64_t cols) {
-    const Bits* bits = reinterpret_cast<const Bits*>(src);
-#pragma unroll
-    for (int j = 0; j < PER_THREAD; ++j) {
-      const int chunk = threadIdx.x + j * kThreads;
-      const int64_t r = r0 + chunk / CPR;
-      const int64_t c = c0 + (chunk % CPR) * VEC;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows && c < cols) {
-        const Bits* p = bits + r * ld + c;
-        if (c + VEC <= cols && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-          v = __ldg(reinterpret_cast<const uint4*>(p));
-        } else {
-          Bits* vb = reinterpret_cast<Bits*>(&v);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) vb[e] = (c + e < cols) ? p[e] : Bits(0);
-        }
-      }
-      regs[j] = v;
-    }
-  }
-
-  __device__ __forceinline__ void store(T* dst) const {  // row stride TC + VEC
-#pragma unroll
-    for (int j = 0; j < PER_THREAD; ++j) {
-      const int chunk = threadIdx.x + j * kThreads;
-      *reinterpret_cast<uint4*>(dst + (chunk / CPR) * (TC + VEC) +
-                                (chunk % CPR) * VEC) = regs[j];
-    }
-  }
 };
 
 template <typename T, int BM, bool TA, bool TB>
@@ -248,8 +193,9 @@ struct Math<float, BM, TA, TB> {
 };
 
 // ------------------------------------------------------ the cp.async ring
-// The ring depth of the split-K and grouped kernels: two stages, one k-slab
-// in flight per CTA while the math works on the other.  What decides it is
+// The ring depth of the split-K and grouped kernels and of `matmul`'s ring
+// feed (gemm.cu): two stages, one k-slab in flight per CTA while the math
+// works on the other.  What decides it is
 // HBM, not latency: at the decode shapes the grids are a few hundred CTAs
 // (grouped G4 and split-K s4 at 5120 x 17408: 320; s8: 640), three of them
 // per SM (registers cap the 16-row bf16 tile at three, whatever the depth),
@@ -301,7 +247,10 @@ __device__ __forceinline__ void load_slabs(T* As, T* Bs, const T* __restrict__ A
 
 // One output tile's K sweep [k0, k1) through a STAGES-deep cp.async ring
 // in `smem` (RingCfg::RING bytes, 128-byte aligned): STAGES - 1 k-slabs
-// in flight while `math` works on the oldest.  A and B as for gemm_tile.
+// in flight while `math` works on the oldest.  A is stored (rows, K)
+// with leading dimension lda, or (K, rows) when TA; B is stored (K, N)
+// or, when TB, (N, K), with leading dimension ldb; elements at or past
+// m_end, n_end or k1 read as zero.
 // It adds to math's f32 accumulator and leaves the epilogue to the
 // caller; on return every copy has landed and every thread is done with
 // the ring, so the caller may reuse its bytes.  An empty range (k1 <= k0)
@@ -343,49 +292,6 @@ __device__ __forceinline__ void ring_tile(unsigned char* smem,
   }
   cp_async_wait<0>();
   __syncthreads();
-}
-
-// -------------------------------------------------- the register path
-// One CTA's output tile: rows [m0, m_end) and columns [n0, min(n0 + 64,
-// n_end)) of C (row-major, leading dimension ldc), summed over the K range
-// [k0, k1).  A is stored (rows, K) with leading dimension lda, or (K, rows)
-// when TA; B is stored (K, N) or, when TB, (N, K), with leading dimension
-// ldb.  Elements of A and B at or past m_end, n_end or k1 read as zero, so
-// an empty K range (k1 <= k0) stores zeros.  OutT is the output's type
-// (T, or float).  `matmul` is its last user.
-template <typename T, int BM, bool TA, bool TB, typename OutT = T>
-__device__ __forceinline__ void gemm_tile(const T* __restrict__ A, int64_t lda,
-                                          const T* __restrict__ B, int64_t ldb,
-                                          OutT* __restrict__ C, int64_t ldc,
-                                          int64_t m0, int64_t m_end, int64_t n0,
-                                          int64_t n_end, int64_t k0, int64_t k1) {
-  using Cfg = TileCfg<T, BM, TA, TB>;
-  __shared__ __align__(128) unsigned char smem[Cfg::SMEM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + Cfg::B_OFF);
-  TileLoader<T, Cfg::A_R, Cfg::A_C> la;
-  TileLoader<T, Cfg::B_R, Cfg::B_C> lb;
-  Math<T, BM, TA, TB> math;
-  math.init();
-
-  auto load = [&](int64_t k) {
-    if (TA) la.load(A, lda, k, m0, k1, m_end);   // rows k, columns m
-    else    la.load(A, lda, m0, k, m_end, k1);   // rows m, columns k
-    if (TB) lb.load(B, ldb, n0, k, n_end, k1);   // rows n, columns k
-    else    lb.load(B, ldb, k, n0, k1, n_end);   // rows k, columns n
-  };
-
-  const int64_t nk = k1 > k0 ? (k1 - k0 + Cfg::BK - 1) / Cfg::BK : 0;
-  if (nk > 0) load(k0);
-  for (int64_t kt = 0; kt < nk; ++kt) {
-    __syncthreads();  // the previous step is done reading shared memory
-    la.store(As);
-    lb.store(Bs);
-    __syncthreads();
-    if (kt + 1 < nk) load(k0 + (kt + 1) * Cfg::BK);  // in flight during the math
-    math.step(As, Bs);
-  }
-  math.template finish<OutT>(smem, C, ldc, m0, m_end, n0, n_end);
 }
 
 // Calls f(TypeTag<T>, BM, TA, TB) with the compile-time instance that the

@@ -2,7 +2,10 @@
 the plain versions.
 
 - ``matmul`` (`csrc/gemm.cu`) replaces the TPU kernel
-  `repro/kernels/gemm/kernel.py:45 _matmul_kernel` (split_k = 1);
+  `repro/kernels/gemm/kernel.py:45 _matmul_kernel` (split_k = 1).  Two
+  hand-written feeds, chosen by shape (`matmul_feed`): TMA boxes into a
+  swizzled ring (`matmul_ring`) for aligned bf16 operands, the
+  `cp.async` ring of split-K and grouped for the rest;
 - ``splitk_matmul`` (`csrc/gemm_split_k.cu`) replaces `:65
   _matmul_splitk_kernel` and, in its cluster epilogue, `:86
   _reduce_kernel`: one launch, the K slices of an output tile one
@@ -39,9 +42,17 @@ MAX_GRID_Y = 65535
 _LL, _P, _I = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 _ERROR = {"repro_error_string": (ctypes.c_char_p, (_I,))}
 _SIGNATURES = {
-    "repro_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _P)),
+    "repro_matmul": (_I, (_P, _P, _P) + (_I,) * 8 + (_LL, _LL, _LL, _P)),
+    "repro_matmul_occupancy": (_I, (_I,) * 8 + (ctypes.POINTER(_I),) * 4),
     **_ERROR,
 }
+# `matmul`'s two feeds (`csrc/gemm.cu`), and the TMA feed's rings, one
+# compiled instantiation each (`TmaRings`): (stages, consumer groups).
+FEED_CODES = {"ring": 0, "tma": 1}
+SHALLOW_RING, DEEP_RING = (3, 1), (8, 2)
+TMA_RINGS = (SHALLOW_RING, DEEP_RING)
+# The TMA unit's alignment: bases and row strides in multiples of 16 bytes.
+TMA_ALIGN = 16
 _SPLIT_K_SIGNATURES = {
     "repro_splitk_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
                                  _I, _LL, _P)),
@@ -281,13 +292,53 @@ def _stream(device: torch.device) -> int:
 
 
 # -------------------------------------------------------------- launchers
+def matmul_feed(a: torch.Tensor, b: torch.Tensor, ta: bool, tb: bool) -> str:
+    """Which of `matmul`'s two feeds a launch on these dense operands
+    takes: ``"tma"`` (TMA boxes) when both are bf16 and each one's base
+    address and row stride (its last dim times 2 bytes) are multiples of
+    16 bytes, as the TMA unit needs, and K is not empty; ``"ring"`` (the
+    `cp.async` ring, which takes any dtype and alignment) otherwise —
+    f32 operands, a row stride not a multiple of 8 elements (A's K, or M
+    under ``ta``; B's N, or K under ``tb``), a view at an odd offset.  A
+    choice by shape between two kernels, each held to `gemm_ref` on the
+    card; nothing overrides it."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        return "ring"
+    K = a.shape[0] if ta else a.shape[1]
+    if K == 0:
+        return "ring"
+    for t in (a, b):
+        if (t.data_ptr() % TMA_ALIGN or t.shape[1] * t.element_size() % TMA_ALIGN
+                or max(t.shape) >= 2 ** 31):
+            return "ring"
+    return "tma"
+
+
+def matmul_ring(ctas: int, sms: int) -> tuple[int, int]:
+    """The TMA feed's ring, (stages, consumer groups), for a grid of
+    ``ctas`` CTAs on ``sms`` SMs: shallow, 3 stages and one group, when
+    the grid puts at least two CTAs on every SM, whose rings and math
+    together keep the SM busy; deep, 8 stages and two groups taking the
+    slabs in turn, when an SM holds one CTA or none, which has to keep
+    its bytes in flight and its math up with them alone."""
+    return SHALLOW_RING if ctas >= 2 * sms else DEEP_RING
+
+
+@lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The device's SM count, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
            tb: bool = False, bm: int = 16, out_dtype=None, out=None
            ) -> torch.Tensor:
     """C[M,N] = op(a) @ op(b) on the card, f32 accumulation, output in
     ``out_dtype`` (default: the operands' dtype).  ``a`` is (M,K), or
     (K,M) when ``ta``; ``b`` is (K,N), or (N,K) when ``tb``.  ``bm`` is
-    the `TileConfig` row block (`cta_rows` maps it to the CTA tile)."""
+    the `TileConfig` row block (`cta_rows` maps it to the CTA tile).
+    The feed is `matmul_feed`'s; each launch adds one to
+    ``matmul.launches`` and to ``matmul.feeds[feed]``."""
     dtype = check_operands(a, b, what="matmul")
     out_dtype = dtype if out_dtype is None else out_dtype
     if out_dtype not in DTYPE_CODES:
@@ -299,14 +350,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
     c = output(out, (M, N), out_dtype, a.device, "matmul")
     if c.numel() == 0:
         return c
+    feed = matmul_feed(a, b, ta, tb)
+    ring = (matmul_ring(-(-N // CTA_COLS) * -(-M // rows), sm_count(a.device))
+            if feed == "tma" else (0, 0))
     lib = _build.load("gemm", _SIGNATURES)
     with torch.cuda.device(a.device):
         code = lib.repro_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                 DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
-                                int(ta), int(tb), rows, M, N, K,
-                                _stream(a.device))
-    raise_on_error(lib, code, "matmul")
+                                int(ta), int(tb), rows, FEED_CODES[feed], *ring,
+                                M, N, K, _stream(a.device))
+    raise_on_error(lib, code, f"matmul ({feed} feed)")
     matmul.launches += 1
+    matmul.feeds[feed] += 1
     return c
 
 
@@ -323,6 +378,24 @@ class RingResidency(NamedTuple):
     smem_bytes: int
     stages: int
     slab_bytes: int
+
+
+@lru_cache(maxsize=None)
+def matmul_residency(device: torch.device, dtype: torch.dtype,
+                     out_dtype: torch.dtype, ta: bool, tb: bool, rows: int,
+                     feed: str, ring: tuple = (0, 0)) -> RingResidency:
+    """`RingResidency` of `matmul`'s instantiation at ``rows`` CTA rows on
+    ``feed`` (``ring``: the TMA feed's, one of `TMA_RINGS`; the ring feed
+    has its own)."""
+    lib = _build.load("gemm", _SIGNATURES)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        code = lib.repro_matmul_occupancy(DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+                                          int(ta), int(tb), rows, FEED_CODES[feed],
+                                          *ring, *(ctypes.byref(x) for x in out))
+    raise_on_error(lib, code, "matmul occupancy query")
+    blocks, smem, ring_stages, slab = (x.value for x in out)
+    return RingResidency(blocks, None, smem, ring_stages, slab)
 
 
 @lru_cache(maxsize=None)
@@ -444,3 +517,4 @@ def stream_k_fixup(counts: torch.Tensor, partials: torch.Tensor, *, bm: int,
 LAUNCHERS = (matmul, splitk_matmul, stream_k_partials, stream_k_fixup)
 for _fn in LAUNCHERS:
     _fn.launches = 0
+matmul.feeds = dict.fromkeys(FEED_CODES, 0)

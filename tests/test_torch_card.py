@@ -1,6 +1,7 @@
-"""The redesigned Stream-K walk, split-KV flash-attention and ragged-walk
-kernels, the one-launch split-K kernel and the ring-fed grouped kernel
-with its weights by pointer, held to their plain versions on the card.  Every test here needs an NVIDIA GPU and skips
+"""`matmul` on both of its feeds, the redesigned Stream-K walk, split-KV
+flash-attention and ragged-walk kernels, the one-launch split-K kernel
+and the ring-fed grouped kernel with its weights by pointer, held to
+their plain versions on the card.  Every test here needs an NVIDIA GPU and skips
 without one; on the card (no JAX needed) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_card.py
@@ -13,6 +14,16 @@ within `attention_tol`; its split partials must match `flash_split_ref`,
 its output (merged in the kernel by the last CTA of each row group) must
 match `flash_combine_ref` on the kernel's own partials, and the row
 groups' counters must be zero again after the launch.
+
+`matmul` takes TMA boxes for bf16 operands with 16-byte-aligned bases
+and rows (`matmul_feed`), and the `cp.async` ring otherwise: the TMA
+feed must match `gemm_ref` in all four layouts, at 16- and 64-row tiles,
+with bf16 and f32 output, M, N and K not multiples of the tile, and at
+both ring depths; the ring feed with f32 operands, K = 5118 (a row
+stride that is not a 16-byte multiple) and a view one element past an
+aligned base; each launch counted on its feed (`matmul.feeds`).  Both
+feeds must be exact on integer-valued operands and give the same bits
+on a second run.
 
 Split-K (`splitk_matmul`) is one launch: the K slices of an output tile
 are one thread-block cluster, which sums their f32 tiles in slice order
@@ -87,6 +98,109 @@ def _close(out, ref, scale, what):
     tol = rel * ref.float().abs() + 2.0 ** -16 * scale
     assert torch.isfinite(out.float()).all(), what
     assert bool((err <= tol).all()), f"{what}: max |err| {err.max().item():.3g}"
+
+
+# ------------------------------------------------------------------ matmul
+def _operands(g, M, N, K, ta, tb, dtype, card):
+    a = torch.randn((K, M) if ta else (M, K), generator=g, device=card, dtype=dtype)
+    b = torch.randn((N, K) if tb else (K, N), generator=g, device=card, dtype=dtype)
+    return a, b
+
+
+def _launch(a, b, feed, **kw):
+    """`matmul` on (a, b), asserting it launched once, on ``feed``."""
+    before = dict(gk.matmul.feeds)
+    launches = gk.matmul.launches
+    out = gk.matmul(a, b, **kw)
+    assert gk.matmul.launches == launches + 1
+    assert gk.matmul.feeds[feed] == before[feed] + 1, gk.matmul.feeds
+    return out
+
+
+def _check(out, a, b, ta, tb, what):
+    A, B = (a.T if ta else a).float().abs(), (b.T if tb else b).float().abs()
+    _close(out, gemm_ref(a, b, ta=ta, tb=tb, out_dtype=out.dtype), A @ B, what)
+
+
+TMA_CASES = [  # M, N, K: multiples of 8 (16-byte rows), not of the tile
+    (8, 136, 200),       # M < 16, N and K past a 64 edge
+    (72, 328, 1000),     # two or more row tiles of 16 or 64, M ragged
+    (8, 17408, 320),     # 272 CTAs: the shallow ring (the deep one above)
+]
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32], ids=str)
+@pytest.mark.parametrize("bm", [8, 64])
+@pytest.mark.parametrize("layout", [(False, False), (False, True), (True, False),
+                                    (True, True)], ids=str)
+@pytest.mark.parametrize("case", TMA_CASES, ids=str)
+def test_matmul_tma_feed_matches_plain(card, case, layout, bm, out_dtype):
+    """Aligned bf16 operands take the TMA feed in every layout, at 16- and
+    64-row tiles, bf16 and f32 output, edges from TMA's zero fill."""
+    (M, N, K), (ta, tb) = case, layout
+    g = torch.Generator(device=card).manual_seed(M * N + K)
+    a, b = _operands(g, M, N, K, ta, tb, torch.bfloat16, card)
+    assert gk.matmul_feed(a, b, ta, tb) == "tma"
+    out = _launch(a, b, "tma", ta=ta, tb=tb, bm=bm, out_dtype=out_dtype)
+    assert out.dtype == (out_dtype or torch.bfloat16) and out.shape == (M, N)
+    _check(out, a, b, ta, tb, f"tma {case} {layout} bm{bm}")
+
+
+def _ring_case(name, card):
+    """Operands that the ring feed takes, and their layout."""
+    g = torch.Generator(device=card).manual_seed(len(name))
+    if name.startswith("f32"):
+        ta, tb = {"f32": (False, False), "f32 ta": (True, False),
+                  "f32 tb": (False, True), "f32 ta tb": (True, True)}[name]
+        return (*_operands(g, 13, 130, 300, ta, tb, torch.float32, card), ta, tb)
+    if name == "K 5118":     # A's row stride 10,236 bytes
+        return (*_operands(g, 8, 256, 5118, False, False, torch.bfloat16, card),
+                False, False)
+    # a view one element past an aligned base
+    M, N, K = 8, 256, 512
+    a = torch.randn(M * K + 1, generator=g, device=card, dtype=torch.bfloat16)
+    b = torch.randn((K, N), generator=g, device=card, dtype=torch.bfloat16)
+    return a[1:].view(M, K), b, False, False
+
+
+RING_CASES = ["f32", "f32 ta", "f32 tb", "f32 ta tb", "K 5118", "odd offset"]
+
+
+@pytest.mark.parametrize("bm", [8, 64])
+@pytest.mark.parametrize("name", RING_CASES)
+def test_matmul_ring_feed_matches_plain(card, name, bm):
+    a, b, ta, tb = _ring_case(name, card)
+    assert gk.matmul_feed(a, b, ta, tb) == "ring"
+    out = _launch(a, b, "ring", ta=ta, tb=tb, bm=bm)
+    _check(out, a, b, ta, tb, f"ring {name} bm{bm}")
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("feed,K", [("tma", 3000), ("ring", 2998)])
+def test_matmul_is_exact_on_integer_operands(card, feed, K, out_dtype):
+    """Integer-valued operands: every f32 sum is exact whatever its
+    order, so either feed equals the plain GEMM bit for bit."""
+    g = torch.Generator(device=card).manual_seed(K)
+    a = torch.randint(-4, 5, (9, K), generator=g, device=card).to(torch.bfloat16)
+    b = torch.randint(-4, 5, (K, 200), generator=g, device=card).to(torch.bfloat16)
+    out = _launch(a, b, feed, bm=8, out_dtype=out_dtype)
+    assert torch.equal(out, gemm_ref(a, b, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("feed,K", [("tma", 5120), ("ring", 5118)])
+def test_matmul_second_run_is_bitwise_equal(card, feed, K):
+    g = torch.Generator(device=card).manual_seed(K)
+    a, b = _operands(g, 8, 1024, K, False, False, torch.bfloat16, card)
+    assert torch.equal(_launch(a, b, feed, bm=8), _launch(a, b, feed, bm=8))
+
+
+@pytest.mark.parametrize("feed,ring", [("tma", r) for r in gk.TMA_RINGS] +
+                         [("ring", (0, 0))], ids=str)
+def test_matmul_residency_holds_a_ring(card, feed, ring):
+    r = gk.matmul_residency(card, torch.bfloat16, torch.bfloat16, False, False, 16,
+                            feed, ring)
+    assert r.ctas_per_sm >= 1 and r.clusters is None
+    assert r.stages >= 2 and r.smem_bytes >= r.stages * r.slab_bytes
 
 
 # ---------------------------------------------------------------- Stream-K
