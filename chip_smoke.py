@@ -64,19 +64,30 @@ Phases, each fatal on failure (nothing here catches an error):
    printed, not gated; and each window runs once more under the
    profiler, which counts its split-K launches beside the split-K GEMMs
    planned and finds no reduce kernel;
-6. attention and scan kernels: the flash-attention and chunked-scan
-   kernels against their plain versions on small cases (GQA and MHA,
+6. attention and scan kernels: the flash-attention kernel and both scan
+   kernels (the decode kernel at T = 1, the chunk loop otherwise, each
+   case checked to have launched on the route `scan_route` names)
+   against their plain versions on small cases (GQA and MHA,
    causal with ``q_offset``, a window, S not a multiple of ``bkv``,
    prefill, dv ≠ dqk, strided q/k/v, bf16 and f32; T not a multiple of
    the chunk, chunks 8-512, a nonzero initial state, a head-broadcast
-   B/C view), then timed at the path's shapes beside their plain
-   versions and, for attention, PyTorch's
+   B/C view, decode steps with and without a state, per-head B/C, rows
+   not 16-byte groups), then timed at the path's shapes beside their
+   plain versions and, for attention, PyTorch's
    ``scaled_dot_product_attention``: Qwen3-14B's tenant-16 member and
    its batch-1 member, each with its grid (CTAs, kv splits) and shared
    memory printed.  Two planted faults must fail the attention check:
    the kernel without one 64-key sub-tile (tenant 16), and the kernel's
    split partials merged without one split (batch 1, 16 splits; the same
-   merge with every split must match the kernel's own output);
+   merge with every split must match the kernel's own output).  The
+   scan's decode rows — Zamba2's tenant-16 member without and with an
+   initial state, and its batch-1 member — are timed on output (and
+   state) sets rotating beyond the 50 MB L2, with the decode grid (CTAs,
+   pairs per CTA, column slices, CTAs per SM, shared memory); a planted
+   fault (one pair's B xdᵀ term dropped from the state) must fail the
+   scan check, and a ``copy_`` of the state into the rotating buffers is
+   printed as the card's write ceiling at that size.  The long prefill
+   (B1 T4096 L128) runs on the chunk loop;
 7. op-bundle serving: for Qwen3-14B (40 layers, context 4,096) and
    Zamba2-1.2B (38 layers, context 2,048), at full width, every layer's
    whole decode-step bundle (`decode_step_op_descs`: the GEMMs, the
@@ -86,7 +97,8 @@ Phases, each fatal on failure (nothing here catches an error):
    with 16 slots, then tenants [4, 8, 8, 16] with 4, each cold then warm.
    Every result is held against its plain version, and the counters,
    zeroed before the phase, must show exactly one attention launch per
-   attention member and one scan launch per scan member.  Each warm
+   attention member and one scan launch per scan member, every scan
+   launch on the decode kernel.  Each warm
    window is then timed concurrently and back to back (as in phase 5)
    and profiled once;
 8. one JSON line ``{"kernels": [...]}`` and, last, the device line.
@@ -183,8 +195,14 @@ from repro_torch.kernels.grouped_gemm import (  # noqa: E402
     ragged_gemm_ref,
 )
 from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel  # noqa: E402
-from repro_torch.kernels.mamba_scan import mamba_scan_fwd, ssd_chunk_ref  # noqa: E402
-from repro_torch.kernels.mamba_scan.ops import scan_chunk  # noqa: E402
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    decode_grid,
+    mamba_scan_fwd,
+    scan_route,
+    ssd_chunk_ref,
+)
+from repro_torch.kernels.mamba_scan.kernel import decode_residency  # noqa: E402
+from repro_torch.kernels.mamba_scan.ops import scan_buffers, scan_chunk  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     Runtime,
     RuntimeConfig,
@@ -339,6 +357,7 @@ def reset_counts() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
     gemm_kernel.matmul.feeds.update(dict.fromkeys(gemm_kernel.matmul.feeds, 0))
+    mamba_scan_fwd.routes.update(dict.fromkeys(mamba_scan_fwd.routes, 0))
 
 
 def check_feeds(label: str, device) -> dict:
@@ -927,7 +946,8 @@ KERNEL_KINDS = (("matmul_kernel", "matmul"), ("grouped_kernel", "grouped_matmul"
                 ("stream_k_kernel", "stream_k_partials"),
                 ("fixup_kernel", "stream_k_fixup"),
                 ("ragged_kernel", "ragged_matmul"), ("flash_bf16_kernel", "flash_attention"),
-                ("mamba_kernel", "mamba_scan"), ("Cat", "stack/cat copy"),
+                ("mamba_decode_kernel", "mamba_scan"), ("mamba_kernel", "mamba_scan"),
+                ("Cat", "stack/cat copy"),
                 ("reduce", "isfinite checks"))
 
 
@@ -1255,6 +1275,10 @@ ATTN_CASES = (
 SCAN_CASES = (
     (2, 70, 3, 16, 8, 32, False, False),
     (16, 1, 64, 64, 64, 32, False, True),     # the decode member (Zamba2)
+    (16, 1, 64, 64, 64, 32, True, False),     # decode: a state, per-head B/C
+    (1, 1, 64, 64, 64, 32, True, True),       # decode at batch 1: column slices
+    (3, 1, 5, 30, 10, 16, True, False),       # decode: rows of 30 floats
+    (2, 2, 64, 64, 64, 32, True, True),       # T = 2: the chunk loop
     (1, 600, 2, 64, 64, 512, True, False),
     (1, 300, 2, 32, 16, 8, True, True),
     (1, 200, 4, 64, 128, 64, False, False),
@@ -1315,14 +1339,28 @@ def planted_fault(q, k, v, kw: dict, lo: int = 2048) -> None:
         raise AssertionError("the attention tolerance lets a skipped kv sub-tile through")
 
 
-def check_scan(y, state, xd, da, bm, cm, s0, what: str) -> float:
-    """The plain version in f32 on the same inputs (bf16 converts exactly)."""
+def scan_excess(y, state, xd, da, bm, cm, s0, what: str) -> dict:
+    """y and the state against the plain version in f32 on the same inputs
+    (bf16 converts exactly): for each, the max |err| and the elements
+    beyond SCAN_TOL + rtol·|plain| (rtol: SCAN_TOL, plus half a bf16 unit
+    for a bf16 y)."""
     y_ref, s_ref = ssd_chunk_ref(xd.float(), da.float(), bm.float(), cm.float(),
                                  chunk=64, initial_state=s0)
     rtol = SCAN_TOL + (2.0 ** -8 if y.dtype == torch.bfloat16 else 0.0)
-    err = check_tol(y, y_ref, SCAN_TOL, rtol, what + " y")
-    check_tol(state, s_ref, SCAN_TOL, SCAN_TOL, what + " state")
-    return err
+    return {"y": tol_excess(y, y_ref, SCAN_TOL, rtol, what + " y"),
+            "state": tol_excess(state, s_ref, SCAN_TOL, SCAN_TOL, what + " state")}
+
+
+def check_scan(y, state, xd, da, bm, cm, s0, what: str) -> float:
+    """`scan_excess` must find no element beyond the tolerance; returns y's
+    max |err|."""
+    ex = scan_excess(y, state, xd, da, bm, cm, s0, what)
+    bad = {k: v for k, v in ex.items() if v[1]}
+    if bad:
+        raise AssertionError(f"{what}: " + "; ".join(
+            f"{k}: {n} elements beyond {SCAN_TOL} + rtol·|ref|, max |err| {e:.4g}"
+            for k, (e, n) in bad.items()))
+    return ex["y"][0]
 
 
 def scan_inputs(B, T, H, P, N, gen, dtype, broadcast: bool):
@@ -1360,7 +1398,10 @@ def attention_scan_cases(gen) -> int:
             what = f"scan B{B} T{T} H{H} P{P} N{N} L{L} s0{with_s0:d} bcast{bcast:d} {dtype}"
             xd, da, bm, cm = scan_inputs(B, T, H, P, N, gen, dtype, bcast)
             s0 = randn((B, H, N, P), gen, torch.float32) if with_s0 else None
+            route, before = scan_route(T, P, N, L), dict(mamba_scan_fwd.routes)
             y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=L, initial_state=s0)
+            if mamba_scan_fwd.routes[route] != before[route] + 1:
+                raise AssertionError(f"{what}: not launched on the {route} route")
             check_scan(y, state, xd, da, bm, cm, s0, what)
             n += 1
     return n
@@ -1454,39 +1495,129 @@ def attention_member(B: int, gen, lib) -> dict:
 def attention_scan_kernels(gen, lib) -> dict:
     """The op-bundle path's attention and scan members: Qwen3-14B's
     tenant-16 attention (K+V 268 MB, beyond the 50 MB L2) and its batch-1
-    member (eight operand sets, 134 MB), Zamba2's tenant-16 scan, plus one
-    long-prefill scan.  Each is compared, then timed beside its plain
-    version and, for attention, the PyTorch call computing the same
-    function."""
-    bf16 = torch.bfloat16
+    member (eight operand sets, 134 MB), then `scan_rows`.  Each is
+    compared, then timed beside its plain version and, for attention, the
+    PyTorch call computing the same function."""
     rows = {"flash_attention": [attention_member(16, gen, lib),
                                 attention_member(1, gen, lib)]}
     torch.cuda.empty_cache()
-
-    rows["mamba_scan"] = []
-    sdesc = ScanDesc(16, 1, 64, 64, 64)
-    for (B, T, H, P, N), L in (((sdesc.B, sdesc.T, sdesc.H, sdesc.P, sdesc.N),
-                                scan_chunk(lib.get(sdesc).isolated)),
-                               ((1, 4096, 64, 64, 64), 128)):
-        xd, da, bm, cm = scan_inputs(B, T, H, P, N, gen, bf16, broadcast=True)
-        y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=L)
-        err = check_scan(y, state, xd, da, bm, cm, None, f"scan main T{T}")
-        # inputs read once (B/C: their (B,T,N) storage), y and the state written
-        nbytes = (xd.numel() + da.numel() + 2 * B * T * N + y.numel()) * 2 + state.numel() * 4
-        rows["mamba_scan"].append(dict(
-            shape=f"B{B} T{T} H{H} P{P} N{N} L{L}, B/C head-broadcast",
-            instantiation="bf16, 32-row sub-blocks", max_abs_err=err,
-            ms=time_ms(lambda: mamba_scan_fwd(xd, da, bm, cm, chunk=L, out=(y, state))),
-            plain_ms=time_ms(lambda: ssd_chunk_ref(xd, da, bm, cm, chunk=L), reps=3,
-                             warmup=1),
-            library_ms=None,
-            bound=bound(nbytes, scan_flops(B, T, H, P, N, L), bf16)))
+    rows["mamba_scan"] = scan_rows(gen, lib)
+    torch.cuda.empty_cache()
     for name, rs in rows.items():
         for r in rs:
             lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             print(f"# {name:<15} {r['shape']:<60} kernel {r['ms']:.4f} ms | plain "
                   f"{r['plain_ms']:.4f} | torch {lib_ms} | bound {r['bound'][0]:.6f} "
                   f"({r['bound'][1]}) | max err {r['max_abs_err']:.4g}")
+    return rows
+
+
+L2_BYTES = 50 * 2 ** 20
+
+
+def decode_flops(B, H, P, N, with_s0: bool) -> int:
+    """The decode kernel's multiply-adds ×2: per (batch, head) C·B, y's
+    products and B xdᵀ, and with a state exp(da)·S0 and C·S0 as well."""
+    return 2 * B * H * (N + P * (2 if with_s0 else 1) + N * P * (3 if with_s0 else 1))
+
+
+def planted_scan_fault(y, state, xd, da, bm, cm, b: int = 8, h: int = 32) -> None:
+    """The scan check's power at the decode shape: the kernel's state
+    without the B xdᵀ term of (batch b, head h), which a kernel that
+    skipped that pair's update would give, must fail `check_scan`.
+    Prints how far off it is."""
+    fault = state.clone()
+    fault[b, h] -= bm[b, 0, h].float()[:, None] * xd[b, 0, h].float()[None, :]
+    ex = scan_excess(y, fault, xd, da, bm, cm, None, "planted scan fault")
+    err, n_bad = ex["state"]
+    print(f"# planted scan fault (the B·xd term of (batch {b}, head {h}) dropped) at "
+          f"{tuple(xd.shape)}: max |err| {err:.4g}; {n_bad} of {fault.numel()} state "
+          f"elements beyond {SCAN_TOL} + {SCAN_TOL}·|ref|, so check_scan fails it")
+    if not n_bad:
+        raise AssertionError("check_scan lets a dropped B·xd term through")
+
+
+def decode_row(B: int, with_s0: bool, gen, L: int) -> dict:
+    """Zamba2's decode member at batch B (64 heads, P = N = 64, bf16, B/C
+    head-broadcast), on the decode kernel: compared on the first set, then
+    timed on output (and initial-state) sets that rotate beyond the 50 MB
+    L2 — at least 4 — so each call writes (and reads) its state in HBM."""
+    H, P, N = 64, 64, 64
+    xd, da, bm, cm = scan_inputs(B, 1, H, P, N, gen, torch.bfloat16, broadcast=True)
+    state_b = B * H * N * P * 4
+    set_b = state_b * (2 if with_s0 else 1) + B * H * P * 2
+    n_sets = max(4, -(-L2_BYTES * 5 // 4 // set_b))
+    sets = [(randn((B, H, N, P), gen, torch.float32) if with_s0 else None,
+             *scan_buffers(xd, da, bm, cm)) for _ in range(n_sets)]
+    s0, y, state = sets[0]
+    before = dict(mamba_scan_fwd.routes)
+    mamba_scan_fwd(xd, da, bm, cm, chunk=L, initial_state=s0, out=(y, state))
+    if mamba_scan_fwd.routes["decode"] != before["decode"] + 1:
+        raise AssertionError(f"the decode member at B{B} missed the decode route")
+    what = f"scan decode B{B} s0{with_s0:d}"
+    err = check_scan(y, state, xd, da, bm, cm, s0, what)
+    g = decode_grid(B * H, P, N, torch.cuda.get_device_properties(0).multi_processor_count)
+    per_sm, smem = decode_residency(xd.device, torch.bfloat16, s0=with_s0)
+    print(f"# mamba_scan decode grid at B{B} H{H} P{P} N{N}: {g.ctas} CTAs of 256 threads, "
+          f"{g.pairs_per_cta} pair(s) per CTA, {g.slices} column slice(s) of "
+          f"{4 * g.groups} columns per pair, {g.row_lanes} row lanes; {per_sm} CTAs per "
+          f"SM, {smem} B static shared memory; {n_sets} rotating sets of "
+          f"{set_b / 1e6:.2f} MB ({n_sets * set_b / 1e6:.1f} MB)")
+    if B == 16 and not with_s0:
+        planted_scan_fault(y, state, xd, da, bm, cm)
+        src = state.clone()
+        states = [(st,) for _, _, st in sets]
+        copy_ms = time_ms(rotating(lambda st: st.copy_(src), states), reps=50)
+        zero_ms = time_ms(rotating(lambda st: st.zero_(), states), reps=50)
+        print(f"# write ceiling at B{B}: copy_ of the {state_b / 1e6:.1f} MB state into "
+              f"the {n_sets} rotating state buffers {copy_ms:.4f} ms ({state_b / copy_ms / 1e9:.3f} "
+              f"TB/s written, as much read); zero_ of them {zero_ms:.4f} ms "
+              f"({state_b / zero_ms / 1e9:.3f} TB/s written)")
+    nbytes = ((xd.numel() + da.numel() + 2 * B * N) * 2 + y.numel() * 2
+              + state_b * (2 if with_s0 else 1))
+    return dict(
+        shape=(f"B{B} T1 H{H} P{P} N{N}, B/C head-broadcast"
+               f"{', initial state' if with_s0 else ''} (decode)"),
+        instantiation=f"bf16 decode, {g.ctas} CTAs, {smem} B shared",
+        route="decode",
+        grid=dict(ctas=g.ctas, slices=g.slices, pairs_per_cta=g.pairs_per_cta,
+                  ctas_per_sm=per_sm, smem_bytes=smem, rotating_sets=n_sets),
+        max_abs_err=err,
+        ms=time_ms(rotating(lambda s, yy, st: mamba_scan_fwd(
+            xd, da, bm, cm, chunk=L, initial_state=s, out=(yy, st)), sets), reps=50),
+        plain_ms=time_ms(lambda: ssd_chunk_ref(xd, da, bm, cm, chunk=L,
+                                               initial_state=s0), reps=3, warmup=1),
+        library_ms=None,
+        bound=bound(nbytes, decode_flops(B, H, P, N, with_s0), torch.bfloat16))
+
+
+def scan_rows(gen, lib) -> list:
+    """The scan's rows: Zamba2's tenant-16 decode member (the serving
+    path's shape) without and with an initial state and its batch-1
+    member, on the decode kernel and rotating outputs; then one long
+    prefill (B1 T4096 L128) on the chunk loop, one set (1.1 MB of
+    outputs)."""
+    sdesc = ScanDesc(16, 1, 64, 64, 64)
+    L = scan_chunk(lib.get(sdesc).isolated)
+    rows = [decode_row(16, False, gen, L), decode_row(16, True, gen, L),
+            decode_row(1, False, gen, L)]
+    B, T, H, P, N, L = 1, 4096, 64, 64, 64, 128
+    xd, da, bm, cm = scan_inputs(B, T, H, P, N, gen, torch.bfloat16, broadcast=True)
+    before = dict(mamba_scan_fwd.routes)
+    y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=L)
+    if mamba_scan_fwd.routes["chunks"] != before["chunks"] + 1:
+        raise AssertionError("the prefill row missed the chunk loop")
+    err = check_scan(y, state, xd, da, bm, cm, None, f"scan main T{T}")
+    # inputs read once (B/C: their (B,T,N) storage), y and the state written
+    nbytes = (xd.numel() + da.numel() + 2 * B * T * N + y.numel()) * 2 + state.numel() * 4
+    rows.append(dict(
+        shape=f"B{B} T{T} H{H} P{P} N{N} L{L}, B/C head-broadcast (chunks)",
+        instantiation="bf16, 32-row sub-blocks", route="chunks", max_abs_err=err,
+        ms=time_ms(lambda: mamba_scan_fwd(xd, da, bm, cm, chunk=L, out=(y, state))),
+        plain_ms=time_ms(lambda: ssd_chunk_ref(xd, da, bm, cm, chunk=L), reps=3,
+                         warmup=1),
+        library_ms=None,
+        bound=bound(nbytes, scan_flops(B, T, H, P, N, L), torch.bfloat16)))
     return rows
 
 
@@ -1608,6 +1739,16 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
                              or counts["mamba_scan"] != members["mamba_scan"]):
         raise AssertionError(f"{cfg.name}: attention/scan launches {counts} differ from "
                              f"the members submitted {dict(members)}")
+    routes = dict(mamba_scan_fwd.routes)
+    if members["mamba_scan"]:
+        print(f"# {cfg.name} op-bundle scan launches by route {routes}: "
+              f"{routes['decode']} of {members['mamba_scan']} scan members on the decode "
+              "kernel, each ticket's y within the scan tolerance of ssd_chunk_ref")
+        if device == "cuda" and (routes["decode"] != members["mamba_scan"]
+                                 or routes["chunks"]):
+            raise AssertionError(f"{cfg.name}: scan launches by route {routes}; every "
+                                 f"one of the {members['mamba_scan']} decode members "
+                                 "must take the decode kernel")
     if device == "cuda":
         for w in windows[1::2]:     # the warm windows
             r = concurrency_ratio(w["launch_list"], rt.ctrl.lib)
@@ -1631,7 +1772,8 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
                                rt, cfg, weights, kv, batches, context, gen)[1::2])
     for w in windows:
         del w["launch_list"]
-    return dict(counts=counts, windows=windows, model_gb=model_gb, kv_gb=kv_gb)
+    return dict(counts=counts, scan_routes=routes, windows=windows, model_gb=model_gb,
+                kv_gb=kv_gb)
 
 
 # ------------------------------------------------------------------- main
@@ -1668,6 +1810,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         ops[name] = op_bundle_phase(name, context)
     op_counts = {k: sum(o["counts"][k] for o in ops.values()) for k in OP_BUNDLE_KERNELS}
+    scan_routes = {k: sum(o["scan_routes"][k] for o in ops.values())
+                   for k in mamba_scan_fwd.routes}
     missing = [k for k in OP_BUNDLE_KERNELS if op_counts[k] <= 0]
     if missing:
         raise AssertionError(f"the op-bundle path never launched {missing}")
@@ -1683,6 +1827,8 @@ def main() -> int:
                           "times the whole one-launch GEMM"}
                if replaces.endswith("_reduce_kernel") else {}),
             "instantiation": r["instantiation"], "launches": path["counts"][name],
+            **({"launches_by_route": scan_routes} if name == "mamba_scan" else {}),
+            **({"route": r["route"]} if "route" in r else {}),
             **({"grid": r["grid"]} if "grid" in r else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -1690,7 +1836,8 @@ def main() -> int:
             **({"feed": r["feed"], "ring_ms": r["ring_ms"]} if "feed" in r else {}),
             **({"host_us": r["host_us"]} if "host_us" in r else {}),
             **({"more_shapes": [{
-                "shape": m["shape"], **({"grid": m["grid"]} if "grid" in m else {}),
+                "shape": m["shape"], **({"route": m["route"]} if "route" in m else {}),
+                **({"grid": m["grid"]} if "grid" in m else {}),
                 **({"feed": m["feed"], "ring_ms": m["ring_ms"]} if "feed" in m else {}),
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],

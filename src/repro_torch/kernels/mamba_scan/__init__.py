@@ -1,4 +1,8 @@
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fwd
+from repro_torch.kernels.mamba_scan.kernel import (
+    decode_grid,
+    mamba_scan_fwd,
+    scan_route,
+)
 from repro_torch.kernels.mamba_scan.ops import (
     mamba_chunk_scan,
     scan_buffers,
@@ -11,6 +15,6 @@ from repro_torch.kernels.mamba_scan.ref import (
     ssd_scan_seq_ref,
 )
 
-__all__ = ["mamba_chunk_ref", "mamba_chunk_scan", "mamba_scan_fwd",
-           "scan_buffers", "scan_for_desc", "ssd_chunk_ref", "ssd_scan",
-           "ssd_scan_seq_ref"]
+__all__ = ["decode_grid", "mamba_chunk_ref", "mamba_chunk_scan", "mamba_scan_fwd",
+           "scan_buffers", "scan_for_desc", "scan_route", "ssd_chunk_ref",
+           "ssd_scan", "ssd_scan_seq_ref"]

@@ -6,7 +6,8 @@
                        GO-tuned chunk length (`TileConfig.bm`).
 
 CPU tensors take the plain version (`ref.ssd_chunk_ref`); CUDA tensors
-take the hand-written kernel or raise.  The reference sends a call with
+take one of the two hand-written kernels (`kernel.scan_route`: the decode
+kernel at T = 1, the chunk loop otherwise) or raise.  The reference sends a call with
 an ``initial_state`` to its XLA version; here a CUDA call with one goes
 to the kernel's ``s0`` (the same function), since no plain path runs on
 the card.  The backward pass is not ported (serving needs none).

@@ -1,7 +1,7 @@
 """`matmul` on both of its feeds, the redesigned Stream-K walk, split-KV
-flash-attention and ragged-walk kernels, the one-launch split-K kernel
-and the ring-fed grouped kernel with its weights by pointer, held to
-their plain versions on the card.  Every test here needs an NVIDIA GPU and skips
+flash-attention and ragged-walk kernels, the one-launch split-K kernel,
+the ring-fed grouped kernel with its weights by pointer and the SSD
+scan's decode kernel, held to their plain versions on the card.  Every test here needs an NVIDIA GPU and skips
 without one; on the card (no JAX needed) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_card.py
@@ -41,6 +41,14 @@ output, and a weight neither row- nor column-contiguous, which must
 raise and launch nothing.  The ragged walk must give the same bits on a
 second call (its partials sum in a fixed order).
 
+The scan's decode kernel (`scan_route`: every T = 1 call) must match
+`ssd_chunk_ref` on f32 copies of its inputs within 3e-4 (the reference
+tests' tolerance; half a bf16 unit more for a bf16 y): bf16 and f32, with
+and without an initial state, head-broadcast and per-head B/C, (N, P) of
+(8, 16), (64, 64), (128, 128) and (10, 30), batch 1 (column slices) and
+16; a strided xd; ``out=`` buffers, one of them unaligned; the same bits
+on a second run.  A T = 2 call still takes the chunk loop.
+
 GEMM tolerance (as in `chip_smoke.py`): |kernel − plain| ≤ 2⁻⁷·|plain|
 (bf16 outputs only: one rounding each) + 2⁻¹⁶·|A|·|B| (f32 summation
 order over K).
@@ -79,6 +87,8 @@ from repro_torch.kernels.gemm import kernel as gk
 from repro_torch.kernels.gemm.ref import element_counts
 from repro_torch.kernels.grouped_gemm import grouped_gemm_ref, ragged_gemm_ref
 from repro_torch.kernels.grouped_gemm import kernel as ggk
+from repro_torch.kernels.mamba_scan import mamba_scan_fwd, ssd_chunk_ref
+from repro_torch.kernels.mamba_scan.kernel import decode_residency
 
 pytestmark = pytest.mark.cuda
 
@@ -493,3 +503,126 @@ def test_weight_neither_row_nor_column_contiguous_raises(card):
                                          "has one layout"):
         ggk.grouped_matmul(a, [ws[0], ws[1], mixed])
     assert (ggk.grouped_matmul.launches, ggk.ragged_matmul.launches) == before
+
+
+# ------------------------------------------------------ the scan's decode step
+SCAN_TOL = 3e-4   # tests/test_kernel_mamba.py's f32 tolerance
+
+
+def _scan_close(y, state, xd, da, bm, cm, s0, what):
+    """y and the state against `ssd_chunk_ref` on f32 copies of the same
+    inputs (bf16 converts exactly), within SCAN_TOL + SCAN_TOL·|plain|,
+    plus half a bf16 unit (2⁻⁸·|plain|) for a bf16 y's one rounding."""
+    y_ref, s_ref = ssd_chunk_ref(xd.float(), da.float(), bm.float(), cm.float(),
+                                 chunk=64, initial_state=s0)
+    rtol = SCAN_TOL + (2.0 ** -8 if y.dtype == torch.bfloat16 else 0.0)
+    for out, ref, rt, name in ((y, y_ref, rtol, "y"), (state, s_ref, SCAN_TOL, "state")):
+        assert out.shape == ref.shape, (what, name)
+        assert torch.isfinite(out.float()).all(), (what, name)
+        err = (out.float() - ref.float()).abs()
+        assert bool((err <= SCAN_TOL + rt * ref.float().abs()).all()), \
+            f"{what} {name}: max |err| {err.max().item():.3g}"
+
+
+def _scan_inputs(card, B, T, H, P, N, dtype, bcast, seed):
+    """xd, da (≤ 0) and B/C, as head-broadcast views of (B,T,N) when
+    ``bcast`` (head stride 0, Mamba2's group-shared layout)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    xd = torch.randn((B, T, H, P), generator=g, device=card).to(dtype)
+    da = (torch.rand((B, T, H), generator=g, device=card) * -0.5).to(dtype)
+    if bcast:
+        bm, cm = (torch.randn((B, T, 1, N), generator=g, device=card).mul_(0.5)
+                  .to(dtype).expand(B, T, H, N) for _ in range(2))
+    else:
+        bm, cm = (torch.randn((B, T, H, N), generator=g, device=card).mul_(0.5)
+                  .to(dtype) for _ in range(2))
+    return xd, da, bm, cm
+
+
+def _decode(xd, da, bm, cm, **kw):
+    """`mamba_scan_fwd` on a T = 1 call, asserting one launch on the decode
+    route."""
+    before, routes = mamba_scan_fwd.launches, dict(mamba_scan_fwd.routes)
+    out = mamba_scan_fwd(xd, da, bm, cm, chunk=32, **kw)
+    assert mamba_scan_fwd.launches == before + 1
+    assert mamba_scan_fwd.routes == {**routes, "decode": routes["decode"] + 1}
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("NP", [(8, 16), (64, 64), (128, 128), (10, 30)], ids=str)
+@pytest.mark.parametrize("bcast", [True, False], ids=["bcast", "per_head"])
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zero_state", "s0"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_scan_decode_matches_plain(card, dtype, with_s0, bcast, NP, B):
+    """64 heads (Zamba2's), so B = 16 runs one pair per CTA and B = 1 the
+    column slices; (10, 30): rows of 30 floats, not 16-byte groups."""
+    N, P = NP
+    xd, da, bm, cm = _scan_inputs(card, B, 1, 64, P, N, dtype, bcast, B * N + P)
+    g = torch.Generator(device=card).manual_seed(N)
+    s0 = (torch.randn((B, 64, N, P), generator=g, device=card) if with_s0 else None)
+    y, state = _decode(xd, da, bm, cm, initial_state=s0)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    _scan_close(y, state, xd, da, bm, cm, s0, f"decode B{B} N{N} P{P}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_scan_decode_reads_a_strided_xd(card, dtype):
+    """xd a (B,1,H,P) view of wider (B,H,1,P+8) storage: batch and head
+    strides that are not the packed ones, read as they are."""
+    B, H, P, N = 4, 64, 64, 64
+    _, da, bm, cm = _scan_inputs(card, B, 1, H, P, N, dtype, True, 3)
+    g = torch.Generator(device=card).manual_seed(4)
+    xd = torch.randn((B, H, 1, P + 8), generator=g, device=card).to(dtype)
+    xd = xd[..., :P].transpose(1, 2)
+    assert xd.shape == (B, 1, H, P) and not xd.is_contiguous()
+    s0 = torch.randn((B, H, N, P), generator=g, device=card)
+    y, state = _decode(xd, da, bm, cm, initial_state=s0)
+    _scan_close(y, state, xd, da, bm, cm, s0, "decode strided xd")
+
+
+def test_scan_decode_writes_out_buffers(card):
+    """``out=``: the launch writes the given y and state and returns them;
+    a state buffer one float past an aligned base takes 4-byte stores."""
+    B, H, P, N = 16, 64, 64, 64
+    xd, da, bm, cm = _scan_inputs(card, B, 1, H, P, N, torch.bfloat16, True, 5)
+    s0 = torch.randn((B, H, N, P), device=card)
+    for offset in (0, 1):
+        y = torch.full((B, 1, H, P), float("nan"), device=card, dtype=torch.bfloat16)
+        flat = torch.full((B * H * N * P + offset,), float("nan"), device=card)
+        state = flat[offset:].view(B, H, N, P)
+        got = _decode(xd, da, bm, cm, initial_state=s0, out=(y, state))
+        assert got[0] is y and got[1] is state
+        _scan_close(y, state, xd, da, bm, cm, s0, f"decode out= offset {offset}")
+
+
+def test_scan_decode_second_run_is_bitwise_equal(card):
+    for B in (1, 16):
+        xd, da, bm, cm = _scan_inputs(card, B, 1, 64, 64, 64, torch.bfloat16, True, B)
+        s0 = torch.randn((B, 64, 64, 64), device=card)
+        y, state = _decode(xd, da, bm, cm, initial_state=s0)
+        y2, state2 = _decode(xd, da, bm, cm, initial_state=s0)
+        assert torch.equal(y, y2) and torch.equal(state, state2)
+
+
+def test_scan_t2_still_takes_the_chunk_loop(card):
+    """T = 2 is no decode step: it launches `mamba_kernel` (the chunks
+    route) and agrees with the plain version."""
+    xd, da, bm, cm = _scan_inputs(card, 2, 2, 64, 64, 64, torch.bfloat16, True, 6)
+    before, routes = mamba_scan_fwd.launches, dict(mamba_scan_fwd.routes)
+    y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=32)
+    assert mamba_scan_fwd.launches == before + 1
+    assert mamba_scan_fwd.routes == {**routes, "chunks": routes["chunks"] + 1}
+    _scan_close(y, state, xd, da, bm, cm, None, "chunks T2")
+
+
+def test_scan_decode_residency(card):
+    """The decode kernel's grid fits the card: at least 4 CTAs per SM
+    (1,024 CTAs at batch 16 take at most 2 waves on 132 SMs); shared
+    memory only with an initial state (its C·S0 partial sums, 4 KB)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for vec in (True, False):
+            for s0 in (False, True):
+                per_sm, smem = decode_residency(card, dtype, vec, s0)
+                assert per_sm >= 4
+                assert smem == (256 * 16 if s0 else 0)
