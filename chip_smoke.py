@@ -14,8 +14,10 @@ Phases, each fatal on failure (nothing here catches an error):
    inputs — a few dozen small cases with ragged M/N/K (and, for the
    single GEMM and the split-K and Stream-K kernels, every ``ta``/``tb``
    layout; split 2-8 with wholly empty slices, held to the plain partials
-   and reduce and run twice for the same bits, Stream-K with G from 1 to
-   more workgroups than MAC iterations; the grouped and ragged kernels
+   and reduce and run twice for the same bits; Stream-K, one launch, with
+   G from 1 to more workgroups than MAC iterations, held to
+   `stream_k_matmul_ref` at the card's geometry and run twice for the
+   same bits; the grouped and ragged kernels
    with their weights in each pointer form — one stacked tensor,
    per-member tensors with one weight shared, per-member transposed
    views — and with more members than the pointer table holds; every
@@ -28,10 +30,12 @@ Phases, each fatal on failure (nothing here catches an error):
    rule gives them (TMA) and, on the same values through an odd-offset
    view of A, on the ring feed, both held to the plain version, with the
    TMA instantiation's residency.
-   The Stream-K walk is held to its plain version at the card's geometry
+   `stream_k_matmul` is held to its plain version at the card's geometry
    (`card_geometry`: CTA tiles from M, W workgroups from the planner's G,
-   the SM count and the kernel's occupancy); its grid and shared memory
-   are printed, and so are the ragged walk's (CTAs per SM and shared
+   the SM count and the kernel's occupancy) and timed on four rotating
+   operand sets beside `torch.matmul`; its grid, run layout and
+   workspace are printed, and a planted fault (one run's sum dropped
+   from one cut tile) must fail its check; so are the ragged walk's (CTAs per SM and shared
    memory from the occupancy query, tiles, iterations per CTA) and, for
    the ring-fed grouped and split-K kernels at their timed shapes, the
    residency: CTAs, resident slots (CTAs per SM × SMs; for split-K also
@@ -57,13 +61,13 @@ Phases, each fatal on failure (nothing here catches an error):
    against the plain version, and the counters, zeroed before the first
    of these windows, must show the single, split-K (one launch per
    split-K GEMM planned, no partials, no reduce launch), and Stream-K
-   walk and fixup kernels.  Then each warm window's
-   launches run again, concurrently on streams, back to back on one
+   (one launch per Stream-K GEMM planned, no fixup launch) kernels.
+   Then each warm window's launches run again, concurrently on streams, back to back on one
    stream at the same tiles, and back to back at the isolated tiles,
    each timed on the card: the concurrent-versus-sequential ratios are
    printed, not gated; and each window runs once more under the
-   profiler, which counts its split-K launches beside the split-K GEMMs
-   planned and finds no reduce kernel;
+   profiler, which counts its split-K and Stream-K launches beside the
+   GEMMs planned and finds no reduce and no fixup kernel;
 6. attention and scan kernels: the flash-attention kernel and both scan
    kernels (the decode kernel at T = 1, the chunk loop otherwise, each
    case checked to have launched on the route `scan_route` names)
@@ -116,9 +120,11 @@ at random signs these errors add like a random walk, ~√K·2⁻²⁴·Σ|a·b| 
 2⁻¹⁶·Σ|a·b| for K ≤ 2¹⁶.  A dropped or doubled k tile or a wrong group
 moves the result by far more.  The split-K kernel is held to its plain
 partials and reduce, which sum the slices' f32 tiles in slice order as
-its cluster epilogue does, with |A|·|B| over all of K.  The fixup must
-equal its plain version exactly: both add the same f32 partials in slot
-order and round once.
+its cluster epilogue does, with |A|·|B| over all of K.  `stream_k_matmul`
+is held to `stream_k_matmul_ref`, the plain walk's partials summed in the
+kernel's order (runs of `fixup_runs`), with |A|·|B| over all of K, and
+must give the same bits on a second run: its order is fixed by the
+geometry, whichever CTA arrives last.
 
 Attention and scan kernels are held to their plain versions computed
 and kept in f32 on the same (exactly converted) inputs, within
@@ -183,13 +189,14 @@ from repro_torch.kernels.gemm import (  # noqa: E402
     TileConfig,
     gemm,
     gemm_ref,
+    fixup_runs,
     splitk_partials_ref,
     splitk_reduce_ref,
-    stream_k_fixup_ref,
+    stream_k_matmul_ref,
     stream_k_partials_ref,
+    stream_k_workspace,
 )
 from repro_torch.kernels.gemm import kernel as gemm_kernel  # noqa: E402
-from repro_torch.kernels.gemm.ref import element_counts  # noqa: E402
 from repro_torch.kernels.grouped_gemm import (  # noqa: E402
     grouped_gemm_ref,
     ragged_gemm_ref,
@@ -217,13 +224,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # The nine Pallas bodies and the launcher of the kernel that replaces each
 # on the card.  Split-K's partials and reduce (rows 2 and 3) are one
-# kernel, `splitk_matmul`: the reduce is its cluster epilogue.
+# kernel, `splitk_matmul`: the reduce is its cluster epilogue.  Stream-K's
+# walk and fixup (rows 4 and 5) are one kernel, `stream_k_matmul`: the
+# fixup is its arrival epilogue.
 REPLACES = (
     ("matmul", "src/repro/kernels/gemm/kernel.py:45 _matmul_kernel"),
     ("splitk_matmul", "src/repro/kernels/gemm/kernel.py:65 _matmul_splitk_kernel"),
     ("splitk_matmul", "src/repro/kernels/gemm/kernel.py:86 _reduce_kernel"),
-    ("stream_k_partials", "src/repro/kernels/gemm/kernel.py:215 _stream_k_kernel"),
-    ("stream_k_fixup", "src/repro/kernels/gemm/kernel.py:247 _stream_k_fixup_kernel"),
+    ("stream_k_matmul", "src/repro/kernels/gemm/kernel.py:215 _stream_k_kernel"),
+    ("stream_k_matmul", "src/repro/kernels/gemm/kernel.py:247 _stream_k_fixup_kernel"),
     ("grouped_matmul", "src/repro/kernels/grouped_gemm/kernel.py:41 _grouped_kernel"),
     ("ragged_matmul", "src/repro/kernels/grouped_gemm/kernel.py:93 _ragged_kernel"),
     ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:23 _flash_kernel"),
@@ -232,8 +241,7 @@ REPLACES = (
 SOURCES = {
     "matmul": "src/repro_torch/csrc/gemm.cu",
     "splitk_matmul": "src/repro_torch/csrc/gemm_split_k.cu",
-    "stream_k_partials": "src/repro_torch/csrc/gemm_stream_k.cu",
-    "stream_k_fixup": "src/repro_torch/csrc/gemm_stream_k.cu",
+    "stream_k_matmul": "src/repro_torch/csrc/gemm_stream_k.cu",
     "grouped_matmul": "src/repro_torch/csrc/grouped_gemm.cu",
     "ragged_matmul": "src/repro_torch/csrc/grouped_gemm.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -242,8 +250,7 @@ SOURCES = {
 LAUNCHERS = {
     "matmul": gemm_kernel.matmul,
     "splitk_matmul": gemm_kernel.splitk_matmul,
-    "stream_k_partials": gemm_kernel.stream_k_partials,
-    "stream_k_fixup": gemm_kernel.stream_k_fixup,
+    "stream_k_matmul": gemm_kernel.stream_k_matmul,
     "grouped_matmul": grouped_kernel.grouped_matmul,
     "ragged_matmul": grouped_kernel.ragged_matmul,
     "flash_attention": flash_attention_fwd,
@@ -251,7 +258,7 @@ LAUNCHERS = {
 }
 # Kernels each serving path must launch at least once.
 PER_CLASS_KERNELS = ("matmul", "grouped_matmul", "ragged_matmul")
-MIXED_KERNELS = ("matmul", "splitk_matmul", "stream_k_partials", "stream_k_fixup")
+MIXED_KERNELS = ("matmul", "splitk_matmul", "stream_k_matmul")
 OP_BUNDLE_KERNELS = ("flash_attention", "mamba_scan")
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 SLEEP_CYCLES = 500_000_000   # ~0.25 s of the card's clock: time to queue work
@@ -263,18 +270,22 @@ def check_close(out, ref, a_abs_b_abs, what: str) -> float:
     stated tolerance; returns the max absolute error."""
     if out.shape != ref.shape:
         raise AssertionError(f"{what}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
-    o, r = out.float(), ref.float()
-    if not bool(torch.isfinite(o).all()):
+    if not bool(torch.isfinite(out.float()).all()):
         raise AssertionError(f"{what}: non-finite output")
-    rel = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 0.0
-    err = (o - r).abs()
-    tol = rel * r.abs() + 2.0 ** -16 * a_abs_b_abs
+    err, tol = gemm_excess(out, ref, a_abs_b_abs)
     if bool((err > tol).any()):
         i = int((err - tol).argmax())
         raise AssertionError(
             f"{what}: max |err| {err.max().item():.4g}, worst element "
             f"{i} err {err.flatten()[i].item():.4g} > tol {tol.flatten()[i].item():.4g}")
     return float(err.max())
+
+
+def gemm_excess(out, ref, a_abs_b_abs):
+    """|out − ref| and the tolerance, element by element, of `check_close`."""
+    rel = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 0.0
+    r = ref.float()
+    return (out.float() - r).abs(), rel * r.abs() + 2.0 ** -16 * a_abs_b_abs
 
 
 def abs_product(a, b):
@@ -474,7 +485,8 @@ def f32_output_cases(gen) -> int:
     """bf16 operands, float32 output (`out_dtype`): each GEMM kernel
     against its plain version at the same output dtype (the tolerance's
     bf16 rounding term is then 0).  Split-K and Stream-K run through
-    `gemm`, whose reduce and fixup store the f32 sums."""
+    `gemm`, whose epilogues (split-K's cluster reduce, Stream-K's
+    arrival sums) store the f32 sums."""
     bf16, f32 = torch.bfloat16, torch.float32
     n = 0
     for (M, N, K), (ta, tb) in zip(((5, 70, 600), (16, 129, 300), (33, 64, 1000)),
@@ -748,10 +760,10 @@ def check_equal(out, ref, what: str) -> float:
 
 
 def split_stream_cases(gen) -> int:
-    """The split-K and Stream-K kernels against their own plain versions:
-    `splitk_matmul` against the plain partials and reduce, twice for the
-    same bits; the Stream-K partials (the written slots only), then the
-    fixup on the kernel's own partials; then `gemm` end to end."""
+    """The split-K and Stream-K kernels against their own plain versions,
+    each twice for the same bits: `splitk_matmul` against the plain
+    partials and reduce, `stream_k_matmul` against `stream_k_matmul_ref`
+    at the card's geometry; then `gemm` end to end."""
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
         for (M, N, K, bm, bk, split_k), (ta, tb) in zip(SPLIT_CASES, cycle(LAYOUTS)):
@@ -775,22 +787,45 @@ def split_stream_cases(gen) -> int:
             a = randn((K, M) if ta else (M, K), gen, dtype)
             b = randn((N, K) if tb else (K, N), gen, dtype)
             geo = gemm_kernel.card_geometry(M, N, K, dtype, ta, tb, G, a.device)
-            counts = torch.from_numpy(geo.counts).to(a.device)
             kw = walk_kw(geo)    # the plain walk at the card's geometry
-            p = gemm_kernel.stream_k_partials(a, b, ta=ta, tb=tb, grid_g=G)
-            written = torch.arange(geo.slots, device=a.device)[:, None, None] < \
-                element_counts(counts, M, N, geo.rows, geo.cols)[None]
             aa, ab = op_abs(a, b, ta, tb)
-            check_close(torch.where(written, p, 0.0),
-                        stream_k_partials_ref(a, b, ta=ta, tb=tb, **kw),
-                        stream_k_partials_ref(aa, ab, **kw), what + " partials")
-            fix = dict(bm=geo.rows, bn=geo.cols, dtype=dtype)
-            check_equal(gemm_kernel.stream_k_fixup(counts, p, **fix),
-                        stream_k_fixup_ref(counts, p, **fix), what + " fixup")
+            out = gemm_kernel.stream_k_matmul(a, b, ta=ta, tb=tb, grid_g=G)
+            check_close(out, stream_k_matmul_ref(a, b, ta=ta, tb=tb, **kw), aa @ ab,
+                        what + " stream_k_matmul")
+            check_equal(gemm_kernel.stream_k_matmul(a, b, ta=ta, tb=tb, grid_g=G), out,
+                        what + " second run")
             check_close(gemm(a, b, ta=ta, tb=tb, tile=TileConfig(bm, bn, bk, stream_k=G)),
                         gemm_ref(a, b, ta=ta, tb=tb), aa @ ab, what + " gemm")
             n += 1
     return n
+
+
+def planted_stream_k_fault(a, b, out, ref, geo) -> None:
+    """The Stream-K check's power at the timed shape: the kernel's output
+    with one run's sum (run 1 of the tile of most contributors) taken out,
+    which a kernel whose last run skipped that run would give, must fail
+    `check_close`.  Prints how far off it is."""
+    counts = geo.counts.reshape(-1)
+    q = int(counts.argmax())
+    n = int(counts[q])
+    R = fixup_runs(n)
+    if n <= R:
+        raise AssertionError(f"no tile of two levels at {tuple(out.shape)}: {n} "
+                             "contributors")
+    i, j = divmod(q, geo.tn)
+    rows = slice(i * geo.rows, (i + 1) * geo.rows)
+    cols = slice(j * geo.cols, (j + 1) * geo.cols)
+    p = stream_k_partials_ref(a, b, **walk_kw(geo))   # slot = contributor index
+    fault = out.float()
+    fault[rows, cols] -= p[R:2 * R, rows, cols].sum(0)
+    err, tol = gemm_excess(fault.to(out.dtype), ref, abs_product(a, b))
+    n_bad = int((err > tol).sum())
+    print(f"# planted Stream-K fault (tile {q}: run 1 of {-(-n // R)}, contributors "
+          f"{R}-{2 * R - 1} of {n}, dropped): max |err| {err.max().item():.4g}; "
+          f"{n_bad} of {out.numel()} outputs beyond the tolerance, so check_close "
+          "fails it")
+    if not n_bad:
+        raise AssertionError("check_close lets a dropped Stream-K run through")
 
 
 def split_stream_kernels(gen) -> dict:
@@ -799,9 +834,11 @@ def split_stream_kernels(gen) -> dict:
     the planner gives a 32×512×17408 member at CD 6-8 (17.8 MB of
     weights: four operand sets rotate, 71 MB together).  Each kernel,
     its plain version and the PyTorch call beside it are timed on the
-    same inputs: for split-K the whole GEMM, one launch, against
-    `torch.matmul`.  The fixup reads partials of well under 1 MB, which
-    sit in L2 on the path too (written just before)."""
+    same inputs: for split-K and Stream-K the whole GEMM, one launch
+    each, against `torch.matmul`.  Stream-K's timed launches include the
+    zeroing of its counters; its bound is the function's, the bytes
+    `torch.matmul` moves too: the f32 shares (3 MB at 46 contributors a
+    tile) are written and read back within the launch, in L2."""
     rows = {}
     bf16, f32 = torch.bfloat16, torch.float32
     for (M, N, K, split_k) in ((8, 5120, 17408, 4), (1, 5120, 17408, 8)):
@@ -838,42 +875,46 @@ def split_stream_kernels(gen) -> dict:
     geo = gemm_kernel.card_geometry(M, N, K, bf16, False, False, G, a.device)
     kw = walk_kw(geo)
     per_sm, smem = gemm_kernel.walk_resources(a.device, bf16, False, False, geo.rows)
-    print(f"# stream_k_partials grid at {M}x{N}x{K} g{G}: W = {geo.workgroups} "
+    counts = geo.counts.reshape(-1)
+    cut = counts[counts > 1]
+    runs_of = fixup_runs(int(counts.max()))
+    floats, n_counters = stream_k_workspace(geo.live, geo.rows, geo.cols)
+    grid = dict(workgroups=geo.workgroups, live=geo.live, ctas_per_sm=per_sm,
+                smem_bytes=smem, ipw=geo.ipw, cut_tiles=int(cut.size),
+                contributors=sorted({int(n) for n in cut}), runs_of=runs_of,
+                runs=-(-int(counts.max()) // runs_of),
+                workspace_bytes=(floats + n_counters) * 4,
+                shares_bytes=int(cut.sum()) * geo.rows * geo.cols * 4)
+    print(f"# stream_k_matmul grid at {M}x{N}x{K} g{G}: W = {geo.workgroups} "
           f"workgroups ({per_sm} CTAs of {smem} B shared memory per SM), "
           f"{geo.live} live CTAs of {geo.rows}x{geo.cols}, k step {geo.bk}, "
-          f"{geo.ipw} iterations each, {geo.slots} slots")
-    counts = torch.from_numpy(geo.counts).to(a.device)
-    written = element_counts(counts, M, N, geo.rows, geo.cols)
-    mask = torch.arange(geo.slots, device=a.device)[:, None, None] < written[None]
-    p = gemm_kernel.stream_k_partials(a, b, grid_g=G)
-    err = check_close(torch.where(mask, p, 0.0), stream_k_partials_ref(a, b, **kw),
-                      stream_k_partials_ref(a.float().abs(), b.float().abs(), **kw),
-                      "stream_k_partials main")
-    part_bytes = int(written.sum()) * 4          # the slots this walk writes
+          f"{geo.ipw} iterations each; {grid['cut_tiles']} cut tiles of "
+          f"{grid['contributors']} contributors, summed in runs of {runs_of} "
+          f"({grid['runs']} runs); workspace {grid['workspace_bytes']} B, "
+          f"{grid['shares_bytes']} B of shares written")
+    ref = stream_k_matmul_ref(a, b, **kw)
+    out = gemm_kernel.stream_k_matmul(a, b, grid_g=G)
+    err = check_close(out, ref, abs_product(a, b), "stream_k_matmul main")
+    check_equal(gemm_kernel.stream_k_matmul(a, b, grid_g=G), out,
+                "stream_k_matmul main second run")
+    planted_stream_k_fault(a, b, out, ref, geo)
+    c = torch.empty_like(out)
+    ws = torch.empty(floats, device=a.device)
     shape = f"{M}x{N}x{K} at {tile.key()}"
-    rows["stream_k_partials"] = [dict(
-        shape=shape, instantiation=(f"bf16 {geo.rows}x{geo.cols}x{geo.bk}, W {geo.workgroups} "
-                                    f"({geo.live} live), {smem} B shared"),
-        grid=dict(workgroups=geo.workgroups, live=geo.live, ctas_per_sm=per_sm,
-                  smem_bytes=smem),
-        max_abs_err=err,
-        ms=time_ms(rotating(lambda x, y: gemm_kernel.stream_k_partials(x, y, grid_g=G,
-                                                                       out=p), sets)),
-        plain_ms=time_ms(lambda: stream_k_partials_ref(a, b, **kw), reps=3, warmup=1,
+    rows["stream_k_matmul"] = [dict(
+        shape=shape, instantiation=(f"bf16 {geo.rows}x{geo.cols}x{geo.bk}, W "
+                                    f"{geo.workgroups} ({geo.live} live), {smem} B "
+                                    f"shared, runs of {runs_of}"),
+        grid=grid, max_abs_err=err,
+        ms=time_ms(rotating(lambda x, y: gemm_kernel.stream_k_matmul(
+            x, y, grid_g=G, out=c, workspace=ws), sets)),
+        plain_ms=time_ms(lambda: stream_k_matmul_ref(a, b, **kw), reps=3, warmup=1,
                          queued=False),   # thousands of launches a call
         library_ms=time_ms(rotating(torch.matmul, sets)),
-        bound=bound((M * K + K * N) * 2 + part_bytes, 2 * M * N * K, bf16))]
-    fix = dict(bm=geo.rows, bn=geo.cols, dtype=bf16)
-    out = gemm_kernel.stream_k_fixup(counts, p, **fix)
-    err = check_equal(out, stream_k_fixup_ref(counts, p, **fix), "stream_k_fixup main")
-    c = torch.empty_like(out)
-    rows["stream_k_fixup"] = [dict(
-        shape=f"{geo.slots}x{M}x{N} f32 partials -> bf16 ({shape})",
-        instantiation="256 threads, grid-stride", max_abs_err=err,
-        ms=time_ms(lambda: gemm_kernel.stream_k_fixup(counts, p, out=c, **fix)),
-        plain_ms=time_ms(lambda: stream_k_fixup_ref(counts, p, **fix), reps=5),
-        library_ms=time_ms(lambda: p.sum(0).to(bf16)),
-        bound=bound(part_bytes + counts.numel() * 4 + M * N * 2, part_bytes // 4, f32))]
+        bound=bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf16))]
+    if gemm_kernel.stream_counters(a.device, n_counters).any():
+        raise AssertionError("stream_k_matmul left its stream's counters nonzero: "
+                             "the next launch would miscount")
     for name, rs in rows.items():
         for r in rs:
             print(f"# {name:<17} {r['shape']:<52} kernel {r['ms']:.4f} ms | plain "
@@ -941,20 +982,21 @@ def serve_window(rt: Runtime, cfg, weights: list, batches, gen) -> dict:
 
 KERNEL_OF_MODE = {"single": "matmul", "grouped": "grouped_matmul",
                   "ragged": "ragged_matmul"}
-KERNEL_KINDS = (("matmul_kernel", "matmul"), ("grouped_kernel", "grouped_matmul"),
+KERNEL_KINDS = (("stream_k_matmul_kernel", "stream_k_matmul"),
+                ("matmul_kernel", "matmul"), ("grouped_kernel", "grouped_matmul"),
                 ("splitk_kernel", "splitk_matmul"),
-                ("stream_k_kernel", "stream_k_partials"),
-                ("fixup_kernel", "stream_k_fixup"),
+                ("fixup_kernel", "stream-K fixup"),
                 ("ragged_kernel", "ragged_matmul"), ("flash_bf16_kernel", "flash_attention"),
                 ("mamba_decode_kernel", "mamba_scan"), ("mamba_kernel", "mamba_scan"),
                 ("Cat", "stack/cat copy"),
                 ("reduce", "isfinite checks"))
 
 
-def planned_split_k(launches) -> int:
-    """The split-K GEMMs among a window's launches: the members of mixed
-    launches, and single launches, whose tile splits K (a grouped or
-    ragged launch of several members runs its own kernel)."""
+def planned(launches, kind: str) -> int:
+    """The GEMMs of a decomposition among a window's launches: the members
+    of mixed launches, and single launches, whose `decomposition` starts
+    with ``kind`` ("split-K", "Stream-K"); a grouped or ragged launch of
+    several members runs its own kernel."""
     n = 0
     for ln in launches:
         if ln.plan.mode == "mixed":
@@ -964,7 +1006,7 @@ def planned_split_k(launches) -> int:
         else:
             continue
         n += sum(tk.desc.family == "gemm" and
-                 decomposition(tk.desc, t).startswith("split-K") for tk, t in pairs)
+                 decomposition(tk.desc, t).startswith(kind) for tk, t in pairs)
     return n
 
 
@@ -974,15 +1016,16 @@ def profile_window(label: str, drive) -> None:
     the device's busy and idle shares of the window's wall time.  Busy
     time is the union of the kernels' intervals, so kernels that overlap
     on streams count once; the profiler's own overhead lengthens the wall
-    time.  It also prints the split-K kernel's launches beside the
-    split-K GEMMs the window planned, and the port's reduce kernels seen
-    (none since split-K sums its slices in its cluster epilogue)."""
+    time.  It also prints the split-K and Stream-K kernels' launches beside
+    the split-K and Stream-K GEMMs the window planned, and the port's
+    reduce and fixup kernels seen (none: split-K sums its slices in its
+    cluster epilogue, Stream-K its cut tiles in its arrival epilogue)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, launches = drive()
-    by_kind, total, split_k, reduces = {}, 0.0, 0, 0
+    by_kind, launched, total, reduces = {}, Counter(), 0.0, 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -990,7 +1033,7 @@ def profile_window(label: str, drive) -> None:
         total += us
         kind = next((k for pat, k in KERNEL_KINDS if pat in evt.key), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
-        split_k += evt.count if kind == "splitk_matmul" else 0
+        launched[kind] += evt.count
         reduces += evt.count if "repro::reduce" in evt.key else 0
     if total == 0.0:
         print(f"# profiled {label}: the profiler recorded no device time "
@@ -1006,8 +1049,11 @@ def profile_window(label: str, drive) -> None:
                       for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]))
     print(f"# profiled {label}: wall {wall:.6f} s, kernel time {total / 1e6:.6f} s, "
           f"device busy {busy / 1e6:.6f} s (idle {1 - busy / 1e6 / wall:.1%}); {parts}; "
-          f"split-K kernel launches {split_k} for {planned_split_k(launches)} split-K "
-          f"GEMMs planned; split-K reduce kernels {reduces}")
+          f"split-K kernel launches {launched['splitk_matmul']} for "
+          f"{planned(launches, 'split-K')} split-K GEMMs planned; split-K reduce "
+          f"kernels {reduces}; Stream-K kernel launches {launched['stream_k_matmul']} "
+          f"for {planned(launches, 'Stream-K')} Stream-K GEMMs planned; fixup kernels "
+          f"{launched['stream-K fixup']}")
 
 
 def serving_phase(device="cuda", cfg=None, layers=None) -> dict:
@@ -1117,17 +1163,18 @@ def mixed_window(rt: Runtime, cfg, weights: list, batches, gen) -> dict:
     members = Counter(decomposition(tk.desc, t) for ln in launches
                       for tk, t in zip(ln.tickets, ln.plan.tiles or [ln.plan.tile]))
     return dict(requests=len(tickets), launches=dict(Counter(g.mode for g in recs)),
-                members=dict(members), split_k=planned_split_k(launches), wall_s=wall,
+                members=dict(members), split_k=planned(launches, "split-K"),
+                stream_k=planned(launches, "Stream-K"), wall_s=wall,
                 device_s=sum(g.achieved_time_s or 0.0 for g in recs),
                 request_weight_gb=sum(tk.request.b.numel() * 2 for tk in tickets) / 1e9,
                 launch_list=launches)
 
 
-def stream_k_schedule(rt: Runtime, gen) -> int:
+def stream_k_schedule(rt: Runtime, gen) -> Counter:
     """One mixed schedule the planner makes for a bundle of four
     32×512×17408 GEMMs and three 1×5120×17408 ones: a CD-7 group whose
     members run Stream-K (32x128x128g8) and split-K tiles at once.
-    Returns the split-K GEMMs it ran."""
+    Returns the GEMMs it ran by decomposition ("split-K s8", ...)."""
     descs = [GemmDesc(32, 512, 17408)] * 4 + [GemmDesc(1, 5120, 17408)] * 3
     sched = rt.ctrl.plan_mixed(descs, available=16)
     tiles = [t for g in sched.groups for t in (g.tiles or [g.tile])]
@@ -1140,8 +1187,8 @@ def stream_k_schedule(rt: Runtime, gen) -> int:
                     f"mixed member {r.desc.key()}")
     print(f"# mixed Stream-K schedule: {[(g.mode, g.cd) for g in sched.groups]}, "
           f"member tiles {[t.key() for t in tiles]}")
-    return sum(decomposition(descs[i], t).startswith("split-K") for g in sched.groups
-               for i, t in zip(g.indices, g.tiles or [g.tile] * len(g.indices)))
+    return Counter(decomposition(descs[i], t) for g in sched.groups
+                   for i, t in zip(g.indices, g.tiles or [g.tile] * len(g.indices)))
 
 
 def concurrency_ratio(launches, lib):
@@ -1220,18 +1267,21 @@ def mixed_phase(device="cuda", cfg=None, layers=None) -> dict:
                   f"members {w['members']}, wall {w['wall_s']:.6f} s, device "
                   f"{w['device_s']:.6f} s, {w['request_weight_gb'] / w['wall_s']:.1f} "
                   f"request-weight GB/s, {model_gb / w['wall_s']:.1f} model-weight GB/s")
-    planned = sum(w["split_k"] for w in windows) + stream_k_schedule(
-        rt, torch.Generator(device=device).manual_seed(SEED + 2))
+    sched = stream_k_schedule(rt, torch.Generator(device=device).manual_seed(SEED + 2))
+    plan = {kind: sum(w[key] for w in windows) +
+            sum(n for d, n in sched.items() if d.startswith(kind))
+            for kind, key in (("split-K", "split_k"), ("Stream-K", "stream_k"))}
     counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
     print(f"# bundle serving modes {rt.telemetry.mode_counts()}; kernel launches {counts}; "
-          f"split-K GEMMs planned {planned}")
+          f"GEMMs planned by decomposition {plan}")
     check_feeds("bundle serving", device)
     missing = [k for k in MIXED_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"the bundle path never launched {missing}")
-    if device == "cuda" and counts["splitk_matmul"] != planned:
-        raise AssertionError(f"{counts['splitk_matmul']} split-K launches for {planned} "
-                             "split-K GEMMs planned: a split-K GEMM is one launch")
+    for kind, name in (("split-K", "splitk_matmul"), ("Stream-K", "stream_k_matmul")):
+        if device == "cuda" and counts[name] != plan[kind]:
+            raise AssertionError(f"{counts[name]} {kind} launches for {plan[kind]} "
+                                 f"{kind} GEMMs planned: a {kind} GEMM is one launch")
     if device == "cuda":
         for w in windows[1::2]:     # the warm windows
             r = w["ratio"] = concurrency_ratio(w["launch_list"], rt.ctrl.lib)
@@ -1826,6 +1876,9 @@ def main() -> int:
             **({"folded": "the reduce is splitk_matmul's cluster epilogue; the row "
                           "times the whole one-launch GEMM"}
                if replaces.endswith("_reduce_kernel") else {}),
+            **({"folded": "the fixup is stream_k_matmul's arrival epilogue; the row "
+                          "times the whole one-launch GEMM"}
+               if replaces.endswith("_stream_k_fixup_kernel") else {}),
             "instantiation": r["instantiation"], "launches": path["counts"][name],
             **({"launches_by_route": scan_routes} if name == "mamba_scan" else {}),
             **({"route": r["route"]} if "route" in r else {}),

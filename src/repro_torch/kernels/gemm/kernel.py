@@ -10,11 +10,13 @@ the plain versions.
   _matmul_splitk_kernel` and, in its cluster epilogue, `:86
   _reduce_kernel`: one launch, the K slices of an output tile one
   thread-block cluster of ``split`` CTAs (at most `MAX_CLUSTER`);
-- ``stream_k_partials`` and ``stream_k_fixup`` (`csrc/gemm_stream_k.cu`)
-  replace `:215 _stream_k_kernel` and `:247 _stream_k_fixup_kernel`.  The
-  walk runs in the card's units (`card_geometry`): CTA tiles picked from
-  M, and W workgroups from the planner's G, the SM count and the
-  kernel's occupancy.
+- ``stream_k_matmul`` (`csrc/gemm_stream_k.cu`) replaces `:215
+  _stream_k_kernel` and, in its epilogue, `:247 _stream_k_fixup_kernel`:
+  one launch, whose cut tiles are summed by their last contributors to
+  arrive, in runs of `fixup_runs` (no partials of (slots, M, N), no
+  second launch).  The walk runs in the card's units (`card_geometry`):
+  CTA tiles picked from M, and W workgroups from the planner's G, the SM
+  count and the kernel's occupancy.
 
 Every kernel is bound by bytes on the serving path (decode GEMMs stream
 weights far larger than their activations); the sources say how their
@@ -27,6 +29,7 @@ else allocates it, and adds one to its ``launches`` count per launch.
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
@@ -63,10 +66,7 @@ _SPLIT_K_SIGNATURES = {
 # `splitk_matmul` runs one cluster of `split` CTAs per output tile.
 MAX_CLUSTER = 16
 _STREAM_K_SIGNATURES = {
-    "repro_stream_k_matmul": (_I, (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
-                                   _LL, _LL, _LL, _LL, _LL, _P)),
-    "repro_stream_k_fixup": (_I, (_P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL,
-                                  _P)),
+    "repro_stream_k_matmul": (_I, (_P,) * 5 + (_I,) * 5 + (_LL,) * 8 + (_P,)),
     "repro_stream_k_occupancy": (_I, (_I, _I, _I, _I, ctypes.POINTER(_I),
                                       ctypes.POINTER(_I))),
     **_ERROR,
@@ -211,7 +211,7 @@ def card_geometry(M: int, N: int, K: int, dtype: torch.dtype, ta: bool,
     card: W from `stream_k_workgroups` with the device's SM count and
     the kernel's occupancy."""
     if M == 0 or N == 0 or K == 0:
-        raise ValueError(f"stream_k_partials: empty GEMM {M}x{N}x{K}")
+        raise ValueError(f"stream_k_matmul: empty GEMM {M}x{N}x{K}")
     if grid_g < 1:
         raise ValueError(f"grid_g={grid_g} must be ≥ 1")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -221,13 +221,21 @@ def card_geometry(M: int, N: int, K: int, dtype: torch.dtype, ta: bool,
     return walk_geometry(M, N, K, dtype, w)
 
 
-@lru_cache(maxsize=1024)
-def card_counts(M: int, N: int, K: int, dtype: torch.dtype, ta: bool,
-                tb: bool, grid_g: int, device: torch.device) -> torch.Tensor:
-    """`card_geometry`'s contributor counts as an int32 tensor on the
-    card, copied there once per (device, geometry)."""
-    geo = card_geometry(M, N, K, dtype, ta, tb, grid_g, device)
-    return torch.from_numpy(geo.counts).to(device)
+def fixup_runs(n: int) -> int:
+    """R, the run length of a cut tile's two-level sum in `stream_k_matmul`:
+    ⌈√n⌉ for n contributors (1 for n ≤ 1).  The n contributors, in
+    workgroup order, form runs of R; each run's last arriver sums the run,
+    the last run to arrive sums the runs (`csrc/gemm_stream_k.cu:
+    fixup_runs`)."""
+    return math.isqrt(n - 1) + 1 if n > 1 else 1
+
+
+def stream_k_workspace(live: int, rows: int, cols: int) -> tuple[int, int]:
+    """``(floats, counters)``: the sizes of a Stream-K launch's f32 slots,
+    two rows×cols tiles per live workgroup (the tile its span starts in
+    and the tile it ends in), and of its int32 counters, a run and a tile
+    counter per slot."""
+    return 2 * live * rows * cols, 4 * live
 
 
 def gemm_dims(a: torch.Tensor, b: torch.Tensor, ta: bool, tb: bool
@@ -455,66 +463,69 @@ def splitk_matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
     return c
 
 
-def stream_k_partials(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
-                      tb: bool = False, grid_g: int, out=None) -> torch.Tensor:
-    """The Stream-K walk on the card for a tile of ``grid_g`` planner
-    workgroups: W = `card_geometry(...).workgroups` workgroups deal the
-    tile-major MAC iterations of the card's CTA tiles into equal spans;
-    each stores one f32 partial per tile it touches, at slot
-    g − first_contributor(tile).  Returns P, (slots, M, N) float32; the
-    slots of a tile past its contributor count are left unwritten."""
-    dtype = check_operands(a, b, what="stream_k_partials")
+def stream_k_matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
+                    tb: bool = False, grid_g: int, out_dtype=None, out=None,
+                    workspace=None) -> torch.Tensor:
+    """C = op(a) @ op(b) on the card by the Stream-K walk of a tile of
+    ``grid_g`` planner workgroups, in one launch, output in ``out_dtype``
+    (default: the operands' dtype).  W = `card_geometry(...).workgroups`
+    workgroups deal the tile-major MAC iterations of the card's CTA tiles
+    into equal spans; a tile inside one span is stored by its workgroup,
+    a cut tile is summed by its last contributors to arrive, in runs of
+    `fixup_runs` (`stream_k_matmul_ref` computes the same bits).
+    ``workspace`` (f32), of at least the size `stream_k_workspace` gives,
+    is allocated when not given.  The launch counts on the current
+    stream's counters (`stream_counters`), which it leaves zero, so no
+    launch zeroes them."""
+    dtype = check_operands(a, b, what="stream_k_matmul")
+    out_dtype = dtype if out_dtype is None else out_dtype
+    if out_dtype not in DTYPE_CODES:
+        raise ValueError(f"stream_k_matmul: unsupported output dtype {out_dtype}")
     M, N, K = gemm_dims(a, b, ta, tb)
     geo = card_geometry(M, N, K, dtype, ta, tb, grid_g, a.device)
     if geo.total >= 2 ** 31:
-        raise ValueError(f"stream_k_partials: {geo.total} MAC iterations exceed "
+        raise ValueError(f"stream_k_matmul: {geo.total} MAC iterations exceed "
                          "the kernel's 32-bit walk")
-    p = output(out, (geo.slots, M, N), torch.float32, a.device,
-               "stream_k_partials")
+    c = output(out, (M, N), out_dtype, a.device, "stream_k_matmul")
+    floats, n_counters = stream_k_workspace(geo.live, geo.rows, geo.cols)
+    if workspace is None:
+        workspace = torch.empty(floats, device=a.device)
+    elif (workspace.dtype != torch.float32 or workspace.device != a.device
+          or not workspace.is_contiguous() or workspace.numel() < floats):
+        raise ValueError(f"stream_k_matmul: workspace must be contiguous float32 of "
+                         f"at least {floats} elements on {a.device}, got "
+                         f"{workspace.dtype} {tuple(workspace.shape)} on "
+                         f"{workspace.device}")
+    cnt = stream_counters(a.device, n_counters)
     lib = _build.load("gemm_stream_k", _STREAM_K_SIGNATURES)
     with torch.cuda.device(a.device):
         code = lib.repro_stream_k_matmul(
-            a.data_ptr(), b.data_ptr(), p.data_ptr(), DTYPE_CODES[dtype],
-            int(ta), int(tb), geo.rows, M, N, K, geo.tn, geo.tk, geo.total,
-            geo.ipw, geo.live, _stream(a.device))
-    raise_on_error(lib, code, "stream_k_partials")
-    stream_k_partials.launches += 1
-    return p
-
-
-def stream_k_fixup(counts: torch.Tensor, partials: torch.Tensor, *, bm: int,
-                   bn: int, dtype: torch.dtype, out=None) -> torch.Tensor:
-    """Per element of tile (i, j) of bm×bn, the sum of the first
-    ``counts[i, j]`` slots of ``partials`` (slots, M, N) float32 in slot
-    order, cast to ``dtype``.  ``counts`` is (tm, tn) int32 on the
-    partials' device; on the kernels' path bm×bn is the walk's CTA tile
-    (`card_geometry`)."""
-    check_operands(partials, what="stream_k_fixup")
-    if partials.dim() != 3 or partials.dtype != torch.float32:
-        raise ValueError(f"stream_k_fixup takes (slots, M, N) float32, got "
-                         f"{partials.dtype} {tuple(partials.shape)}")
-    if dtype not in DTYPE_CODES:
-        raise ValueError(f"stream_k_fixup: unsupported output dtype {dtype}")
-    slots, M, N = partials.shape
-    tm, tn = -(-M // bm), -(-N // bn)
-    if (counts.device != partials.device or counts.dtype != torch.int32
-            or tuple(counts.shape) != (tm, tn) or not counts.is_contiguous()):
-        raise ValueError(f"stream_k_fixup: counts must be contiguous int32 of "
-                         f"shape ({tm}, {tn}) on {partials.device}")
-    c = output(out, (M, N), dtype, partials.device, "stream_k_fixup")
-    if c.numel() == 0:
-        return c
-    lib = _build.load("gemm_stream_k", _STREAM_K_SIGNATURES)
-    with torch.cuda.device(partials.device):
-        code = lib.repro_stream_k_fixup(counts.data_ptr(), partials.data_ptr(),
-                                        c.data_ptr(), DTYPE_CODES[dtype], M, N,
-                                        bm, bn, tn, _stream(partials.device))
-    raise_on_error(lib, code, "stream_k_fixup")
-    stream_k_fixup.launches += 1
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), workspace.data_ptr(), cnt.data_ptr(),
+            DTYPE_CODES[dtype], DTYPE_CODES[out_dtype], int(ta), int(tb), geo.rows,
+            M, N, K, geo.tn, geo.tk, geo.total, geo.ipw, geo.live, _stream(a.device))
+    raise_on_error(lib, code, "stream_k_matmul")
+    stream_k_matmul.launches += 1
     return c
 
 
-LAUNCHERS = (matmul, splitk_matmul, stream_k_partials, stream_k_fixup)
+_COUNTERS: dict = {}
+
+
+def stream_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zero int32 counters for the Stream-K launches on the
+    current stream of ``device``: one buffer per (device, stream), zeroed
+    when it is made or grown.  A launch leaves its counters zero again
+    (the last arrival at each count resets it) and the launches of one
+    stream run in order, so no launch zeroes them."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf
+
+
+LAUNCHERS = (matmul, splitk_matmul, stream_k_matmul)
 for _fn in LAUNCHERS:
     _fn.launches = 0
 matmul.feeds = dict.fromkeys(FEED_CODES, 0)

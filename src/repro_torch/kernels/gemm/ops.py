@@ -9,11 +9,14 @@ kernel's plain version (`ref.py`), CUDA tensors the hand-written kernels
 or raise.  On the card split-K is one kernel, `splitk_matmul`, whose
 cluster epilogue is the reduce: it computes what the plain partials and
 reduce compute (the slices' f32 sums added in slice order, cast once),
-with no partials in device memory.  The Stream-K walk keeps the
-reference's geometry (the tile's bm×bn×bk and G) on the CPU; on the
-card it runs in the card's units (`kernel.card_geometry`), which
-regroups the f32 partials and so the summation order, not the
-function.  The kernels mask ragged edges themselves, so operands are
+with no partials in device memory.  Stream-K is one kernel too,
+`stream_k_matmul`: the walk, whose cut tiles are summed by their last
+contributors to arrive, in runs of `fixup_runs`.  On the CPU the plain
+walk and fixup keep the reference's geometry (the tile's bm×bn×bk and
+G) and slot order; the card runs the walk in its own units
+(`kernel.card_geometry`) and sums in runs, which regroups the f32
+partials and so the summation order, not the function
+(`ref.stream_k_matmul_ref` is the card's order).  The kernels mask ragged edges themselves, so operands are
 never padded.  The backward pass (two independent GEMMs) belongs to
 training and is not ported yet.
 """
@@ -25,23 +28,21 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.gemm.kernel import (
-    card_counts,
     card_geometry,
     gemm_dims,
     matmul,
     split_k_slices,
     splitk_matmul,
-    stream_k_fixup,
     stream_k_geometry,
-    stream_k_partials,
+    stream_k_matmul,
     stream_k_tiles,
+    stream_k_workspace,
 )
 from repro_torch.kernels.gemm.ref import (
     gemm_ref,
+    gemm_stream_k_ref,
     splitk_partials_ref,
     splitk_reduce_ref,
-    stream_k_fixup_ref,
-    stream_k_partials_ref,
 )
 
 
@@ -84,35 +85,34 @@ class TileConfig:
 
 class GemmBuffers(NamedTuple):
     """Every tensor one `gemm` launch writes on the card: the output, and
-    a Stream-K tile's f32 partials and contributor counts (int32; on the
-    card, kept per geometry by `card_counts`).  A split-K tile writes the
-    output alone: its slices are summed in the kernel."""
+    a Stream-K tile's f32 workspace (two tile slots per live workgroup,
+    `kernel.stream_k_workspace`; its counters are the launching stream's,
+    `kernel.stream_counters`).  A split-K tile writes the output alone:
+    its slices are summed in the kernel."""
 
     out: torch.Tensor
-    partials: Optional[torch.Tensor] = None
-    counts: Optional[torch.Tensor] = None
+    workspace: Optional[torch.Tensor] = None
 
 
 def gemm_buffers(a, b, *, ta: bool = False, tb: bool = False,
                  tile: TileConfig = TileConfig(), out_dtype=None) -> GemmBuffers:
     """Allocate, on the current stream, the buffers `gemm` writes for
-    these operands, tile and output dtype.  A Stream-K tile's partials
-    and counts follow the decomposition the device runs: on the card the
-    walk's `card_geometry`, on the CPU the planner's tile and G."""
+    these operands, tile and output dtype.  A Stream-K tile's workspace
+    follows the walk the device runs: on the card `card_geometry`'s CTA
+    tiles and live workgroups, on the CPU the planner's tile and G."""
     M, N, K = gemm_dims(a, b, ta, tb)
     dev = a.device
     out = torch.empty((M, N), dtype=out_dtype or a.dtype, device=dev)
     if tile.stream_k > 0:
         if dev.type == "cuda":
-            key = (M, N, K, a.dtype, ta, tb, tile.stream_k, dev)
-            slots, counts = card_geometry(*key).slots, card_counts(*key)
+            geo = card_geometry(M, N, K, a.dtype, ta, tb, tile.stream_k, dev)
+            live, rows, cols = geo.live, geo.rows, geo.cols
         else:
             tm, tn, tk = stream_k_tiles(M, N, K, tile.bm, tile.bn, tile.bk)
-            _, _, _, cnt, slots = stream_k_geometry(tm, tn, tk, tile.stream_k)
-            counts = torch.from_numpy(cnt).to(dev)
-        return GemmBuffers(
-            out, torch.empty((slots, M, N), dtype=torch.float32, device=dev),
-            counts)
+            live = stream_k_geometry(tm, tn, tk, tile.stream_k)[2]
+            rows, cols = tile.bm, tile.bn
+        floats = stream_k_workspace(live, rows, cols)[0]
+        return GemmBuffers(out, torch.empty(floats, dtype=torch.float32, device=dev))
     return GemmBuffers(out)
 
 
@@ -125,17 +125,13 @@ def gemm(a, b, *, ta: bool = False, tb: bool = False,
     kernels, writing into ``buffers`` when given (`gemm_buffers`), else
     into new ones."""
     out_dtype = out_dtype or a.dtype
-    M, N, K = gemm_dims(a, b, ta, tb)
+    K = gemm_dims(a, b, ta, tb)[2]
     split, slice_k = split_k_slices(K, tile.bk, tile.split_k)
     if a.device.type == "cpu" and b.device.type == "cpu":
         if tile.stream_k > 0:
-            tm, tn, tk = stream_k_tiles(M, N, K, tile.bm, tile.bn, tile.bk)
-            counts = stream_k_geometry(tm, tn, tk, tile.stream_k)[3]
-            p = stream_k_partials_ref(a, b, ta=ta, tb=tb, bm=tile.bm,
-                                      bn=tile.bn, bk=tile.bk,
-                                      grid_g=tile.stream_k)
-            return stream_k_fixup_ref(torch.from_numpy(counts), p, bm=tile.bm,
-                                      bn=tile.bn, dtype=out_dtype)
+            return gemm_stream_k_ref(a, b, ta=ta, tb=tb, bm=tile.bm, bn=tile.bn,
+                                     bk=tile.bk, grid_g=tile.stream_k,
+                                     out_dtype=out_dtype)
         if split > 1:
             p = splitk_partials_ref(a, b, ta=ta, tb=tb, split=split,
                                     slice_k=slice_k, bk=tile.bk)
@@ -144,11 +140,9 @@ def gemm(a, b, *, ta: bool = False, tb: bool = False,
     buf = buffers if buffers is not None else gemm_buffers(
         a, b, ta=ta, tb=tb, tile=tile, out_dtype=out_dtype)
     if tile.stream_k > 0:
-        stream_k_partials(a, b, ta=ta, tb=tb, grid_g=tile.stream_k,
-                          out=buf.partials)
-        geo = card_geometry(M, N, K, a.dtype, ta, tb, tile.stream_k, a.device)
-        return stream_k_fixup(buf.counts, buf.partials, bm=geo.rows,
-                              bn=geo.cols, dtype=out_dtype, out=buf.out)
+        return stream_k_matmul(a, b, ta=ta, tb=tb, grid_g=tile.stream_k,
+                               out_dtype=out_dtype, out=buf.out,
+                               workspace=buf.workspace)
     if split > 1:
         return splitk_matmul(a, b, ta=ta, tb=tb, bm=tile.bm, split=split,
                              slice_k=slice_k, out_dtype=out_dtype, out=buf.out)

@@ -6,9 +6,12 @@ Beside `gemm_ref` (the un-split kernel) each kernel of the split-K and
 Stream-K decompositions has its own plain version computing the same
 function, so the CPU path runs the decomposition the card runs and
 `chip_smoke.py` can hold each kernel to its own plain version:
-`splitk_partials_ref`/`splitk_reduce_ref` and
-`stream_k_partials_ref`/`stream_k_fixup_ref`.  Partials sum their k
-blocks of ``bk`` in K order, as the reference's sequential k grid does.
+`splitk_partials_ref`/`splitk_reduce_ref` for `splitk_matmul`, and
+`stream_k_partials_ref`/`stream_k_fixup_ref` for the reference's
+Stream-K pair, which `stream_k_matmul_ref` composes in the order the
+card's one-launch `stream_k_matmul` sums (runs of `fixup_runs`).
+Partials sum their k blocks of ``bk`` in K order, as the reference's
+sequential k grid does.
 
 The Stream-K versions take their geometry explicitly: tiles of bm×bn, k
 blocks of bk and ``grid_g`` workgroups.  The CPU path of `ops.gemm`
@@ -21,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.gemm.kernel import (
+    fixup_runs,
     gemm_dims,
     stream_k_geometry,
     stream_k_tiles,
@@ -100,16 +104,44 @@ def element_counts(counts: torch.Tensor, M: int, N: int, bm: int, bn: int
     return counts[rows[:, None], cols[None, :]]
 
 
-def stream_k_fixup_ref(counts, partials, *, bm: int, bn: int, dtype
-                       ) -> torch.Tensor:
-    """Per element of tile (i, j), the sum of the first ``counts[i, j]``
-    slots in slot order, cast once to ``dtype``."""
+def stream_k_fixup_ref(counts, partials, *, bm: int, bn: int, dtype,
+                       runs=None) -> torch.Tensor:
+    """Per element of tile (i, j), the sum of the first n = ``counts[i,
+    j]`` slots, cast once to ``dtype``: in slot order (``runs=None``, the
+    reference's fixup), or in two levels (``runs``: n → R, e.g.
+    `fixup_runs`): the slots in runs of R, each run summed in slot order,
+    then the runs' sums in run order, each sum from 0."""
     _, M, N = partials.shape
-    cnt = element_counts(counts.to(partials.device), M, N, bm, bn)
-    acc = torch.zeros_like(partials[0])
-    for s, p in enumerate(partials):
-        acc += torch.where(cnt > s, p, 0.0)
-    return acc.to(dtype)
+    if runs is None:
+        cnt = element_counts(counts.to(partials.device), M, N, bm, bn)
+        acc = torch.zeros_like(partials[0])
+        for s, p in enumerate(partials):
+            acc += torch.where(cnt > s, p, 0.0)
+        return acc.to(dtype)
+    out = torch.zeros_like(partials[0])
+    tm, tn = counts.shape
+    for i in range(tm):
+        for j in range(tn):
+            rows, cols = slice(i * bm, (i + 1) * bm), slice(j * bn, (j + 1) * bn)
+            n = int(counts[i, j])
+            r_len = runs(n)
+            for lo in range(0, n, r_len):
+                run = torch.zeros_like(out[rows, cols])
+                for s in range(lo, min(lo + r_len, n)):
+                    run += partials[s, rows, cols]
+                out[rows, cols] += run
+    return out.to(dtype)
+
+
+def _stream_k(a, b, *, bm: int, bn: int, bk: int, grid_g: int, ta: bool, tb: bool,
+              out_dtype, runs) -> torch.Tensor:
+    M, N, K = gemm_dims(a, b, ta, tb)
+    tm, tn, tk = stream_k_tiles(M, N, K, bm, bn, bk)
+    counts = torch.from_numpy(stream_k_geometry(tm, tn, tk, grid_g)[3])
+    p = stream_k_partials_ref(a, b, ta=ta, tb=tb, bm=bm, bn=bn, bk=bk,
+                              grid_g=grid_g)
+    return stream_k_fixup_ref(counts, p, bm=bm, bn=bn, dtype=out_dtype or a.dtype,
+                              runs=runs)
 
 
 def gemm_stream_k_ref(a, b, *, bm: int, bn: int, bk: int, grid_g: int,
@@ -119,9 +151,17 @@ def gemm_stream_k_ref(a, b, *, bm: int, bn: int, bk: int, grid_g: int,
     16-58`): per output tile, each contributing workgroup's span sums its
     block products in K order into an f32 partial, and the partials sum
     in slot order."""
-    M, N, K = gemm_dims(a, b, ta, tb)
-    tm, tn, tk = stream_k_tiles(M, N, K, bm, bn, bk)
-    counts = torch.from_numpy(stream_k_geometry(tm, tn, tk, grid_g)[3])
-    p = stream_k_partials_ref(a, b, ta=ta, tb=tb, bm=bm, bn=bn, bk=bk,
-                              grid_g=grid_g)
-    return stream_k_fixup_ref(counts, p, bm=bm, bn=bn, dtype=out_dtype or a.dtype)
+    return _stream_k(a, b, bm=bm, bn=bn, bk=bk, grid_g=grid_g, ta=ta, tb=tb,
+                     out_dtype=out_dtype, runs=None)
+
+
+def stream_k_matmul_ref(a, b, *, bm: int, bn: int, bk: int, grid_g: int,
+                        ta: bool = False, tb: bool = False, out_dtype=None
+                        ) -> torch.Tensor:
+    """What `stream_k_matmul` computes at the walk of bm×bn tiles, k blocks
+    of bk and ``grid_g`` workgroups (on the card: `card_geometry`'s CTA
+    tiles, k step and W): the plain walk's partials, summed per tile in
+    runs of `fixup_runs` — each run in workgroup order, then the runs in
+    run order — and cast once."""
+    return _stream_k(a, b, bm=bm, bn=bn, bk=bk, grid_g=grid_g, ta=ta, tb=tb,
+                     out_dtype=out_dtype, runs=fixup_runs)

@@ -6,10 +6,15 @@ without one; on the card (no JAX needed) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_card.py
 
-The Stream-K walk runs in the card's units (`card_geometry`): its partials
-must match `stream_k_partials_ref` at that geometry, the fixup must equal
-its plain version on the kernel's own partials, and `gemm` must match the
-plain GEMM.  Attention must match `flash_ref` on f32 copies of its inputs
+Stream-K (`stream_k_matmul`) is one launch: the walk runs in the card's
+units (`card_geometry`) and sums each cut tile by its last contributors to
+arrive, in runs of `fixup_runs`.  It must match `stream_k_matmul_ref` at
+that geometry (bf16 and f32 operands, bf16 and f32 outputs, all four
+layouts, tiles wholly inside one span and tiles of 1 to several hundred
+contributors), give the same bits on a second run and through `gemm`,
+write into ``out=`` and a given workspace, and, two full-width GEMMs on
+two side streams queued behind a sleep of the card, be right on both and
+finish.  Attention must match `flash_ref` on f32 copies of its inputs
 within `attention_tol`; its split partials must match `flash_split_ref`,
 its output (merged in the kernel by the last CTA of each row group) must
 match `flash_combine_ref` on the kernel's own partials, and the row
@@ -79,12 +84,11 @@ from repro_torch.kernels.gemm import (
     gemm_ref,
     splitk_partials_ref,
     splitk_reduce_ref,
-    stream_k_fixup_ref,
-    stream_k_partials_ref,
+    stream_k_matmul_ref,
     stream_k_workgroups,
+    stream_k_workspace,
 )
 from repro_torch.kernels.gemm import kernel as gk
-from repro_torch.kernels.gemm.ref import element_counts
 from repro_torch.kernels.grouped_gemm import grouped_gemm_ref, ragged_gemm_ref
 from repro_torch.kernels.grouped_gemm import kernel as ggk
 from repro_torch.kernels.mamba_scan import mamba_scan_fwd, ssd_chunk_ref
@@ -215,48 +219,123 @@ def test_matmul_residency_holds_a_ring(card, feed, ring):
 
 # ---------------------------------------------------------------- Stream-K
 WALK_CASES = [  # M, N, K, G, ta, tb
-    (32, 512, 17408, 8, False, False),   # the timed member
+    (32, 512, 17408, 8, False, False),   # the timed member: 46-47 contributors a tile
     (5, 70, 600, 1, False, True),
     (13, 200, 1000, 3, True, False),
     (33, 129, 300, 5, True, True),
     (70, 130, 4000, 8, False, False),
     (1, 64, 64, 8, False, False),        # one k step: most workgroups idle
     (3, 40, 50, 40, False, False),       # G above G_max
+    (16, 12992, 300, 1, False, False),   # spans of whole tiles beside cut ones
+    (16, 64, 65536, 8, True, True),      # one tile, every workgroup in it
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("case", WALK_CASES, ids=str)
-def test_stream_k_walk_matches_plain_at_card_geometry(card, case, dtype):
+def _stream_k_operands(card, case, dtype):
     M, N, K, G, ta, tb = case
     g = torch.Generator(device=card).manual_seed(M * N + K + G)
-    a = torch.randn((K, M) if ta else (M, K), generator=g, device=card, dtype=dtype)
-    b = torch.randn((N, K) if tb else (K, N), generator=g, device=card, dtype=dtype)
+    return _operands(g, M, N, K, ta, tb, dtype, card)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", WALK_CASES, ids=str)
+def test_stream_k_walk_matches_plain_at_card_geometry(card, case, dtype, out_dtype):
+    M, N, K, G, ta, tb = case
+    a, b = _stream_k_operands(card, case, dtype)
     geo = card_geometry(M, N, K, dtype, ta, tb, G, card)
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     occ, _ = gk.walk_resources(card, dtype, ta, tb, geo.rows)
     assert geo.workgroups == stream_k_workgroups(G, gk.planner_g_max(), sms, occ)
     assert geo.rows == (16 if M <= 16 else 32 if M <= 32 else 64)
+    before = gk.stream_k_matmul.launches
+    out = gk.stream_k_matmul(a, b, ta=ta, tb=tb, grid_g=G, out_dtype=out_dtype)
+    assert gk.stream_k_matmul.launches == before + 1
+    assert out.dtype == (out_dtype or dtype) and out.shape == (M, N)
     kw = dict(bm=geo.rows, bn=geo.cols, bk=geo.bk, grid_g=geo.workgroups)
-    before = gk.stream_k_partials.launches
-    p = gk.stream_k_partials(a, b, ta=ta, tb=tb, grid_g=G)
-    assert gk.stream_k_partials.launches == before + 1
-    counts = torch.from_numpy(geo.counts).to(card)
-    written = (torch.arange(geo.slots, device=card)[:, None, None]
-               < element_counts(counts, M, N, geo.rows, geo.cols)[None])
     A, B = (a.T if ta else a).float().abs(), (b.T if tb else b).float().abs()
-    _close(torch.where(written, p, 0.0), stream_k_partials_ref(a, b, ta=ta, tb=tb, **kw),
-           stream_k_partials_ref(A, B, **kw), "partials")
-    fix = gk.stream_k_fixup(counts, p, bm=geo.rows, bn=geo.cols, dtype=dtype)
-    assert torch.equal(fix, stream_k_fixup_ref(counts, p, bm=geo.rows, bn=geo.cols,
-                                               dtype=dtype))
+    _close(out, stream_k_matmul_ref(a, b, ta=ta, tb=tb, out_dtype=out.dtype, **kw),
+           A @ B, "stream_k_matmul")
+    assert torch.equal(gk.stream_k_matmul(a, b, ta=ta, tb=tb, grid_g=G,
+                                          out_dtype=out_dtype), out)
     tile = TileConfig(16, 128, 128, stream_k=G)
-    buf = gemm_buffers(a, b, ta=ta, tb=tb, tile=tile)
-    assert buf.partials.shape == (geo.slots, M, N)
-    assert torch.equal(buf.counts, counts)
-    assert buf.counts is gemm_buffers(a, b, ta=ta, tb=tb, tile=tile).counts
-    _close(gemm(a, b, ta=ta, tb=tb, tile=tile, buffers=buf),
-           gemm_ref(a, b, ta=ta, tb=tb), A @ B, "gemm")
+    buf = gemm_buffers(a, b, ta=ta, tb=tb, tile=tile, out_dtype=out_dtype)
+    assert buf.workspace.numel() == stream_k_workspace(geo.live, geo.rows, geo.cols)[0]
+    res = gemm(a, b, ta=ta, tb=tb, tile=tile, out_dtype=out_dtype, buffers=buf)
+    assert res.data_ptr() == buf.out.data_ptr() and torch.equal(res, out)
+    assert gk.stream_k_matmul.launches == before + 3
+
+
+def test_stream_k_cases_reach_whole_tiles_and_two_level_sums(card):
+    """`WALK_CASES` hold, in each dtype, tiles wholly inside one span beside
+    cut tiles, and tiles of at least 46 contributors, which sum in runs."""
+    for dtype in (torch.bfloat16, torch.float32):
+        counts = [card_geometry(M, N, K, dtype, ta, tb, G, card).counts
+                  for M, N, K, G, ta, tb in WALK_CASES]
+        assert any((c == 1).any() and (c > 1).any() for c in counts)
+        top = max(int(c.max()) for c in counts)
+        assert top >= 46 and gk.fixup_runs(top) < top
+
+
+def test_stream_k_matmul_writes_out_and_a_given_workspace(card):
+    """``out=`` and a workspace given by the caller (larger than needed)
+    are used as they are; the stream's counters (`stream_counters`) are
+    zero again after launches of every case, so the next launch counts
+    right with no zeroing; a workspace too small or of another dtype
+    raises and launches nothing."""
+    case = WALK_CASES[0]
+    M, N, K, G, _, _ = case
+    a, b = _stream_k_operands(card, case, torch.bfloat16)
+    geo = card_geometry(M, N, K, torch.bfloat16, False, False, G, card)
+    floats, counters = stream_k_workspace(geo.live, geo.rows, geo.cols)
+    ws = torch.empty(floats + 100, device=card)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=card)
+    res = gk.stream_k_matmul(a, b, grid_g=G, out=out, workspace=ws)
+    assert res is out
+    assert torch.equal(out, gk.stream_k_matmul(a, b, grid_g=G))
+    for M_, N_, K_, G_, ta, tb in WALK_CASES:
+        x, y = _stream_k_operands(card, (M_, N_, K_, G_, ta, tb), torch.float32)
+        gk.stream_k_matmul(x, y, ta=ta, tb=tb, grid_g=G_)
+    cnt = gk.stream_counters(a.device, counters)
+    assert cnt.dtype == torch.int32 and cnt.numel() >= counters and not cnt.any()
+    before = gk.stream_k_matmul.launches
+    with pytest.raises(ValueError, match="workspace"):
+        gk.stream_k_matmul(a, b, grid_g=G, workspace=ws[:floats - 1])
+    with pytest.raises(ValueError, match="workspace"):
+        gk.stream_k_matmul(a, b, grid_g=G, workspace=ws.double())
+    assert gk.stream_k_matmul.launches == before
+
+
+def test_two_stream_k_gemms_on_side_streams_behind_a_sleep(card):
+    """Two full-width Stream-K GEMMs (G = 8: W fills the card's resident
+    CTAs alone) on two side streams, queued behind a sleep of the card so
+    that both are ready at once, as a mixed launch runs its members: both
+    right, and the card finishes (no CTA waits for another to be resident:
+    a cut tile is summed by its last contributors to arrive)."""
+    case = WALK_CASES[0]
+    M, N, K, G, _, _ = case
+    g = torch.Generator(device=card).manual_seed(2)
+    sets = [_operands(g, M, N, K, False, False, torch.bfloat16, card) for _ in range(2)]
+    tile = TileConfig(32, 128, 128, stream_k=G)
+    bufs = [gemm_buffers(a, b, tile=tile) for a, b in sets]
+    main = torch.cuda.current_stream(card)
+    streams = [torch.cuda.Stream(card) for _ in sets]
+    torch.cuda._sleep(500_000_000)
+    fork = torch.cuda.Event()
+    fork.record(main)
+    outs = []
+    for (a, b), s, buf in zip(sets, streams, bufs):
+        s.wait_event(fork)
+        with torch.cuda.stream(s):
+            outs.append(gemm(a, b, tile=tile, buffers=buf))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize(card)
+    geo = card_geometry(M, N, K, torch.bfloat16, False, False, G, card)
+    kw = dict(bm=geo.rows, bn=geo.cols, bk=geo.bk, grid_g=geo.workgroups)
+    for out, (a, b) in zip(outs, sets):
+        _close(out, stream_k_matmul_ref(a, b, **kw), a.float().abs() @ b.float().abs(),
+               "stream_k_matmul on a side stream")
 
 
 # ----------------------------------------------------------------- split-K
@@ -292,7 +371,7 @@ def test_splitk_matmul_matches_plain_partials_and_reduce(card, case, dtype, out_
     assert torch.equal(gk.splitk_matmul(a, b, bm=bm, out_dtype=out_dtype, **kw), out)
     tile = TileConfig(bm, 128, bk, split_k=split_k)
     buf = gemm_buffers(a, b, ta=ta, tb=tb, tile=tile, out_dtype=out_dtype)
-    assert buf.partials is None          # no f32 partials in device memory
+    assert buf.workspace is None         # no f32 partials in device memory
     assert torch.equal(gemm(a, b, ta=ta, tb=tb, tile=tile, out_dtype=out_dtype,
                             buffers=buf), out)
     assert gk.splitk_matmul.launches == before + 3

@@ -21,8 +21,7 @@ from repro_torch.kernels.gemm.kernel import (
     instantiation,
     matmul,
     splitk_matmul,
-    stream_k_fixup,
-    stream_k_partials,
+    stream_k_matmul,
 )
 from repro_torch.kernels.grouped_gemm import (
     block_groups,
@@ -150,9 +149,8 @@ def test_cta_row_tile_rule(bm, rows):
     lambda a: ragged_matmul(a, a[None], torch.zeros(1, dtype=torch.int32), bm=8),
     lambda a: splitk_matmul(a, a, ta=True, split=2, slice_k=4),
     lambda a: splitk_matmul(a, a, split=2, slice_k=4, out_dtype=torch.float32),
-    lambda a: stream_k_partials(a, a, grid_g=2),
-    lambda a: stream_k_fixup(torch.ones((1, 1), dtype=torch.int32), a[None].float(),
-                             bm=8, bn=8, dtype=torch.bfloat16),
+    lambda a: stream_k_matmul(a, a, grid_g=2),
+    lambda a: stream_k_matmul(a, a, ta=True, grid_g=2, out_dtype=torch.float32),
 ])
 def test_kernel_launchers_take_only_cuda_tensors(launch):
     """A launcher never runs a plain version: CPU tensors raise, and the

@@ -74,7 +74,7 @@ def test_operands_from_numpy_raise_without_cuda(no_cuda):
 
 @pytest.mark.parametrize("tile,launcher", [
     (TileConfig(8, 128, 128, split_k=4), "splitk_matmul"),
-    (TileConfig(8, 128, 128, stream_k=6), "stream_k_partials"),
+    (TileConfig(8, 128, 128, stream_k=6), "stream_k_matmul"),
 ], ids=lambda x: x.key() if isinstance(x, TileConfig) else x)
 def test_gemm_off_cpu_refuses_split_and_stream_k(tile, launcher):
     """Off the CPU, `gemm` runs the tile's own kernels or raises: a split-K

@@ -4,9 +4,12 @@ Stream-K tiles — which runs the plain versions of the partial and reduce
 (or walk and fixup) kernels — against JAX `gemm(..., interpret=True)`,
 which runs the Pallas bodies, and against JAX `gemm_stream_k_ref`.  The
 card runs the Stream-K walk in its own units (CTA tiles, the CTA's k step
-and W workgroups from the SM count): the plain walk at that geometry is
-held to the JAX Stream-K GEMM too, and the W mapping is a pure function
-checked here.
+and W workgroups from the SM count) and sums each cut tile in runs of
+`fixup_runs`, in one launch (`stream_k_matmul`): its plain version
+`stream_k_matmul_ref` at that geometry is held to the JAX Stream-K GEMM
+(`matmul_stream_k` in interpret mode), the run-order fixup to the
+slot-order one, and the W mapping, the run length and the workspace
+size are pure functions checked here.
 
 Inputs are made with numpy from a seed.  Integer-valued float32 operands
 make every f32 sum exact whatever its order, so those cases are bitwise;
@@ -28,6 +31,7 @@ from repro.kernels.gemm import gemm_stream_k_ref as jstream_ref
 from repro.kernels.gemm.kernel import stream_k_geometry as jgeometry
 from repro_torch.kernels.gemm import (
     TileConfig,
+    fixup_runs,
     gemm,
     gemm_buffers,
     gemm_stream_k_ref,
@@ -35,7 +39,9 @@ from repro_torch.kernels.gemm import (
     splitk_reduce_ref,
     stream_k_fixup_ref,
     stream_k_geometry,
+    stream_k_matmul_ref,
     stream_k_partials_ref,
+    stream_k_workspace,
 )
 from repro_torch.kernels.gemm.kernel import (
     LAUNCHERS,
@@ -216,18 +222,21 @@ def test_stream_k_partials_fill_only_their_contributors_slots():
 
 def test_gemm_buffers_match_the_decomposition():
     """Split-K sums its slices in the kernel (`splitk_matmul`'s cluster
-    epilogue), so a split-K tile gets its output alone; Stream-K still
-    gets partials and counts."""
+    epilogue), so a split-K tile gets its output alone; a Stream-K tile
+    gets the workspace of its walk (`stream_k_workspace`: two tile slots
+    per live workgroup), O(W) rather than (slots, M, N); its counters are
+    the launching stream's, zeroed once (`stream_counters`)."""
     a, b = torch.empty((8, 4096)), torch.empty((4096, 130))
-    assert gemm_buffers(a, b, tile=TileConfig(8, 128, 128)).partials is None
+    assert gemm_buffers(a, b, tile=TileConfig(8, 128, 128)).workspace is None
     buf = gemm_buffers(a, b, tile=TileConfig(8, 128, 128, split_k=4))
     assert buf.out.shape == (8, 130)
-    assert buf.partials is None and buf.counts is None
+    assert buf.workspace is None and buf._fields == ("out", "workspace")
     buf = gemm_buffers(a, b, tile=TileConfig(8, 128, 128, stream_k=8))
-    _, _, _, counts, slots = stream_k_geometry(1, 2, 32, 8)
-    assert buf.partials.shape == (slots, 8, 130)
-    assert buf.counts.dtype == torch.int32
-    np.testing.assert_array_equal(buf.counts.numpy(), counts)
+    live = stream_k_geometry(1, 2, 32, 8)[2]
+    floats, counters = stream_k_workspace(live, 8, 128)
+    assert buf.workspace.shape == (floats,) == (2 * live * 8 * 128,)
+    assert buf.workspace.dtype == torch.float32
+    assert counters == 4 * live
 
 
 @pytest.mark.parametrize("tile", [TileConfig(8, 128, 128, split_k=4),
@@ -309,3 +318,101 @@ def test_plain_walk_at_card_geometry_matches_jax_stream_k(case, W, G, dtype):
     p = stream_k_partials_ref(pa, pb, ta=ta, tb=tb, bm=geo.rows, bn=geo.cols,
                               bk=geo.bk, grid_g=geo.workgroups)
     assert p.shape == (geo.slots, M, N)
+
+
+# ---------------------------------------- the one-launch kernel's summation
+@pytest.mark.parametrize("n,R", [(1, 1), (2, 2), (7, 3), (46, 7), (47, 7), (400, 20)])
+def test_fixup_runs_cover_every_contributor_once(n, R):
+    """R = ⌈√n⌉, and the runs of R in workgroup order hold each of the n
+    contributors exactly once, ⌈n/R⌉ of them."""
+    assert fixup_runs(n) == R
+    runs = [range(lo, min(lo + R, n)) for lo in range(0, n, R)]
+    assert sorted(m for r in runs for m in r) == list(range(n))
+    assert len(runs) == -(-n // R) and all(0 < len(r) <= R for r in runs)
+
+
+RUN_CASES = [  # (M, N, K), (bm, bn, bk), G: up to 47 contributors a tile
+    ((20, 200, 700), (32, 64, 64), 11),
+    ((9, 130, 5000), (16, 64, 128), 60),
+    ((33, 64, 3000), (64, 64, 64), 47),
+    ((5, 70, 600), (16, 64, 64), 3),
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(RUN_CASES)))
+def test_run_order_fixup_matches_slot_order(case, dtype):
+    """Summing each tile's partials in runs of `fixup_runs` (each run in
+    slot order, then the runs in run order) computes the slot-order
+    fixup: bitwise on integer-valued f32, within 3e-2 in bf16."""
+    (M, N, K), (bm, bn, bk), G = RUN_CASES[case]
+    _, (a, b) = _operands([M, N, K, G], M, N, K, False, False, dtype)
+    tm, tn, tk = -(-M // bm), -(-N // bn), -(-K // bk)
+    counts = torch.from_numpy(stream_k_geometry(tm, tn, tk, G)[3])
+    p = stream_k_partials_ref(a, b, bm=bm, bn=bn, bk=bk, grid_g=G)
+    td = DTYPES[dtype][1]
+    by_runs = stream_k_fixup_ref(counts, p, bm=bm, bn=bn, dtype=td, runs=fixup_runs)
+    assert by_runs.dtype == td and by_runs.shape == (M, N)
+    _assert_match(by_runs, stream_k_fixup_ref(counts, p, bm=bm, bn=bn, dtype=td)
+                  .float().numpy(), dtype)
+    if case < 3:
+        assert int(counts.max()) > fixup_runs(int(counts.max()))   # two levels
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("W", [1, 7, 132, 396])
+@pytest.mark.parametrize("case", range(len(CARD_CASES)))
+def test_stream_k_matmul_ref_at_card_geometry_matches_jax_stream_k(case, W, dtype):
+    """`stream_k_matmul_ref`, the card's one-launch Stream-K in its
+    summation order, at the card's geometry (CTA tiles from M, the CTA's
+    k step and W workgroups) computes the JAX Stream-K GEMM at G = 8
+    (`gemm`, which pads the operands for `matmul_stream_k` and runs it in
+    interpret mode): bitwise on integer-valued f32, within 3e-2 in bf16;
+    bf16 and f32 outputs."""
+    (M, N, K), layout = CARD_CASES[case]
+    ta, tb = LAYOUTS[layout]
+    _, (pa, pb) = _operands([M, N, K, case], M, N, K, ta, tb, dtype)
+    geo = walk_geometry(M, N, K, DTYPES[dtype][1], W)
+    kw = dict(bm=geo.rows, bn=geo.cols, bk=geo.bk, grid_g=geo.workgroups, ta=ta, tb=tb)
+    out = stream_k_matmul_ref(pa, pb, **kw)
+    assert out.dtype == DTYPES[dtype][1]
+    _assert_match(out, _jax_stream_k(case, 8, dtype), dtype)
+    out32 = stream_k_matmul_ref(pa, pb, out_dtype=torch.float32, **kw)
+    assert out32.dtype == torch.float32
+    assert torch.equal(out32.to(out.dtype), out)
+
+
+@pytest.mark.parametrize("W", [1, 7, 132, 396])
+@pytest.mark.parametrize("shape", [(32, 512, 17408), (20, 200, 700), (70, 130, 4000)])
+def test_stream_k_workspace_holds_the_slots_the_walk_writes(shape, W):
+    """Every partial of a cut tile that the plain walk writes has its own
+    slot in the workspace: contributor g of tile q at slot 2g + (0 for the
+    tile g's span starts in, 1 for the tile it ends in), each slot one
+    rows×cols f32 tile, all below `stream_k_workspace`'s size; each run
+    and each cut tile has its own counter below its counter count."""
+    M, N, K = shape
+    geo = walk_geometry(M, N, K, torch.bfloat16, W)
+    floats, n_counters = stream_k_workspace(geo.live, geo.rows, geo.cols)
+    assert floats == 2 * geo.live * geo.rows * geo.cols
+    slots, run_counters, tile_counters = set(), set(), set()
+
+    def slot(w, q):
+        return 2 * w + (0 if w * geo.ipw >= q * geo.tk else 1)
+
+    written = 0
+    for q, n in enumerate(geo.counts.reshape(-1).tolist()):
+        if n == 1:
+            continue
+        first = q * geo.tk // geo.ipw
+        written += n
+        slots.update(slot(first + m, q) for m in range(n))
+        R = fixup_runs(n)
+        run_counters.update(slot(first + lo, q) for lo in range(0, n, R))
+        tile_counters.add(2 * geo.live + slot(first, q))
+    assert len(slots) == written and (not slots or max(slots) < 2 * geo.live)
+    assert written <= 2 * geo.live
+    counters = run_counters | tile_counters
+    assert len(counters) == len(run_counters) + len(tile_counters)
+    assert not counters or max(counters) < n_counters == 4 * geo.live
+    # the plain walk writes exactly these partials: one per contributor
+    assert int(geo.counts.sum()) == written + int((geo.counts == 1).sum())
