@@ -50,7 +50,24 @@ Phases, each fatal on failure (nothing here catches an error):
    zeroed just before the first window, must show the single, grouped
    and ragged kernels, and no `matmul` launch on the ring feed (every
    serving shape is aligned bf16, which takes the TMA feed; the same
-   holds in phases 5 and 7);
+   holds in phases 5 and 7).  Then, with those weights still on the card,
+   the dynamic logic, whose launches are counted apart (the counters are
+   zeroed after it): (a) the logistic CD predictor trained on the card on
+   the paper's dataset (1,072 pool GEMMs profiled against the GO library,
+   a seeded 90/10 split), held to the same training on the CPU from the
+   same initial weights (W within 1e-4·max(1, |W|), equal CDs), with its
+   training seconds and held-out accuracy at 2/4/8/16 available GEMMs;
+   (b) both windows, cold then warm, served through a runtime whose
+   controller plans with that predictor, every result held against the
+   plain version, each class's launches (CD, mode) printed beside the
+   oracle controller's plan of the same queue; (c) the four fused decode
+   GEMMs at batch 8 measured by the harness (`core/measure.py`: CUDA
+   events around each launch, median of 5 after a warmup) at CD 1, 2, 4,
+   8 and 16, beside the library's modeled CD and the predictor's, and
+   the attention-out GEMM re-ranked by measurement (`tune_gemm(...,
+   measure=)`), its entry saved to a library file and loaded back with
+   its measured times and backend tag.  Every measured time must be
+   finite; the times themselves are printed, not gated;
 5. bundle (mixed) serving: the fused weights freed, the seven unfused
    decode GEMMs of every layer (q, k, v, o, gate, up, down; the same
    26.4 GB) submitted per tenant and layer as one bundle
@@ -143,15 +160,18 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from dataclasses import replace
 from itertools import cycle
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -159,16 +179,27 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import (  # noqa: E402
+    CDS,
+    CLASSES,
     AttentionDesc,
     ConcurrencyController,
     GemmDesc,
     GemmRequest,
+    GOLibrary,
+    Measurer,
     ScanDesc,
     Schedule,
+    accuracy_by_available,
     bind_operands,
     execute_schedule,
+    generate_gemm_pool,
+    op_features,
+    profile_dataset,
+    train_predictor,
+    tune_gemm,
 )
 from repro_torch.core.library import default_library  # noqa: E402
+from repro_torch.core.measure import schedule_for, synth_request  # noqa: E402
 from repro_torch.core.scheduler import _run_op  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -924,18 +955,26 @@ def split_stream_kernels(gen) -> dict:
 
 
 # ---------------------------------------------------------------- serving
-def make_weights(cfg, layers: int, gen, device) -> list:
-    """Per layer, the four decode GEMMs' weights keyed by (K, N): fused
-    QKV, attention-out, fused FFN gate+up and FFN down, stored (K, N)."""
+SERVING_WINDOWS = ([8, 8, 8, 8], [4, 8, 8, 8, 16])
+
+
+def fused_shapes(cfg) -> list:
+    """(K, N) of the four fused decode GEMMs: fused QKV, attention-out,
+    fused FFN gate+up and FFN down."""
     D, hd = cfg.d_model, cfg.resolved_head_dim
-    shapes = [(D, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
-              (cfg.n_heads * hd, D), (D, 2 * cfg.d_ff), (cfg.d_ff, D)]
+    return [(D, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
+            (cfg.n_heads * hd, D), (D, 2 * cfg.d_ff), (cfg.d_ff, D)]
+
+
+def make_weights(cfg, layers: int, gen, device) -> list:
+    """Per layer, the four decode GEMMs' weights keyed by (K, N) of
+    `fused_shapes`, stored (K, N)."""
     out = []
     for _ in range(layers):
         out.append({
             (k, n): torch.randn((k, n), generator=gen, device=device,
                                 dtype=torch.bfloat16).mul_(k ** -0.5)
-            for k, n in shapes})
+            for k, n in fused_shapes(cfg)})
     return out
 
 
@@ -977,7 +1016,8 @@ def serve_window(rt: Runtime, cfg, weights: list, batches, gen) -> dict:
     return dict(requests=len(tickets), launches=dict(modes), tiles=tiles,
                 wall_s=wall,
                 device_s=sum(g.achieved_time_s or 0.0 for g in recs),
-                request_weight_gb=req_bytes / 1e9)
+                request_weight_gb=req_bytes / 1e9, tickets=tickets,
+                launch_list=launches)
 
 
 KERNEL_OF_MODE = {"single": "matmul", "grouped": "grouped_matmul",
@@ -1068,9 +1108,10 @@ def serving_phase(device="cuda", cfg=None, layers=None) -> dict:
                  RuntimeConfig(window_s=0.0, execute=True), device=device)
     reset_counts()
     windows = []
-    for batches in ([8, 8, 8, 8], [4, 8, 8, 8, 16]):
+    for batches in SERVING_WINDOWS:
         for run in ("cold", "warm"):
             w = serve_window(rt, cfg, weights, batches, gen)
+            del w["tickets"], w["launch_list"]
             windows.append(w)
             print(f"# window batches {batches} ({run} plans): {w['requests']} "
                   f"requests, launches {w['launches']}, wall {w['wall_s']:.6f} s, "
@@ -1090,10 +1131,186 @@ def serving_phase(device="cuda", cfg=None, layers=None) -> dict:
             modes.get("single", 0) + modes.get("fused", 0)):
         raise AssertionError(f"serving did not run every launch mode: {modes}")
     if device == "cuda":
-        for batches in ([8, 8, 8, 8], [4, 8, 8, 8, 16]):
+        for batches in SERVING_WINDOWS:
             profile_window(f"window batches {batches}", lambda: drive_window(
                 rt, cfg, weights, batches, gen)[1::2])
+    dynamic_logic_phase(cfg, weights, gen, device)
     return dict(counts=counts, windows=windows, model_gb=model_gb)
+
+
+# ---------------------------------------------------------- dynamic logic
+# The paper's training set: 1,072 GEMMs (§5.2), 90/10 split.
+TRAIN_POOL, TRAIN_SEED = 1072, 17
+# Card-trained W against CPU-trained W from the same w0, elementwise:
+# |ΔW| ≤ W_TOL·max(1, |W|).  Both run the same float32 Adam steps and sum
+# float32 products in their own orders (a CPU run of the port against
+# the JAX reference reads ~3e-6 at |W| ≤ 11.5).
+W_TOL = 1e-4
+MEASURED_CDS = (2, 4, 8, 16)
+
+
+def train_phase(lib, device):
+    """(a) The predictor trained on the paper's dataset on ``device``,
+    held to one trained on the CPU from the same initial weights."""
+    pool = generate_gemm_pool(TRAIN_POOL, seed=TRAIN_SEED)
+    t0 = time.perf_counter()
+    lib.prewarm(pool)
+    X, y = profile_dataset(pool, lib)
+    profile_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    idx = rng.permutation(len(X))
+    tr, te = idx[:int(0.9 * len(X))], idx[int(0.9 * len(X)):]
+    w0 = (0.01 * rng.standard_normal((X.shape[1] + 1, len(CLASSES)))).astype(np.float32)
+    t0 = time.perf_counter()
+    pred = train_predictor(X[tr], y[tr], w0=w0, device=device)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = train_predictor(X[tr], y[tr], w0=w0, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    dw = np.abs(pred.W - cpu.W)
+    if (dw > W_TOL * np.maximum(1.0, np.abs(cpu.W))).any():
+        raise AssertionError(f"card-trained W off the CPU-trained W by {dw.max():.3g}")
+    for avail in (1, 2, 4, 8, 16):
+        if not np.array_equal(pred.predict_cd(X, avail), cpu.predict_cd(X, avail)):
+            raise AssertionError(f"card- and CPU-trained CDs differ at available {avail}")
+    acc = accuracy_by_available(pred, X[te], y[te])
+    labels = np.asarray(CLASSES)[y[te]]
+    majority = {a: float(np.bincount(np.minimum(labels, a)).max() / len(te))
+                for a in acc}
+    seeded = train_predictor(X[tr], y[tr], seed=SEED, device=device)
+    print(f"# predictor: {len(pool)} GEMMs profiled in {profile_s:.3f} s (host), "
+          f"{len(tr)} trained / {len(te)} held out; 600 epochs on {device} in "
+          f"{train_s:.3f} s (CPU {cpu_s:.3f} s), max |ΔW| vs CPU {dw.max():.3g} at "
+          f"|W| ≤ {np.abs(cpu.W).max():.3g}, CDs equal at available 1-16")
+    print(f"# predictor held-out accuracy by available {acc} (majority class "
+          f"{majority}); from the seeded draw on {device} "
+          f"{accuracy_by_available(seeded, X[te], y[te])}")
+    return pred
+
+
+def run_lengths(rows) -> str:
+    """[(cd, mode), ...] as "3×(16 grouped), (8 ragged)"."""
+    out = []
+    for r in rows:
+        if out and out[-1][1] == r:
+            out[-1][0] += 1
+        else:
+            out.append([1, r])
+    return ", ".join(f"{n}×({r[0]} {r[1]})" if n > 1 else f"({r[0]} {r[1]})"
+                     for n, r in out)
+
+
+def class_rows(launches) -> dict:
+    rows = {}
+    for ln in launches:
+        rows.setdefault(ln.class_key, []).append((ln.plan.cd, ln.plan.mode))
+    return rows
+
+
+def predicted_serving(cfg, weights, pred, gen, device) -> int:
+    """(b) Phase 4's windows planned by the predictor, every result held
+    to the plain version; per class, the launches' CD and mode beside the
+    oracle controller's plan of the same queue.  Returns the launches
+    that differ."""
+    rt = Runtime(ConcurrencyController(default_library(), predictor=pred),
+                 RuntimeConfig(window_s=0.0, execute=True), device=device)
+    oracle = Runtime(ConcurrencyController(default_library()),
+                     RuntimeConfig(window_s=0.0), device=device)
+    differ = 0
+    for batches in SERVING_WINDOWS:
+        for run in ("cold", "warm"):
+            w = serve_window(rt, cfg, weights, batches, gen)
+            for tk in w["tickets"]:
+                oracle.submit(tk.request, tenant=tk.tenant)
+            mine, theirs = class_rows(w["launch_list"]), class_rows(oracle.drain())
+            n = sum(sum(a != b for a, b in zip(mine.get(k, []), theirs.get(k, [])))
+                    + abs(len(mine.get(k, [])) - len(theirs.get(k, [])))
+                    for k in set(mine) | set(theirs))
+            differ += n
+            print(f"# predictor window batches {batches} ({run} plans): "
+                  f"{w['requests']} requests, launches {w['launches']}, wall "
+                  f"{w['wall_s']:.6f} s, device {w['device_s']:.6f} s; {n} of "
+                  f"{len(w['launch_list'])} launches differ from the oracle's plan")
+            for k in sorted(set(mine) | set(theirs)):
+                print(f"#   class {k}: predictor {run_lengths(mine.get(k, []))} | "
+                      f"oracle {run_lengths(theirs.get(k, []))}")
+    return differ
+
+
+def queued_per_gemm(desc, entry) -> dict:
+    """Device ms per GEMM of the launch `Measurer` times at each CD, the
+    launches queued behind a sleep of the card (`time_ms`), so the host's
+    enqueue, which the Measurer's event pair includes, is left out."""
+    out = {}
+    for cd in (1, *MEASURED_CDS):
+        reqs = [synth_request(desc, seed=i) for i in range(cd)]
+        sched = schedule_for(desc, entry.tile_for_cd(cd), cd)
+        out[cd] = time_ms(lambda: execute_schedule(reqs, sched)) / cd
+    return out
+
+
+def measure_phase(cfg, pred, lib, device) -> None:
+    """(c) The four fused decode GEMMs at batch 8 measured on ``device`` at
+    CD 1 and `MEASURED_CDS`, beside the library's modeled CD and the
+    predictor's; then one re-ranked by measurement (`tune_gemm(...,
+    measure=)`), its entry saved to a library file and loaded back.
+    The only gate on timings: every one is finite."""
+    mzr = Measurer(device=device)
+    descs = [GemmDesc(8, n, k) for k, n in fused_shapes(cfg)]
+    for d in descs:
+        entry = lib.get(d)
+        ms = mzr.measure_entry(d, entry, cds=MEASURED_CDS)
+        bad = [cd for cd, m in ms.items() if not m.finite]
+        if bad:
+            raise AssertionError(f"{d.key()}: non-finite measurement at CDs {bad}")
+        per_gemm = {cd: m.time_s / cd for cd, m in ms.items()}
+        fastest = min(per_gemm, key=per_gemm.get)
+        cd_pred = int(pred.predict_cd(op_features(d, lib), available=16)[0])
+        print(f"# measured {d.key()} on {mzr.backend}: seconds per launch "
+              f"{ {cd: m.time_s for cd, m in ms.items()} }, per GEMM "
+              f"{per_gemm}; measured-fastest CD {fastest}, modeled "
+              f"{entry.preferred_cd()}, predictor {cd_pred}; tiles "
+              f"{ {cd: entry.tile_for_cd(cd).key() for cd in ms} }")
+        if device == "cuda":
+            print(f"#   device only (the same launches queued behind a sleep of "
+                  f"the card, no host time): ms per GEMM {queued_per_gemm(d, entry)}")
+    d = GemmDesc(8, cfg.n_heads * cfg.resolved_head_dim, cfg.d_model)
+    entry = tune_gemm(d, measure=Measurer(device=device))
+    bad = {cd: t for cd, t in entry.measured.items() if not math.isfinite(t)}
+    if bad or set(entry.measured) != {1, *CDS}:
+        raise AssertionError(f"{d.key()}: re-rank measured {entry.measured}")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = Path(tmp) / "golib.json"
+        saved = GOLibrary()
+        saved._entries[d.key()] = entry
+        saved.save(path)
+        back = GOLibrary(path).entries()[d.key()]
+    if (back.measured, back.measure_backend, back.measure_run_id) != (
+            entry.measured, mzr.backend, entry.measure_run_id):
+        raise AssertionError(f"{d.key()}: measured entry did not survive save/load")
+    modeled = lib.get(d)
+    moved = {cd: f"{modeled.go[cd].key()} -> {t.key()}" for cd, t in entry.go.items()
+             if t != modeled.go[cd]}
+    print(f"# re-ranked {d.key()} on {entry.measure_backend} (run {entry.measure_run_id}): "
+          f"measured seconds {entry.measured}, sources {entry.rc_source}, GO tiles "
+          f"moved {moved or 'none'}; saved and loaded back with its measured map")
+
+
+def dynamic_logic_phase(cfg, weights, gen, device) -> None:
+    """Training, serving through the predictor and measuring, with phase
+    4's weights on the card.  Its launches are counted apart and the
+    counters zeroed after it, so the `kernels` line counts only the
+    serving paths."""
+    lib = default_library()
+    reset_counts()
+    pred = train_phase(lib, device)
+    differ = predicted_serving(cfg, weights, pred, gen, device)
+    measure_phase(cfg, pred, lib, device)
+    counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
+    print(f"# dynamic logic: {differ} launches differ from the oracle's plans; "
+          f"kernel launches of this phase (not in the kernels line) {counts}")
+    reset_counts()
 
 
 # --------------------------------------------------------- bundle serving

@@ -42,6 +42,10 @@ class GemmDesc:
     family = "gemm"
 
     @property
+    def mnk_like(self) -> tuple:
+        return (self.M, self.N, self.K)
+
+    @property
     def flops(self) -> int:
         return 2 * self.M * self.N * self.K * self.batch
 

@@ -2,8 +2,9 @@
 
 At dispatch time the controller inspects the pending-GEMM queue, pools
 the head's compatible followers (§6.7 classes: same N, K, layouts and
-dtype, any M), picks the concurrency degree from the GO library's
-modeled speedups (``CD_exec = min(CD_preferred, available)``), and emits
+dtype, any M), picks the concurrency degree — the logistic predictor's
+(`core/predictor.py`) when the controller has one, else the GO library's
+modeled speedups (``CD_exec = min(CD_preferred, available)``) — and emits
 one launch per group: ``grouped`` (identical members), ``ragged``
 (members differing in M) or ``single``.  `plan_mixed` co-schedules a
 heterogeneous bundle (§14): each ``mixed`` group's members are distinct
@@ -28,7 +29,7 @@ from repro_torch.core.cost_model import group_time, isolated_time
 from repro_torch.core.gemm_desc import TORCH_DTYPES, GemmDesc
 from repro_torch.core.library import GOLibrary, default_library
 from repro_torch.core.op_desc import family_of
-from repro_torch.core.tuner import CDS
+from repro_torch.core.predictor import CLASSES, Predictor, op_features
 from repro_torch.kernels.flash_attention.ops import (
     attention_buffers,
     attention_for_desc,
@@ -39,9 +40,6 @@ from repro_torch.kernels.mamba_scan.ops import scan_buffers, scan_for_desc
 
 # CP overhead (paper §5.4/§6.5): queue inspect + predict + packet rewrite.
 CP_OVERHEAD_S = 8e-6
-
-# Concurrency classes: 1 (sequential) and every tuned CD.
-CLASSES = (1,) + tuple(CDS)
 
 
 @dataclass
@@ -167,17 +165,39 @@ def compat_key(d) -> str:
 
 
 class ConcurrencyController:
-    """Plans launches with the library-oracle CD: each desc's preferred CD
-    is the one with the largest modeled speedup in its GO entry.  Modeled
-    times use the library's spec."""
+    """Plans launches at each desc's preferred CD: the predictor's when
+    one is given, else the library oracle's (the CD with the largest
+    modeled speedup in its GO entry).  Modeled times use the library's
+    spec."""
 
-    def __init__(self, library: GOLibrary | None = None, max_cd: int = 16):
+    def __init__(self, library: GOLibrary | None = None,
+                 predictor: Predictor | None = None, max_cd: int = 16):
         # `library or default_library()` would discard an empty library
         # (its __len__ makes it falsy) — compare to None.
         self.lib = library if library is not None else default_library()
+        self.predictor = predictor
         self.spec = self.lib.spec
         self.max_cd = max_cd
+        # Dispatch-path memos: CD decisions and feature vectors per desc
+        # key; invalidated when the library, spec or predictor changes.
         self._cd_cache: dict = {}
+        self._feat_cache: dict = {}
+
+    def invalidate_caches(self) -> None:
+        """Drop memoized CD decisions and features (after swapping the
+        library, spec or predictor)."""
+        self._cd_cache.clear()
+        self._feat_cache.clear()
+        if self.predictor is not None:
+            self.predictor.invalidate_cache()
+
+    def _features(self, desc):
+        key = desc.key()
+        x = self._feat_cache.get(key)
+        if x is None:
+            x = op_features(desc, self.lib, self.spec)
+            self._feat_cache[key] = x
+        return x
 
     def preferred_cd(self, desc: GemmDesc, available: int) -> int:
         if available <= 1:
@@ -187,7 +207,11 @@ class ConcurrencyController:
         cached = self._cd_cache.get(ck)
         if cached is not None:
             return cached
-        cd = min(self.lib.get(desc).preferred_cd(), floor)
+        if self.predictor is not None:
+            cd = self.predictor.predict_cd_one(
+                desc.key(), lambda: self._features(desc), available)
+        else:
+            cd = min(self.lib.get(desc).preferred_cd(), floor)
         self._cd_cache[ck] = cd
         return cd
 
@@ -309,6 +333,17 @@ class ConcurrencyController:
         t_group = self.plan(descs).modeled_time_s
         choice = "fuse" if t_fused <= t_group else "group"
         return (choice, t_fused, t_group)
+
+    # ------------------------------------------------------------ execute
+    def execute(self, requests: Sequence[GemmRequest]) -> List[torch.Tensor]:
+        """Plan ``requests`` and run the plan through the kernels."""
+        return self.execute_plan(requests, self.plan([r.desc for r in requests]))
+
+    def execute_plan(self, requests: Sequence[GemmRequest],
+                     sched: Schedule) -> List[torch.Tensor]:
+        """Run a precomputed `Schedule` through the kernels, so a caller
+        can replay a cached plan without planning again."""
+        return execute_schedule(requests, sched)
 
 
 def execute_schedule(

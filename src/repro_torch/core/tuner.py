@@ -91,8 +91,9 @@ def stream_k_grid(ws, share, spec: TPUSpec = DEFAULT_SPEC):
 class GOEntry:
     """Library record: isolated kernel + GO kernel per concurrency degree.
 
-    The measured fields are schema-v5 provenance, carried so a library
-    file round-trips unchanged; the planner never reads them."""
+    The measured fields are schema-v5 provenance, filled by
+    `Measurer.rerank` (``tune_gemm(..., measure=)``) and carried through a
+    library's save and load; the planner never reads them."""
 
     desc_key: str
     isolated: TileConfig
@@ -138,6 +139,7 @@ def tune_rc(desc: GemmDesc, frac: float,
 
 def tune_gemm_batch(
     descs: Sequence[GemmDesc], spec: TPUSpec = DEFAULT_SPEC,
+    cds: Sequence[int] = CDS,
 ) -> list[GOEntry]:
     """Step ① + Step ② for a whole pool of GEMMs in two model
     evaluations: ``(RC × descs × tiles)`` and ``(CDs × descs ×
@@ -150,9 +152,10 @@ def tune_gemm_batch(
     if len(descs) > _CHUNK:
         out: list[GOEntry] = []
         for i in range(0, len(descs), _CHUNK):
-            out += tune_gemm_batch(descs[i:i + _CHUNK], spec)
+            out += tune_gemm_batch(descs[i:i + _CHUNK], spec, cds)
         return out
-    search, split_ks, cds = _SEARCH, SPLIT_K_CANDIDATES, CDS
+    search, split_ks = _SEARCH, SPLIT_K_CANDIDATES
+    cds = tuple(int(c) for c in cds)
     names = list(RC_FRACTIONS)
     fracs = np.asarray([RC_FRACTIONS[n] for n in names], np.float64)
     budgets = (spec.vmem_bytes * fracs).astype(np.int64)     # int() truncation
@@ -177,9 +180,9 @@ def tune_gemm_batch(
         # FALLBACK_TILE path per GEMM.
         bad = np.isinf(min_t).any(0)
         good = [d for i, d in enumerate(descs) if not bad[i]]
-        fixed = {d.key(): _tune_gemm_infeasible(d, spec)
+        fixed = {d.key(): _tune_gemm_infeasible(d, spec, cds)
                  for i, d in enumerate(descs) if bad[i]}
-        good_entries = iter(tune_gemm_batch(good, spec))
+        good_entries = iter(tune_gemm_batch(good, spec, cds))
         return [fixed.get(d.key()) or next(good_entries) for d in descs]
     seq_1 = min_t[0]                                         # (D,)
     wbm, wbn, wbk = search.bm[idx], search.bn[idx], search.bk[idx]  # (RC, D)
@@ -240,7 +243,8 @@ def tune_gemm_batch(
     return entries
 
 
-def _tune_gemm_infeasible(desc: GemmDesc, spec: TPUSpec) -> GOEntry:
+def _tune_gemm_infeasible(desc: GemmDesc, spec: TPUSpec,
+                          cds: Sequence[int]) -> GOEntry:
     """Per-GEMM path for descs where some RC fraction has no feasible
     tile (`tune_rc` substitutes FALLBACK_TILE)."""
     winners = {name: tune_rc(desc, frac, spec)
@@ -249,7 +253,7 @@ def _tune_gemm_infeasible(desc: GemmDesc, spec: TPUSpec) -> GOEntry:
     seq_1 = isolated_time(desc, entry.isolated, spec)
     cand = [(name, replace(t, split_k=s))
             for name, t in winners.items() for s in SPLIT_K_CANDIDATES]
-    for cd in CDS:
+    for cd in cds:
         share = spec.vmem_bytes // cd
         cand_cd = cand + [
             (name, replace(t, split_k=1, stream_k=int(stream_k_grid(
@@ -266,19 +270,28 @@ def _tune_gemm_infeasible(desc: GemmDesc, spec: TPUSpec) -> GOEntry:
     return entry
 
 
-def tune_gemm(desc: GemmDesc, spec: TPUSpec = DEFAULT_SPEC) -> GOEntry:
-    """Step ① + Step ② for one GEMM (the batched sweep on a pool of one)."""
-    return tune_gemm_batch([desc], spec)[0]
+def tune_gemm(desc: GemmDesc, spec: TPUSpec = DEFAULT_SPEC,
+              cds: Sequence[int] = CDS, measure=None) -> GOEntry:
+    """Step ① + Step ② for one GEMM (the batched sweep on a pool of one).
+    ``measure`` (a `core.measure.Measurer`) adds the measured pass: the
+    Step-② candidates are re-ranked by the measured time of the launch
+    the scheduler would emit, and the entry carries the measured times
+    and their provenance (`Measurer.rerank`)."""
+    entry = tune_gemm_batch([desc], spec, cds)[0]
+    if measure is not None:
+        entry = measure.rerank(desc, entry, cds=cds)
+    return entry
 
 
 def tune_op(desc, spec: TPUSpec = DEFAULT_SPEC,
-            cds: Sequence[int] = CDS) -> GOEntry:
+            cds: Sequence[int] = CDS, measure=None) -> GOEntry:
     """Step ① + Step ② for any ported family: the best tile per RC
     fraction on the family's tile axes, then per CD the fastest RC winner
-    in a group of ``cd`` copies.  GEMMs take `tune_gemm`."""
+    in a group of ``cd`` copies.  GEMMs take `tune_gemm`.  ``measure``
+    as for `tune_gemm`."""
     fam = family_of(desc)
     if fam == "gemm":
-        return tune_gemm(desc, spec)
+        return tune_gemm(desc, spec, cds, measure=measure)
     search = TileBatch.from_tiles(FAMILY_TILES[fam])
     ws_raw = np.asarray(op_tile_ws(desc, search, spec))
     winners: Dict[str, TileConfig] = {}
@@ -304,4 +317,6 @@ def tune_op(desc, spec: TPUSpec = DEFAULT_SPEC,
         entry.go[cd] = best_tile
         entry.rc_source[cd] = best_name
         entry.speedup[cd] = (seq_1 * cd) / best_t
+    if measure is not None:
+        entry = measure.rerank(desc, entry, cds=cds)
     return entry

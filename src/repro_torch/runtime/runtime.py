@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.cost_model import EVAL_COUNTER
+from repro_torch.core.device import resolve_device
 from repro_torch.core.gemm_desc import GemmDesc
 from repro_torch.core.op_desc import family_of
 from repro_torch.core.scheduler import (
@@ -62,20 +63,6 @@ MIXED_CLASS = "mixed!"
 
 class NonFiniteOutput(RuntimeError):
     """An executed launch produced a NaN or an infinity."""
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a concrete `torch.device`; raises when it names CUDA
-    and there is none (no entry point carries on on the CPU unasked)."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is not "
-                               "available; pass device='cpu' to run the "
-                               "plain versions on the CPU")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 @dataclass

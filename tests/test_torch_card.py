@@ -1,8 +1,9 @@
 """`matmul` on both of its feeds, the redesigned Stream-K walk, split-KV
 flash-attention and ragged-walk kernels, the one-launch split-K kernel,
 the ring-fed grouped kernel with its weights by pointer and the SSD
-scan's decode kernel, held to their plain versions on the card.  Every test here needs an NVIDIA GPU and skips
-without one; on the card (no JAX needed) run
+scan's decode kernel, held to their plain versions on the card, and the
+measurement harness timing launches there.  Every test here needs an
+NVIDIA GPU and skips without one; on the card (no JAX needed) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_card.py
 
@@ -61,6 +62,14 @@ order over K).
 import pytest
 import torch
 
+from repro_torch.core import (
+    AttentionDesc,
+    GemmDesc,
+    Measurer,
+    backend_tag,
+    tune_gemm,
+    tune_op,
+)
 from repro_torch.kernels.flash_attention import (
     attention_buffers,
     attention_tol,
@@ -705,3 +714,21 @@ def test_scan_decode_residency(card):
                 per_sm, smem = decode_residency(card, dtype, vec, s0)
                 assert per_sm >= 4
                 assert smem == (256 * 16 if s0 else 0)
+
+
+# ----------------------------------------------------------------- measure
+@pytest.mark.parametrize("desc", [GemmDesc(8, 5120, 5120),
+                                  AttentionDesc(8, 40, 8, 1, 4096, 128)],
+                         ids=lambda d: d.family)
+def test_measurer_times_launches_on_the_card(card, desc):
+    """The harness on the card: CUDA events around the grouped launch of
+    a GEMM pool and around a mixed group of attention members on side
+    streams (joined before the end event); every time finite, no hang,
+    and the backend tag names the card."""
+    entry = tune_gemm(desc) if isinstance(desc, GemmDesc) else tune_op(desc)
+    mzr = Measurer(warmup=1, repeats=5)
+    assert mzr.backend == backend_tag() == f"cuda-{torch.cuda.get_device_name()}"
+    for cd in (1, 2, 4):
+        m = mzr.measure_group(desc, entry.tile_for_cd(cd), cd)
+        assert m.finite and m.hangs == 0 and m.n >= 3, (cd, m)
+        assert m.backend == mzr.backend
