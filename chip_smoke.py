@@ -122,7 +122,30 @@ Phases, each fatal on failure (nothing here catches an error):
    launch on the decode kernel.  Each warm
    window is then timed concurrently and back to back (as in phase 5)
    and profiled once;
-8. one JSON line ``{"kernels": [...]}`` and, last, the device line.
+8. self-correction, run after phase 5 on phase 5's unfused weights and
+   phase 4's fused weights made again from phase 4's seed (phase 4's
+   own are freed before phase 5, as they were before this phase
+   existed), its launches counted apart:
+   (a) the calibrator — both per-class windows served twice through a
+   `ConcurrencyController(calibrator=CostCalibrator())` (its own
+   library), each flush's queued re-tunes run by `process_retunes`
+   after it (host seconds, entries re-tuned, GO tiles or preferred CDs
+   changed), each (family, class)'s n, factor and drift; the op-bundle
+   and GEMM-bundle windows planned with the calibrated controller beside
+   an uncalibrated one (launches whose chunk, CD or mode differ), the
+   §6.11 QKV choice at batches 1, 8 and 16 with and without it, and one
+   calibrated GEMM-bundle window served and held to the plain version;
+   (b) the fallback ladder — rules whose every p is 0 against no
+   injector on the same requests (same tiles, bitwise-equal results,
+   same launch counts); seeded raise and nan faults over the per-class
+   window [8, 8, 8, 8] and the op-bundle window [1] at 16 slots, every
+   result held to its plain version and the telemetry's faults equal to
+   the injector's log by kind; every attempt raising, so every launch
+   completes on the reference rung, whose kernel launches are printed;
+   and `process_retunes` past the cooldown, whose probes must equal the
+   quarantines.  Every runtime of phases 4, 5, 7 and 8 with no injector
+   must show no fault and no fallback (`check_healthy`);
+9. one JSON line ``{"kernels": [...]}`` and, last, the device line.
 
 Tolerance of every comparison of a GEMM or of partials (float32, kernel
 vs plain version on the same inputs): |kernel − plain| ≤ 2⁻⁷·|plain| +
@@ -183,6 +206,7 @@ from repro_torch.core import (  # noqa: E402
     CLASSES,
     AttentionDesc,
     ConcurrencyController,
+    CostCalibrator,
     GemmDesc,
     GemmRequest,
     GOLibrary,
@@ -242,6 +266,8 @@ from repro_torch.kernels.mamba_scan import (  # noqa: E402
 from repro_torch.kernels.mamba_scan.kernel import decode_residency  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import scan_buffers, scan_chunk  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
+    FaultInjector,
+    FaultRule,
     Runtime,
     RuntimeConfig,
     decode_step_descs,
@@ -395,11 +421,27 @@ def bound(bytes_: int, flops: int, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_healthy(rt: Runtime, label: str) -> None:
+    """A runtime with no fault injector must show no fault and no fallback:
+    the ladder never serves a healthy path, so it cannot hide a kernel."""
+    tele = rt.telemetry
+    if tele.fault_events or tele.fallback_events:
+        raise AssertionError(f"{label}: faults {dict(tele.faults)}, fallbacks "
+                             f"{dict(tele.fallbacks)} with no fault injected")
+
+
 def reset_counts() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
     gemm_kernel.matmul.feeds.update(dict.fromkeys(gemm_kernel.matmul.feeds, 0))
     mamba_scan_fwd.routes.update(dict.fromkeys(mamba_scan_fwd.routes, 0))
+
+
+def take_counts() -> Counter:
+    """The launch counts since `reset_counts`, then `reset_counts`."""
+    counts = +Counter({name: fn.launches for name, fn in LAUNCHERS.items()})
+    reset_counts()
+    return counts
 
 
 def check_feeds(label: str, device) -> dict:
@@ -978,32 +1020,41 @@ def make_weights(cfg, layers: int, gen, device) -> list:
     return out
 
 
-def drive_window(rt: Runtime, cfg, weights: list, batches, gen):
-    """Every tenant submits one decode step of every layer with its own
-    activations, and the runtime drains.  Returns the tickets, the wall
-    time up to the last result being ready, the window's launch records
-    and its launches."""
-    t0 = time.perf_counter()
-    n0 = len(rt.telemetry.groups)
-    tickets = []
+def window_requests(ctrl, cfg, weights: list, batches, gen, device) -> list:
+    """Every tenant's decode step of every layer as (tenant, request), each
+    with its own activations, fused as ``ctrl``'s §6.11 policy decides
+    (the weights on the card are the fused ones the oracle picks)."""
+    out = []
     for wl in weights:
         for ti, batch in enumerate(batches):
-            for r in decode_step_requests(rt.ctrl, cfg, batch):
+            for r in decode_step_requests(ctrl, cfg, batch):
                 d = r.desc
-                a = torch.randn((d.M, d.K), generator=gen, device=rt.device,
+                a = torch.randn((d.M, d.K), generator=gen, device=device,
                                 dtype=torch.bfloat16)
-                tickets.append(rt.submit(
-                    GemmRequest(desc=d, a=a, b=wl[(d.K, d.N)], tag=r.tag),
-                    tenant=f"tenant{ti}"))
+                out.append((f"tenant{ti}",
+                            GemmRequest(desc=d, a=a, b=wl[(d.K, d.N)], tag=r.tag)))
+    return out
+
+
+def drive_window(rt: Runtime, cfg, weights: list, batches, gen, reqs=None):
+    """Every tenant submits one decode step of every layer with its own
+    activations (or the (tenant, request) pairs ``reqs``), and the
+    runtime drains.  Returns the tickets, the wall time up to the last
+    result being ready, the window's launch records and its launches."""
+    t0 = time.perf_counter()
+    n0 = len(rt.telemetry.groups)
+    if reqs is None:
+        reqs = window_requests(rt.ctrl, cfg, weights, batches, gen, rt.device)
+    tickets = [rt.submit(r, tenant=t) for t, r in reqs]
     launches = rt.drain()
     if rt.device.type == "cuda":
         torch.cuda.synchronize()
     return tickets, time.perf_counter() - t0, rt.telemetry.groups[n0:], launches
 
 
-def serve_window(rt: Runtime, cfg, weights: list, batches, gen) -> dict:
+def serve_window(rt: Runtime, cfg, weights: list, batches, gen, reqs=None) -> dict:
     """`drive_window`, then every result held against the plain version."""
-    tickets, wall, recs, launches = drive_window(rt, cfg, weights, batches, gen)
+    tickets, wall, recs, launches = drive_window(rt, cfg, weights, batches, gen, reqs)
     for tk in tickets:
         r = tk.request
         check_close(tk.result, gemm_ref(r.a, r.b), abs_product(r.a, r.b),
@@ -1121,6 +1172,7 @@ def serving_phase(device="cuda", cfg=None, layers=None) -> dict:
     counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
     modes = rt.telemetry.mode_counts()
     print(f"# serving modes {modes}; kernel launches {counts}")
+    check_healthy(rt, "per-class serving")
     check_feeds("per-class serving", device)
     missing = [k for k in PER_CLASS_KERNELS if counts[k] <= 0]
     if missing:
@@ -1134,6 +1186,7 @@ def serving_phase(device="cuda", cfg=None, layers=None) -> dict:
         for batches in SERVING_WINDOWS:
             profile_window(f"window batches {batches}", lambda: drive_window(
                 rt, cfg, weights, batches, gen)[1::2])
+    check_healthy(rt, "per-class serving, profiled windows")
     dynamic_logic_phase(cfg, weights, gen, device)
     return dict(counts=counts, windows=windows, model_gb=model_gb)
 
@@ -1234,6 +1287,7 @@ def predicted_serving(cfg, weights, pred, gen, device) -> int:
             for k in sorted(set(mine) | set(theirs)):
                 print(f"#   class {k}: predictor {run_lengths(mine.get(k, []))} | "
                       f"oracle {run_lengths(theirs.get(k, []))}")
+    check_healthy(rt, "serving through the predictor")
     return differ
 
 
@@ -1492,6 +1546,7 @@ def mixed_phase(device="cuda", cfg=None, layers=None) -> dict:
     print(f"# bundle serving modes {rt.telemetry.mode_counts()}; kernel launches {counts}; "
           f"GEMMs planned by decomposition {plan}")
     check_feeds("bundle serving", device)
+    check_healthy(rt, "bundle serving")
     missing = [k for k in MIXED_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"the bundle path never launched {missing}")
@@ -1518,9 +1573,10 @@ def mixed_phase(device="cuda", cfg=None, layers=None) -> dict:
             rt.set_available(available)
             profile_window(f"bundle window batches {batches} available {available}",
                            lambda: drive_bundles(rt, cfg, weights, batches, gen)[1::2])
+    check_healthy(rt, "bundle serving, profiled windows")
     for w in windows:
         del w["launch_list"]
-    return dict(counts=counts, windows=windows, model_gb=model_gb)
+    return dict(counts=counts, windows=windows, model_gb=model_gb, weights=weights)
 
 
 # -------------------------------------------- attention and scan kernels
@@ -2002,6 +2058,7 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
     print(f"# {cfg.name} op-bundle modes {rt.telemetry.mode_counts()}; kernel launches "
           f"{counts}; members {dict(members)}")
     check_feeds(f"{cfg.name} op-bundle serving", device)
+    check_healthy(rt, f"{cfg.name} op-bundle serving")
     if device == "cuda" and (counts["flash_attention"] != members["flash_attention"]
                              or counts["mamba_scan"] != members["mamba_scan"]):
         raise AssertionError(f"{cfg.name}: attention/scan launches {counts} differ from "
@@ -2037,10 +2094,287 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
             profile_window(f"{cfg.name} op-bundle window batches {batches} available "
                            f"{available}", lambda: drive_op_bundles(
                                rt, cfg, weights, kv, batches, context, gen)[1::2])
+    check_healthy(rt, f"{cfg.name} op-bundle serving, profiled windows")
     for w in windows:
         del w["launch_list"]
     return dict(counts=counts, scan_routes=routes, windows=windows, model_gb=model_gb,
                 kv_gb=kv_gb)
+
+
+# -------------------------------------------------------- self-correction
+# The injected windows' rules (seeded by SEED): per-class launches draw
+# raise and nan faults alike; in the op-bundle window only the attention
+# member does, so a mixed attempt draws at most one injection and the
+# telemetry's faults equal the injector's log by kind (a mixed attempt
+# with two poisoned members fails once).
+CLASS_RULES = (FaultRule("raise", 0.05), FaultRule("nan", 0.05))
+BUNDLE_RULES = (FaultRule("raise", 0.1, family="flash_attention"),
+                FaultRule("nan", 0.1, family="flash_attention"))
+CALIBRATED_BUNDLES = (("op bundle", ([1], 16)), ("op bundle", ([4, 8, 8, 16], 4)),
+                      ("GEMM bundle", ([1], 16)), ("GEMM bundle", ([4, 8, 8, 16], 4)))
+
+
+def entry_picks(lib) -> dict:
+    """Per library entry, what a re-tune could change: its isolated tile,
+    its GO tile per CD and its preferred CD."""
+    return {k: (e.isolated, dict(e.go), e.preferred_cd())
+            for k, e in lib.entries().items()}
+
+
+def shadow_plans(ctrl, cfg, batches, available, device, kind: str) -> list:
+    """(chunk, CD, mode) of every launch a runtime with ``ctrl`` plans for
+    one window of bundles over every layer, executing nothing."""
+    rt = Runtime(ctrl, RuntimeConfig(window_s=0.0), device=device)
+    rt.set_available(available)
+    rows = []
+    for _ in range(cfg.n_layers):
+        for ti, batch in enumerate(batches):
+            descs = (decode_step_op_descs(cfg, batch, OP_CONFIGS[0][1])
+                     if kind == "op bundle" else unfused_descs(cfg, batch))
+            rt.submit([bind_operands(d) for d in descs], tenant=f"tenant{ti}")
+        rows += [(tuple(ln.plan.indices), ln.plan.cd, ln.plan.mode)
+                 for ln in rt.drain()]
+    return rows
+
+
+def calibration_part(cfg, weights, unfused, gen, device) -> Counter:
+    """The per-class windows served twice through a calibrated controller
+    (its own library; the requests fused as the oracle fuses them, since
+    those are the weights on the card), with each flush's queued re-tunes
+    run after it; then the bundle windows planned with the calibrated
+    controller beside the uncalibrated one, the §6.11 QKV choice, and one
+    calibrated bundle window served."""
+    cal = CostCalibrator()
+    ctrl = ConcurrencyController(GOLibrary(), calibrator=cal)
+    oracle = ConcurrencyController(default_library())
+    rt = Runtime(ctrl, RuntimeConfig(window_s=0.0, execute=True), device=device)
+    for batches in SERVING_WINDOWS:
+        for run in (1, 2):
+            reqs = window_requests(oracle, cfg, weights, batches, gen, device)
+            flushes = rt.telemetry.flushes
+            with HostStalls(device) as stalls:
+                w = serve_window(rt, cfg, weights, batches, gen, reqs)
+            queued = rt.pending_retunes()
+            before = entry_picks(ctrl.lib)
+            t0 = time.perf_counter()
+            fresh = rt.process_retunes()
+            secs = time.perf_counter() - t0
+            after = entry_picks(ctrl.lib)
+            changed = sum(before[k] != after[k] for k in before if k in after)
+            print(f"# calibrated window batches {batches} (run {run}): {w['requests']} "
+                  f"requests, launches {w['launches']}, wall {w['wall_s']:.6f} s, device "
+                  f"{w['device_s']:.6f} s; {rt.telemetry.flushes - flushes} flush, "
+                  f"re-tunes queued {queued}; process_retunes {secs * 1e3:.3f} ms "
+                  f"(host), {fresh} entries re-tuned, {changed} GO tiles or preferred "
+                  f"CDs changed")
+            slow = max(rt.telemetry.groups[-len(w["launch_list"]):],
+                       key=lambda g: g.achieved_time_s)
+            print(f"#   host stalls in the window: {stalls}; slowest launch {slow.mode} "
+                  f"{slow.class_key} CD {slow.cd} {slow.achieved_time_s * 1e3:.3f} ms")
+            if slow.achieved_time_s - stalls.gc_s > UNEXPLAINED_S and not stalls.retries:
+                raise AssertionError(f"calibrated window {batches}: a launch took "
+                                     f"{slow.achieved_time_s:.3f} s and no host stall "
+                                     "explains it")
+    check_healthy(rt, "calibrated per-class serving")
+    t0 = time.perf_counter()
+    tracked = len(gc.get_objects())
+    gc.collect()
+    print(f"# a full collection after the calibrated windows: {tracked} objects "
+          f"tracked, {time.perf_counter() - t0:.3f} s (host)")
+    for key, st in cal.to_json()["classes"].items():
+        print(f"#   calibrator {key}: n {st['n']}, factor "
+              f"{math.exp(st['log_factor']):.6g}, drift {st['drift']:.6g}")
+    plain = ConcurrencyController(GOLibrary())
+    for kind, (batches, available) in CALIBRATED_BUNDLES:
+        mine = shadow_plans(ctrl, cfg, batches, available, device, kind)
+        theirs = shadow_plans(plain, cfg, batches, available, device, kind)
+        differ = sum(a != b for a, b in zip(mine, theirs)) + abs(len(mine) - len(theirs))
+        print(f"# calibrated {kind} window batches {batches} available {available}: "
+              f"{differ} of {len(theirs)} launches differ in chunk, CD or mode "
+              f"(calibrated {Counter((c, m) for _, c, m in mine)}, uncalibrated "
+              f"{Counter((c, m) for _, c, m in theirs)})")
+    for batch in (1, 8, 16):
+        (qkv,) = [b for tag, b in decode_step_descs(cfg, batch) if len(b) == 3]
+        got, base = ctrl.plan_shared_input(qkv), plain.plan_shared_input(qkv)
+        print(f"# plan_shared_input QKV at batch {batch}: calibrated {got[0]}, "
+              f"uncalibrated {base[0]} (modeled fused {base[1]:.6g} s, grouped "
+              f"{base[2]:.6g} s; factors fused "
+              f"{ctrl._group_factor([replace(qkv[0], N=sum(d.N for d in qkv))]):.4g}, "
+              f"grouped {ctrl._group_factor(qkv):.4g})")
+    brt = Runtime(ctrl, RuntimeConfig(window_s=0.0, execute=True), device=device)
+    brt.set_available(16)
+    w = mixed_window(brt, cfg, unfused, [1], gen)
+    check_healthy(brt, "calibrated bundle serving")
+    print(f"# calibrated GEMM bundle window batches [1] available 16: {w['requests']} "
+          f"requests, launches {w['launches']}, members {w['members']}, wall "
+          f"{w['wall_s']:.6f} s, device {w['device_s']:.6f} s; every result held to "
+          "the plain version")
+    return take_counts()
+
+
+# A launch of the calibrated windows takes under 4 ms on the card (the
+# slowest seen, a 34816x5120 gate+up); one that takes this much longer
+# than the full collections in its window is not a stall this harness can
+# name, and the calibrator would learn from it.
+UNEXPLAINED_S = 0.1
+
+
+class HostStalls:
+    """What may stall the host inside a `with` block: full (generation 2)
+    garbage collections and their host seconds, and the caching
+    allocator's cudaMalloc calls and retries (a retry is a cudaMalloc that
+    failed, the cached blocks freed and the call made again).  The
+    runtime synchronises after every attempt, so the device is idle when
+    the next attempt's start event is recorded: a host stall before that
+    attempt's last kernel is queued counts as device time."""
+
+    def __init__(self, device):
+        self.device = device
+        self.collections, self.collected, self.gc_s, self._t = 0, 0, 0.0, None
+
+    def _alloc(self) -> tuple:
+        if self.device != "cuda":
+            return (0, 0)
+        st = torch.cuda.memory_stats()
+        return (st.get("num_device_alloc", 0), st.get("num_alloc_retries", 0))
+
+    def _gc(self, phase, info) -> None:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.collections += 1
+            self.collected += info["collected"]
+            self.gc_s += time.perf_counter() - self._t
+
+    def __enter__(self):
+        self._start = self._alloc()
+        gc.callbacks.append(self._gc)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._gc)
+        self.mallocs, self.retries = (b - a for a, b in zip(self._start, self._alloc()))
+
+    def __str__(self) -> str:
+        return (f"{self.collections} full collections ({self.gc_s:.3f} s, "
+                f"{self.collected} objects freed), {self.mallocs} cudaMalloc calls, "
+                f"{self.retries} allocator retries")
+
+
+def ladder_runtime(device, injector=None, available: int = 16) -> Runtime:
+    rt = Runtime(ConcurrencyController(GOLibrary()),
+                 RuntimeConfig(window_s=0.0, execute=True), device=device,
+                 fault_injector=injector)
+    rt.set_available(available)
+    return rt
+
+
+def reconcile(rt: Runtime, label: str) -> None:
+    """The runtime's faults by kind against its injector's log, and what
+    the ladder did."""
+    tele, log = rt.telemetry, rt.fault_injector.log
+    if dict(tele.faults) != dict(Counter(i.kind for i in log)):
+        raise AssertionError(f"{label}: faults {dict(tele.faults)} != injected "
+                             f"{dict(Counter(i.kind for i in log))}")
+    print(f"# {label}: {len(log)} faults injected, faults {dict(tele.faults)}, "
+          f"fallbacks by rung {dict(tele.fallbacks)}, quarantines {tele.quarantines} "
+          f"(evicting {tele.quarantine_evictions} cached plans), library "
+          f"quarantine {sum(len(v) for v in rt.ctrl.lib.quarantined().values())} "
+          "(entry, tile) pairs")
+
+
+def ladder_part(cfg, weights, unfused, gen, device) -> Counter:
+    """(1) Rules whose every p is 0 against no injector on the same
+    requests; (2) seeded raise and nan faults over the per-class window
+    [8, 8, 8, 8] and the op-bundle window [1]; (3) every attempt raising,
+    so every launch completes on the reference rung; (4) the half-open
+    probes past the cooldown.  Returns the kernel launches it made."""
+    total = take_counts()
+    batches = SERVING_WINDOWS[0]
+    oracle = ConcurrencyController(default_library())
+    reqs = window_requests(oracle, cfg, weights, batches, gen, device)
+    runs = []
+    for inj in (None, FaultInjector(tuple(replace(r, p=0.0) for r in CLASS_RULES),
+                                    seed=SEED)):
+        rt = ladder_runtime(device, inj)
+        w = serve_window(rt, cfg, weights, batches, gen, reqs)
+        check_healthy(rt, "per-class window, rules at p = 0")
+        runs.append((w, take_counts()))
+        total += runs[-1][1]
+    (w0, c0), (w1, c1) = runs
+    tiles = [[(ln.plan.mode, ln.plan.tile, ln.plan.tiles) for ln in w["launch_list"]]
+             for w in (w0, w1)]
+    same = all(torch.equal(a.result, b.result)
+               for a, b in zip(w0["tickets"], w1["tickets"], strict=True))
+    if tiles[0] != tiles[1] or c0 != c1 or not same:
+        raise AssertionError("rules at p = 0 changed the window: tiles "
+                             f"{tiles[0] == tiles[1]}, launches {c0} vs {c1}, "
+                             f"bitwise {same}")
+    print(f"# rules at p = 0: the same {len(tiles[0])} launches at the same tiles, "
+          f"bitwise-equal results, kernel launches {dict(c1)} as with no injector")
+
+    kv = make_kv_caches(cfg, len(unfused), [1], OP_CONFIGS[0][1], gen, device)
+    injected = []
+    for label, rules, drive in (
+            ("per-class window [8, 8, 8, 8]", CLASS_RULES,
+             lambda rt: serve_window(rt, cfg, weights, batches, gen, reqs)),
+            ("op-bundle window [1] available 16", BUNDLE_RULES,
+             lambda rt: op_tickets(drive_op_bundles(
+                 rt, cfg, unfused, kv, [1], OP_CONFIGS[0][1], gen)[0]))):
+        rt = ladder_runtime(device, FaultInjector(rules, seed=SEED))
+        drive(rt)
+        reconcile(rt, f"injected {label}")
+        injected.append((label, rt))
+        total += take_counts()
+
+        rt = ladder_runtime(device, FaultInjector((FaultRule("raise", 1.0),),
+                                                  seed=SEED))
+        drive(rt)
+        counts = take_counts()
+        total += counts
+        rungs = Counter(g.fallback for g in rt.telemetry.groups)
+        if set(rungs) != {"reference"}:
+            raise AssertionError(f"{label} at p = 1: launches completed on {rungs}")
+        print(f"# {label}, every attempt raising: {sum(rungs.values())} launches all "
+              f"on the reference rung, which launched (counted from zero) "
+              f"{dict(counts)}; "
+              "every result held to the plain version")
+    for label, rt in injected:
+        q = rt.telemetry.quarantines
+        rt.process_retunes(now=rt.device_free_t + rt.config.quarantine_cooldown_s)
+        if rt.telemetry.probes != q or rt.ctrl.lib.quarantined():
+            raise AssertionError(f"{label}: {rt.telemetry.probes} probes for {q} "
+                                 "quarantines")
+        print(f"# {label}: process_retunes past the cooldown released "
+              f"{rt.telemetry.probes} quarantines as half-open probes")
+    return total
+
+
+def op_tickets(handles) -> None:
+    """Every member of the bundles ``handles`` finished and held to its
+    plain version."""
+    if not all(h.done for h in handles):
+        raise AssertionError("a bundle was left unfinished")
+    check_op_tickets([m for h in handles for m in h.members])
+
+
+def self_correction_phase(cfg, unfused, device="cuda", layers=None) -> None:
+    """The calibrator and the fallback ladder at Qwen3-14B's full width,
+    on phase 5's unfused weights and phase 4's fused weights made again
+    from its seed.  Its launches are counted apart and the counters
+    zeroed after it, so the `kernels` line counts only the serving
+    paths."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    weights = make_weights(cfg, layers or cfg.n_layers, gen, device)
+    reset_counts()
+    counts = calibration_part(cfg, weights, unfused, gen, device)
+    counts += ladder_part(cfg, weights, unfused, gen, device)
+    print(f"# self-correction: {time.perf_counter() - t0:.1f} s (host clock, the "
+          f"phase's checks included); kernel launches of this phase (not in the "
+          f"kernels line) {dict(counts)}")
 
 
 # ------------------------------------------------------------------- main
@@ -2071,6 +2405,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mixed = mixed_phase()
+    self_correction_phase(get_arch("qwen3-14b"), mixed.pop("weights"))
     ops = {}
     for name, context in OP_CONFIGS:
         gc.collect()

@@ -1,7 +1,9 @@
-"""GOLDYLOC core of the port: descriptors, cost model, tuner, GO library,
-measurement harness, concurrency predictor and controller."""
+"""GOLDYLOC core of the port: descriptors, cost model and its calibrator,
+tuner, GO library, measurement harness, concurrency predictor and
+controller."""
 from repro_torch.core.cost_model import (
     DEFAULT_SPEC,
+    CostCalibrator,
     EVAL_COUNTER,
     RC_FRACTIONS,
     TPUSpec,
@@ -52,7 +54,8 @@ from repro_torch.core.tuner import (
 
 __all__ = [
     "AttentionDesc", "CDS", "CLASSES", "CP_OVERHEAD_S", "ConcurrencyController",
-    "DEFAULT_SPEC", "EVAL_COUNTER", "FAMILIES", "FAMILY_TILES", "GOEntry",
+    "CostCalibrator", "DEFAULT_SPEC", "EVAL_COUNTER", "FAMILIES", "FAMILY_TILES",
+    "GOEntry",
     "GOLibrary", "GemmDesc", "GemmRequest", "GroupPlan", "Measurement",
     "Measurer", "OpRequest", "Predictor", "RC_FRACTIONS", "ScanDesc",
     "Schedule", "TPUSpec", "accuracy_by_available", "backend_tag",

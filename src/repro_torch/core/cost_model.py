@@ -22,9 +22,16 @@ broadcast budgets); the scalar functions wrap the same code, so batch
 and scalar results are bitwise equal.  `EVAL_COUNTER` counts every
 (GEMM, tile, budget) evaluation so the runtime's zero-evaluation
 cache-hit path is checkable.
+
+`CostCalibrator` is the reference's online correction of this model
+(`repro/core/cost_model.py:1088-1207`, DESIGN.md §16): per-(family,
+compat-class) EWMAs of log(achieved / modeled), and a drift detector
+that queues a class for re-tuning once per excursion.  Its arithmetic is
+the reference's, float for float.
 """
 from __future__ import annotations
 
+import math
 import threading
 from dataclasses import dataclass
 from typing import Sequence
@@ -652,3 +659,105 @@ def _round_up(a, b):
 
 def _align_eff(dim, mxu):
     return dim / (_cdiv(dim, mxu) * mxu)
+
+
+# --------------------------------------------------- self-calibration (§16)
+@dataclass
+class ClassCalibration:
+    """Per-(family, compat-class) correction state: ``log_factor`` is the
+    EWMA of log(achieved/modeled) (the correction is its exp), ``drift``
+    the EWMA of |log(achieved/modeled)| against the raw model."""
+
+    log_factor: float = 0.0
+    drift: float = 0.0
+    n: int = 0
+
+
+class CostCalibrator:
+    """Online multiplicative correction of the cost model (DESIGN.md §16):
+    per-(family, compat-class) factors fitted from the modeled-vs-achieved
+    ratios the runtime records, so selection can rank candidates by
+    ``factor · modeled_time``.
+
+    Updates are EWMAs in log space; the first sample initialises the
+    state, so a constant bias is recovered at once.  Ratios make every
+    statistic scale-invariant, and one factor applied to a whole class
+    never flips an ordering within it.  `pop_stale` returns the classes
+    whose ``drift`` exceeds ``drift_threshold`` (|log ratio| units: 0.35
+    is a 1.4× gap) and resets their drift, so the caller queues one
+    re-tune per excursion."""
+
+    def __init__(self, alpha: float = 0.2, drift_threshold: float = 0.35):
+        self.alpha = float(alpha)
+        self.drift_threshold = float(drift_threshold)
+        self._state: dict[tuple[str, str], ClassCalibration] = {}
+
+    def update(self, family: str, class_key: str, modeled_s: float,
+               achieved_s: float) -> None:
+        """Fold one observation into the class's state; non-positive and
+        non-finite times carry no ratio and are ignored."""
+        if (modeled_s <= 0 or achieved_s <= 0
+                or not (math.isfinite(modeled_s)
+                        and math.isfinite(achieved_s))):
+            return
+        r = math.log(achieved_s / modeled_s)
+        st = self._state.get((family, class_key))
+        if st is None or st.n == 0:
+            self._state[(family, class_key)] = ClassCalibration(
+                log_factor=r, drift=abs(r), n=1)
+            return
+        a = self.alpha
+        st.log_factor = (1.0 - a) * st.log_factor + a * r
+        st.drift = (1.0 - a) * st.drift + a * abs(r)
+        st.n += 1
+
+    def factor(self, family: str, class_key: str) -> float:
+        """Multiplicative correction of a class; 1.0 until observed."""
+        st = self._state.get((family, class_key))
+        return 1.0 if st is None or st.n == 0 else math.exp(st.log_factor)
+
+    def correct(self, family: str, class_key: str, modeled_s: float) -> float:
+        """``factor · modeled``; ``modeled_s`` itself (the same object) for
+        a class with no observations."""
+        st = self._state.get((family, class_key))
+        if st is None or st.n == 0:
+            return modeled_s
+        return modeled_s * math.exp(st.log_factor)
+
+    def __len__(self) -> int:
+        return len(self._state)
+
+    def stale_classes(self) -> list[tuple[str, str]]:
+        """Classes whose drift EWMA exceeds the threshold, sorted."""
+        return [k for k, st in sorted(self._state.items())
+                if st.drift > self.drift_threshold]
+
+    def pop_stale(self) -> list[tuple[str, str]]:
+        """`stale_classes`, each with its drift reset (its factor kept), so
+        one excursion queues one re-tune."""
+        stale = self.stale_classes()
+        for k in stale:
+            self._state[k].drift = 0.0
+        return stale
+
+    def to_json(self) -> dict:
+        return {
+            "alpha": self.alpha,
+            "drift_threshold": self.drift_threshold,
+            "classes": {
+                f"{fam}|{ck}": {"log_factor": st.log_factor,
+                                "drift": st.drift, "n": st.n}
+                for (fam, ck), st in sorted(self._state.items())
+            },
+        }
+
+    @classmethod
+    def from_json(cls, blob: dict) -> "CostCalibrator":
+        cal = cls(alpha=blob.get("alpha", 0.2),
+                  drift_threshold=blob.get("drift_threshold", 0.35))
+        for key, st in blob.get("classes", {}).items():
+            fam, ck = key.split("|", 1)
+            cal._state[(fam, ck)] = ClassCalibration(
+                log_factor=float(st["log_factor"]),
+                drift=float(st["drift"]), n=int(st["n"]))
+        return cal

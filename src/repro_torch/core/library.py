@@ -12,6 +12,11 @@ the same entries (`results/golib.json` loads into either):
   ``split_k=1``/``stream_k=0``), with a warning that the next `save`
   rewrites the file at v5;
 - a corrupt or wrong-type file warns and leaves the library empty.
+
+The runtime's self-correction edits a live library: `invalidate` drops
+entries so the next `get` or `prewarm` re-tunes them (the drift re-tunes,
+DESIGN.md §16), and `quarantine` bans a GO tile for some entries until
+`release` (the circuit breaker, §18.3).  Quarantine is not saved.
 """
 from __future__ import annotations
 
@@ -19,8 +24,9 @@ import json
 import os
 import threading
 import warnings
+from dataclasses import replace
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, FrozenSet, Optional, Sequence
 
 from repro_torch.core.cost_model import DEFAULT_SPEC, TPUSpec
 from repro_torch.core.gemm_desc import GemmDesc
@@ -51,22 +57,27 @@ class GOLibrary:
         self._entries: Dict[str, GOEntry] = {}
         self._lock = threading.Lock()
         self.loaded_schema: Optional[int] = None
+        # per desc key, the tile keys the circuit breaker has banned; not
+        # persisted: quarantine reflects live failures on this process's
+        # device, not a property of the tuned library
+        self._quarantine: Dict[str, set] = {}
         if self.path and self.path.exists():
             self.load(self.path)
 
     # -------------------------------------------------------------- access
     def get(self, desc) -> GOEntry:
         """GO entry of any ported family: GEMMs take `tune_gemm`, other
-        families `tune_op`."""
+        families `tune_op`.  Entries leave through the quarantine filter
+        (`_sanitize`), so no caller is handed a banned tile."""
         key = desc.key()
         with self._lock:
             e = self._entries.get(key)
-        if e is not None:
-            return e
-        e = (tune_gemm(desc, self.spec) if isinstance(desc, GemmDesc)
-             else tune_op(desc, self.spec))
-        with self._lock:
-            return self._entries.setdefault(key, e)
+        if e is None:
+            e = (tune_gemm(desc, self.spec) if isinstance(desc, GemmDesc)
+                 else tune_op(desc, self.spec))
+            with self._lock:
+                e = self._entries.setdefault(key, e)
+        return self._sanitize(key, e)
 
     def prewarm(self, descs: Sequence) -> int:
         """Tune ahead of traffic: missing GEMMs in ONE `tune_gemm_batch`
@@ -86,6 +97,53 @@ class GOLibrary:
         if missing and self.path:
             self.save()
         return len(missing)
+
+    def invalidate(self, keys: Sequence[str]) -> int:
+        """Drop entries by desc key so the next `get` or `prewarm` re-tunes
+        them; returns the number dropped."""
+        n = 0
+        with self._lock:
+            for k in keys:
+                if self._entries.pop(k, None) is not None:
+                    n += 1
+        return n
+
+    def quarantine(self, keys: Sequence[str], tile_key: str) -> None:
+        """Ban ``tile_key`` for these desc keys: `get` gives the isolated
+        tile in its place and drops its speedup claim, so the oracle's CD
+        stops trusting it, until `release`."""
+        with self._lock:
+            for k in keys:
+                self._quarantine.setdefault(k, set()).add(tile_key)
+
+    def release(self, keys: Sequence[str], tile_key: str) -> None:
+        """Lift a quarantine (the breaker's half-open probe)."""
+        with self._lock:
+            for k in keys:
+                s = self._quarantine.get(k)
+                if s is not None:
+                    s.discard(tile_key)
+                    if not s:
+                        del self._quarantine[k]
+
+    def quarantined(self) -> Dict[str, FrozenSet[str]]:
+        with self._lock:
+            return {k: frozenset(s) for k, s in self._quarantine.items()}
+
+    def _sanitize(self, key: str, e: GOEntry) -> GOEntry:
+        """One entry through the quarantine set: banned GO tiles become the
+        isolated tile and lose their speedup.  The isolated tile itself is
+        never replaced: it is the ladder's legacy rung."""
+        banned = self._quarantine.get(key)
+        if not banned:
+            return e
+        go = {cd: (e.isolated if t.key() in banned else t)
+              for cd, t in e.go.items()}
+        speedup = {cd: s for cd, s in e.speedup.items()
+                   if e.go[cd].key() not in banned}
+        if go == e.go and speedup == e.speedup:
+            return e
+        return replace(e, go=go, speedup=speedup)
 
     def __len__(self) -> int:
         return len(self._entries)

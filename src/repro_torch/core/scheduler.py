@@ -9,23 +9,26 @@ one launch per group: ``grouped`` (identical members), ``ragged``
 (members differing in M) or ``single``.  `plan_mixed` co-schedules a
 heterogeneous bundle (§14): each ``mixed`` group's members are distinct
 GEMMs, each at its own per-CD GO tile.  `plan_shared_input` is the §6.11
-fuse-vs-group policy for GEMMs sharing their input.  Planning is the
-reference's logic unchanged, so both packages produce identical
-`Schedule`s; `execute_schedule` runs one through the port's kernels, a
-``mixed`` group's members at once on CUDA streams.  A bundle's members
-may be of any ported family — GEMMs, flash attention, SSD scans — and
-each runs through its family op (`_run_op`).
+fuse-vs-group policy for GEMMs sharing their input.  With a
+`CostCalibrator` (§16) the controller ranks `plan_mixed`'s chunkings and
+`plan_shared_input`'s choice by calibrated times, while every plan keeps
+its raw modeled times.  Planning is the reference's logic unchanged, so
+both packages produce identical `Schedule`s; `execute_schedule` runs one
+through the port's kernels, a ``mixed`` group's members at once on CUDA
+streams.  A bundle's members may be of any ported family — GEMMs, flash
+attention, SSD scans — and each runs through its family op (`_run_op`).
 """
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.cost_model import group_time, isolated_time
+from repro_torch.core.cost_model import CostCalibrator, group_time, isolated_time
 from repro_torch.core.gemm_desc import TORCH_DTYPES, GemmDesc
 from repro_torch.core.library import GOLibrary, default_library
 from repro_torch.core.op_desc import family_of
@@ -168,16 +171,20 @@ class ConcurrencyController:
     """Plans launches at each desc's preferred CD: the predictor's when
     one is given, else the library oracle's (the CD with the largest
     modeled speedup in its GO entry).  Modeled times use the library's
-    spec."""
+    spec.  A ``calibrator`` corrects modeled times at selection only
+    (`_group_factor`): plans keep raw modeled times, so the ratios the
+    runtime feeds back stay raw; ``None`` plans exactly as without one."""
 
     def __init__(self, library: GOLibrary | None = None,
-                 predictor: Predictor | None = None, max_cd: int = 16):
+                 predictor: Predictor | None = None, max_cd: int = 16,
+                 calibrator: CostCalibrator | None = None):
         # `library or default_library()` would discard an empty library
         # (its __len__ makes it falsy) — compare to None.
         self.lib = library if library is not None else default_library()
         self.predictor = predictor
         self.spec = self.lib.spec
         self.max_cd = max_cd
+        self.calibrator = calibrator
         # Dispatch-path memos: CD decisions and feature vectors per desc
         # key; invalidated when the library, spec or predictor changes.
         self._cd_cache: dict = {}
@@ -214,6 +221,34 @@ class ConcurrencyController:
             cd = min(self.lib.get(desc).preferred_cd(), floor)
         self._cd_cache[ck] = cd
         return cd
+
+    # -------------------------------------------------------- calibration
+    def _group_factor(self, descs) -> float:
+        """FLOPs-weighted geometric mean of the members' per-(family,
+        compat-class) correction factors: the multiplier calibrated
+        selection applies to a candidate group's modeled time.  1.0 with
+        no calibrator or no observations."""
+        cal = self.calibrator
+        if cal is None:
+            return 1.0
+        num = den = 0.0
+        for d in descs:
+            f = cal.factor(family_of(d), compat_key(d))
+            w = float(d.flops)
+            if f != 1.0:
+                num += w * math.log(f)
+            den += w
+        if num == 0.0 or den == 0.0:
+            return 1.0
+        return math.exp(num / den)
+
+    def _corrected_time(self, groups: Sequence["GroupPlan"], descs) -> float:
+        """Calibrated total time of ``groups`` over ``descs``, a selection
+        metric only; with no calibrator every factor is 1.0, and the sum is
+        the raw total, bitwise."""
+        return sum(
+            g.modeled_time_s * self._group_factor([descs[i] for i in g.indices])
+            for g in groups)
 
     # --------------------------------------------------------------- plan
     def plan_group(
@@ -281,7 +316,9 @@ class ConcurrencyController:
         by ``ranks``, lower = more urgent) is modeled and the fastest wins;
         each chunk of two or more is one ``mixed`` group whose members run
         at their own GO tile for the chunk's CD, a chunk of one a
-        ``single`` launch at its isolated tile."""
+        ``single`` launch at its isolated tile.  With a calibrator the
+        chunkings are ranked by calibrated time; the winner keeps its raw
+        modeled times."""
         sched = Schedule(cp_overhead_s=CP_OVERHEAD_S)
         n = len(descs)
         if n == 0:
@@ -317,7 +354,7 @@ class ConcurrencyController:
         sizes = sorted({c for c in CLASSES if c <= top} | {1}
                        | ({top} if top > 1 else set()))
         sched.groups = min((chunk_groups(s) for s in sizes),
-                           key=lambda gs: sum(g.modeled_time_s for g in gs))
+                           key=lambda gs: self._corrected_time(gs, descs))
         return sched
 
     def plan_shared_input(
@@ -325,14 +362,18 @@ class ConcurrencyController:
     ) -> tuple[str, float, float]:
         """§6.11 policy for GEMMs sharing A and K: one wide fused GEMM or a
         concurrent group, whichever models faster.  Returns (choice,
-        fused_time, grouped_time)."""
+        fused_time, grouped_time), the times raw; with a calibrator the
+        choice is made on the corrected pair (the fused GEMM is in another
+        compat class than the members, so a correction can flip it)."""
         head = descs[0]
         fused_desc = replace(head, N=sum(d.N for d in descs))
         fused_tile = self.lib.get(fused_desc).isolated
         t_fused = isolated_time(fused_desc, fused_tile, self.spec)
-        t_group = self.plan(descs).modeled_time_s
-        choice = "fuse" if t_fused <= t_group else "group"
-        return (choice, t_fused, t_group)
+        sched = self.plan(descs)
+        fused_c = t_fused * self._group_factor([fused_desc])
+        choice = ("fuse" if fused_c <= self._corrected_time(sched.groups, descs)
+                  else "group")
+        return (choice, t_fused, sched.modeled_time_s)
 
     # ------------------------------------------------------------ execute
     def execute(self, requests: Sequence[GemmRequest]) -> List[torch.Tensor]:
@@ -412,6 +453,17 @@ def _member_streams(device: torch.device, n: int) -> List[torch.cuda.Stream]:
         pool = _STREAMS[device] = [torch.cuda.Stream(device)
                                    for _ in range(max(CLASSES))]
     return [pool[j % len(pool)] for j in range(n)]
+
+
+def join_member_streams(device: torch.device) -> None:
+    """Make ``device``'s current stream wait for everything queued on its
+    member streams.  After a mixed launch that raised part-way, the
+    members already launched may still write buffers that were freed on
+    the launching stream, whose allocator may hand them out again; the
+    fallback ladder calls this before its next attempt."""
+    launching = torch.cuda.current_stream(device)
+    for s in _STREAMS.get(device, ()):
+        launching.wait_stream(s)
 
 
 def _run_mixed(reqs: Sequence[GemmRequest],

@@ -1,4 +1,5 @@
 from repro_torch.kernels.gemm.kernel import (
+    KernelLaunchError,
     card_geometry,
     fixup_runs,
     matmul,
@@ -21,7 +22,7 @@ from repro_torch.kernels.gemm.ref import (
 )
 
 __all__ = [
-    "GemmBuffers", "TileConfig", "card_geometry", "fixup_runs", "gemm", "gemm_buffers",
+    "GemmBuffers", "KernelLaunchError", "TileConfig", "card_geometry", "fixup_runs", "gemm", "gemm_buffers",
     "gemm_ref", "gemm_stream_k_ref", "matmul", "splitk_matmul", "splitk_partials_ref",
     "splitk_reduce_ref", "stream_k_fixup_ref", "stream_k_geometry", "stream_k_matmul",
     "stream_k_matmul_ref", "stream_k_partials_ref", "stream_k_workgroups",

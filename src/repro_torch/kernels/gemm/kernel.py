@@ -289,10 +289,20 @@ def output(out, shape, dtype, device, what: str) -> torch.Tensor:
     return out
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel launch (or a launcher's occupancy query) whose CUDA status
+    is not 0: the one failure of the kernels themselves that the
+    runtime's fallback ladder handles.  Refusals of a call (a shape, a
+    split or a layout a kernel does not take) and build failures are
+    other errors, which the ladder lets through."""
+
+
 def raise_on_error(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """The launch check of every kernel family: raise `KernelLaunchError`
+    naming ``what`` unless ``code`` (a CUDA status) is 0."""
     if code != 0:
         msg = lib.repro_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+        raise KernelLaunchError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
 def _stream(device: torch.device) -> int:

@@ -1,4 +1,14 @@
-"""Online concurrent-GEMM serving runtime of the port."""
+"""Online concurrent-GEMM serving runtime of the port, with its fallback
+ladder, fault injection and quarantine."""
+from repro_torch.runtime.faults import (
+    CircuitBreaker,
+    FaultInjector,
+    FaultRule,
+    InjectedFault,
+    LaunchFault,
+    LaunchStall,
+    NonFiniteOutput,
+)
 from repro_torch.runtime.integration import (
     decode_step_descs,
     decode_step_op_descs,
@@ -8,7 +18,6 @@ from repro_torch.runtime.integration import (
 from repro_torch.runtime.runtime import (
     MIXED_CLASS,
     Launch,
-    NonFiniteOutput,
     Runtime,
     RuntimeConfig,
     Ticket,
@@ -17,8 +26,9 @@ from repro_torch.runtime.runtime import (
 from repro_torch.runtime.telemetry import GroupRecord, Telemetry
 
 __all__ = [
-    "MIXED_CLASS", "GroupRecord", "Launch", "NonFiniteOutput", "Runtime",
-    "RuntimeConfig", "Telemetry", "Ticket", "decode_step_descs",
-    "decode_step_op_descs", "decode_step_requests",
+    "MIXED_CLASS", "CircuitBreaker", "FaultInjector", "FaultRule", "GroupRecord",
+    "InjectedFault", "Launch", "LaunchFault", "LaunchStall",
+    "NonFiniteOutput", "Runtime", "RuntimeConfig", "Telemetry", "Ticket",
+    "decode_step_descs", "decode_step_op_descs", "decode_step_requests",
     "prewarm_decode", "resolve_device",
 ]

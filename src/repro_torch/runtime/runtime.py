@@ -17,14 +17,45 @@
   each launch also runs through the kernels.
 - `drain()` force-flushes until the queues are empty.
 
-Two departures from the reference.  There is no fallback ladder: a
-launch that raises, or whose output is not finite, raises to the caller
-(the ladder, fault injection and quarantine are later items of the
-port).  And an executed launch's achieved time is device time: on the
-card it is read from CUDA events after a synchronise, since the host
-clock after an asynchronous launch would time only the enqueue.  A
-``mixed`` launch's time runs from its fork onto the member streams to
-its join.  Slicing, EDF ranks and graph submission are not ported.
+The runtime corrects itself online, as the reference does:
+
+- with a `CostCalibrator` on the controller, every launch that completed
+  on its planned rung feeds its class's modeled-vs-achieved ratio
+  (`_feed_calibration`; bundle launches do not, a mixed group's time
+  belonging to no one class), and classes that drift are queued for a
+  re-tune, which `process_retunes` runs between traffic;
+- every executed launch goes down the fallback ladder until it completes
+  (`_execute_resilient`): the planned schedule, ``max_retries`` retries,
+  the group at its members' isolated tiles (legacy), then the reference
+  rung; a `FaultInjector` can make launches fail on purpose, and a tile
+  that fails ``quarantine_strikes`` times in a row is quarantined in the
+  library until a probe after ``quarantine_cooldown_s``.
+
+Departures from the reference:
+
+- An executed launch's achieved time is device time: on the card it is
+  read from CUDA events around each attempt after a synchronise, since
+  the host clock after an asynchronous launch would time only the
+  enqueue.  A ``mixed`` launch's time runs from its fork onto the member
+  streams to its join.  It is the time of the attempt that completed.
+- The reference rung is a schedule of one ``single`` group per member,
+  at its own entry's isolated tile, run in order on the launching stream
+  by `execute_schedule` itself: the hand-written kernels on the card
+  (the plain versions on the CPU, as everywhere in the port).  The
+  reference's runs XLA's reference ops (``force_ref``), every member at
+  the plan's first tile.  The injector never touches the rung and its
+  output is not vetoed for non-finite values.
+- The ladder handles faults, not refusals: it catches only `LaunchFault`
+  (injected faults, stalls, non-finite outputs) and `KernelLaunchError`
+  (a launch whose CUDA status is not 0), where the reference catches any
+  exception.  A refused call (a shape, split or layout a kernel does not
+  take), an unported family and a failed build raise at once, with no
+  strike.  A sticky CUDA error fails every rung and raises from the
+  reference rung.
+
+Slicing, EDF ranks, graph submission and meshes are not ported, nor the
+parts of these functions that serve them (the admission estimate cache,
+`set_mesh`, graph completion).
 """
 from __future__ import annotations
 
@@ -49,6 +80,15 @@ from repro_torch.core.scheduler import (
     Schedule,
     compat_key,
     execute_schedule,
+    join_member_streams,
+)
+from repro_torch.kernels.gemm.kernel import KernelLaunchError
+from repro_torch.runtime.faults import (
+    CircuitBreaker,
+    FaultInjector,
+    LaunchFault,
+    NonFiniteOutput,
+    fault_kind,
 )
 from repro_torch.runtime.telemetry import GroupRecord, Telemetry
 
@@ -61,15 +101,15 @@ Signature = Tuple[Tuple[str, ...], int]
 MIXED_CLASS = "mixed!"
 
 
-class NonFiniteOutput(RuntimeError):
-    """An executed launch produced a NaN or an infinity."""
-
-
 @dataclass
 class RuntimeConfig:
     window_s: float = 2e-3          # batching window before a class is ripe
     plan_cache_capacity: int = 512  # LRU entries (queue signatures)
     execute: bool = False           # run launches through the kernels
+    # The fallback ladder; the healthy path is the same whatever they are.
+    max_retries: int = 1            # same-plan retries before re-planning
+    quarantine_strikes: int = 3     # consecutive failures → quarantine
+    quarantine_cooldown_s: float = 0.5   # then a half-open probe
 
 
 @dataclass
@@ -120,6 +160,10 @@ class Launch:
     cache_hit: bool
     start_t: float = 0.0
     end_t: float = 0.0
+    # the fallback rung that completed the launch (None: as planned) and
+    # the modeled device time its failed attempts took
+    fallback: Optional[str] = None
+    penalty_s: float = 0.0
 
 
 class _ClassQueue:
@@ -161,12 +205,28 @@ class Runtime:
         config: RuntimeConfig | None = None,
         clock=time.monotonic,
         device="cuda",
+        fault_injector: FaultInjector | None = None,
     ):
         self.device = resolve_device(device)
         self.ctrl = controller or ConcurrencyController()
         self.config = config or RuntimeConfig()
         self.telemetry = Telemetry()
         self.clock = clock
+        # The chaos layer (None: the executor is `execute_schedule`
+        # itself) and the per-(family, class, tile) circuit breaker, whose
+        # time is the modeled launch timeline.
+        self.fault_injector = fault_injector
+        self._exec_fn = (fault_injector.wrap(execute_schedule)
+                         if fault_injector is not None else execute_schedule)
+        self.breaker = CircuitBreaker(
+            strikes=self.config.quarantine_strikes,
+            cooldown_s=self.config.quarantine_cooldown_s)
+        self._quarantined_descs: Dict[Tuple[str, str, str], List[str]] = {}
+        # Calibration: up to four descs per compatibility class (to turn a
+        # drifting class key back into descriptors to re-tune) and the
+        # queued re-tunes `process_retunes` runs.
+        self._class_descs: Dict[str, Dict[str, GemmDesc]] = {}
+        self._retune: List[Tuple[str, str]] = []
         # available slots: CD_exec = min(CD_preferred, available); part of
         # the plan-cache key
         self.available = self.ctrl.max_cd
@@ -355,7 +415,9 @@ class Runtime:
         for launch in launches:
             launch.start_t = t
             achieved = self._execute(launch) if self.config.execute else None
-            t += launch.plan.modeled_time_s
+            # failed attempts take modeled device time too; ``penalty_s``
+            # is 0.0 on the healthy path, so its timeline is unchanged
+            t += launch.plan.modeled_time_s + launch.penalty_s
             launch.end_t = t
             for ticket in launch.tickets:
                 ticket.done_t = launch.end_t
@@ -378,9 +440,12 @@ class Runtime:
                 modeled_time_s=launch.plan.modeled_time_s,
                 achieved_time_s=achieved,
                 cache_hit=launch.cache_hit,
+                fallback=launch.fallback,
             ))
+            self._feed_calibration(launch, achieved)
         if launches:
             self.device_free_t = t
+        self._queue_stale_retunes()
         self.telemetry.record_flush_fastpath(
             EVAL_COUNTER.evals - evals0,
             self.telemetry.sig_resorts - resorts0,
@@ -394,6 +459,72 @@ class Runtime:
         while self.pending():
             out += self.flush(now=cur, force=True)
         return out
+
+    # -------------------------------------------------- calibration (§16)
+    def _feed_calibration(self, launch: Launch,
+                          achieved: Optional[float]) -> None:
+        """Fold one launch's modeled-vs-achieved ratio into the
+        controller's calibrator: class launches only (a mixed group's
+        time belongs to no one class), and only a launch that completed
+        on its planned rung (a fallback's time is not the planned
+        kernel's).  No cost-model evaluation."""
+        cal = self.ctrl.calibrator
+        if cal is None or launch.class_key == MIXED_CLASS:
+            return
+        descs = self._class_descs.setdefault(launch.class_key, {})
+        for tk in launch.tickets:
+            if len(descs) >= 4 and tk.desc.key() not in descs:
+                continue
+            descs[tk.desc.key()] = tk.desc
+        if achieved is None or launch.fallback is not None:
+            return
+        cal.update(family_of(launch.tickets[0].desc), launch.class_key,
+                   launch.plan.modeled_time_s, achieved)
+
+    def _queue_stale_retunes(self) -> None:
+        """Queue, once per excursion, every class whose drift crossed the
+        calibrator's threshold (`CostCalibrator.pop_stale`)."""
+        cal = self.ctrl.calibrator
+        if cal is None:
+            return
+        for fam_ck in cal.pop_stale():
+            if fam_ck not in self._retune:
+                self._retune.append(fam_ck)
+
+    def pending_retunes(self) -> int:
+        return len(self._retune)
+
+    def process_retunes(self, now: float | None = None) -> int:
+        """Run the queued drift re-tunes, between traffic, never inside a
+        flush: invalidate the stale classes' library entries, re-tune
+        them in one `GOLibrary.prewarm` sweep, and drop every plan and
+        memo derived from them.  Returns the number of re-tuned entries.
+
+        Also the half-open probe point: quarantines whose cooldown has
+        elapsed by ``now`` (modeled-timeline seconds; default the clock)
+        are released, and their tiles may be planned again."""
+        fresh = 0
+        if self._retune:
+            descs: Dict[str, GemmDesc] = {}
+            for _, ck in self._retune:
+                descs.update(self._class_descs.get(ck, {}))
+            self._retune.clear()
+            if descs:
+                self.ctrl.lib.invalidate(list(descs))
+                fresh = self.ctrl.lib.prewarm(list(descs.values()))
+                self.ctrl.invalidate_caches()
+                self.invalidate_plans()
+        if self.breaker.active:
+            now = self.clock() if now is None else now
+            for key in self.breaker.release_due(now):
+                keys = self._quarantined_descs.pop(key, [])
+                self.ctrl.lib.release(keys, key[2])
+                if keys:
+                    self.ctrl.lib.invalidate(keys)
+                self.ctrl.invalidate_caches()
+                self.invalidate_plans()
+                self.telemetry.record_probe()
+        return fresh
 
     # ---------------------------------------------------------- internals
     def _plan_for_keys(self, keys: tuple, descs_fn, planner=None
@@ -421,31 +552,141 @@ class Runtime:
         return sorted(descs, key=_canonical_order)
 
     def _execute(self, launch: Launch) -> float:
-        """Run one launch through the kernels; returns its device time in
-        seconds (host time on the CPU)."""
+        """Run one launch down the fallback ladder; returns the device time
+        in seconds (host time on the CPU) of the attempt that completed."""
         reqs = [t.request for t in launch.tickets]
         mini = Schedule(groups=[replace(
             launch.plan, indices=list(range(len(reqs))))])
+        outs, achieved = self._execute_resilient(reqs, mini, launch)
+        for ticket, out in zip(launch.tickets, outs):
+            ticket.result = out
+        return achieved
+
+    # -------------------------------------------- fallback ladder (§18.2)
+    def _execute_resilient(self, reqs, mini: Schedule, launch: Launch):
+        """Run one launch down the ladder until it completes: the planned
+        schedule, ``max_retries`` retries of it, the group at its members'
+        isolated tiles (legacy), then the reference rung — each member
+        alone at its isolated tile, in order, on the launching stream,
+        never injected, with no finiteness veto.  Only `LaunchFault` and
+        `KernelLaunchError` are caught; any other error propagates at
+        once.  Every failed attempt records its fault, strikes the
+        (family, class, tile) triples it used (the K-th consecutive
+        strike quarantines the tile) and adds one ``modeled_time_s`` of
+        penalty to the launch.  A failure of the reference rung raises.
+        Returns the outputs and the completed attempt's time."""
+        plan = launch.plan
+        n = len(reqs)
+        planned_tiles = (plan.tiles if plan.mode == "mixed" and plan.tiles
+                         else [plan.tile] * n)
+        iso = None
+        rungs = (["planned"] + ["retry"] * max(0, int(self.config.max_retries))
+                 + ["legacy", "reference"])
+        failures = 0
+        for rung in rungs:
+            if rung in ("planned", "retry"):
+                sched, tiles = mini, planned_tiles
+            else:
+                iso = iso or [self.ctrl.lib.get(r.desc).isolated for r in reqs]
+                if rung == "legacy":
+                    sched, tiles = Schedule(groups=[replace(
+                        plan, indices=list(range(n)), tile=iso[0],
+                        tiles=iso if plan.mode == "mixed" else None)]), iso
+                else:
+                    sched, tiles = Schedule(groups=[
+                        GroupPlan(indices=[i], cd=1, tile=iso[i], mode="single",
+                                  modeled_time_s=0.0) for i in range(n)]), None
+            try:
+                outs, achieved = self._attempt(reqs, sched, rung == "reference")
+            except (LaunchFault, KernelLaunchError) as exc:
+                self.telemetry.record_fault(fault_kind(exc))
+                failures += 1
+                if tiles is not None:
+                    self._strike(reqs, tiles, now=launch.start_t)
+                if rung == "reference":
+                    raise
+                if self.device.type == "cuda":
+                    join_member_streams(self.device)
+                continue
+            if rung != "planned":
+                launch.fallback = rung
+                launch.penalty_s = failures * plan.modeled_time_s
+                self.telemetry.record_fallback(rung)
+            elif self.breaker.active:
+                # a healthy launch on a watched tile resets its count
+                for r, tile in zip(reqs, planned_tiles):
+                    self.breaker.succeed(family_of(r.desc), compat_key(r.desc),
+                                         tile.key())
+            return outs, achieved
+        raise AssertionError("unreachable: the reference rung returns or raises")
+
+    def _attempt(self, reqs, sched: Schedule, reference: bool):
+        """One attempt: execute (through the chaos layer when injecting,
+        but on the reference rung), wait for it, and veto a non-finite
+        output but on the reference rung.  Returns the outputs and the
+        attempt's device time (host time on the CPU)."""
+        run = execute_schedule if reference else self._exec_fn
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            outs = execute_schedule(reqs, mini)
+            outs = run(reqs, sched)
             end.record()
             end.synchronize()
             achieved = start.elapsed_time(end) * 1e-3
         else:
             t0 = time.perf_counter()
-            outs = execute_schedule(reqs, mini)
+            outs = run(reqs, sched)
             achieved = time.perf_counter() - t0
-        for o in outs:
-            if not bool(torch.isfinite(o).all()):
-                raise NonFiniteOutput(
-                    f"{launch.plan.mode} launch at tile {launch.plan.tile.key()} "
-                    "produced non-finite output")
-        for ticket, out in zip(launch.tickets, outs):
-            ticket.result = out
-        return achieved
+        if not reference:
+            for o in outs:
+                if not bool(torch.isfinite(o).all()):
+                    raise NonFiniteOutput(
+                        f"{sched.groups[0].mode} launch at tile "
+                        f"{sched.groups[0].tile.key()} produced non-finite output")
+        return outs, achieved
+
+    def _strike(self, reqs, tiles, now: float) -> None:
+        """Charge one failed attempt to every distinct (family, class,
+        tile) it used; quarantine those that reach K strikes."""
+        targets: Dict[Tuple[str, str, str], set] = {}
+        for r, tile in zip(reqs, tiles):
+            key = (family_of(r.desc), compat_key(r.desc), tile.key())
+            targets.setdefault(key, set()).add(r.desc.key())
+        for (fam, ck, tk), desc_keys in targets.items():
+            if self.breaker.strike(fam, ck, tk, now):
+                self._quarantine_entry(fam, ck, tk, desc_keys)
+
+    def _quarantine_entry(self, family: str, class_key: str, tile_key: str,
+                          desc_keys) -> None:
+        """The K-th strike's side effects, once per quarantine: ban the
+        tile in the library, drop the tuned entries (their re-tune sees
+        the ban), evict every cached plan that uses the tile, and clear
+        the controller's memos."""
+        keys = sorted(desc_keys)
+        self._quarantined_descs[(family, class_key, tile_key)] = keys
+        self.ctrl.lib.quarantine(keys, tile_key)
+        self.ctrl.lib.invalidate(keys)
+        evicted = self._evict_plans_using(tile_key)
+        self.ctrl.invalidate_caches()
+        self.telemetry.record_quarantine(evicted_plans=evicted)
+
+    def _evict_plans_using(self, tile_key: str) -> int:
+        """Drop every cached schedule with a group (or a mixed member) at
+        ``tile_key``: a poisoned plan must not be replayed from a hit."""
+        doomed = [
+            sig for sig, sched in self._plan_cache.items()
+            if any(gp.tile.key() == tile_key
+                   or (gp.tiles is not None
+                       and any(t.key() == tile_key for t in gp.tiles))
+                   for gp in sched.groups)
+        ]
+        for sig in doomed:
+            del self._plan_cache[sig]
+        return len(doomed)
+
+    def invalidate_plans(self) -> None:
+        self._plan_cache.clear()
 
     @property
     def plan_cache_size(self) -> int:

@@ -1,7 +1,8 @@
 """Serving-runtime telemetry (`repro/runtime/telemetry.py`), for the
 parts of the runtime the port carries: per-launch concurrency degree and
-mode, modeled vs achieved time, plan-cache effectiveness, queue depths
-and per-tenant latency.  Plain Python, safe inside the dispatch path.
+mode, modeled vs achieved time, plan-cache effectiveness, queue depths,
+per-tenant latency, and the fallback ladder's faults, fallbacks,
+quarantines and probes.  Plain Python, safe inside the dispatch path.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ class GroupRecord:
     modeled_time_s: float
     achieved_time_s: Optional[float] = None   # device time when executed
     cache_hit: bool = False
+    # the fallback rung that completed the launch: None for the planned
+    # schedule, else "retry" | "legacy" | "reference"
+    fallback: Optional[str] = None
 
     @property
     def model_error(self) -> Optional[float]:
@@ -51,6 +55,15 @@ class Telemetry:
     sig_resorts: int = 0
     flush_sig_resorts: int = 0
     tenant_lat: Dict[str, List[float]] = field(default_factory=dict)
+    # The fallback ladder: failed launch attempts by kind ("raise" |
+    # "nan" | "stall" | "error"), completions by fallback rung,
+    # quarantines with the cached plans they evicted, and half-open
+    # probes.  They reconcile with the `FaultInjector`'s log.
+    faults: Counter = field(default_factory=Counter)
+    fallbacks: Counter = field(default_factory=Counter)
+    quarantines: int = 0
+    quarantine_evictions: int = 0
+    probes: int = 0
 
     # ------------------------------------------------------------- record
     def record_submit(self, n: int = 1) -> None:
@@ -88,6 +101,32 @@ class Telemetry:
     def record_latency(self, tenant: str, latency_s: float) -> None:
         self.completed += 1
         self.tenant_lat.setdefault(tenant, []).append(latency_s)
+
+    def record_fault(self, kind: str) -> None:
+        """One failed launch attempt, before any fallback."""
+        self.faults[kind] += 1
+
+    def record_fallback(self, rung: str) -> None:
+        """One launch completed by the fallback rung ``rung``."""
+        self.fallbacks[rung] += 1
+
+    def record_quarantine(self, evicted_plans: int = 0) -> None:
+        """The breaker quarantined one (family, class, tile), evicting
+        ``evicted_plans`` cached plans."""
+        self.quarantines += 1
+        self.quarantine_evictions += evicted_plans
+
+    def record_probe(self, n: int = 1) -> None:
+        """Half-open probes: quarantines released after their cooldown."""
+        self.probes += n
+
+    @property
+    def fault_events(self) -> int:
+        return sum(self.faults.values())
+
+    @property
+    def fallback_events(self) -> int:
+        return sum(self.fallbacks.values())
 
     # ------------------------------------------------------------ derive
     def cache_hit_rate(self) -> float:
@@ -166,6 +205,11 @@ class Telemetry:
             "queue_depths": self.queue_depth_histogram(),
             "class_ratios": self.class_ratios(),
             "tenants": self.tenant_percentiles(),
+            "faults": dict(self.faults),
+            "fallbacks": dict(self.fallbacks),
+            "quarantines": self.quarantines,
+            "quarantine_evictions": self.quarantine_evictions,
+            "probes": self.probes,
         }
 
 

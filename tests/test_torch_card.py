@@ -58,15 +58,30 @@ on a second run.  A T = 2 call still takes the chunk loop.
 GEMM tolerance (as in `chip_smoke.py`): |kernel − plain| ≤ 2⁻⁷·|plain|
 (bf16 outputs only: one rounding each) + 2⁻¹⁶·|A|·|B| (f32 summation
 order over K).
+
+The runtime's fallback ladder on the card: a mixed full-width Qwen3-14B
+bundle under injected raise and nan faults completes bitwise equal to the
+fault-free run (integer-valued operands, every sum exact), and its
+reference rung runs each member through the hand-written kernels — the
+launch counters rise, and every plain version, made to raise, is never
+entered.
 """
 import pytest
 import torch
 
+import repro_torch.kernels.flash_attention.ops as fops
+import repro_torch.kernels.gemm.ops as gops
+import repro_torch.kernels.grouped_gemm.ops as ggops
+from repro_torch.configs import get_arch
 from repro_torch.core import (
     AttentionDesc,
+    ConcurrencyController,
     GemmDesc,
+    GemmRequest,
+    GOLibrary,
     Measurer,
     backend_tag,
+    bind_operands,
     tune_gemm,
     tune_op,
 )
@@ -102,6 +117,14 @@ from repro_torch.kernels.grouped_gemm import grouped_gemm_ref, ragged_gemm_ref
 from repro_torch.kernels.grouped_gemm import kernel as ggk
 from repro_torch.kernels.mamba_scan import mamba_scan_fwd, ssd_chunk_ref
 from repro_torch.kernels.mamba_scan.kernel import decode_residency
+from repro_torch.runtime import (
+    FaultInjector,
+    FaultRule,
+    Runtime,
+    RuntimeConfig,
+    decode_step_descs,
+    decode_step_op_descs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -732,3 +755,87 @@ def test_measurer_times_launches_on_the_card(card, desc):
         m = mzr.measure_group(desc, entry.tile_for_cd(cd), cd)
         assert m.finite and m.hangs == 0 and m.n >= 3, (cd, m)
         assert m.backend == mzr.backend
+
+
+# ---------------------------------------------------------- fallback ladder
+def _qwen_bundle(card, seed: int, batch: int = 4, context: int = 0):
+    """One layer of Qwen3-14B's decode bundle at full width: its seven
+    unfused GEMMs with integer-valued bf16 operands (every f32 sum exact,
+    so every rung and tile gives the same bits), and with ``context`` the
+    attention read over a random KV cache of that length."""
+    cfg = get_arch("qwen3-14b")
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def ints(*shape):
+        return torch.randint(-4, 5, shape, generator=g, device=card).to(torch.bfloat16)
+
+    reqs = [GemmRequest(desc=d, a=ints(d.M, d.K), b=ints(d.K, d.N))
+            for _, bundle in decode_step_descs(cfg, batch) for d in bundle]
+    if context:
+        (d,) = [d for d in decode_step_op_descs(cfg, batch, context)
+                if d.family == "flash_attention"]
+        reqs.append(bind_operands(d, tuple(
+            torch.randn(s, generator=g, device=card).to(torch.bfloat16)
+            for s in ((d.B, d.Hq, d.Sq, d.D), (d.B, d.Hkv, d.Skv, d.D),
+                      (d.B, d.Hkv, d.Skv, d.D)))))
+    return reqs
+
+
+def _serve_bundle(card, reqs, injector=None, **cfg):
+    rt = Runtime(ConcurrencyController(GOLibrary()),
+                 RuntimeConfig(window_s=0.0, execute=True, **cfg), device=card,
+                 fault_injector=injector)
+    handle = rt.submit(reqs)
+    launches = rt.drain()
+    torch.cuda.synchronize()
+    assert handle.done
+    return rt, [m.result for m in handle.members], launches
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_ladder_on_a_mixed_qwen3_bundle_equals_the_fault_free_run(card, seed):
+    """Injected raise and nan faults on a mixed full-width bundle: every
+    member completes on some rung, bitwise equal to the fault-free run
+    (exact integer sums), and the faults reconcile with the log."""
+    reqs = _qwen_bundle(card, seed)
+    _, want, launches = _serve_bundle(card, reqs)
+    assert any(ln.plan.mode == "mixed" for ln in launches)
+    inj = FaultInjector((FaultRule("raise", 0.2), FaultRule("nan", 0.2)), seed=seed)
+    rt, got, _ = _serve_bundle(card, reqs, inj, quarantine_strikes=2)
+    for g_, w in zip(got, want, strict=True):
+        assert torch.equal(g_, w)
+    assert inj.log and 0 < rt.telemetry.fault_events <= len(inj.log)
+    assert rt.telemetry.fallback_events > 0
+    assert set(rt.telemetry.faults) <= {"raise", "nan"}
+
+
+def test_reference_rung_launches_kernels_only(card, monkeypatch):
+    """Every launch fails until the reference rung, which runs each member
+    alone through its family op: the launch counters rise and no plain
+    version is entered (each is made to raise)."""
+    reqs = _qwen_bundle(card, 3, batch=1, context=4096)
+    want = [gemm_ref(r.a, r.b) for r in reqs[:-1]]
+    q, k, v = reqs[-1].inputs
+    ref = flash_ref(q.float(), k.float(), v.float(), q_offset=k.shape[2] - q.shape[2])
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, names in ((gops, ("gemm_ref", "gemm_stream_k_ref", "splitk_partials_ref",
+                               "splitk_reduce_ref")),
+                       (ggops, ("grouped_gemm_ref", "ragged_gemm_ref")),
+                       (fops, ("flash_ref",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, plain)
+    launchers = (*gk.LAUNCHERS, ggk.grouped_matmul, ggk.ragged_matmul,
+                 flash_attention_fwd)
+    before = [fn.launches for fn in launchers]
+    inj = FaultInjector((FaultRule("raise", 1.0),), seed=0)
+    rt, got, launches = _serve_bundle(card, reqs, inj)
+    assert {ln.fallback for ln in launches} == {"reference"}
+    launched = [fn.launches - b for fn, b in zip(launchers, before)]
+    assert sum(launched) == len(reqs) and launched[-1] == 1, launched
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+    atol, rtol = attention_tol(torch.bfloat16)
+    assert bool(((got[-1].float() - ref).abs() <= atol + rtol * ref.abs()).all())

@@ -1,7 +1,8 @@
 """Rules the port keeps: it imports nothing of JAX or of the JAX package,
 its entry points never carry on on the CPU when asked for CUDA, no `try`
-falls back to a plain version, and nothing is switched by an environment
-variable beyond the toolkit's location."""
+falls back to a plain version (the runtime's fallback ladder catches the
+launch faults alone and runs kernels on every rung), and nothing is
+switched by an environment variable beyond the toolkit's location."""
 import ast
 from pathlib import Path
 
@@ -35,19 +36,56 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path}: imports {bad}"
 
 
+def _tries(tree: ast.AST, scope: str = ""):
+    """``(qualified name of the enclosing function or class, Try node)`` of
+    every `try` in ``tree``."""
+    for node in ast.iter_child_nodes(tree):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            yield from _tries(node, f"{scope}.{node.name}".lstrip("."))
+        else:
+            if isinstance(node, ast.Try):
+                yield scope, node
+            yield from _tries(node, scope)
+
+
 def test_port_has_no_fallback_try_and_no_env_switch():
-    """The only `try` is the GO library's parse of its JSON file; the only
+    """A `try` is in the GO library's parse of its JSON file, and in one
+    function beside it: the runtime's fallback ladder,
+    `Runtime._execute_resilient`, the one `try` of the runtime.  The only
     environment read is the CUDA toolkit's location for the build."""
     tries, env = [], []
     for path in PORT_FILES:
         src = path.read_text()
-        for node in ast.walk(ast.parse(src)):
-            if isinstance(node, ast.Try):
-                tries.append(path.relative_to(PORT.parent).as_posix())
+        rel = path.relative_to(ROOT).as_posix()
+        tries += [(rel, scope) for scope, _ in _tries(ast.parse(src))
+                  if rel != "src/repro_torch/core/library.py"]
         if "environ" in src or "getenv" in src:
             env.append(path.relative_to(ROOT).as_posix())
-    assert set(tries) == {"repro_torch/core/library.py"}
+    assert tries == [("src/repro_torch/runtime/runtime.py",
+                      "Runtime._execute_resilient")]
     assert env == ["src/repro_torch/kernels/_build.py"]
+
+
+def test_fallback_ladder_catches_launch_faults_only_and_runs_no_plain_version():
+    """The ladder's one `try` names exactly `LaunchFault` and
+    `KernelLaunchError`: no bare ``except``, no `Exception`, so a refused
+    call, an unported family or a failed build raises at once.  The
+    function names no plain version (``*_ref``): its reference rung runs
+    each member through its family op, which launches the kernels on
+    the card."""
+    fn = next(n for n in ast.walk(ast.parse(
+        (PORT / "runtime" / "runtime.py").read_text()))
+        if isinstance(n, ast.FunctionDef) and n.name == "_execute_resilient")
+    (try_,) = [n for n in ast.walk(fn) if isinstance(n, ast.Try)]
+    caught = []
+    for h in try_.handlers:
+        assert h.type is not None, "bare except"
+        types = h.type.elts if isinstance(h.type, ast.Tuple) else [h.type]
+        caught += [ast.unparse(t) for t in types]
+    assert sorted(caught) == ["KernelLaunchError", "LaunchFault"]
+    names = {n.id for n in ast.walk(fn) if isinstance(n, ast.Name)}
+    names |= {n.attr for n in ast.walk(fn) if isinstance(n, ast.Attribute)}
+    assert not [x for x in names if x.endswith("_ref")], names
 
 
 @pytest.fixture

@@ -31,7 +31,6 @@ from repro_torch.core import (
     requests_from_numpy,
 )
 from repro_torch.runtime import (
-    NonFiniteOutput,
     Runtime,
     RuntimeConfig,
     decode_step_requests,
@@ -40,12 +39,10 @@ from repro_torch.runtime import (
 
 WINDOWS = ([8, 8, 8, 8], [4, 8, 8, 8, 16], [8, 8, 8, 8])
 # Keys of the reference's summary for features the port does not carry
-# yet (slicing, fault handling, graphs); idle, they hold these values.
+# yet (slicing, graphs); idle, they hold these values.
 IDLE = {"slice_counts": {}, "sliced_ops": 0, "deferred_launches": 0,
-        "faults": {}, "fallbacks": {}, "quarantines": 0,
-        "quarantine_evictions": 0, "probes": 0, "graphs_submitted": 0,
-        "graphs_completed": 0, "graph_nodes": 0, "cross_graph_groups": 0,
-        "ready_depths": {}, "max_ready_depth": 0}
+        "graphs_submitted": 0, "graphs_completed": 0, "graph_nodes": 0,
+        "cross_graph_groups": 0, "ready_depths": {}, "max_ready_depth": 0}
 
 
 def _operands(rng, desc, dtype):
@@ -177,17 +174,30 @@ def test_prewarm_decode_identical():
     assert prt.telemetry.cp_overhead_paid_s == jrt.telemetry.cp_overhead_paid_s
 
 
-def test_non_finite_output_raises_without_fallback():
-    """No fallback ladder: a launch whose output is not finite raises."""
+def test_non_finite_output_walks_the_ladder_to_the_reference_rung():
+    """NaN operands make every vetoed attempt fail — planned, retry,
+    legacy — and the launch returns from the reference rung, which no
+    finiteness check vetoes, as in the reference (held against it)."""
     ctrl = ConcurrencyController(GOLibrary())
     rt = Runtime(ctrl, RuntimeConfig(window_s=0.0, execute=True), device="cpu")
+    jrt = JRuntime(JCtrl(JLib()), JConfig(window_s=0.0, execute=True,
+                                          interpret=False))
     req = decode_step_requests(ctrl, get_arch("qwen3-14b").reduced(), 4, "f32")[0]
     d = req.desc
     a = np.full((d.M, d.K), np.nan, np.float32)
     b = np.ones((d.K, d.N), np.float32)
-    rt.submit(requests_from_numpy([req], [(a, b)], device="cpu")[0], now=0.0)
-    with pytest.raises(NonFiniteOutput):
-        rt.drain(now=0.0)
+    tk = rt.submit(requests_from_numpy([req], [(a, b)], device="cpu")[0], now=0.0)
+    jtk = jrt.submit(JReq(desc=JDesc(d.M, d.N, d.K, dtype="f32"),
+                          a=jnp.asarray(a), b=jnp.asarray(b)), now=0.0)
+    (ln,), (jln,) = rt.drain(now=0.0), jrt.drain(now=0.0)
+    for tele in (rt.telemetry, jrt.telemetry):
+        assert dict(tele.faults) == {"nan": 3}
+        assert dict(tele.fallbacks) == {"reference": 1}
+    assert (ln.fallback, ln.penalty_s, ln.end_t) == \
+        (jln.fallback, jln.penalty_s, jln.end_t) == \
+        ("reference", 3 * ln.plan.modeled_time_s, ln.end_t)
+    np.testing.assert_array_equal(tk.result.numpy(), np.asarray(jtk.result))
+    assert np.isnan(tk.result.numpy()).all()
 
 
 def test_executing_runtime_refuses_requests_it_cannot_run():
