@@ -143,9 +143,42 @@ Phases, each fatal on failure (nothing here catches an error):
    the injector's log by kind; every attempt raising, so every launch
    completes on the reference rung, whose kernel launches are printed;
    and `process_retunes` past the cooldown, whose probes must equal the
-   quarantines.  Every runtime of phases 4, 5, 7 and 8 with no injector
-   must show no fault and no fallback (`check_healthy`);
-9. one JSON line ``{"kernels": [...]}`` and, last, the device line.
+   quarantines.  Every runtime of phases 4, 5, 7, 8 and 9 with no
+   injector must show no fault and no fallback (`check_healthy`);
+9. SLO serving, run after phase 8 on phase 5's unfused weights (before
+   phase 7, whose weights would not fit beside them), its launches
+   counted apart: a 4,096-token prompt of Qwen3-14B at full width and
+   full depth (tenant ``prefill``, batch class, weight 1, p99 target 1 s)
+   beside decode traffic (tenant ``decode``, latency class, weight 4,
+   p99 target 20 ms).  Per layer ℓ, at ℓ ms on the runtime's clock: the
+   prompt's seven GEMMs at M = 4096, each submitted alone, and its causal
+   attention (1 × 40 heads over 4,096 keys) as a one-member bundle; the
+   decode tenant's whole decode-step bundle at batch 8 over 4,096 cached
+   tokens (KV caches from a seed, 5.4 GB); one forced flush; a drain at
+   the end.  Two windows: (A) round-robin, no slicing, no budget; (B)
+   EDF, admission slicing, a 1 ms flush budget (half of it the slicing
+   threshold), at most 8 pieces.  Every result is held to its plain
+   version (GEMMs, merged parents of the parent's shape, attention,
+   decode members); the pieces a layer must be the planner's (34 queue
+   entries a layer in B: q and o in 3, gate, up and down in 8, the
+   attention in 2 query-row pieces, k and v whole), and B must defer
+   launches past its budget where A defers none.  Printed, not gated: per
+   window the launches by mode, kernel launches by kernel, `matmul`
+   launches by feed, pieces per op, deferred launches, each decode
+   bundle's device-time completion (the CUDA-event times of the
+   launches up to the one that completes it, summed in launch order; p50
+   and max over the layers), the prompt's device time and the window's
+   wall time, each sliced parent's merge (`torch.cat`, run again on its
+   pieces and timed by CUDA events), the device time by what each launch
+   carried, and the host stalls (`HostStalls`); then each window runs
+   once more under the profiler (kernel time by kind, the idle share).
+   Then one prompt layer with integer-valued weights and activations
+   through both windows' runtimes, where every sliced GEMM's merged
+   result must equal the unsliced run bitwise, and a batch-sliced
+   Zamba2-width scan (`ScanDesc(4, 1024, 64, 64, 64)`, one-member
+   bundle) whose pieces must launch the chunk loop and whose merged y
+   must be within the scan tolerance;
+10. one JSON line ``{"kernels": [...]}`` and, last, the device line.
 
 Tolerance of every comparison of a GEMM or of partials (float32, kernel
 vs plain version on the same inputs): |kernel − plain| ≤ 2⁻⁷·|plain| +
@@ -178,6 +211,14 @@ attention tolerance, 3e-2 + 3e-2·|plain|, is as large as a decode
 output itself (~0.026 at 4,096 keys) and would pass a kernel that
 skipped a 64-key sub-tile; the kernel phase shows that this one fails
 such a kernel.
+
+A sliced parent (phase 9) is held to the plain version of the whole op
+within the same tolerance as an op run whole: its merge concatenates the
+pieces' outputs, so each output element comes from one piece, whose
+kernel sums over the same K (a GEMM's rows) or the same keys (a query-row
+piece of causal attention keeps every key its rows see) as the whole op.
+Only on integer-valued operands, where every f32 sum is exact in any
+order, is a merged GEMM also held bitwise to the unsliced run.
 """
 from __future__ import annotations
 
@@ -219,6 +260,7 @@ from repro_torch.core import (  # noqa: E402
     generate_gemm_pool,
     op_features,
     profile_dataset,
+    slice_plan,
     train_predictor,
     tune_gemm,
 )
@@ -266,10 +308,12 @@ from repro_torch.kernels.mamba_scan import (  # noqa: E402
 from repro_torch.kernels.mamba_scan.kernel import decode_residency  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import scan_buffers, scan_chunk  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
+    MIXED_CLASS,
     FaultInjector,
     FaultRule,
     Runtime,
     RuntimeConfig,
+    TenantSLO,
     decode_step_descs,
     decode_step_op_descs,
     decode_step_requests,
@@ -2377,6 +2421,343 @@ def self_correction_phase(cfg, unfused, device="cuda", layers=None) -> None:
           f"kernels line) {dict(counts)}")
 
 
+# ------------------------------------------------------------- SLO serving
+PROMPT = 4096            # the prefill tenant's prompt, tokens
+SLO_CONTEXT = 4096       # the decode tenant's cached tokens
+SLO_BATCH = 8            # the decode tenant's sequences
+SLO_STEP_S = 1e-3        # the virtual clock's step between layers
+SLO_TENANTS = {"prefill": TenantSLO("batch", weight=1.0, p99_target_s=1.0),
+               "decode": TenantSLO("latency", weight=4.0, p99_target_s=20e-3)}
+# (A) today's runtime: round-robin, no slicing, no budget; (B) EDF with
+# admission slicing and a 1 ms commit horizon per flush.
+SLO_WINDOWS = (("A", {}),
+               ("B", dict(policy="edf", slicing=True, flush_budget_s=1e-3,
+                          slice_budget_frac=0.5, max_slices=8)))
+SLO_SCAN = ScanDesc(4, 1024, 64, 64, 64)
+GEMM_NAMES = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def slo_runtime(device, cfg: dict) -> Runtime:
+    rt = Runtime(ConcurrencyController(),
+                 RuntimeConfig(window_s=0.0, execute=True, **cfg), device=device)
+    for tenant, slo in SLO_TENANTS.items():
+        rt.set_tenant_slo(tenant, slo)
+    return rt
+
+
+def prompt_attention(cfg, prompt: int) -> AttentionDesc:
+    return AttentionDesc(1, cfg.n_heads, cfg.n_kv_heads, prompt, prompt,
+                         cfg.resolved_head_dim)
+
+
+def prompt_operands(cfg, prompt: int, gen, device, integer: bool = False) -> tuple:
+    """The prompt's activations, shared by every layer: (prompt, d_model)
+    for the GEMMs with K = d_model, (prompt, d_ff) for down — integers in
+    [-3, 3] when ``integer`` — and the attention's q, k, v."""
+    def act(*shape):
+        if integer:
+            return torch.randint(-3, 4, shape, generator=gen, device=device).to(
+                torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)
+
+    d = prompt_attention(cfg, prompt)
+    qkv = tuple(torch.randn(s, generator=gen, device=device, dtype=torch.bfloat16)
+                for s in ((1, d.Hq, prompt, d.D), (1, d.Hkv, prompt, d.D),
+                          (1, d.Hkv, prompt, d.D)))
+    return act(prompt, cfg.d_model), act(prompt, cfg.d_ff), qkv
+
+
+def prompt_requests(cfg, wl: list, acts: tuple, prompt: int) -> list:
+    """One layer's prompt: the seven GEMMs on the layer's weights, each a
+    request of its own, then the causal attention as a one-member bundle."""
+    x, xf, qkv = acts
+    reqs = [GemmRequest(desc=d, a=x if d.K == x.shape[1] else xf, b=w)
+            for d, w in zip(unfused_descs(cfg, prompt), wl)]
+    return reqs + [[bind_operands(prompt_attention(cfg, prompt), qkv)]]
+
+
+def drive_slo(rt: Runtime, cfg, weights: list, kv, acts: tuple, gen, prompt: int,
+              context: int):
+    """Per layer ℓ, at ℓ·SLO_STEP_S on the runtime's clock: the prefill
+    tenant's prompt ops and (with ``kv``) the decode tenant's whole
+    decode-step bundle, then one forced flush; a drain at the end.
+    Returns the prompt tickets, the decode bundle handles, the executed
+    launches each with its record (launch order), and the wall time up
+    to the last result being ready."""
+    t0 = time.perf_counter()
+    n0 = len(rt.telemetry.groups)
+    prompt_tickets, bundles, launches = [], [], []
+    for li, wl in enumerate(weights):
+        now = li * SLO_STEP_S
+        for r in prompt_requests(cfg, wl, acts, prompt):
+            prompt_tickets.append(rt.submit(r, tenant="prefill", now=now))
+        if kv is not None:
+            ws = iter(wl)
+            reqs = [op_request(d, next(ws) if d.family == "gemm" else None,
+                               kv[li][0], gen, rt.device)
+                    for d in decode_step_op_descs(cfg, SLO_BATCH, context)]
+            bundles.append(rt.submit(reqs, tenant="decode", now=now))
+        launches += rt.flush(now=now, force=True)
+    launches += rt.drain(now=len(weights) * SLO_STEP_S)
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    recs = rt.telemetry.groups[n0:]
+    if len(recs) != len(launches):
+        raise AssertionError(f"{len(launches)} launches but {len(recs)} records")
+    return prompt_tickets, bundles, list(zip(launches, recs)), time.perf_counter() - t0
+
+
+def op_of(tk):
+    """The op a prompt ticket stands for: itself, or its bundle's member."""
+    return tk.members[0] if tk.members else tk
+
+
+def leaves(tk) -> list:
+    """The tickets that ran for ``tk``: its members', its pieces, or it."""
+    if tk.members is not None:
+        return [x for m in tk.members for x in leaves(m)]
+    return list(tk.pieces) if tk.pieces is not None else [tk]
+
+
+def device_completions(timed, tickets) -> list:
+    """For each ticket, the device seconds from the window's first launch to
+    the end of the launch that completes it: the CUDA-event times of the
+    launches up to that one summed in launch order (host gaps left out)."""
+    ends, t = [], 0.0
+    for _, rec in timed:
+        t += rec.achieved_time_s
+        ends.append(t)
+    where = {tk.seq: i for i, (ln, _) in enumerate(timed) for tk in ln.tickets}
+    return [ends[max(where[x.seq] for x in leaves(tk))] for tk in tickets]
+
+
+def carried(ln) -> str:
+    """What a launch carried: a class queue's launch by mode and class, a
+    mixed launch by its members' tenants and families."""
+    if ln.class_key != MIXED_CLASS:
+        return f"{ln.plan.mode} {ln.class_key}"
+    c = Counter(f"{t.tenant} {t.desc.family}" for t in ln.tickets)
+    return "mixed " + " + ".join(f"{n} {k}" for k, n in sorted(c.items()))
+
+
+def launch_breakdown(timed) -> dict:
+    """Launches and device seconds by what they carried (`carried`)."""
+    out = {}
+    for ln, rec in timed:
+        n, sec = out.get(carried(ln), (0, 0.0))
+        out[carried(ln)] = (n + 1, sec + rec.achieved_time_s)
+    return out
+
+
+def planned_entries(rt: Runtime, cfg, prompt: int) -> list:
+    """The planner's queue entries for one prompt layer: each op's pieces
+    under ``rt``'s admission (1 when it stays whole)."""
+    descs = unfused_descs(cfg, prompt) + [prompt_attention(cfg, prompt)]
+    return [slice_plan(d, rt._admission_parts(d)).parts for d in descs]
+
+
+def merge_ms(parent, reps: int = 3) -> float:
+    """A sliced parent's merge (`SlicePlan.merge`, one `torch.cat`) run
+    again on its pieces' results: mean device ms of ``reps`` calls after
+    one, by CUDA events."""
+    outs = [p.result for p in parent.pieces]
+    parent.merge_plan.merge(outs)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        parent.merge_plan.merge(outs)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_prompt(prompt_tickets, attn_ref, what: str) -> None:
+    for tk in prompt_tickets:
+        t, r = op_of(tk), op_of(tk).request
+        label = f"{what} prompt {t.desc.key()} " + (
+            f"({len(t.pieces)} pieces merged)" if t.sliced else "(whole)")
+        if not tk.done:
+            raise AssertionError(f"{label}: unfinished")
+        if t.desc.family == "gemm":
+            check_close(t.result, gemm_ref(r.a, r.b), abs_product(r.a, r.b), label)
+        else:
+            check_tol(t.result, attn_ref, *attention_tol(t.result.dtype), label)
+
+
+def slo_window(name: str, cfg, weights, kv, acts, attn_ref, gen, device, prompt: int,
+               context: int) -> list:
+    """One window (`SLO_WINDOWS`): driven, every result held to its plain
+    version, its counts and times printed; returns the decode bundles'
+    device-time completions."""
+    rt = slo_runtime(device, dict(SLO_WINDOWS)[name])
+    with HostStalls(device) as stalls:
+        prompt_tickets, bundles, timed, wall = drive_slo(rt, cfg, weights, kv, acts, gen,
+                                                         prompt, context)
+    feeds, routes = dict(gemm_kernel.matmul.feeds), dict(mamba_scan_fwd.routes)
+    counts = take_counts()
+    check_prompt(prompt_tickets, attn_ref, f"window {name}")
+    if not all(h.done for h in bundles):
+        raise AssertionError(f"window {name}: a decode bundle was left unfinished")
+    check_op_tickets([m for h in bundles for m in h.members])
+    check_healthy(rt, f"SLO window {name}")
+    tele = rt.telemetry
+    entries = planned_entries(rt, cfg, prompt)
+    per_layer = [len(leaves(op_of(tk))) for tk in prompt_tickets[:len(entries)]]
+    want = len(weights) * sum(p for p in entries if p > 1)
+    if per_layer != entries or tele.slice_counts["prefill"] != want:
+        raise AssertionError(f"window {name}: pieces {per_layer} a layer, telemetry "
+                             f"{dict(tele.slice_counts)}; the planner's {entries}")
+    if (tele.deferred_launches > 0) != (name == "B"):
+        raise AssertionError(f"window {name}: {tele.deferred_launches} deferred launches")
+    done = device_completions(timed, bundles)
+    lat = sorted(done)
+    prompt_ends = device_completions(timed, prompt_tickets)
+    prompt_s = sum(rec.achieved_time_s for ln, rec in timed
+                   if any(t.tenant == "prefill" for t in ln.tickets))
+    merges = {}
+    if device == "cuda":
+        for i, tk in enumerate(prompt_tickets):
+            t = op_of(tk)
+            if t.sliced:
+                op = (GEMM_NAMES + ("attention",))[i % len(entries)]
+                merges.setdefault(op, []).append(merge_ms(t))
+    names = GEMM_NAMES + ("attention",)
+    config = dict(SLO_WINDOWS)[name] or "round-robin, no slicing, no budget"
+    print(f"# SLO window {name} ({config}): {len(weights)} layers; launches by mode "
+          f"{dict(Counter(rec.mode for _, rec in timed))}; kernel launches {dict(counts)}; "
+          f"matmul launches by feed {feeds}; scan launches by route {routes}")
+    print(f"#   pieces per op {dict(zip(names, per_layer))} ({sum(per_layer)} queue entries "
+          f"a layer, as planned), {tele.sliced_ops} ops sliced into "
+          f"{dict(tele.slice_counts)} pieces; deferred launches {tele.deferred_launches}")
+    print(f"#   decode bundles' device-time completion (ms, launch order): "
+          f"{[round(x * 1e3, 4) for x in done]}; p50 {lat[len(lat) // 2] * 1e3:.4f} "
+          f"ms, max {lat[-1] * 1e3:.4f} ms")
+    print(f"#   prefill: device {prompt_s:.6f} s in its launches, completed at "
+          f"{max(prompt_ends):.6f} s of device time; window device "
+          f"{sum(rec.achieved_time_s for _, rec in timed):.6f} s, wall {wall:.6f} s")
+    if merges:
+        print(f"#   merges (torch.cat, run again on the pieces; ms mean / max over layers): "
+              + ", ".join(f"{op} {sum(v) / len(v):.4f} / {max(v):.4f}"
+                          for op, v in merges.items())
+              + f"; total {sum(map(sum, merges.values())):.4f} ms")
+    slow_ln, slow = max(timed, key=lambda x: x[1].achieved_time_s)
+    print("#   launches and device s by what they carried: " + "; ".join(
+        f"{k}: {n}, {sec:.6f}" for k, (n, sec) in launch_breakdown(timed).items())
+        + f"; slowest launch {carried(slow_ln)} {slow.achieved_time_s * 1e3:.3f} ms")
+    print(f"#   host stalls in the window: {stalls}")
+    print(f"#   the planner's modeled latencies (TPU spec, ranking only): "
+          f"{tele.tenant_percentiles()}")
+    return done
+
+
+def profile_slo(name: str, cfg, weights, kv, acts, gen, device, prompt: int,
+                context: int) -> None:
+    """Window ``name`` again, on a fresh runtime, under the profiler
+    (`profile_window`): kernel time by kind and the device's idle share,
+    free of the host stalls (collections, cudaMalloc) that land inside
+    the runtime's event brackets.  Its launches are not counted."""
+    rt = slo_runtime(device, dict(SLO_WINDOWS)[name])
+
+    def drive():
+        _, _, timed, wall = drive_slo(rt, cfg, weights, kv, acts, gen, prompt, context)
+        return wall, [ln for ln, _ in timed]
+
+    profile_window(f"SLO window {name}", drive)
+    take_counts()
+
+
+def exact_layer(cfg, prompt: int, gen, device) -> None:
+    """One prompt layer with integer-valued weights and activations (every
+    f32 sum exact) through both windows' runtimes: every GEMM's merged
+    pieces must equal the unsliced run bitwise; attention, whose pieces'
+    kv splits differ, within its tolerance of the plain version."""
+    wl = [torch.randint(-3, 4, (d.K, d.N), generator=gen, device=device).to(
+        torch.bfloat16) for d in unfused_descs(cfg, prompt)]
+    acts = prompt_operands(cfg, prompt, gen, device, integer=True)
+    runs = {}
+    for name, _ in SLO_WINDOWS:
+        rt = slo_runtime(device, dict(SLO_WINDOWS)[name])
+        runs[name] = [op_of(t) for t in drive_slo(rt, cfg, [wl], None, acts, gen,
+                                                  prompt, 0)[0]]
+        check_healthy(rt, f"integer layer, window {name}")
+    sliced = 0
+    for whole, piece in zip(runs["A"], runs["B"], strict=True):
+        if whole.desc.family == "gemm":
+            if whole.sliced or not torch.equal(piece.result, whole.result):
+                raise AssertionError(f"integer layer {whole.desc.key()}: merged "
+                                     f"{len(piece.pieces or [])} pieces != unsliced")
+            sliced += piece.sliced
+        else:
+            for t in (whole, piece):
+                check_attention(t.result, *acts[2], 0, f"integer layer {t.desc.key()}")
+    if not sliced:
+        raise AssertionError("integer layer: window B sliced no GEMM")
+    print(f"# integer-valued layer: {sliced} sliced GEMMs merged bitwise equal to the "
+          f"unsliced run, the attention within its tolerance in both; launches "
+          f"{dict(take_counts())}")
+
+
+def sliced_scan(gen, device) -> None:
+    """`SLO_SCAN` as a one-member bundle through window B's runtime: sliced
+    by batch, each piece on the chunk loop, the merged y within the scan
+    tolerance of the plain version."""
+    rt = slo_runtime(device, dict(SLO_WINDOWS)["B"])
+    h = rt.submit([op_request(SLO_SCAN, None, None, gen, rt.device)], tenant="prefill",
+                  now=0.0)
+    rt.drain(now=0.0)
+    tk = h.members[0]
+    routes = dict(mamba_scan_fwd.routes)
+    counts = take_counts()
+    if not tk.sliced:
+        raise AssertionError(f"{SLO_SCAN.key()} was not sliced")
+    check_op_tickets([tk])
+    check_healthy(rt, "sliced scan")
+    if device == "cuda" and routes["chunks"] != len(tk.pieces):
+        raise AssertionError(f"sliced scan: routes {routes} for {len(tk.pieces)} pieces")
+    print(f"# sliced scan {SLO_SCAN.key()}: pieces {[p.desc.key() for p in tk.pieces]}, "
+          f"launches by route {routes} ({dict(counts)}), merged y within the scan "
+          "tolerance of ssd_chunk_ref")
+
+
+def slo_phase(cfg, unfused, device="cuda", prompt: int = PROMPT,
+              context: int = SLO_CONTEXT) -> None:
+    """SLO serving at full width on phase 5's unfused weights: a prompt of
+    ``prompt`` tokens beside decode traffic, every layer of ``unfused``,
+    in windows A and B (`SLO_WINDOWS`); then one integer-valued layer, and
+    a batch-sliced scan.  Launches counted apart, not in the kernels line."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    take_counts()
+    kv = make_kv_caches(cfg, len(unfused), [SLO_BATCH], context, gen, device)
+    kv_gb = sum(t.numel() * 2 for lkv in kv for pair in lkv for t in pair) / 1e9
+    acts = prompt_operands(cfg, prompt, gen, device)
+    attn_ref = attention_f32_ref(*acts[2], 0)
+    print(f"# SLO serving {cfg.name}: {len(unfused)} of {cfg.n_layers} layers, a "
+          f"{prompt}-token prompt (tenant prefill: {SLO_TENANTS['prefill']}) beside decode bundles at "
+          f"batch {SLO_BATCH} over {context} cached tokens (tenant decode: "
+          f"{SLO_TENANTS['decode']}); KV caches {kv_gb:.2f} GB on {device}")
+    done = {}
+    for name, _ in SLO_WINDOWS:
+        done[name] = slo_window(name, cfg, unfused, kv, acts, attn_ref, gen, device,
+                                prompt, context)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            # The window again under the profiler: kernel time by kind and
+            # the idle share, free of the host stalls (collections,
+            # cudaMalloc) that land inside the runtime's event brackets.
+            profile_slo(name, cfg, unfused, kv, acts, gen, device, prompt, context)
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"# decode completion, window A over B, per layer: "
+          f"{[round(a / b, 3) for a, b in zip(done['A'], done['B'])]}")
+    del kv, acts, attn_ref
+    exact_layer(cfg, prompt, gen, device)
+    sliced_scan(gen, device)
+    print(f"# SLO serving: {time.perf_counter() - t0:.1f} s (host clock, the phase's "
+          "checks included)")
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2405,7 +2786,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mixed = mixed_phase()
-    self_correction_phase(get_arch("qwen3-14b"), mixed.pop("weights"))
+    unfused = mixed.pop("weights")
+    self_correction_phase(get_arch("qwen3-14b"), unfused)
+    gc.collect()
+    torch.cuda.empty_cache()
+    slo_phase(get_arch("qwen3-14b"), unfused)
+    del unfused
     ops = {}
     for name, context in OP_CONFIGS:
         gc.collect()

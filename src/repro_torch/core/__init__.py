@@ -6,10 +6,12 @@ from repro_torch.core.cost_model import (
     CostCalibrator,
     EVAL_COUNTER,
     RC_FRACTIONS,
+    SLICE_OVERHEAD_S,
     TPUSpec,
     group_time,
     isolated_time,
     sequential_time,
+    sliced_time,
 )
 from repro_torch.core.gemm_desc import GemmDesc, split_spans
 from repro_torch.core.library import GOLibrary, default_library
@@ -18,8 +20,10 @@ from repro_torch.core.op_desc import (
     FAMILIES,
     AttentionDesc,
     ScanDesc,
+    SlicePlan,
     family_of,
     op_from_key,
+    slice_plan,
 )
 from repro_torch.core.predictor import (
     CLASSES,
@@ -57,11 +61,13 @@ __all__ = [
     "CostCalibrator", "DEFAULT_SPEC", "EVAL_COUNTER", "FAMILIES", "FAMILY_TILES",
     "GOEntry",
     "GOLibrary", "GemmDesc", "GemmRequest", "GroupPlan", "Measurement",
-    "Measurer", "OpRequest", "Predictor", "RC_FRACTIONS", "ScanDesc",
-    "Schedule", "TPUSpec", "accuracy_by_available", "backend_tag",
+    "Measurer", "OpRequest", "Predictor", "RC_FRACTIONS", "SLICE_OVERHEAD_S",
+    "ScanDesc", "Schedule", "SlicePlan", "TPUSpec", "accuracy_by_available",
+    "backend_tag",
     "bind_operands", "compat_key", "default_library", "execute_schedule",
     "family_of", "gemm_features", "generate_gemm_pool", "group_time",
     "isolated_time", "op_features", "op_from_key", "profile_dataset",
-    "requests_from_numpy", "sequential_time", "split_spans",
+    "requests_from_numpy", "sequential_time", "slice_plan", "sliced_time",
+    "split_spans",
     "train_predictor", "tune_gemm", "tune_gemm_batch", "tune_op",
 ]

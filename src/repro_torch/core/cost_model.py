@@ -422,6 +422,24 @@ def isolated_time(
     return float(isolated_time_batch(d, t, spec))
 
 
+# Per-piece charge of admission slicing: each piece is one more launch and
+# a share of the merge's concatenation.
+SLICE_OVERHEAD_S = 2e-6
+
+
+def sliced_time(d, t, parts: int, spec: TPUSpec = DEFAULT_SPEC) -> float:
+    """Modeled latency of ``d`` run as ``parts`` pieces one after another:
+    the pieces' isolated times plus `SLICE_OVERHEAD_S` a piece; one piece
+    charges no overhead and is `isolated_time`."""
+    pieces = d.slice(parts) if getattr(d, "can_slice", False) else [d]
+    total = 0.0
+    for p in pieces:
+        total += float(isolated_time_batch(p, t, spec))
+    if len(pieces) > 1:
+        total += len(pieces) * SLICE_OVERHEAD_S
+    return total
+
+
 def sequential_time(
     members: Sequence[tuple[GemmDesc, TileConfig]],
     spec: TPUSpec = DEFAULT_SPEC,

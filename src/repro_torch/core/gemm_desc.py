@@ -2,7 +2,7 @@
 (`repro/core/gemm_desc.py`, with torch dtypes in place of jnp's)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -12,8 +12,10 @@ TORCH_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
 
 
 def split_spans(total: int, parts: int) -> list:
-    """Balanced contiguous [lo, hi) spans of ``range(total)``; ``parts``
-    is clamped to [1, total] and earlier spans absorb the remainder."""
+    """Balanced contiguous [lo, hi) spans of ``range(total)`` — the one
+    splitting rule every family's `slice()` uses, so `slice_plan` can
+    re-derive the operand ranges; ``parts`` is clamped to [1, total] and
+    earlier spans absorb the remainder."""
     parts = max(1, min(int(parts), int(total)))
     base, extra = divmod(int(total), parts)
     spans, lo = [], 0
@@ -69,3 +71,23 @@ class GemmDesc:
 
     def torch_dtype(self) -> torch.dtype:
         return TORCH_DTYPES[self.dtype]
+
+    def with_batch(self, b: int) -> "GemmDesc":
+        return replace(self, batch=b)
+
+    # ------------------------------------------------------------ slicing
+    @property
+    def can_slice(self) -> bool:
+        """M-sliceable: plain GEMMs only (a batched GEMM's batch is its
+        pooling axis, not a free row dim) with M ≥ 2."""
+        return self.batch == 1 and self.M >= 2
+
+    def slice(self, parts: int) -> list:
+        """Split along M into ≤ ``parts`` contiguous pieces, each in the
+        parent's compatibility class (the class key is M-free); outputs
+        merge by row concatenation (`core.op_desc.slice_plan`).
+        ``slice(1)`` is the identity."""
+        if parts <= 1 or not self.can_slice:
+            return [self]
+        return [replace(self, M=hi - lo)
+                for lo, hi in split_spans(self.M, parts)]

@@ -1,6 +1,6 @@
-"""Heterogeneous op descriptors (`repro/core/op_desc.py:40-135, 206-266,
-363-381`): the unit the port tunes, predicts and schedules across the
-kernel families a decode step launches.
+"""Heterogeneous op descriptors (`repro/core/op_desc.py`, but for
+`GroupedGemmDesc`): the unit the port tunes, predicts and schedules across
+the kernel families a decode step launches.
 
 - `GemmDesc` (in `core/gemm_desc.py`) — family ``"gemm"``;
 - `AttentionDesc` — flash attention, O(Sq·Skv) with causal credit;
@@ -11,15 +11,22 @@ Every descriptor is a frozen dataclass with the same protocol: ``family``,
 ``key()`` (family-prefixed for non-GEMMs, so library keys and
 compatibility classes never collide with GEMM keys), ``flops``,
 ``in_bytes``, ``dtype``, ``M`` (canonical queue ordering) and
-``mnk_like``.  Slicing (`slice`, `SlicePlan`) is ROADMAP A9;
-`GroupedGemmDesc`, the MoE expert pool, is ROADMAP A11.
+``mnk_like``, and the slicing protocol the runtime's admission uses:
+``can_slice`` and ``slice(parts)``, with `slice_plan` carrying a sliced
+op's operand split and merge (`SlicePlan`).
+
+`GroupedGemmDesc`, the MoE expert pool, and with it `SlicePlan`'s
+``"experts"`` kind, is ROADMAP A10: no grouped descriptor reaches
+`slice_plan` (`op_from_key` raises for its keys).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, replace
+from typing import List, Tuple
 
-from repro_torch.core.gemm_desc import DTYPE_BYTES, GemmDesc
+import torch
+
+from repro_torch.core.gemm_desc import DTYPE_BYTES, GemmDesc, split_spans
 
 FAMILIES = ("gemm", "grouped_gemm", "flash_attention", "mamba_scan")
 
@@ -79,6 +86,38 @@ class AttentionDesc:
         return (f"fa_{self.B}_{self.Hq}_{self.Hkv}_{self.Sq}_{self.Skv}_"
                 f"{self.D}_{int(self.causal)}_{self.dtype}")
 
+    # ------------------------------------------------------------ slicing
+    def _slice_axis(self) -> str:
+        """``"sq"`` — chunks of query rows (a prefill); ``"batch"`` —
+        independent sequences (a decode step, Sq = 1); ``""`` — neither.
+        A causal Sq slice needs Skv ≥ Sq, so every piece keeps a
+        non-negative q_offset."""
+        if self.Sq >= 2 and (not self.causal or self.Skv >= self.Sq):
+            return "sq"
+        return "batch" if self.B >= 2 else ""
+
+    @property
+    def can_slice(self) -> bool:
+        return bool(self._slice_axis())
+
+    def slice(self, parts: int) -> list:
+        """Split into ≤ ``parts`` pieces along query rows or batch.  A
+        causal Sq piece [lo, hi) keeps Skv = (Skv − Sq) + hi keys, so its
+        own suffix alignment (q_offset = Skv − Sq) gives its row j the
+        parent's mask of row lo + j.  ``slice(1)`` is the identity."""
+        axis = self._slice_axis()
+        if parts <= 1 or not axis:
+            return [self]
+        if axis == "sq":
+            off = self.Skv - self.Sq
+            if self.causal:
+                return [replace(self, Sq=hi - lo, Skv=off + hi)
+                        for lo, hi in split_spans(self.Sq, parts)]
+            return [replace(self, Sq=hi - lo)
+                    for lo, hi in split_spans(self.Sq, parts)]
+        return [replace(self, B=hi - lo)
+                for lo, hi in split_spans(self.B, parts)]
+
 
 @dataclass(frozen=True, order=True)
 class ScanDesc:
@@ -122,6 +161,92 @@ class ScanDesc:
 
     def key(self) -> str:
         return f"ms_{self.B}_{self.T}_{self.H}_{self.P}_{self.N}_{self.dtype}"
+
+    # ------------------------------------------------------------ slicing
+    @property
+    def can_slice(self) -> bool:
+        """Along batch only: chunk k of T needs chunk k−1's state, so T
+        pieces are not independent ops; sequences are."""
+        return self.B >= 2
+
+    def slice(self, parts: int) -> list:
+        if parts <= 1 or not self.can_slice:
+            return [self]
+        return [replace(self, B=hi - lo)
+                for lo, hi in split_spans(self.B, parts)]
+
+
+def can_slice(d) -> bool:
+    """Descriptors without the slicing protocol never slice."""
+    return bool(getattr(d, "can_slice", False))
+
+
+@dataclass(frozen=True)
+class SlicePlan:
+    """A sliced op and its merge recipe: ``pieces`` are ordinary
+    descriptors (admitted, planned and executed like any other op),
+    ``spans`` the [lo, hi) ranges along the sliced axis (``kind``) in the
+    parent's coordinates.  `split_operands` maps the parent's operand
+    tuple to the pieces', as views; `merge` concatenates the pieces'
+    outputs along ``merge_axis`` into the parent's output."""
+
+    parent: object
+    pieces: Tuple[object, ...]
+    kind: str                           # "m" | "sq" | "batch"
+    spans: Tuple[Tuple[int, int], ...]
+    merge_axis: int
+
+    @property
+    def parts(self) -> int:
+        return len(self.pieces)
+
+    def split_operands(self, operands: Tuple) -> List[Tuple]:
+        """Per-piece operand tuples in the family op's order: GEMM
+        ``(a, b)`` (rows of ``a``, or its columns when stored transposed;
+        ``b`` shared), attention ``(q, k, v)`` (a causal Sq piece also
+        trims k and v to its Skv), scan ``(xd, da, Bm, Cm)`` (batch)."""
+        if self.kind == "m":
+            a, b = operands
+            ta = self.parent.ta
+            return [((a[:, lo:hi] if ta else a[lo:hi]), b)
+                    for lo, hi in self.spans]
+        if self.kind == "sq":
+            q, k, v = operands
+            out = []
+            for p, (lo, hi) in zip(self.pieces, self.spans):
+                if self.parent.causal:
+                    out.append((q[:, :, lo:hi], k[:, :, :p.Skv],
+                                v[:, :, :p.Skv]))
+                else:
+                    out.append((q[:, :, lo:hi], k, v))
+            return out
+        # "batch": every operand carries the batch on axis 0.
+        return [tuple(x[lo:hi] for x in operands) for lo, hi in self.spans]
+
+    def merge(self, outputs: List[torch.Tensor]) -> torch.Tensor:
+        """The pieces' outputs concatenated into the parent's output (a
+        new tensor)."""
+        return torch.cat(list(outputs), dim=self.merge_axis)
+
+
+def slice_plan(d, parts: int) -> SlicePlan:
+    """``d`` sliced into ≤ ``parts`` pieces by the family's `slice()`,
+    with its operand and merge mapping; ``slice_plan(d, 1)`` wraps the
+    identity."""
+    pieces = d.slice(parts) if can_slice(d) else [d]
+    fam = family_of(d)
+    if fam == "gemm":
+        kind, total, axis = "m", d.M, 0
+    elif fam == "mamba_scan":
+        kind, total, axis = "batch", d.B, 0
+    else:
+        ax = d._slice_axis() or "batch"
+        kind = ax
+        total = d.Sq if ax == "sq" else d.B
+        axis = 2 if ax == "sq" else 0
+    spans = tuple(split_spans(total, len(pieces)))
+    return SlicePlan(parent=d, pieces=tuple(pieces), kind=kind,
+                     spans=spans, merge_axis=axis)
 
 
 def op_from_key(key: str):

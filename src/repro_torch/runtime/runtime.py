@@ -17,6 +17,35 @@
   each launch also runs through the kernels.
 - `drain()` force-flushes until the queues are empty.
 
+Tenants have service objectives (`TenantSLO`, `set_tenant_slo`): each
+submit gets an absolute deadline (``now + p99_target_s``) and a rank
+(latency tenants 0, batch tenants 1).  With the defaults of
+`RuntimeConfig` none of it changes a plan or the timeline:
+
+- ``slicing`` with a ``flush_budget_s``: admission cuts an op whose
+  modeled isolated time exceeds ``flush_budget_s · slice_budget_frac``
+  into just enough pieces to fit (at most ``max_slices``; `slice_plan`):
+  GEMM rows, attention query rows (prefill) or batch, scan batch.  Only
+  the pieces enter the queues; the caller holds the parent, which
+  completes with its last piece and whose result is the pieces' outputs
+  concatenated (`SlicePlan.merge`, a new tensor: the pieces keep
+  theirs).  A piece of a GEMM stored transposed (``ta``) gets its own
+  copy of its columns of ``a``, one allocation a piece, because the
+  column view is not contiguous and the card's GEMM launchers refuse it
+  (ROADMAP C10); every other piece's operands are views.
+- ``policy="edf"``: ripe classes are served earliest deadline first
+  (heavier tenant weight breaks ties); launches run by their members'
+  earliest deadline, then weight, then arrival; the bundle queue is
+  planned with its members' ranks (`plan_mixed(ranks=)`), which then
+  join its plan-cache signature.
+- ``flush_budget_s``: a commit horizon.  A flush binds launches only
+  until the modeled device is committed through ``now + flush_budget_s``
+  (at least one launch if the device is not committed past it already);
+  the rest return to their queues with their deadlines (`_requeue`), to
+  be ordered against later arrivals.  `drain` advances its clock to the
+  commit edge when a flush binds nothing.  Each piece adds
+  `SLICE_OVERHEAD_S` to its launch's modeled time (`_launch_cost`).
+
 The runtime corrects itself online, as the reference does:
 
 - with a `CostCalibrator` on the controller, every launch that completed
@@ -53,13 +82,15 @@ Departures from the reference:
   strike.  A sticky CUDA error fails every rung and raises from the
   reference rung.
 
-Slicing, EDF ranks, graph submission and meshes are not ported, nor the
-parts of these functions that serve them (the admission estimate cache,
-`set_mesh`, graph completion).
+Graph submission (ROADMAP A9), the ``"experts"`` slicing of grouped
+expert GEMMs (A10) and meshes (`set_mesh`, A13) are not ported, nor the
+parts of these functions that serve them (graph completion and ready-set
+depth in `flush`).
 """
 from __future__ import annotations
 
 import bisect
+import math
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field, replace
@@ -67,10 +98,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.cost_model import EVAL_COUNTER
+from repro_torch.core.cost_model import (
+    EVAL_COUNTER,
+    SLICE_OVERHEAD_S,
+    isolated_time,
+)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.gemm_desc import GemmDesc
-from repro_torch.core.op_desc import family_of
+from repro_torch.core.op_desc import SlicePlan, family_of, slice_plan
 from repro_torch.core.scheduler import (
     CP_OVERHEAD_S,
     OP_FAMILIES,
@@ -78,6 +113,7 @@ from repro_torch.core.scheduler import (
     GemmRequest,
     GroupPlan,
     Schedule,
+    bind_operands,
     compat_key,
     execute_schedule,
     join_member_streams,
@@ -106,17 +142,47 @@ class RuntimeConfig:
     window_s: float = 2e-3          # batching window before a class is ripe
     plan_cache_capacity: int = 512  # LRU entries (queue signatures)
     execute: bool = False           # run launches through the kernels
+    # Tenant objectives; the defaults are round-robin service, no
+    # admission slicing and unbounded flushes.
+    policy: str = "round-robin"     # "round-robin" | "edf"
+    slicing: bool = False           # slice oversized ops at admission
+    flush_budget_s: float | None = None  # modeled commit horizon of a flush
+    slice_budget_frac: float = 0.5  # slice when iso time > budget * frac
+    max_slices: int = 8             # admission never slices finer than this
     # The fallback ladder; the healthy path is the same whatever they are.
     max_retries: int = 1            # same-plan retries before re-planning
     quarantine_strikes: int = 3     # consecutive failures → quarantine
     quarantine_cooldown_s: float = 0.5   # then a half-open probe
 
 
+@dataclass(frozen=True)
+class TenantSLO:
+    """A tenant's service objective.  ``latency_class`` "latency"
+    (deadline-driven, rank 0) or "batch" (rank 1); ``weight`` breaks
+    deadline ties, heavier first; ``p99_target_s`` makes each submit's
+    absolute deadline ``submit_t + p99_target_s``, so a waiting ticket
+    only gains on fresh arrivals."""
+
+    latency_class: str = "batch"
+    weight: float = 1.0
+    p99_target_s: float = 50e-3
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.latency_class == "latency" else 1
+
+
+DEFAULT_SLO = TenantSLO()
+
+
 @dataclass
 class Ticket:
     """Handle of one submitted request, or (``kind="bundle"``) of a
     submitted sequence: its ``members`` are the per-request tickets, and
-    it completes with its last member."""
+    it completes with its last member.  A request admission sliced is a
+    parent: its ``pieces`` are the tickets in the queues (each links back
+    by ``parent``), and it completes, with the merged result, when its
+    last piece does."""
 
     seq: int
     tenant: str
@@ -125,6 +191,11 @@ class Ticket:
     done_t: Optional[float] = None
     result: Optional[torch.Tensor] = None   # set when executed
     plan: Optional[GroupPlan] = None
+    deadline_t: float = math.inf            # submit_t + the SLO's p99 target
+    rank: int = 1                           # the tenant's SLO rank
+    parent: Optional["Ticket"] = field(default=None, repr=False)
+    pieces: Optional[List["Ticket"]] = field(default=None, repr=False)
+    merge_plan: Optional[SlicePlan] = field(default=None, repr=False)
     kind: str = "op"                        # "op" | "bundle"
     agg: Optional["Ticket"] = field(default=None, repr=False)
     members: Optional[List["Ticket"]] = field(default=None, repr=False)
@@ -136,6 +207,10 @@ class Ticket:
     @property
     def latency_s(self) -> Optional[float]:
         return None if self.done_t is None else self.done_t - self.submit_t
+
+    @property
+    def sliced(self) -> bool:
+        return self.pieces is not None
 
     @property
     def done(self) -> bool:
@@ -169,17 +244,21 @@ class Launch:
 class _ClassQueue:
     """One class's pending tickets in canonical order (bisect insertion at
     admission, ties by arrival), with the signature's key list kept as a
-    parallel array so `flush()` never sorts."""
+    parallel array so `flush()` never sorts, and the earliest submit time,
+    earliest deadline and heaviest tenant weight pending."""
 
-    __slots__ = ("tickets", "keys", "_orders", "oldest_t")
+    __slots__ = ("tickets", "keys", "_orders", "oldest_t", "min_deadline",
+                 "max_weight")
 
     def __init__(self) -> None:
         self.tickets: List[Ticket] = []
         self.keys: List[str] = []
         self._orders: List[tuple] = []
         self.oldest_t = float("inf")
+        self.min_deadline = float("inf")
+        self.max_weight = 0.0
 
-    def add(self, ticket: Ticket) -> None:
+    def add(self, ticket: Ticket, weight: float = 1.0) -> None:
         order = _canonical_order(ticket.desc)
         i = bisect.bisect_right(self._orders, order)
         self._orders.insert(i, order)
@@ -187,11 +266,17 @@ class _ClassQueue:
         self.keys.insert(i, ticket.desc.key())
         if ticket.submit_t < self.oldest_t:
             self.oldest_t = ticket.submit_t
+        if ticket.deadline_t < self.min_deadline:
+            self.min_deadline = ticket.deadline_t
+        if weight > self.max_weight:
+            self.max_weight = weight
 
     def take_all(self) -> tuple[List[Ticket], tuple]:
         tickets, keys = self.tickets, tuple(self.keys)
         self.tickets, self.keys, self._orders = [], [], []
         self.oldest_t = float("inf")
+        self.min_deadline = float("inf")
+        self.max_weight = 0.0
         return tickets, keys
 
     def __len__(self) -> int:
@@ -237,6 +322,71 @@ class Runtime:
         self._plan_cache: "OrderedDict[Signature, Schedule]" = OrderedDict()
         self._seq = 0
         self._flush_id = 0
+        # Tenant objectives, and the modeled isolated time per desc key
+        # that admission slicing reads (cleared wherever library entries
+        # go stale), so steady-state admission evaluates no cost model.
+        self._slos: Dict[str, TenantSLO] = {}
+        self._iso_cache: Dict[str, float] = {}
+
+    # --------------------------------------------------------------- SLOs
+    def set_tenant_slo(self, tenant: str, slo: TenantSLO) -> None:
+        self._slos[tenant] = slo
+
+    def tenant_slo(self, tenant: str) -> TenantSLO:
+        return self._slos.get(tenant, DEFAULT_SLO)
+
+    def _isolated_estimate(self, desc) -> float:
+        """Memoized modeled isolated time, for admission decisions."""
+        key = desc.key()
+        est = self._iso_cache.get(key)
+        if est is None:
+            est = isolated_time(desc, self.ctrl.lib.get(desc).isolated,
+                                self.ctrl.spec)
+            self._iso_cache[key] = est
+        return est
+
+    def _admission_parts(self, desc) -> int:
+        """How many pieces admission slices ``desc`` into: 1 unless
+        slicing is on with a budget, the op can slice, and its modeled
+        isolated time exceeds ``flush_budget_s · slice_budget_frac``;
+        then just enough pieces to bring each under that, at most
+        ``max_slices``."""
+        cfg = self.config
+        if (not cfg.slicing or cfg.flush_budget_s is None
+                or not getattr(desc, "can_slice", False)):
+            return 1
+        threshold = cfg.flush_budget_s * cfg.slice_budget_frac
+        if threshold <= 0:
+            return 1
+        est = self._isolated_estimate(desc)
+        if est <= threshold:
+            return 1
+        return min(math.ceil(est / threshold), cfg.max_slices)
+
+    def _make_pieces(self, ticket: Ticket, plan: SlicePlan) -> List[Ticket]:
+        """The piece tickets of a sliced parent: ordinary tickets of the
+        piece descs, with the parent's operands split (views, but a
+        ``ta`` GEMM's columns, which are copied: ROADMAP C10), its
+        deadline and rank, and a link back for completion."""
+        req = ticket.request
+        operands = req.operands
+        per_piece = (plan.split_operands(operands)
+                     if operands is not None and all(t is not None for t in operands)
+                     else [None] * plan.parts)
+        pieces: List[Ticket] = []
+        for pdesc, pops in zip(plan.pieces, per_piece):
+            if pops is not None and plan.kind == "m" and pdesc.ta:
+                pops = (pops[0].contiguous(), pops[1])
+            preq = bind_operands(pdesc, pops, tag=req.tag)
+            self._seq += 1
+            pieces.append(Ticket(
+                seq=self._seq, tenant=ticket.tenant, request=preq,
+                submit_t=ticket.submit_t, deadline_t=ticket.deadline_t,
+                rank=ticket.rank, parent=ticket))
+        ticket.pieces = pieces
+        ticket.merge_plan = plan
+        self.telemetry.record_slices(ticket.tenant, plan.parts)
+        return pieces
 
     # ------------------------------------------------------------- admit
     def submit(
@@ -261,25 +411,19 @@ class Runtime:
         if family_of(request.desc) != "gemm":
             raise ValueError(f"{request.desc.key()}: a {request.desc.family} "
                              "op runs in a bundle; submit a sequence")
-        key = compat_key(request.desc)
-        q = self._queues.get(key)
-        if q is None:
-            q = self._queues[key] = _ClassQueue()
-            self._order.append(key)
-        return self._admit(q, request, tenant, now)
+        return self._admit(request, tenant, now)
 
     def _submit_bundle(self, work: Sequence, tenant: str, now: float) -> Ticket:
         """Every member is one logical request (its own latency); the
         returned handle completes with the last of them."""
         requests = [self._admissible(r) for r in work]
-        q = self._queues.get(MIXED_CLASS)
-        if q is None:
-            q = self._queues[MIXED_CLASS] = _ClassQueue()
-            self._order.append(MIXED_CLASS)
-        members = [self._admit(q, r, tenant, now) for r in requests]
+        self._queue(MIXED_CLASS)
+        members = [self._admit(r, tenant, now, MIXED_CLASS) for r in requests]
+        slo = self.tenant_slo(tenant)
         self._seq += 1
         handle = Ticket(seq=self._seq, tenant=tenant, request=None,
-                        submit_t=now, kind="bundle", members=members)
+                        submit_t=now, deadline_t=now + slo.p99_target_s,
+                        rank=slo.rank, kind="bundle", members=members)
         for m in members:
             m.agg = handle
         return handle
@@ -307,14 +451,36 @@ class Runtime:
                                  f"{self.device}")
         return request
 
-    def _admit(self, q: "_ClassQueue", request: GemmRequest, tenant: str,
-               now: float) -> Ticket:
+    def _admit(self, request: GemmRequest, tenant: str, now: float,
+               class_key: str | None = None) -> Ticket:
+        """One logical request's ticket, with its tenant's deadline and
+        rank, into its class queue (``class_key``, or the desc's
+        compatibility class) — or, when admission slices it, its pieces."""
+        slo = self.tenant_slo(tenant)
         self._seq += 1
         ticket = Ticket(seq=self._seq, tenant=tenant, request=request,
-                        submit_t=now)
-        q.add(ticket)
+                        submit_t=now, deadline_t=now + slo.p99_target_s,
+                        rank=slo.rank)
+        parts = self._admission_parts(request.desc)
+        if parts > 1:
+            for piece in self._make_pieces(ticket, slice_plan(request.desc, parts)):
+                self._enqueue(piece, slo.weight, class_key)
+        else:
+            self._enqueue(ticket, slo.weight, class_key)
         self.telemetry.record_submit()
         return ticket
+
+    def _queue(self, key: str) -> "_ClassQueue":
+        q = self._queues.get(key)
+        if q is None:
+            q = self._queues[key] = _ClassQueue()
+            self._order.append(key)
+        return q
+
+    def _enqueue(self, ticket: Ticket, weight: float = 1.0,
+                 class_key: str | None = None) -> None:
+        key = class_key if class_key is not None else compat_key(ticket.desc)
+        self._queue(key).add(ticket, weight)
 
     def set_available(self, n: int) -> None:
         """Set the live available parallelism (slots other work holds are
@@ -367,8 +533,13 @@ class Runtime:
 
     # -------------------------------------------------------------- flush
     def flush(self, now: float | None = None, force: bool = False) -> List[Launch]:
-        """Serve every ripe class (head waited ≥ window_s), starting after
-        the last serviced class, with the classes' launches interleaved."""
+        """Serve every ripe class (head waited ≥ window_s).  Round-robin:
+        starting after the last serviced class, with the classes' launches
+        interleaved.  EDF (``policy="edf"``): classes by earliest
+        deadline (heavier weight first on ties), launches by their
+        members' earliest deadline, then weight, then arrival.  A
+        ``flush_budget_s`` binds only a prefix of that order; the rest
+        requeue with their deadlines."""
         now = self.clock() if now is None else now
         evals0 = EVAL_COUNTER.evals
         resorts0 = self.telemetry.sig_resorts
@@ -382,20 +553,38 @@ class Runtime:
         self._flush_id += 1
         self.telemetry.record_flush(self.queue_depths())
 
-        start = self._rr % max(len(self._order), 1)
-        rotated = [k for k in self._order[start:] + self._order[:start]
-                   if k in ripe]
-        self._rr = (self._order.index(rotated[0]) + 1) % len(self._order)
+        edf = self.config.policy == "edf"
+        if edf:
+            # deadlines are absolute, so a waiting class only rises
+            rotated = sorted(ripe, key=lambda k: (
+                self._queues[k].min_deadline, -self._queues[k].max_weight, k))
+        else:
+            start = self._rr % max(len(self._order), 1)
+            rotated = [k for k in self._order[start:] + self._order[:start]
+                       if k in ripe]
+            self._rr = (self._order.index(rotated[0]) + 1) % len(self._order)
 
         per_class: List[List[Launch]] = []
         planning_s = 0.0
         for key in rotated:
             tickets, sig_keys = self._queues[key].take_all()
             if key == MIXED_CLASS:
-                sched, hit = self._plan_for_keys(
-                    (MIXED_CLASS,) + sig_keys,
-                    lambda: [t.desc for t in tickets],
-                    planner=self.ctrl.plan_mixed)
+                ranks = [t.rank for t in tickets] if edf else None
+                if ranks is not None and len(set(ranks)) > 1:
+                    # ranks change the chunking, so their pattern joins
+                    # the signature; tenants' ranks are static, so
+                    # steady-state traffic still hits
+                    sched, hit = self._plan_for_keys(
+                        (MIXED_CLASS,) + sig_keys
+                        + ("ranks:" + "".join(map(str, ranks)),),
+                        lambda: [t.desc for t in tickets],
+                        planner=lambda descs, available: self.ctrl.plan_mixed(
+                            descs, available=available, ranks=ranks))
+                else:
+                    sched, hit = self._plan_for_keys(
+                        (MIXED_CLASS,) + sig_keys,
+                        lambda: [t.desc for t in tickets],
+                        planner=self.ctrl.plan_mixed)
             else:
                 sched, hit = self._plan_for_keys(
                     sig_keys, lambda: [t.desc for t in tickets])
@@ -407,25 +596,54 @@ class Runtime:
                        class_key=key, cache_hit=hit)
                 for gp in sched.groups
             ])
-        launches = _interleave(per_class)
+        if edf:
+            launches = [ln for groups in per_class for ln in groups]
+            launches.sort(key=lambda ln: (
+                min(tk.deadline_t for tk in ln.tickets),
+                -max(self.tenant_slo(tk.tenant).weight for tk in ln.tickets),
+                min(tk.seq for tk in ln.tickets)))
+        else:
+            launches = _interleave(per_class)
+
+        # The budget is a commit horizon: bind launches only until the
+        # modeled device is committed through ``now + flush_budget_s``;
+        # the rest requeue, deadlines intact, so a later flush orders them
+        # against what arrived meanwhile.  Nothing binds if committed work
+        # already passes the horizon; else at least one launch does (its
+        # planning may overshoot), so forced flushing makes progress.
+        base = max(self.device_free_t, now + planning_s)
+        budget = self.config.flush_budget_s
+        if budget is not None:
+            horizon = now + budget
+            acc, cut = base, 0
+            for launch in launches:
+                if cut == 0:
+                    if self.device_free_t > horizon:
+                        break
+                elif acc + _launch_cost(launch) > horizon:
+                    break
+                acc += _launch_cost(launch)
+                cut += 1
+            if cut < len(launches):
+                for launch in launches[cut:]:
+                    self._requeue(launch)
+                self.telemetry.record_deferred(len(launches) - cut)
+                launches = launches[:cut]
 
         # Modeled single-device timeline: planning (cache misses) delays
         # dispatch on an idle device and hides behind prior kernels.
-        t = max(self.device_free_t, now + planning_s)
+        t = base
         for launch in launches:
             launch.start_t = t
             achieved = self._execute(launch) if self.config.execute else None
             # failed attempts take modeled device time too; ``penalty_s``
             # is 0.0 on the healthy path, so its timeline is unchanged
-            t += launch.plan.modeled_time_s + launch.penalty_s
+            t += _launch_cost(launch) + launch.penalty_s
             launch.end_t = t
             for ticket in launch.tickets:
                 ticket.done_t = launch.end_t
                 ticket.plan = launch.plan
-                self.telemetry.record_latency(ticket.tenant, ticket.latency_s)
-                agg = ticket.agg
-                if agg is not None and agg.done_t is None and agg.done:
-                    agg.done_t = max(m.done_t for m in agg.members)
+                self._finish(ticket)
             # §6.11 fusion happens before admission (one wide request with
             # a "-fused" tag); surface it in telemetry instead of "single".
             mode = launch.plan.mode
@@ -453,12 +671,52 @@ class Runtime:
         return launches
 
     def drain(self, now: float | None = None) -> List[Launch]:
-        """Force-flush until every queue is empty."""
+        """Force-flush until every queue is empty.  A budgeted flush can
+        bind nothing (the device committed past its horizon); then the
+        clock advances to the commit edge."""
         out: List[Launch] = []
         cur = self.clock() if now is None else now
         while self.pending():
-            out += self.flush(now=cur, force=True)
+            got = self.flush(now=cur, force=True)
+            out += got
+            if not got:
+                cur = max(cur, self.device_free_t)
         return out
+
+    # --------------------------------------------------------- completion
+    def _finish(self, ticket: Ticket) -> None:
+        """A piece completes its parent when it is the last one, the
+        parent's result being the merged pieces' when executed; then the
+        whole op's logical completion."""
+        parent = ticket.parent
+        if parent is None:
+            self._complete_logical(ticket)
+            return
+        if any(p.done_t is None for p in parent.pieces):
+            return
+        parent.done_t = max(p.done_t for p in parent.pieces)
+        parent.plan = ticket.plan
+        if all(p.result is not None for p in parent.pieces):
+            parent.result = parent.merge_plan.merge(
+                [p.result for p in parent.pieces])
+        self._complete_logical(parent)
+
+    def _complete_logical(self, ticket: Ticket) -> None:
+        """One whole op finished: its latency, and its bundle's completion
+        when it is the last member."""
+        self.telemetry.record_latency(ticket.tenant, ticket.latency_s)
+        agg = ticket.agg
+        if (agg is not None and agg.done_t is None
+                and all(m.done_t is not None for m in agg.members)):
+            agg.done_t = max(m.done_t for m in agg.members)
+
+    def _requeue(self, launch: Launch) -> None:
+        """A deferred launch's tickets back to their class queue, submit
+        time and deadline intact, so deferral only makes them more urgent
+        than fresh arrivals."""
+        for tk in launch.tickets:
+            self._enqueue(tk, self.tenant_slo(tk.tenant).weight,
+                          class_key=launch.class_key)
 
     # -------------------------------------------------- calibration (§16)
     def _feed_calibration(self, launch: Launch,
@@ -514,6 +772,7 @@ class Runtime:
                 fresh = self.ctrl.lib.prewarm(list(descs.values()))
                 self.ctrl.invalidate_caches()
                 self.invalidate_plans()
+                self._iso_cache.clear()
         if self.breaker.active:
             now = self.clock() if now is None else now
             for key in self.breaker.release_due(now):
@@ -523,6 +782,7 @@ class Runtime:
                     self.ctrl.lib.invalidate(keys)
                 self.ctrl.invalidate_caches()
                 self.invalidate_plans()
+                self._iso_cache.clear()
                 self.telemetry.record_probe()
         return fresh
 
@@ -669,6 +929,7 @@ class Runtime:
         self.ctrl.lib.invalidate(keys)
         evicted = self._evict_plans_using(tile_key)
         self.ctrl.invalidate_caches()
+        self._iso_cache.clear()
         self.telemetry.record_quarantine(evicted_plans=evicted)
 
     def _evict_plans_using(self, tile_key: str) -> int:
@@ -697,6 +958,13 @@ def _canonical_order(d: GemmDesc) -> tuple:
     """Stable within-class ordering (largest M first) so equal queue
     contents produce equal signatures regardless of arrival order."""
     return (-d.M, d.key())
+
+
+def _launch_cost(launch: Launch) -> float:
+    """Modeled device time of one launch with `SLICE_OVERHEAD_S` for each
+    piece in it (exactly the plan's time when nothing is sliced)."""
+    sliced = sum(1 for tk in launch.tickets if tk.parent is not None)
+    return launch.plan.modeled_time_s + sliced * SLICE_OVERHEAD_S
 
 
 def _interleave(per_class: List[List[Launch]]) -> List[Launch]:

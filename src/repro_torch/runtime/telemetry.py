@@ -1,8 +1,8 @@
 """Serving-runtime telemetry (`repro/runtime/telemetry.py`), for the
 parts of the runtime the port carries: per-launch concurrency degree and
 mode, modeled vs achieved time, plan-cache effectiveness, queue depths,
-per-tenant latency, and the fallback ladder's faults, fallbacks,
-quarantines and probes.  Plain Python, safe inside the dispatch path.
+per-tenant latency, admission slicing and budget deferrals, and the
+fallback ladder's faults, fallbacks, quarantines and probes.  Plain Python, safe inside the dispatch path.
 """
 from __future__ import annotations
 
@@ -54,7 +54,14 @@ class Telemetry:
     last_flush_evals: int = 0
     sig_resorts: int = 0
     flush_sig_resorts: int = 0
+    # Per-tenant latencies of completed logical requests (a sliced parent
+    # counts once, at its last piece), the pieces admission slicing made
+    # per tenant, the ops it sliced, and the launches flush budgets
+    # deferred to a later flush.
     tenant_lat: Dict[str, List[float]] = field(default_factory=dict)
+    slice_counts: Counter = field(default_factory=Counter)
+    sliced_ops: int = 0
+    deferred_launches: int = 0
     # The fallback ladder: failed launch attempts by kind ("raise" |
     # "nan" | "stall" | "error"), completions by fallback rung,
     # quarantines with the cached plans they evicted, and half-open
@@ -99,8 +106,19 @@ class Telemetry:
         self.groups.append(rec)
 
     def record_latency(self, tenant: str, latency_s: float) -> None:
+        """One logical request completed (a sliced op once, as its
+        parent), so ``completed`` matches ``submitted`` under slicing."""
         self.completed += 1
         self.tenant_lat.setdefault(tenant, []).append(latency_s)
+
+    def record_slices(self, tenant: str, parts: int) -> None:
+        """Admission sliced one op into ``parts`` pieces."""
+        self.sliced_ops += 1
+        self.slice_counts[tenant] += parts
+
+    def record_deferred(self, n: int = 1) -> None:
+        """Launches a flush budget pushed to a later flush."""
+        self.deferred_launches += n
 
     def record_fault(self, kind: str) -> None:
         """One failed launch attempt, before any fallback."""
@@ -205,6 +223,9 @@ class Telemetry:
             "queue_depths": self.queue_depth_histogram(),
             "class_ratios": self.class_ratios(),
             "tenants": self.tenant_percentiles(),
+            "slice_counts": dict(self.slice_counts),
+            "sliced_ops": self.sliced_ops,
+            "deferred_launches": self.deferred_launches,
             "faults": dict(self.faults),
             "fallbacks": dict(self.fallbacks),
             "quarantines": self.quarantines,

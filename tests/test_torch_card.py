@@ -59,6 +59,15 @@ GEMM tolerance (as in `chip_smoke.py`): |kernel − plain| ≤ 2⁻⁷·|plain|
 (bf16 outputs only: one rounding each) + 2⁻¹⁶·|A|·|B| (f32 summation
 order over K).
 
+Admission slicing on the card, through a `Runtime` that slices every op
+it can into three pieces: a row-sliced GEMM on integer-valued operands
+(every sum exact) merges bitwise into the unsliced run, and so does a
+``ta`` one, whose pieces run on contiguous copies of their columns of A
+(the launchers refuse a column view; ROADMAP C10); a query-row-sliced
+causal attention (each piece a strided view of q and of the first keys
+of k and v) within `attention_tol` of `flash_ref`; a batch-sliced scan
+on the chunk loop within the scan tolerance of `ssd_chunk_ref`.
+
 The runtime's fallback ladder on the card: a mixed full-width Qwen3-14B
 bundle under injected raise and nan faults completes bitwise equal to the
 fault-free run (integer-valued operands, every sum exact), and its
@@ -80,6 +89,7 @@ from repro_torch.core import (
     GemmRequest,
     GOLibrary,
     Measurer,
+    ScanDesc,
     backend_tag,
     bind_operands,
     tune_gemm,
@@ -839,3 +849,67 @@ def test_reference_rung_launches_kernels_only(card, monkeypatch):
         assert torch.equal(g_, w)
     atol, rtol = attention_tol(torch.bfloat16)
     assert bool(((got[-1].float() - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+# ------------------------------------------------ admission slicing
+# Every op the runtime can slice, in three pieces.
+SLICE_ALL = dict(slicing=True, flush_budget_s=10.0, slice_budget_frac=1e-9,
+                 max_slices=3)
+
+
+def _serve_one(card, work, **cfg):
+    """``work`` (a request, or a sequence for a bundle) through a runtime
+    on the card; returns its ticket (a bundle's one member)."""
+    rt = Runtime(ConcurrencyController(GOLibrary()),
+                 RuntimeConfig(window_s=0.0, execute=True, **cfg), device=card)
+    tk = rt.submit(work)
+    rt.drain()
+    torch.cuda.synchronize()
+    assert tk.done and not rt.telemetry.fault_events
+    return tk.members[0] if tk.members else tk
+
+
+@pytest.mark.parametrize("ta", [False, True], ids=["rows", "ta_columns"])
+def test_row_sliced_gemm_merges_bitwise(card, ta):
+    g = torch.Generator(device=card).manual_seed(11)
+    d = GemmDesc(1000, 1024, 5120, ta=ta)
+    a = torch.randint(-3, 4, (d.K, d.M) if ta else (d.M, d.K), generator=g,
+                      device=card).to(torch.bfloat16)
+    b = torch.randint(-3, 4, (d.K, d.N), generator=g, device=card).to(torch.bfloat16)
+    whole = _serve_one(card, GemmRequest(desc=d, a=a, b=b))
+    sliced = _serve_one(card, GemmRequest(desc=d, a=a, b=b), **SLICE_ALL)
+    assert not whole.sliced and [p.desc.M for p in sliced.pieces] == [334, 333, 333]
+    assert all(p.request.a.is_contiguous() for p in sliced.pieces)
+    assert torch.equal(sliced.result, whole.result)
+    assert torch.equal(whole.result, gemm_ref(a, b, ta=ta))
+
+
+def test_sq_sliced_causal_attention_matches_plain(card):
+    g = torch.Generator(device=card).manual_seed(12)
+    d = AttentionDesc(1, 40, 8, 1024, 1536, 128)
+    q, k, v = (torch.randn(s, generator=g, device=card).to(torch.bfloat16)
+               for s in ((1, 40, 1024, 128), (1, 8, 1536, 128), (1, 8, 1536, 128)))
+    before = flash_attention_fwd.launches
+    tk = _serve_one(card, [bind_operands(d, (q, k, v))], **SLICE_ALL)
+    assert [(p.desc.Sq, p.desc.Skv) for p in tk.pieces] == \
+        [(342, 854), (341, 1195), (341, 1536)]
+    assert flash_attention_fwd.launches == before + 3
+    ref = flash_ref(q.float(), k.float(), v.float(), q_offset=512)
+    atol, rtol = attention_tol(torch.bfloat16)
+    assert tk.result.shape == ref.shape
+    err = (tk.result.float() - ref).abs()
+    assert bool((err <= atol + rtol * ref.abs()).all()), err.max().item()
+
+
+def test_batch_sliced_scan_runs_the_chunk_loop_within_tolerance(card):
+    d = ScanDesc(4, 256, 8, 64, 64)
+    xd, da, bm, cm = _scan_inputs(card, 4, 256, 8, 64, 64, torch.bfloat16, True, 13)
+    before = dict(mamba_scan_fwd.routes)
+    tk = _serve_one(card, [bind_operands(d, (xd, da, bm, cm))], **SLICE_ALL)
+    assert [p.desc.B for p in tk.pieces] == [2, 1, 1]
+    assert mamba_scan_fwd.routes["chunks"] == before["chunks"] + 3
+    y_ref, _ = ssd_chunk_ref(xd.float(), da.float(), bm.float(), cm.float(), chunk=64)
+    assert tk.result.shape == y_ref.shape
+    err = (tk.result.float() - y_ref).abs()
+    rtol = SCAN_TOL + 2.0 ** -8
+    assert bool((err <= SCAN_TOL + rtol * y_ref.abs()).all()), err.max().item()

@@ -40,9 +40,8 @@ from repro_torch.runtime import (
 )
 
 # Keys of the reference's summary for features the port does not carry
-# yet (slicing, graphs); idle, they hold these values.
-IDLE = {"slice_counts": {}, "sliced_ops": 0, "deferred_launches": 0,
-        "graphs_submitted": 0, "graphs_completed": 0, "graph_nodes": 0,
+# yet (graphs); idle, they hold these values.
+IDLE = {"graphs_submitted": 0, "graphs_completed": 0, "graph_nodes": 0,
         "cross_graph_groups": 0, "ready_depths": {}, "max_ready_depth": 0}
 # Small-N, long-K GEMMs whose GO tiles split K or walk Stream-K spans.
 LONG_K = [(1, 128, 8192), (8, 128, 8192), (4, 256, 8192), (16, 128, 8192)]

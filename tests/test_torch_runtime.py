@@ -39,9 +39,8 @@ from repro_torch.runtime import (
 
 WINDOWS = ([8, 8, 8, 8], [4, 8, 8, 8, 16], [8, 8, 8, 8])
 # Keys of the reference's summary for features the port does not carry
-# yet (slicing, graphs); idle, they hold these values.
-IDLE = {"slice_counts": {}, "sliced_ops": 0, "deferred_launches": 0,
-        "graphs_submitted": 0, "graphs_completed": 0, "graph_nodes": 0,
+# yet (graphs); idle, they hold these values.
+IDLE = {"graphs_submitted": 0, "graphs_completed": 0, "graph_nodes": 0,
         "cross_graph_groups": 0, "ready_depths": {}, "max_ready_depth": 0}
 
 
