@@ -121,7 +121,25 @@ Phases, each fatal on failure (nothing here catches an error):
    attention member and one scan launch per scan member, every scan
    launch on the decode kernel.  Each warm
    window is then timed concurrently and back to back (as in phase 5)
-   and profiled once;
+   and profiled once.  Then graph serving on the same weights and KV
+   caches, its launches counted apart (`graph_part`): per tenant one
+   `decode_step_graph` over every layer, each node's static operands
+   attached by name (each layer's roots the layer input, every GEMM its
+   weight, the attention its KV cache, the scan its inputs; every other
+   slot arrives by a data edge), in the same two windows: all tenants'
+   graphs submitted and drained, cold, then warm after `prewarm(graph)`;
+   then the same graphs' waves as barriered bundles, tenant after tenant
+   (the reference's baseline).  Fatal: every node within its family's
+   tolerance of its plain version on the operands it was given; every
+   data edge's consumer operand a view of its producer's output (the
+   same storage); every node launched in a later flush than each of its
+   producers; every graph completed; each run's launches equal to the
+   planner's in shadow mode; one attention launch per attention node
+   and one decode-kernel scan launch per scan node; no fault, no
+   fallback, no `matmul` on the ring feed.  Printed, not gated, for
+   graph and waves side by side: launches by mode, mean CD, flushes,
+   launches mixing graphs, ready-set depths, plan-cache hits, device
+   time (the attempts' CUDA events) and wall time;
 8. self-correction, run after phase 5 on phase 5's unfused weights and
    phase 4's fused weights made again from phase 4's seed (phase 4's
    own are freed before phase 5, as they were before this phase
@@ -257,6 +275,7 @@ from repro_torch.core import (  # noqa: E402
     accuracy_by_available,
     bind_operands,
     execute_schedule,
+    family_of,
     generate_gemm_pool,
     op_features,
     profile_dataset,
@@ -311,10 +330,12 @@ from repro_torch.runtime import (  # noqa: E402
     MIXED_CLASS,
     FaultInjector,
     FaultRule,
+    GraphState,
     Runtime,
     RuntimeConfig,
     TenantSLO,
     decode_step_descs,
+    decode_step_graph,
     decode_step_op_descs,
     decode_step_requests,
 )
@@ -2141,8 +2162,245 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
     check_healthy(rt, f"{cfg.name} op-bundle serving, profiled windows")
     for w in windows:
         del w["launch_list"]
+    graph_part(cfg, weights, kv, context, gen, device)
     return dict(counts=counts, scan_routes=routes, windows=windows, model_gb=model_gb,
                 kv_gb=kv_gb)
+
+
+# --------------------------------------------------------- graph serving
+def bind_graph(cfg, weights, kv, ti: int, batch: int, context: int, gen, device):
+    """Tenant ``ti``'s `decode_step_graph` over every layer of ``weights``,
+    each node's static operands attached by name (``L{ℓ}.q``, ...): each
+    layer's roots take the layer input ``a``, every GEMM its layer's
+    weight, the attention the tenant's KV cache (and, where no data edge
+    feeds it, a query), the scan xd, da and head-broadcast B/C views as
+    `op_request` makes them; every other slot arrives by a data edge."""
+    g = decode_step_graph(cfg, batch, context, layers=len(weights))
+    wired = {(e.dst, e.slot) for e in g.edges if e.slot is not None}
+    for li, wl in enumerate(weights):
+        prefix = f"L{li}." if len(weights) > 1 else ""
+        x = torch.randn((batch, cfg.d_model), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        ws = iter(wl)
+        for name, node in g.nodes.items():
+            d = node.desc
+            if not name.startswith(prefix):
+                continue
+            if family_of(d) == "gemm":
+                w = next(ws)
+                if tuple(w.shape) != (d.K, d.N):
+                    raise AssertionError(f"{name}: weight {tuple(w.shape)} for {d.key()}")
+                node.operands["b"] = w
+                if (name, "a") not in wired:
+                    node.operands["a"] = x
+            else:
+                ops = op_request(d, None, kv[li][ti], gen, device).inputs
+                node.operands.update((s, t) for s, t in enumerate(ops)
+                                     if (name, s) not in wired)
+        if next(ws, None) is not None:
+            raise AssertionError(f"layer {li}: a weight no GEMM node took")
+    return g
+
+
+def tele_mark(rt: Runtime) -> tuple:
+    t = rt.telemetry
+    return (len(t.groups), t.flushes, t.cache_hits, t.cache_misses,
+            Counter(t.ready_depth_hist))
+
+
+def tele_since(rt: Runtime, mark: tuple) -> dict:
+    """The runtime's telemetry since ``mark``: launches by mode, mean CD,
+    flushes, launches mixing two or more graphs, the ready-set depths,
+    plan-cache hits and misses, and the attempts' device time."""
+    n0, f0, h0, m0, d0 = mark
+    t = rt.telemetry
+    recs = t.groups[n0:]
+    depths = Counter(t.ready_depth_hist) - d0
+    return dict(launches=dict(Counter(g.mode for g in recs)),
+                mean_cd=sum(g.cd for g in recs) / max(len(recs), 1),
+                flushes=t.flushes - f0,
+                cross_graph_groups=sum(1 for g in recs if len(g.graph_ids) >= 2),
+                ready_depths={k: depths[k] for k in sorted(
+                    depths, key=lambda k: int(k.split("-")[0]))},
+                plan_hits=t.cache_hits - h0, plan_misses=t.cache_misses - m0,
+                device_s=sum(g.achieved_time_s or 0.0 for g in recs))
+
+
+def run_graphs(rt: Runtime, graphs: list):
+    """Every tenant's graph submitted, then one drain.  Returns the graph
+    handles, the launches, their records and the telemetry since."""
+    mark = tele_mark(rt)
+    t0 = time.perf_counter()
+    handles = [rt.submit(g, tenant=f"tenant{ti}") for ti, g in enumerate(graphs)]
+    launches = rt.drain()
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    stats = tele_since(rt, mark)
+    stats["wall_s"] = time.perf_counter() - t0
+    return handles, launches, rt.telemetry.groups[mark[0]:], stats
+
+
+def run_waves(rt: Runtime, graphs: list):
+    """The same graphs as a caller limited to bundles runs them, the
+    reference's baseline (`benchmarks/serving.py:300-310`): tenant after
+    tenant, each graph's `waves()` submitted as one bundle each with a
+    drain after it, the members bound from a `GraphState`'s slots and
+    their results wired into it.  Returns the member tickets, the
+    launches and the telemetry since."""
+    mark = tele_mark(rt)
+    t0 = time.perf_counter()
+    tickets, launches = [], []
+    for ti, g in enumerate(graphs):
+        state = GraphState(g)
+        for wave in g.waves():
+            nodes = [g.nodes[n] for n in wave]
+            handle = rt.submit([bind_operands(n.desc, state.operands_for(n.name),
+                                              tag=n.tag or n.name) for n in nodes],
+                               tenant=f"tenant{ti}")
+            launches += rt.drain()
+            for n, m in zip(nodes, handle.members):
+                state.complete(n.name, m.result)
+            tickets += handle.members
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    stats = tele_since(rt, mark)
+    stats["wall_s"] = time.perf_counter() - t0
+    return tickets, launches, stats
+
+
+def signature(launches) -> list:
+    """What a run launched: each launch's mode, CD and members."""
+    return [(ln.plan.mode, ln.plan.cd, [(tk.tenant, tk.desc.key()) for tk in ln.tickets])
+            for ln in launches]
+
+
+def check_graph_run(label: str, handles, launches, recs) -> None:
+    """The fatal checks of one executed graph run: every graph done; every
+    node's result within its family's tolerance of its plain version on
+    the operands it was given; every data edge's consumer operand its
+    producer's result, the same storage; every node launched in a later
+    flush than each of its producers."""
+    if not all(h.done for h in handles):
+        raise AssertionError(f"{label}: a graph was left unfinished")
+    check_op_tickets([tk for h in handles for tk in h.nodes.values()])
+    flush_of = {tk.seq: rec.flush_id for rec, ln in zip(recs, launches, strict=True)
+                for tk in ln.tickets}
+    for h in handles:
+        for e in h.state.graph.edges:
+            src, dst = h[e.src], h[e.dst]
+            if flush_of[dst.seq] <= flush_of[src.seq]:
+                raise AssertionError(f"{label}: {e.dst} launched in flush "
+                                     f"{flush_of[dst.seq]}, its producer {e.src} in "
+                                     f"{flush_of[src.seq]}")
+            if e.slot is None:
+                continue
+            r = dst.request
+            got = r.a if e.slot == "a" else r.b if e.slot == "b" else r.inputs[e.slot]
+            if got.data_ptr() != src.result.data_ptr() or not got.is_contiguous():
+                raise AssertionError(f"{label}: {e.dst} slot {e.slot!r} is not a view "
+                                     f"of {e.src}'s output")
+
+
+def graph_windows(cfg, context: int, device, bind, shadow: bool = False):
+    """The graph windows of `OP_WINDOWS` on a runtime of their own: per
+    window, every tenant's graph (``bind(ti, batch)``) submitted at once
+    and drained, cold, then warm after `prewarm(graph)` of each; then the
+    same graphs' waves as barriered bundles (`run_waves`) on a second
+    runtime, prewarmed alike.  ``shadow``: operand-free, modeled only.
+    Yields (batches, available, run, result of `run_graphs` / `run_waves`)."""
+    cfg_rt = RuntimeConfig(window_s=0.0, execute=not shadow)
+    rt = Runtime(ConcurrencyController(), cfg_rt, device=device)
+    rtw = Runtime(ConcurrencyController(), cfg_rt, device=device)
+    for batches, available in OP_WINDOWS:
+        graphs = [bind(ti, b) for ti, b in enumerate(batches)]
+        rt.set_available(available)
+        rtw.set_available(available)
+        yield batches, available, "graph cold", run_graphs(rt, graphs)
+        for g in graphs:
+            rt.prewarm(g)
+        yield batches, available, "graph warm", run_graphs(rt, graphs)
+        for g in graphs:
+            rtw.prewarm(g)
+        yield batches, available, "waves", run_waves(rtw, graphs)
+    for r, label in ((rt, "graph"), (rtw, "waves")):
+        check_healthy(r, f"{cfg.name} {label} serving")
+    if rt.telemetry.graphs_completed != rt.telemetry.graphs_submitted:
+        raise AssertionError(f"{cfg.name}: {rt.telemetry.graphs_completed} graphs "
+                             f"completed of {rt.telemetry.graphs_submitted}")
+
+
+def graph_stats_line(name: str, batches, available, run: str, stats: dict) -> str:
+    return (f"# {name} {run} batches {batches} available {available}: launches "
+            f"{stats['launches']}, mean CD {stats['mean_cd']:.4f}, flushes "
+            f"{stats['flushes']}, cross-graph groups {stats['cross_graph_groups']}, "
+            f"ready depths {stats['ready_depths']}, plan-cache hits "
+            f"{stats['plan_hits']} misses {stats['plan_misses']}, device "
+            f"{stats['device_s']:.6f} s, wall {stats['wall_s']:.6f} s")
+
+
+def graph_shadow(cfg, context: int, layers: int, device) -> list:
+    """`graph_windows` in shadow mode on operand-free graphs: per run the
+    planner's launches (`signature`), which the executed run must
+    reproduce, and its telemetry (`tele_since`)."""
+    def bind(ti: int, batch: int):
+        return decode_step_graph(cfg, batch, context, layers=layers)
+
+    return [(batches, available, run, signature(res[1]), res[-1])
+            for batches, available, run, res in graph_windows(
+                cfg, context, device, bind, shadow=True)]
+
+
+def graph_part(cfg, weights, kv, context: int, gen, device) -> None:
+    """Graph serving on phase 7's weights and KV caches, its launches
+    counted apart: `graph_windows` executed, every graph run held by
+    `check_graph_run` and every wave ticket to its plain version; each
+    run's launches must equal the shadow planner's; one attention launch
+    per attention node and one decode-kernel scan launch per scan node;
+    no fault, no fallback, every `matmul` launch counted on the TMA feed.
+    The graph and waves figures are printed side by side, not gated."""
+    t0 = time.perf_counter()
+    shadow = graph_shadow(cfg, context, len(weights), device)
+    take_counts()
+    nodes = Counter()
+
+    def bind(ti: int, batch: int):
+        return bind_graph(cfg, weights, kv, ti, batch, context, gen, device)
+
+    for i, (batches, available, run, res) in enumerate(
+            graph_windows(cfg, context, device, bind)):
+        label = f"{cfg.name} {run} batches {batches} available {available}"
+        if run == "waves":
+            tickets, launches, stats = res
+            if not all(tk.done for tk in tickets):
+                raise AssertionError(f"{label}: a wave was left unfinished")
+            check_op_tickets(tickets)
+        else:
+            handles, launches, recs, stats = res
+            check_graph_run(label, handles, launches, recs)
+            tickets = [tk for h in handles for tk in h.nodes.values()]
+            del handles, recs
+        nodes += Counter(family_of(tk.desc) for tk in tickets)
+        if signature(launches) != shadow[i][3]:
+            raise AssertionError(f"{label}: the launches differ from the shadow "
+                                 "planner's")
+        print(graph_stats_line(cfg.name, batches, available, run, stats)
+              + "; launches as the shadow planner's")
+        del res, launches, tickets      # this run's outputs, before the next run
+    routes = dict(mamba_scan_fwd.routes)
+    feeds = check_feeds(f"{cfg.name} graph serving", device)
+    counts = take_counts()      # resets the routes and feeds too
+    if device == "cuda" and feeds["tma"] != counts["matmul"]:
+        raise AssertionError(f"{cfg.name} graph serving: {counts['matmul']} matmul "
+                             f"launches, {feeds} counted per feed; all must be TMA")
+    print(f"# {cfg.name} graph serving: kernel launches {dict(counts)}, scan routes "
+          f"{routes}, nodes by family {dict(nodes)}, {time.perf_counter() - t0:.1f} s "
+          "(host clock, checks included)")
+    if device == "cuda" and (counts["flash_attention"] != nodes["flash_attention"]
+                             or counts["mamba_scan"] != nodes["mamba_scan"]
+                             or routes["decode"] != nodes["mamba_scan"]
+                             or routes["chunks"]):
+        raise AssertionError(f"{cfg.name} graph serving: attention/scan launches "
+                             f"{dict(counts)}, scan routes {routes}, for nodes {dict(nodes)}")
 
 
 # -------------------------------------------------------- self-correction

@@ -252,7 +252,7 @@ def slice_plan(d, parts: int) -> SlicePlan:
 def op_from_key(key: str):
     """Inverse of ``key()`` for every ported family (GEMM keys carry no
     family prefix).  A ``gg_`` key (grouped expert GEMM) raises: that
-    family is ROADMAP A11."""
+    family is ROADMAP A10."""
     if key.startswith("fa_"):
         p = key.split("_")
         return AttentionDesc(int(p[1]), int(p[2]), int(p[3]), int(p[4]),
@@ -260,7 +260,7 @@ def op_from_key(key: str):
     if key.startswith("gg_"):
         raise NotImplementedError(
             f"{key}: GroupedGemmDesc (the MoE expert pool) is not ported yet "
-            "(ROADMAP A11)")
+            "(ROADMAP A10)")
     if key.startswith("ms_"):
         p = key.split("_")
         return ScanDesc(int(p[1]), int(p[2]), int(p[3]), int(p[4]),

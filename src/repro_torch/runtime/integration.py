@@ -10,17 +10,24 @@ shared-input projections (QKV; FFN gate+up) become one wide fused GEMM
 when the cost model prefers fusion, else separate concurrent GEMMs.
 `decode_step_op_descs` is one layer's whole decode-step bundle: its GEMMs
 plus the attention read over the KV cache and, for SSM/hybrid layers,
-the SSD state update (§14).
+the SSD state update (§14).  `decode_step_graph` is the same op
+population as a dependency graph (`runtime/graph.py`), layer after layer,
+with the chains the flat bundle erases.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import replace
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.gemm_desc import GemmDesc
 from repro_torch.core.op_desc import AttentionDesc, ScanDesc
 from repro_torch.core.scheduler import ConcurrencyController, GemmRequest
-from repro_torch.runtime.runtime import Runtime
+from repro_torch.runtime.graph import OpGraph, out_shape, slot_shape
+from repro_torch.runtime.runtime import Runtime, Ticket
+
+_MOE = ("the routed-expert pool (GroupedGemmDesc) is not ported yet "
+        "(ROADMAP A10)")
 
 
 def _shared_input_requests(
@@ -113,11 +120,9 @@ def decode_step_op_descs(cfg, batch: int, context: int = 1024,
     cached tokens (`AttentionDesc`, Sq = 1 per sequence) and, for
     SSM/hybrid blocks, the SSD state update (`ScanDesc`, T = 1).  A
     routed-expert (MoE) configuration raises: its grouped expert GEMM
-    (`GroupedGemmDesc`) is ROADMAP A11."""
+    (`GroupedGemmDesc`) is ROADMAP A10."""
     if cfg.n_routed_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the routed-expert pool (GroupedGemmDesc) is not "
-            "ported yet (ROADMAP A11)")
+        raise NotImplementedError(f"{cfg.name}: {_MOE}")
     descs: List[object] = [
         d for _, bundle in decode_step_descs(cfg, batch, dtype)
         for d in bundle
@@ -152,3 +157,183 @@ def prewarm_decode(
             descs.append(r.desc)
     return runtime.prewarm(descs)
 
+
+
+def _wire(
+    graph: OpGraph,
+    name: str,
+    desc,
+    feeds: Optional[Dict[object, Optional[str]]] = None,
+    after: Sequence[str] = (),
+    tag: str = "",
+) -> str:
+    """Add a node whose candidate producers (``feeds``: slot → producer)
+    become data edges where the producer's output has as many elements
+    as the slot, and control edges where not: a decode step's dataflow
+    also runs through state and glue that are no ops here (the KV cache,
+    norms, residual adds), so attention's k and v slots read the cache,
+    ordered after this step's k and v projections."""
+    deps: Dict[object, str] = {}
+    ctrl = list(after)
+    for slot, src in (feeds or {}).items():
+        if src is None:
+            continue
+        if (math.prod(out_shape(graph.nodes[src].desc))
+                == math.prod(slot_shape(desc, slot))):
+            deps[slot] = src
+        else:
+            ctrl.append(src)
+    return graph.add(name, desc, deps=deps, after=ctrl, tag=tag)
+
+
+def decode_step_graph(
+    cfg,
+    batch: int,
+    context: int = 1024,
+    dtype: str = "bf16",
+    layers: int = 1,
+) -> OpGraph:
+    """The dependency graph of ``layers`` decode-step layers: the op
+    population of `decode_step_op_descs`, with its chains —
+
+    - GQA: q/k/v projections → attention (q feeds the query slot; k and
+      v are control edges, the cache carries the data) → O-projection →
+      gate/up → down (up feeds down; gate is a control edge);
+    - MLA: q/kv down-projections → q up-projection → attention →
+      O-projection (a control edge where v_head_dim ≠ the qk head dim);
+    - SSM/hybrid: in-projection → SSD scan → out-projection, with the
+      attention (hybrid) off the layer input beside it.
+
+    Each layer's roots follow the previous layer's sinks by control
+    edges.  Node names carry the prefix ``L<i>.`` when ``layers > 1``
+    (``"L0.attn"``).  A routed-expert (MoE) configuration raises: its
+    grouped expert GEMMs are ROADMAP A10.  `waves()` of this graph, one
+    barriered bundle a wave, is what a caller limited to bundles
+    submits."""
+    g = OpGraph()
+    sinks: List[str] = []
+    for ell in range(layers):
+        sinks = _add_decode_layer(g, cfg, batch, context, dtype,
+                                  prefix=f"L{ell}." if layers > 1 else "",
+                                  roots_after=sinks)
+    g.validate()
+    return g
+
+
+def _add_decode_layer(
+    g: OpGraph, cfg, batch: int, context: int, dtype: str,
+    prefix: str, roots_after: List[str],
+) -> List[str]:
+    """Wire one layer; returns its sinks (the next layer's control-edge
+    sources)."""
+    bundles = dict(decode_step_descs(cfg, batch, dtype))
+    P = prefix
+    sinks: List[str] = []
+
+    if cfg.attn_type == "mla":
+        down = bundles["mla-down"]
+        q_src = _wire(g, P + "q-down", down[0], after=roots_after,
+                      tag="mla-down")
+        kv = _wire(g, P + "kv-down", down[1], after=roots_after,
+                   tag="mla-down")
+        if "mla-q-up" in bundles:
+            q_src = _wire(g, P + "q-up", bundles["mla-q-up"][0],
+                          feeds={"a": q_src}, tag="mla-q-up")
+        hd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        attn = _wire(g, P + "attn",
+                     AttentionDesc(batch, cfg.n_heads, cfg.n_heads, 1,
+                                   context, hd, True, dtype),
+                     feeds={0: q_src}, after=[kv], tag="attn")
+        block_out = _wire(g, P + "o", bundles["attn-out"][0],
+                          feeds={"a": attn}, tag="attn-out")
+    elif "ssm-in" in bundles:
+        ssm_in = _wire(g, P + "ssm-in", bundles["ssm-in"][0],
+                       after=roots_after, tag="ssm-in")
+        if cfg.family == "ssm" and not cfg.ssm_state:
+            # xLSTM's mLSTM step: the C-matrix recurrence and the
+            # normalizer scan
+            hp = 2 * cfg.d_model // cfg.n_heads
+            scan = _wire(g, P + "scan",
+                         ScanDesc(batch, 1, cfg.n_heads, hp, hp, dtype),
+                         feeds={0: ssm_in}, tag="scan")
+            norm = _wire(g, P + "scan-norm",
+                         ScanDesc(batch, 1, cfg.n_heads, 1, hp, dtype),
+                         feeds={0: ssm_in}, tag="scan")
+            block_out = _wire(g, P + "ssm-out", bundles["ssm-out"][0],
+                              feeds={"a": scan}, after=[norm],
+                              tag="ssm-out")
+        else:
+            scan = _wire(g, P + "scan",
+                         ScanDesc(batch, 1, cfg.ssm_n_heads,
+                                  cfg.ssm_head_dim, cfg.ssm_state, dtype),
+                         feeds={0: ssm_in}, tag="scan")
+            block_out = _wire(g, P + "ssm-out", bundles["ssm-out"][0],
+                              feeds={"a": scan}, tag="ssm-out")
+        if cfg.family == "hybrid":
+            # the shared attention block runs off the same layer input,
+            # beside the Mamba branch
+            hd = cfg.resolved_head_dim
+            sinks.append(_wire(
+                g, P + "attn",
+                AttentionDesc(batch, cfg.n_heads, cfg.n_kv_heads, 1,
+                              context, hd, True, dtype),
+                after=roots_after, tag="attn"))
+    else:
+        qkv = bundles["qkv"]
+        hd = cfg.resolved_head_dim
+        q = _wire(g, P + "q", qkv[0], after=roots_after, tag="qkv")
+        k = _wire(g, P + "k", qkv[1], after=roots_after, tag="qkv")
+        v = _wire(g, P + "v", qkv[2], after=roots_after, tag="qkv")
+        attn = _wire(g, P + "attn",
+                     AttentionDesc(batch, cfg.n_heads, cfg.n_kv_heads, 1,
+                                   context, hd, True, dtype),
+                     feeds={0: q}, after=[k, v], tag="attn")
+        block_out = _wire(g, P + "o", bundles["attn-out"][0],
+                          feeds={"a": attn}, tag="attn-out")
+
+    if cfg.n_routed_experts:
+        raise NotImplementedError(f"{cfg.name}: {_MOE}")
+    if cfg.d_ff > 0:
+        gate = _wire(g, P + "gate", bundles["ffn-up"][0],
+                     feeds={"a": block_out}, tag="ffn-up")
+        up = _wire(g, P + "up", bundles["ffn-up"][1],
+                   feeds={"a": block_out}, tag="ffn-up")
+        sinks.append(_wire(g, P + "down", bundles["ffn-down"][0],
+                           feeds={"a": up}, after=[gate], tag="ffn-down"))
+    else:
+        sinks.append(block_out)
+    return sinks
+
+
+def submit_decode_graph(
+    runtime: Runtime,
+    cfg,
+    batch: int,
+    context: int = 1024,
+    layers: int = 1,
+    tenant: str = "default",
+    now: float | None = None,
+    dtype: str = "bf16",
+) -> Ticket:
+    """Admit one request's decode step as a dependency graph; returns the
+    graph handle, whose node tickets carry `decode_step_graph`'s names.
+    Operand-free: for a runtime in shadow mode."""
+    return runtime.submit(
+        decode_step_graph(cfg, batch, context, dtype, layers),
+        tenant=tenant, now=now)
+
+
+def submit_decode_step(
+    runtime: Runtime,
+    cfg,
+    batch: int,
+    tenant: str = "default",
+    now: float | None = None,
+    dtype: str = "bf16",
+) -> List[Ticket]:
+    """Admit one decode step's GEMMs (operand-free, §6.11 applied) into the
+    runtime's class queues, each alone."""
+    return [
+        runtime.submit(r, tenant=tenant, now=now)
+        for r in decode_step_requests(runtime.ctrl, cfg, batch, dtype)
+    ]

@@ -5,16 +5,24 @@
   sequence of requests — a heterogeneous bundle such as one layer's
   decode-step ops (GEMMs, the attention read over the KV cache, the SSD
   state update; §14) — into the shared ``MIXED_CLASS`` queue, returning
-  one ``"bundle"`` ticket over per-member tickets.  Attention and scan
-  ops run only in bundles.  Each queue is kept in canonical order at
-  admission, so its plan-cache signature never needs a re-sort.
+  one ``"bundle"`` ticket over per-member tickets, or an `OpGraph`
+  (`runtime/graph.py`): its ready frontier enters the ``MIXED_CLASS``
+  queue, each dependent follows when its producers complete, their
+  outputs wired into its operand slots, and one ``"graph"`` ticket,
+  one logical request, holds a ticket per node.  Attention and scan ops
+  run only in bundles and graphs.  Each queue is kept in canonical
+  order at admission, so its plan-cache signature never needs a
+  re-sort.
 - `flush()` serves every class whose head waited ``window_s``: it plans
   each queue through a plan cache keyed by the queue signature and the
   available slots (a hit costs zero cost-model evaluations) — class
   queues with `ConcurrencyController.plan`, the bundle queue with
-  `plan_mixed` — interleaves the classes' launches round-robin, and
-  advances a modeled device timeline.  With ``RuntimeConfig.execute``
-  each launch also runs through the kernels.
+  `plan_mixed`, which so fills each concurrency window with the ready
+  nodes of every live graph — interleaves the classes' launches
+  round-robin, and advances a modeled device timeline.  A released
+  node's submit time is its producers' completion on that timeline, so
+  with ``window_s > 0`` it waits for a later flush.  With
+  ``RuntimeConfig.execute`` each launch also runs through the kernels.
 - `drain()` force-flushes until the queues are empty.
 
 Tenants have service objectives (`TenantSLO`, `set_tenant_slo`): each
@@ -80,12 +88,20 @@ Departures from the reference:
   exception.  A refused call (a shape, split or layout a kernel does not
   take), an unported family and a failed build raise at once, with no
   strike.  A sticky CUDA error fails every rung and raises from the
-  reference rung.
+  reference rung.  As in the reference, an error raised out of a flush
+  leaves that flush's later launches unrun: their tickets, and the
+  dependents of the graph nodes among them, never complete, and a
+  later `drain` serves only what is still queued.
+- An executing runtime refuses a request without its operands at
+  `submit`, where the reference runs it in shadow mode and gives None.
+  For a graph the check covers every node: its static operands and the
+  slots data edges feed must fill every slot of its family, and every
+  static operand must lie on the runtime's device; else `submit` raises
+  a ValueError naming the node and the slot, before anything is
+  queued, so no check fires halfway through a flush.
 
-Graph submission (ROADMAP A9), the ``"experts"`` slicing of grouped
-expert GEMMs (A10) and meshes (`set_mesh`, A13) are not ported, nor the
-parts of these functions that serve them (graph completion and ready-set
-depth in `flush`).
+The ``"experts"`` slicing of grouped expert GEMMs and the grouped
+family itself (A10) and meshes (`set_mesh`, A13) are not ported.
 """
 from __future__ import annotations
 
@@ -126,6 +142,7 @@ from repro_torch.runtime.faults import (
     NonFiniteOutput,
     fault_kind,
 )
+from repro_torch.runtime.graph import FAMILY_SLOTS, GraphState, OpGraph
 from repro_torch.runtime.telemetry import GroupRecord, Telemetry
 
 Signature = Tuple[Tuple[str, ...], int]
@@ -177,12 +194,26 @@ DEFAULT_SLO = TenantSLO()
 
 @dataclass
 class Ticket:
-    """Handle of one submitted request, or (``kind="bundle"``) of a
-    submitted sequence: its ``members`` are the per-request tickets, and
-    it completes with its last member.  A request admission sliced is a
-    parent: its ``pieces`` are the tickets in the queues (each links back
-    by ``parent``), and it completes, with the merged result, when its
-    last piece does."""
+    """The one handle type every submission returns; ``kind`` says what it
+    stands for:
+
+    - ``"op"``: one request (``request`` set);
+    - ``"bundle"``: a submitted sequence; its ``members`` are the
+      per-request tickets (each a logical request), and it completes
+      with its last member;
+    - ``"graph"``: a submitted `OpGraph`, one logical request; ``nodes``
+      maps node names to node tickets, ``state`` is its `GraphState`,
+      and it completes with its last node;
+    - ``"node"``: one graph node (``node``, ``graph``), not a logical
+      request of its own; its ``request`` is bound when it is released,
+      its producers' outputs wired in.
+
+    A request (or node) admission sliced is a parent: its ``pieces`` are
+    the tickets in the queues (each links back by ``parent``), and it
+    completes, with the merged result, when its last piece does.
+    Constituents are reached through the handle: ``handle["o"]`` (a
+    graph's node by name) or ``handle[0]`` (a bundle's member),
+    `result_of`, `results`."""
 
     seq: int
     tenant: str
@@ -196,9 +227,14 @@ class Ticket:
     parent: Optional["Ticket"] = field(default=None, repr=False)
     pieces: Optional[List["Ticket"]] = field(default=None, repr=False)
     merge_plan: Optional[SlicePlan] = field(default=None, repr=False)
-    kind: str = "op"                        # "op" | "bundle"
+    kind: str = "op"                # "op" | "node" | "bundle" | "graph"
+    logical: bool = True            # records a latency when it completes
+    node: Optional[str] = None      # the node's name (kind "node")
+    graph: Optional["Ticket"] = field(default=None, repr=False)
     agg: Optional["Ticket"] = field(default=None, repr=False)
     members: Optional[List["Ticket"]] = field(default=None, repr=False)
+    nodes: Optional[Dict[str, "Ticket"]] = field(default=None, repr=False)
+    state: Optional[GraphState] = field(default=None, repr=False)
 
     @property
     def desc(self) -> GemmDesc:
@@ -214,15 +250,32 @@ class Ticket:
 
     @property
     def done(self) -> bool:
+        if self.state is not None:
+            return self.state.done
         if self.members is not None:
             return all(m.done_t is not None for m in self.members)
         return self.done_t is not None
 
-    def __getitem__(self, i: int) -> "Ticket":
-        """A bundle's member ticket by position."""
-        if self.members is None:
-            raise TypeError(f"{self.kind!r} ticket has no members")
-        return self.members[i]
+    def __getitem__(self, key) -> "Ticket":
+        """A graph's node ticket by name, or a bundle's member by position."""
+        if self.nodes is not None:
+            return self.nodes[key]
+        if self.members is not None:
+            return self.members[key]
+        raise TypeError(f"{self.kind!r} ticket has no constituents")
+
+    def result_of(self, name: str) -> Optional[torch.Tensor]:
+        """One graph node's result (None in shadow mode)."""
+        return self[name].result
+
+    def results(self) -> Dict[object, Optional[torch.Tensor]]:
+        """Every constituent's result, by node name (graph) or position
+        (bundle); a plain op's under its own seq."""
+        if self.nodes is not None:
+            return {n: t.result for n, t in self.nodes.items()}
+        if self.members is not None:
+            return {i: t.result for i, t in enumerate(self.members)}
+        return {self.seq: self.result}
 
 
 @dataclass
@@ -395,16 +448,20 @@ class Runtime:
         tenant: str = "default",
         now: float | None = None,
     ) -> Ticket:
-        """Admit one GEMM into its class queue, or a sequence of ops of any
+        """Admit one GEMM into its class queue, a sequence of ops of any
         ported family — a heterogeneous bundle — into the shared
         ``MIXED_CLASS`` queue, which `flush` plans with
-        `ConcurrencyController.plan_mixed`.  Returns one ticket: the op's,
-        or a ``"bundle"`` handle over the members' tickets.  Operands,
+        `ConcurrencyController.plan_mixed`, or an `OpGraph`, whose ready
+        nodes enter that queue as they become ready.  Returns one
+        ticket: the op's, a ``"bundle"`` handle over the members'
+        tickets, or a ``"graph"`` handle over the nodes'.  Operands,
         where given, lie on the runtime's device; with
-        ``RuntimeConfig.execute`` every request carries its operands, and
-        a GEMM is a plain (batch 1) one: batched GEMMs have no kernel
-        yet."""
+        ``RuntimeConfig.execute`` every request (every graph node, its
+        wired slots counted) carries its operands, and a GEMM is a plain
+        (batch 1) one: batched GEMMs have no kernel yet."""
         now = self.clock() if now is None else now
+        if isinstance(work, OpGraph):
+            return self._submit_graph(work, tenant, now)
         if isinstance(work, (list, tuple)):
             return self._submit_bundle(work, tenant, now)
         request = self._admissible(work)
@@ -423,7 +480,8 @@ class Runtime:
         self._seq += 1
         handle = Ticket(seq=self._seq, tenant=tenant, request=None,
                         submit_t=now, deadline_t=now + slo.p99_target_s,
-                        rank=slo.rank, kind="bundle", members=members)
+                        rank=slo.rank, kind="bundle", logical=False,
+                        members=members)
         for m in members:
             m.agg = handle
         return handle
@@ -432,24 +490,34 @@ class Runtime:
         """Check a request before admission: a ported family; with
         ``execute``, its operands (a GEMM's ``a``/``b``, another family's
         ``inputs``); every operand on the runtime's device."""
-        fam = family_of(request.desc)
-        if fam != "gemm" and fam not in OP_FAMILIES:
-            raise NotImplementedError(
-                f"{request.desc.key()}: the {fam} family is not ported")
+        self._check_family(request.desc)
         operands = request.operands
         if self.config.execute:
             if operands is None or any(t is None for t in operands):
                 raise ValueError(f"{request.desc.key()}: an executing "
                                  "runtime needs the request's operands")
-            if fam == "gemm" and request.desc.batch != 1:
-                raise NotImplementedError(
-                    f"{request.desc.key()}: batched GEMMs have no kernel "
-                    "in the port yet")
         for t in operands or ():
-            if t is not None and t.device != self.device:
-                raise ValueError(f"operand on {t.device}, runtime on "
-                                 f"{self.device}")
+            self._check_device(t, request.desc.key())
         return request
+
+    def _check_family(self, desc) -> None:
+        """A ported family; with ``execute``, a GEMM of batch 1."""
+        fam = family_of(desc)
+        if fam == "grouped_gemm":
+            raise NotImplementedError(
+                f"{desc.key()}: GroupedGemmDesc (the MoE expert pool) is not "
+                "ported yet (ROADMAP A10)")
+        if fam != "gemm" and fam not in OP_FAMILIES:
+            raise NotImplementedError(
+                f"{desc.key()}: the {fam} family is not ported")
+        if self.config.execute and fam == "gemm" and desc.batch != 1:
+            raise NotImplementedError(
+                f"{desc.key()}: batched GEMMs have no kernel in the port yet")
+
+    def _check_device(self, t: Optional[torch.Tensor], what: str) -> None:
+        if t is not None and t.device != self.device:
+            raise ValueError(f"{what}: operand on {t.device}, runtime on "
+                             f"{self.device}")
 
     def _admit(self, request: GemmRequest, tenant: str, now: float,
                class_key: str | None = None) -> Ticket:
@@ -469,6 +537,74 @@ class Runtime:
             self._enqueue(ticket, slo.weight, class_key)
         self.telemetry.record_submit()
         return ticket
+
+    # ------------------------------------------------- graph admission
+    def _submit_graph(self, graph: OpGraph, tenant: str, now: float) -> Ticket:
+        """Validate the graph and check its operands (`_check_graph`),
+        make one node ticket per op under the returned ``"graph"`` handle
+        — one logical request, whose latency ends at its last node — and
+        release the roots into the mixed queue; `_complete_node` releases
+        the rest as their producers complete."""
+        state = GraphState(graph)       # validates: cycles, slots, sizes
+        self._check_graph(graph)
+        slo = self.tenant_slo(tenant)
+        self._seq += 1
+        handle = Ticket(seq=self._seq, tenant=tenant, request=None,
+                        submit_t=now, deadline_t=now + slo.p99_target_s,
+                        rank=slo.rank, kind="graph", nodes={}, state=state)
+        for name in state.order:
+            self._seq += 1
+            tk = Ticket(seq=self._seq, tenant=tenant, request=None,
+                        submit_t=now, deadline_t=handle.deadline_t,
+                        rank=slo.rank, kind="node", logical=False,
+                        node=name, graph=handle)
+            state.tickets[name] = tk
+            handle.nodes[name] = tk
+        self.telemetry.record_submit()
+        self.telemetry.record_graph_submit(len(state.order))
+        for name in state.ready():
+            self._release_node(handle, name, now)
+        return handle
+
+    def _check_graph(self, graph: OpGraph) -> None:
+        """`_admissible` for every node of a graph, before anything is
+        queued: a ported family, every static operand on the runtime's
+        device and, with ``execute``, every slot of the node's family
+        filled by a static operand or a data edge."""
+        wired = {(e.dst, e.slot) for e in graph.edges if e.slot is not None}
+        for name, node in graph.nodes.items():
+            self._check_family(node.desc)
+            for slot, t in node.operands.items():
+                self._check_device(t, f"node {name!r} slot {slot!r}")
+            if not self.config.execute:
+                continue
+            for slot in FAMILY_SLOTS[family_of(node.desc)]:
+                if node.operands.get(slot) is None and (name, slot) not in wired:
+                    raise ValueError(
+                        f"node {name!r} slot {slot!r}: an executing runtime "
+                        "needs an operand or a data edge for every slot")
+
+    def _release_node(self, handle: Ticket, name: str, now: float) -> None:
+        """Move one ready node into the mixed queue: bind its request from
+        the slots filled so far, stamp its submit time with the release
+        time (waiting and EDF order measure readiness, not admission),
+        and slice it as a directly submitted op would be; a sliced node
+        completes through the parent merge before its dependents see
+        the merged result."""
+        state = handle.state
+        state.mark_released(name)
+        gnode = state.graph.nodes[name]
+        tk = state.tickets[name]
+        tk.submit_t = max(tk.submit_t, now)
+        tk.request = bind_operands(gnode.desc, state.operands_for(name),
+                                   tag=gnode.tag or name)
+        weight = self.tenant_slo(handle.tenant).weight
+        parts = self._admission_parts(gnode.desc)
+        if parts > 1:
+            for piece in self._make_pieces(tk, slice_plan(gnode.desc, parts)):
+                self._enqueue(piece, weight, MIXED_CLASS)
+        else:
+            self._enqueue(tk, weight, MIXED_CLASS)
 
     def _queue(self, key: str) -> "_ClassQueue":
         q = self._queues.get(key)
@@ -495,11 +631,23 @@ class Runtime:
         return sum(len(q) for q in self._queues.values())
 
     # ------------------------------------------------------------ prewarm
-    def prewarm(self, descs: Sequence[GemmDesc]) -> int:
-        """Tune a catalog of GEMMs ahead of traffic and seed each class's
-        all-at-once plan; returns the number of newly tuned entries.
-        Planning here is billed as prewarm overhead, not as a miss."""
-        descs = list(descs)
+    def prewarm(self, work) -> int:
+        """Tune ahead of traffic and seed the plan cache, as `submit`
+        takes work: an `OpGraph` tunes every node and seeds the mixed
+        signature of each of its waves (what the flushes of a lone graph
+        plan); a sequence with a non-GEMM member is a bundle, seeded by
+        `prewarm_bundle`; GEMMs alone are a catalog, which seeds each
+        class's all-at-once plan.  Returns the number of newly tuned
+        entries.  Planning here is billed as prewarm overhead, not as a
+        miss."""
+        if isinstance(work, OpGraph):
+            fresh = self.ctrl.lib.prewarm(work.descs())
+            for wave in work.waves():
+                self._seed_mixed_plan([work.nodes[n].desc for n in wave])
+            return fresh
+        descs = list(work) if isinstance(work, (list, tuple)) else [work]
+        if any(family_of(d) != "gemm" for d in descs):
+            return self.prewarm_bundle(descs)
         fresh = self.ctrl.lib.prewarm(descs)
         for key in {compat_key(d) for d in descs}:
             members = self._canonical_sort(
@@ -511,10 +659,10 @@ class Runtime:
         return fresh
 
     def prewarm_bundle(self, descs: Sequence) -> int:
-        """Tune a bundle's ops (any ported family) ahead of traffic and seed
-        the plan cache
-        with its ``MIXED_CLASS`` signature, so the first flush of the same
-        co-submitted set is a cache hit; returns the newly tuned entries."""
+        """Tune a bundle's ops (any ported family) ahead of traffic and
+        seed the plan cache with its ``MIXED_CLASS`` signature, so the
+        first flush of the same co-submitted set is a cache hit; returns
+        the newly tuned entries."""
         descs = list(descs)
         fresh = self.ctrl.lib.prewarm(descs)
         if descs:
@@ -569,6 +717,12 @@ class Runtime:
         for key in rotated:
             tickets, sig_keys = self._queues[key].take_all()
             if key == MIXED_CLASS:
+                # the ready-set depth: graph nodes this window could draw from
+                depth = sum(1 for t in tickets
+                            if t.kind == "node" or
+                            (t.parent is not None and t.parent.kind == "node"))
+                if depth:
+                    self.telemetry.record_ready_depth(depth)
                 ranks = [t.rank for t in tickets] if edf else None
                 if ranks is not None and len(set(ranks)) > 1:
                     # ranks change the chunking, so their pattern joins
@@ -659,6 +813,7 @@ class Runtime:
                 achieved_time_s=achieved,
                 cache_hit=launch.cache_hit,
                 fallback=launch.fallback,
+                graph_ids=_graph_ids(launch.tickets),
             ))
             self._feed_calibration(launch, achieved)
         if launches:
@@ -702,13 +857,43 @@ class Runtime:
         self._complete_logical(parent)
 
     def _complete_logical(self, ticket: Ticket) -> None:
-        """One whole op finished: its latency, and its bundle's completion
-        when it is the last member."""
+        """One whole op finished: a ticket that is not a logical request
+        of its own (a graph node) completes through its graph
+        (`_complete_node`); a logical one records its latency, and
+        completes its bundle when it is the last member."""
+        if not ticket.logical:
+            self._complete_node(ticket)
+            return
         self.telemetry.record_latency(ticket.tenant, ticket.latency_s)
         agg = ticket.agg
         if (agg is not None and agg.done_t is None
                 and all(m.done_t is not None for m in agg.members)):
             agg.done_t = max(m.done_t for m in agg.members)
+
+    def _complete_node(self, tk: Ticket) -> None:
+        """Wire the node's output — whichever rung of the fallback ladder
+        produced it — into its dependents' slots, release the newly
+        ready ones at its completion time (a later flush plans them),
+        and complete the graph with its last node, as one logical
+        request.
+
+        A wired operand is a view of its producer's output, which was
+        allocated on the launching stream; a dependent may read it on
+        another member stream in a later flush.  That is safe while every
+        attempt synchronises (`_attempt`) and every mixed launch joins its
+        member streams (`scheduler._run_mixed`).  ROADMAP A2 must call
+        `Tensor.record_stream` on wired operands for the streams that
+        read them, or keep that join, before it drops the
+        synchronisation."""
+        handle = tk.graph
+        state = handle.state
+        for name in state.complete(tk.node, tk.result):
+            self._release_node(handle, name, tk.done_t)
+        if state.done:
+            handle.done_t = max(t.done_t for t in handle.nodes.values())
+            handle.plan = tk.plan
+            self.telemetry.record_latency(handle.tenant, handle.latency_s)
+            self.telemetry.record_graph_complete()
 
     def _requeue(self, launch: Launch) -> None:
         """A deferred launch's tickets back to their class queue, submit
@@ -952,6 +1137,17 @@ class Runtime:
     @property
     def plan_cache_size(self) -> int:
         return len(self._plan_cache)
+
+
+def _graph_ids(tickets: List[Ticket]) -> Tuple[int, ...]:
+    """The distinct graph handles' seqs a launch's members belong to (a
+    piece through its sliced parent)."""
+    ids = set()
+    for tk in tickets:
+        owner = tk.parent if tk.parent is not None else tk
+        if owner.graph is not None:
+            ids.add(owner.graph.seq)
+    return tuple(sorted(ids))
 
 
 def _canonical_order(d: GemmDesc) -> tuple:

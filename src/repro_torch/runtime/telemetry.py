@@ -1,8 +1,10 @@
 """Serving-runtime telemetry (`repro/runtime/telemetry.py`), for the
 parts of the runtime the port carries: per-launch concurrency degree and
 mode, modeled vs achieved time, plan-cache effectiveness, queue depths,
-per-tenant latency, admission slicing and budget deferrals, and the
-fallback ladder's faults, fallbacks, quarantines and probes.  Plain Python, safe inside the dispatch path.
+per-tenant latency, admission slicing and budget deferrals, the
+fallback ladder's faults, fallbacks, quarantines and probes, and the
+dataflow graphs' submissions, completions and ready-set depths.  Plain
+Python, safe inside the dispatch path.
 """
 from __future__ import annotations
 
@@ -27,6 +29,9 @@ class GroupRecord:
     # the fallback rung that completed the launch: None for the planned
     # schedule, else "retry" | "legacy" | "reference"
     fallback: Optional[str] = None
+    # the distinct graph handles with a node in this launch; two or more
+    # is one request's node sharing a window with another's
+    graph_ids: tuple = ()
 
     @property
     def model_error(self) -> Optional[float]:
@@ -71,6 +76,15 @@ class Telemetry:
     quarantines: int = 0
     quarantine_evictions: int = 0
     probes: int = 0
+    # Dataflow graphs: a graph is one logical request (``submitted`` and
+    # ``completed`` count it once, at its last node); these count the
+    # graphs and their nodes, and the ready-set depth each bundle-queue
+    # flush drew from.
+    graphs_submitted: int = 0
+    graphs_completed: int = 0
+    graph_nodes: int = 0
+    ready_depth_hist: Counter = field(default_factory=Counter)
+    max_ready_depth: int = 0
 
     # ------------------------------------------------------------- record
     def record_submit(self, n: int = 1) -> None:
@@ -138,6 +152,22 @@ class Telemetry:
         """Half-open probes: quarantines released after their cooldown."""
         self.probes += n
 
+    def record_graph_submit(self, nodes: int) -> None:
+        """One `OpGraph` of ``nodes`` nodes admitted; its one logical
+        submit is recorded apart."""
+        self.graphs_submitted += 1
+        self.graph_nodes += nodes
+
+    def record_graph_complete(self) -> None:
+        """One graph's last node completed (its latency recorded apart)."""
+        self.graphs_completed += 1
+
+    def record_ready_depth(self, depth: int) -> None:
+        """Graph nodes one bundle-queue flush could draw from."""
+        self.ready_depth_hist[_bucket(depth)] += 1
+        if depth > self.max_ready_depth:
+            self.max_ready_depth = depth
+
     @property
     def fault_events(self) -> int:
         return sum(self.faults.values())
@@ -188,6 +218,15 @@ class Telemetry:
             for k, logs in sorted(acc.items())
         }
 
+    def cross_graph_groups(self) -> int:
+        """Launches whose members came from two or more graphs."""
+        return sum(1 for g in self.groups if len(g.graph_ids) >= 2)
+
+    def ready_depth_histogram(self) -> Dict[str, int]:
+        """Power-of-two buckets of the flushes' graph ready-set depth."""
+        return {k: self.ready_depth_hist[k]
+                for k in sorted(self.ready_depth_hist, key=_bucket_lo)}
+
     def tenant_percentiles(self) -> Dict[str, Dict[str, float]]:
         """Per-tenant p50/p95/p99 latency (ms, nearest rank) plus count."""
         out: Dict[str, Dict[str, float]] = {}
@@ -231,6 +270,12 @@ class Telemetry:
             "quarantines": self.quarantines,
             "quarantine_evictions": self.quarantine_evictions,
             "probes": self.probes,
+            "graphs_submitted": self.graphs_submitted,
+            "graphs_completed": self.graphs_completed,
+            "graph_nodes": self.graph_nodes,
+            "cross_graph_groups": self.cross_graph_groups(),
+            "ready_depths": self.ready_depth_histogram(),
+            "max_ready_depth": self.max_ready_depth,
         }
 
 

@@ -74,6 +74,16 @@ fault-free run (integer-valued operands, every sum exact), and its
 reference rung runs each member through the hand-written kernels — the
 launch counters rise, and every plain version, made to raise, is never
 entered.
+
+Graph submission on the card: a two-layer decode graph of Qwen3-14B and
+of Zamba2-1.2B at full width, batch 4, executed through the runtime.
+Every node is held to its plain version on the operands it was given
+(GEMMs as above, attention within `attention_tol`, the scan within 3e-4
+plus half a bf16 unit); every data edge's consumer operand is a view of
+its producer's output, the same storage; the counters show one attention
+launch per attention node and one decode-kernel launch per scan node.  A
+user transform that hands a GEMM a strided view raises (ROADMAP C10) and
+computes nothing.
 """
 import pytest
 import torch
@@ -92,6 +102,7 @@ from repro_torch.core import (
     ScanDesc,
     backend_tag,
     bind_operands,
+    family_of,
     tune_gemm,
     tune_op,
 )
@@ -128,13 +139,17 @@ from repro_torch.kernels.grouped_gemm import kernel as ggk
 from repro_torch.kernels.mamba_scan import mamba_scan_fwd, ssd_chunk_ref
 from repro_torch.kernels.mamba_scan.kernel import decode_residency
 from repro_torch.runtime import (
+    FAMILY_SLOTS,
     FaultInjector,
     FaultRule,
+    OpGraph,
     Runtime,
     RuntimeConfig,
     decode_step_descs,
+    decode_step_graph,
     decode_step_op_descs,
 )
+from repro_torch.runtime.graph import slot_shape
 
 pytestmark = pytest.mark.cuda
 
@@ -913,3 +928,91 @@ def test_batch_sliced_scan_runs_the_chunk_loop_within_tolerance(card):
     err = (tk.result.float() - y_ref).abs()
     rtol = SCAN_TOL + 2.0 ** -8
     assert bool((err <= SCAN_TOL + rtol * y_ref.abs()).all()), err.max().item()
+
+
+# ----------------------------------------------------- graph submission
+def _decode_graph(card, name: str, seed: int, batch: int = 4, layers: int = 2,
+                  context: int = 2048) -> OpGraph:
+    """A decode graph of ``name`` at full width with every slot no data
+    edge feeds given a random bf16 operand (weights scaled by K^-1/2; the
+    scan's da negative and its B/C head-broadcast views)."""
+    g = decode_step_graph(get_arch(name), batch, context, layers=layers)
+    gen = torch.Generator(device=card).manual_seed(seed)
+    wired = {(e.dst, e.slot) for e in g.edges if e.slot is not None}
+    for node in g.nodes.values():
+        d, fam = node.desc, family_of(node.desc)
+        for slot in FAMILY_SLOTS[fam]:
+            if (node.name, slot) in wired:
+                continue
+            shape = slot_shape(d, slot)
+            if fam == "mamba_scan" and slot in (2, 3):
+                t = torch.randn((d.B, d.T, 1, d.N), generator=gen, device=card)
+                t = t.to(torch.bfloat16).expand(shape)
+            elif fam == "mamba_scan" and slot == 1:
+                t = (torch.rand(shape, generator=gen, device=card) * -0.5).to(torch.bfloat16)
+            else:
+                scale = d.K ** -0.5 if slot == "b" else 1.0
+                t = (torch.randn(shape, generator=gen, device=card) * scale).to(torch.bfloat16)
+            node.operands[slot] = t
+    return g
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "zamba2-1.2b"])
+def test_decode_graph_executes_on_the_card(card, name):
+    g = _decode_graph(card, name, 21)
+    rt = Runtime(ConcurrencyController(GOLibrary()),
+                 RuntimeConfig(window_s=0.0, execute=True), device=card)
+    before = (flash_attention_fwd.launches, dict(mamba_scan_fwd.routes))
+    h = rt.submit(g)
+    rt.drain()
+    torch.cuda.synchronize()
+    assert h.done and rt.telemetry.graphs_completed == 1
+    assert not rt.telemetry.fault_events and not rt.telemetry.fallback_events
+    fams = [family_of(n.desc) for n in g.nodes.values()]
+    assert flash_attention_fwd.launches - before[0] == fams.count("flash_attention")
+    routes = {k: mamba_scan_fwd.routes[k] - before[1][k] for k in before[1]}
+    assert routes == {"decode": fams.count("mamba_scan"), "chunks": 0}
+    for name_, tk in h.nodes.items():
+        r, fam = tk.request, family_of(tk.desc)
+        if fam == "gemm":
+            _check(tk.result, r.a, r.b, False, False, name_)
+        elif fam == "flash_attention":
+            q, k, v = (x.float() for x in r.inputs)
+            ref = flash_ref(q, k, v, q_offset=k.shape[2] - q.shape[2])
+            atol, rtol = attention_tol(torch.bfloat16)
+            err = (tk.result.float() - ref).abs()
+            assert bool((err <= atol + rtol * ref.abs()).all()), name_
+        else:
+            y_ref, _ = ssd_chunk_ref(*(x.float() for x in r.inputs))
+            err = (tk.result.float() - y_ref).abs()
+            rtol = SCAN_TOL + 2.0 ** -8
+            assert bool((err <= SCAN_TOL + rtol * y_ref.abs()).all()), name_
+    for e in g.edges:
+        if e.slot is not None:
+            dst = h[e.dst].request
+            got = dst.a if e.slot == "a" else dst.inputs[e.slot]
+            assert got.data_ptr() == h.result_of(e.src).data_ptr(), (e.src, e.dst)
+            assert got.is_contiguous()
+
+
+def test_graph_transform_to_a_strided_view_raises(card):
+    """A transform that hands a GEMM a column view: the card's launcher
+    refuses it (ROADMAP C10) rather than compute, and the graph stays
+    unfinished."""
+    gen = torch.Generator(device=card).manual_seed(22)
+    d, wide = GemmDesc(8, 256, 256), GemmDesc(8, 512, 256)
+    g = OpGraph()
+    g.add("x", wide, operands={
+        "a": torch.randn((8, 256), generator=gen, device=card).to(torch.bfloat16),
+        "b": torch.randn((256, 512), generator=gen, device=card).to(torch.bfloat16)})
+    g.add("y", d, deps={"a": ("x", lambda r: r[:, :256])}, operands={
+        "b": torch.randn((256, 256), generator=gen, device=card).to(torch.bfloat16)})
+    rt = Runtime(ConcurrencyController(GOLibrary()),
+                 RuntimeConfig(window_s=0.0, execute=True), device=card)
+    h = rt.submit(g)
+    with pytest.raises(ValueError, match="contiguous"):
+        rt.drain()
+    torch.cuda.synchronize()
+    assert not h["y"].request.a.is_contiguous()
+    assert h["x"].done_t is not None and h["y"].done_t is None and not h.done
+    assert rt.drain() == [] and not rt.telemetry.fault_events

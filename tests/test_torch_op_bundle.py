@@ -103,7 +103,7 @@ def test_op_from_key_gemm_and_unported_family():
     g = GemmDesc(8, 5120, 17408, True, False, "f32")
     assert op_from_key(g.key()) == g and jop_from_key(g.key()).key() == g.key()
     assert set(FAMILIES) == {"gemm", "grouped_gemm", "flash_attention", "mamba_scan"}
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A10"):
         op_from_key("gg_4_32_128_256_bf16")
 
 
@@ -199,7 +199,7 @@ def test_decode_step_op_descs_match_reference(name):
 
 def test_decode_step_op_descs_refuses_routed_experts():
     moe = replace(get_arch("qwen3-14b"), n_routed_experts=8, moe_top_k=2, moe_d_ff=64)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A10"):
         decode_step_op_descs(moe, 4)
 
 

@@ -120,9 +120,6 @@ class Pair:
         js, ps = self.j.telemetry.summary(), self.p.telemetry.summary()
         for s in (js, ps):
             s.pop("class_ratios")       # each package's own clock
-        for k in ("graphs_submitted", "graphs_completed", "graph_nodes",
-                  "cross_graph_groups", "ready_depths", "max_ready_depth"):
-            js.pop(k)                   # graphs are not ported
         assert ps == js
 
 
