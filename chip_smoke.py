@@ -108,18 +108,32 @@ Phases, each fatal on failure (nothing here catches an error):
    fault (one pair's B xdᵀ term dropped from the state) must fail the
    scan check, and a ``copy_`` of the state into the rotating buffers is
    printed as the card's write ceiling at that size.  The long prefill
-   (B1 T4096 L128) runs on the chunk loop;
-7. op-bundle serving: for Qwen3-14B (40 layers, context 4,096) and
-   Zamba2-1.2B (38 layers, context 2,048), at full width, every layer's
-   whole decode-step bundle (`decode_step_op_descs`: the GEMMs, the
-   attention read over the KV cache, and for Zamba2 the SSD state update)
-   submitted per tenant as one bundle and flushed per layer, with random
-   bf16 weights, queries and KV caches from a seed; one tenant at batch 1
-   with 16 slots, then tenants [4, 8, 8, 16] with 4, each cold then warm.
-   Every result is held against its plain version, and the counters,
-   zeroed before the phase, must show exactly one attention launch per
-   attention member and one scan launch per scan member, every scan
-   launch on the decode kernel.  Each warm
+   (B1 T4096 L128) runs on the chunk loop.  DeepSeek-V2-Lite-16B's
+   attention (16 heads of 192 over 2,048 keys, MLA in materialized
+   form, on the 256-wide instantiation) is held and timed the same way
+   at batches 16 and 1.  Before the kernel rows, `grouped_for_desc` is
+   held to its plain version at every bm of `GROUPED_TILES` on
+   DeepSeek's batch-16 pools (64 experts, 4 launches each), and
+   `ragged_matmul` is timed at DeepSeek's pools (G 64 at batch 16, G 6
+   at batch 1, up and down) beside `torch.bmm` on equal padded groups;
+7. op-bundle serving: for Qwen3-14B (40 layers, context 4,096),
+   Zamba2-1.2B (38 layers, context 2,048) and DeepSeek-V2-Lite-16B (27
+   layers, context 2,048), at full width, every layer's whole
+   decode-step bundle (`decode_step_op_descs`: the GEMMs, the attention
+   read over the KV cache, for Zamba2 the SSD state update, for
+   DeepSeek the two expert pools) submitted per tenant as one bundle and
+   flushed per layer, with random bf16 weights, queries and KV caches
+   from a seed; one tenant at batch 1 with 16 slots, then tenants
+   [4, 8, 8, 16] with 4, each cold then warm.  DeepSeek's layers hold
+   one (64, 2048, 1408) up and one (64, 1408, 2048) down expert tensor
+   (19.9 GB in all); each tenant's pools read a seeded choice of G
+   distinct experts by pointer, and the bundle's dense per-expert GEMMs
+   (ROADMAP C11) are views into the same tensors.  Every result is held
+   against its plain version, and the counters, zeroed before the
+   phase, must show exactly one attention launch per attention member
+   and one scan launch per scan member, every scan launch on the decode
+   kernel, and in every window exactly the `ragged_matmul` launches
+   `ragged_chunks` gives each grouped member at its planned tile.  Each warm
    window is then timed concurrently and back to back (as in phase 5)
    and profiled once.  Then graph serving on the same weights and KV
    caches, its launches counted apart (`graph_part`): per tenant one
@@ -135,8 +149,9 @@ Phases, each fatal on failure (nothing here catches an error):
    same storage); every node launched in a later flush than each of its
    producers; every graph completed; each run's launches equal to the
    planner's in shadow mode; one attention launch per attention node
-   and one decode-kernel scan launch per scan node; no fault, no
-   fallback, no `matmul` on the ring feed.  Printed, not gated, for
+   and one decode-kernel scan launch per scan node; each run's
+   `ragged_matmul` launches as `ragged_chunks` gives its grouped nodes;
+   no fault, no fallback, no `matmul` on the ring feed.  Printed, not gated, for
    graph and waves side by side: launches by mode, mean CD, flushes,
    launches mixing graphs, ready-set depths, plan-cache hits, device
    time (the attempts' CUDA events) and wall time;
@@ -286,6 +301,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.library import default_library  # noqa: E402
 from repro_torch.core.measure import schedule_for, synth_request  # noqa: E402
 from repro_torch.core.scheduler import _run_op  # noqa: E402
+from repro_torch.core.tuner import GROUPED_TILES  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_buffers,
@@ -314,7 +330,9 @@ from repro_torch.kernels.gemm import (  # noqa: E402
 )
 from repro_torch.kernels.gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.grouped_gemm import (  # noqa: E402
+    grouped_for_desc,
     grouped_gemm_ref,
+    pool_launches,
     ragged_gemm_ref,
 )
 from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel  # noqa: E402
@@ -777,6 +795,92 @@ def main_path_kernels(gen) -> dict:
     return rows
 
 
+MOE = "deepseek-v2-lite-16b"
+
+
+def moe_pools(cfg, batch: int) -> list:
+    """The two expert pools (up, down) of a DeepSeek decode bundle."""
+    return [d for d in decode_step_op_descs(cfg, batch) if d.family == "grouped_gemm"]
+
+
+def pool_bm_cases(gen) -> int:
+    """`grouped_for_desc` at every bm of `GROUPED_TILES` on DeepSeek's
+    batch-16 pools (64 experts of 2 or 1 rows, up 2048 → 1408 and down
+    1408 → 2048, weights as views into one (64, K, N) tensor), each held
+    to `ragged_gemm_ref` on the raw rows with exactly `pool_launches`
+    `ragged_matmul` launches (four chunks of 16 experts)."""
+    n = 0
+    for d in moe_pools(get_arch(MOE), 16):
+        a = randn((d.M, d.K), gen)
+        w = randn((d.G, d.K, d.N), gen, scale=d.K ** -0.5)
+        ws, sizes = list(w.unbind(0)), list(d.row_vector())
+        want, scale = ragged_gemm_ref(a, ws, sizes), ragged_abs(a, ws, sizes)
+        for bm in sorted({t.bm for t in GROUPED_TILES}):
+            before = grouped_kernel.ragged_matmul.launches
+            out = grouped_for_desc(d, a, ws, tile=TileConfig(bm, 128, 128))
+            got = grouped_kernel.ragged_matmul.launches - before
+            if got != pool_launches(d, bm):
+                raise AssertionError(f"{d.key()} bm {bm}: {got} ragged launches, "
+                                     f"ragged_chunks gives {pool_launches(d, bm)}")
+            check_close(out, want, scale, f"{d.key()} at bm {bm}")
+            n += 1
+    return n
+
+
+def moe_ragged_rows(gen, lib) -> list:
+    """`ragged_matmul` at DeepSeek-V2-Lite's expert pools: the up and down
+    launches of the batch-16 pool (G 64, 32 experts of 2 rows and 32 of
+    1) and of the batch-1 pool (G 6, 1 row each), each expert's rows
+    packed to its isolated GO tile's bm, the weights by pointer as views
+    into (64, K, N) tensors (369 MB a projection; at G 6, ten rotating
+    sets of six experts, 346 MB).  Timed beside its plain version and
+    `torch.bmm` on equal padded groups (the stacked weights of the same
+    experts), which computes the same function on these inputs."""
+    bf16, rows = torch.bfloat16, []
+    for batch in (16, 1):
+        for d in moe_pools(get_arch(MOE), batch):
+            bm = lib.get(d).isolated.bm
+            w = randn((64, d.K, d.N), gen, scale=d.K ** -0.5)
+            padded = [r + (-r) % bm for r in d.row_vector()]
+            Mp = sum(padded)
+            groups = [(e, e + d.G) for e in range(0, 64 - d.G + 1, d.G)]
+            sets = []
+            for lo, hi in groups:
+                a = torch.zeros((Mp, d.K), dtype=bf16, device="cuda")
+                off = 0
+                for r, p in zip(d.row_vector(), padded):
+                    a[off:off + r] = randn((r, d.K), gen)
+                    off += p
+                sets.append((a, list(w[lo:hi].unbind(0)), w[lo:hi]))
+            a, ws, b = sets[0]
+            out = grouped_kernel.ragged_matmul(a, ws, padded, bm=bm)
+            err = check_close(out, ragged_gemm_ref(a, ws, padded),
+                              ragged_abs(a, ws, padded), f"ragged {d.key()}")
+            launches = pool_launches(d, bm)
+            rows.append(dict(
+                shape=(f"DeepSeek-V2-Lite pool, batch {batch}: G{d.G} rows "
+                       f"{sorted(set(d.row_vector()))} packed to bm {bm} "
+                       f"({Mp} rows) N{d.N} K{d.K}, {launches} launches of <= "
+                       f"{grouped_kernel.MAX_MEMBERS} experts, {len(sets)} rotating set(s)"),
+                max_abs_err=err,
+                ms=time_ms(rotating(lambda x, y, _: grouped_kernel.ragged_matmul(
+                    x, y, padded, bm=bm), sets)),
+                plain_ms=time_ms(lambda: ragged_gemm_ref(a, ws, padded), reps=3,
+                                 queued=False),
+                library_ms=(time_ms(rotating(lambda x, _, z: torch.bmm(
+                    x.view(d.G, Mp // d.G, d.K), z), sets))
+                    if len(set(padded)) == 1 else None),
+                bound=bound((Mp * d.K + d.G * d.K * d.N + Mp * d.N) * 2,
+                            2 * Mp * d.N * d.K, bf16)))
+            del sets, w, a, ws, b
+    for r in rows:
+        lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"# ragged_matmul   {r['shape']:<60} kernel {r['ms']:.4f} ms | plain "
+              f"{r['plain_ms']:.4f} | torch.bmm {lib_ms} | bound {r['bound'][0]:.4f} "
+              f"({r['bound'][1]}) | max err {r['max_abs_err']:.4g}")
+    return rows
+
+
 # The serving path's `matmul` shapes, 8 x N x 5120 bf16 (Qwen3-14B at batch
 # 8): fused gate+up, gate or up, q or o, k or v.
 MATMUL_NS = (34816, 17408, 5120, 1024)
@@ -1144,7 +1248,7 @@ KERNEL_KINDS = (("stream_k_matmul_kernel", "stream_k_matmul"),
                 ("fixup_kernel", "stream-K fixup"),
                 ("ragged_kernel", "ragged_matmul"), ("flash_bf16_kernel", "flash_attention"),
                 ("mamba_decode_kernel", "mamba_scan"), ("mamba_kernel", "mamba_scan"),
-                ("Cat", "stack/cat copy"),
+                ("Cat", "stack/cat copy"), ("indexSelect", "pool packing"),
                 ("reduce", "isfinite checks"))
 
 
@@ -1828,14 +1932,16 @@ def dropped_split_fault(q, k, v, bufs, q_offset: int) -> None:
         raise AssertionError("the attention tolerance lets a dropped kv split through")
 
 
-def attention_member(B: int, gen, lib) -> dict:
-    """Qwen3-14B's decode attention member at batch B (Hq 40, Hkv 8, Skv
-    4,096, D 128, bf16): compared, then timed beside its plain version and
-    SDPA, on operand sets rotating beyond the 50 MB L2 (K+V is 16.8 MB per
-    sequence).  A planted fault runs at each shape: skipped keys at batch
-    16, a dropped kv split at batch 1 (16 splits)."""
+def attention_member(B: int, gen, lib, desc=None) -> dict:
+    """A decode attention member at batch B — Qwen3-14B's (Hq 40, Hkv 8,
+    Skv 4,096, D 128, bf16) unless ``desc`` is given: compared, then timed
+    beside its plain version and SDPA, on operand sets rotating beyond the
+    50 MB L2 (K+V is 16.8 MB per Qwen3-14B sequence).  A planted fault
+    runs at each Qwen3-14B shape: skipped keys at batch 16, a dropped kv
+    split at batch 1 (16 splits)."""
     bf16 = torch.bfloat16
-    desc = AttentionDesc(B, 40, 8, 1, 4096, 128)
+    qwen = desc is None
+    desc = desc or AttentionDesc(B, 40, 8, 1, 4096, 128)
     tile = lib.get(desc).isolated
     kw = dict(q_offset=desc.Skv - desc.Sq, **attention_tiles(tile))
     sets = [(randn((desc.B, desc.Hq, desc.Sq, desc.D), gen),
@@ -1852,9 +1958,9 @@ def attention_member(B: int, gen, lib) -> dict:
     print(f"# flash_attention grid at B{B}: {ctas} CTAs = {desc.B * desc.Hkv} (batch, kv "
           f"head) x {splits} kv splits of {split_len} keys; {smem} B shared memory per "
           f"CTA, {per_sm} CTAs per SM; K/V by {'TMA' if tma_loads(k, v) else 'registers'}")
-    if B == 16:
+    if qwen and B == 16:
         planted_fault(q, k, v, kw)
-    else:
+    elif qwen:
         dropped_split_fault(q, k, v, bufs, kw["q_offset"])
     # Every key is visible to the decode row (q_offset = Skv − 1), so the
     # non-causal SDPA call computes the same function.
@@ -1865,8 +1971,8 @@ def attention_member(B: int, gen, lib) -> dict:
     return dict(
         shape=f"B{desc.B} Hq{desc.Hq} Hkv{desc.Hkv} Sq{desc.Sq} Skv{desc.Skv} D{desc.D} "
               f"at {tile.key()} (bq {kw['bq']}, bkv {kw['bkv']})",
-        instantiation=(f"bf16 head dim ≤ 128, {ctas} CTAs ({splits} splits of {split_len} "
-                       f"keys), {smem} B shared"),
+        instantiation=(f"bf16 head dim ≤ {width_for(desc.D, desc.D)}, {ctas} CTAs "
+                       f"({splits} splits of {split_len} keys), {smem} B shared"),
         grid=dict(ctas=ctas, splits=splits, split_len=split_len, ctas_per_sm=per_sm,
                   smem_bytes=smem),
         max_abs_err=err,
@@ -1883,11 +1989,18 @@ def attention_member(B: int, gen, lib) -> dict:
 def attention_scan_kernels(gen, lib) -> dict:
     """The op-bundle path's attention and scan members: Qwen3-14B's
     tenant-16 attention (K+V 268 MB, beyond the 50 MB L2) and its batch-1
-    member (eight operand sets, 134 MB), then `scan_rows`.  Each is
+    member (eight operand sets, 134 MB), DeepSeek-V2-Lite's at batches 16
+    (403 MB) and 1 (eight sets, 201 MB), then `scan_rows`.  Each is
     compared, then timed beside its plain version and, for attention, the
     PyTorch call computing the same function."""
     rows = {"flash_attention": [attention_member(16, gen, lib),
                                 attention_member(1, gen, lib)]}
+    # DeepSeek-V2-Lite's MLA in materialized form (ROADMAP C11): head dim
+    # 192 on the 256-wide instantiation, K+V 25.2 MB per sequence
+    for B in (16, 1):
+        rows["flash_attention"].append(attention_member(
+            B, gen, lib, AttentionDesc(B, 16, 16, 1, 2048, 192)))
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     rows["mamba_scan"] = scan_rows(gen, lib)
     torch.cuda.empty_cache()
@@ -2010,27 +2123,90 @@ def scan_rows(gen, lib) -> list:
 
 
 # --------------------------------------------------- op-bundle serving
-OP_CONFIGS = (("qwen3-14b", 4096), ("zamba2-1.2b", 2048))
+OP_CONFIGS = (("qwen3-14b", 4096), ("zamba2-1.2b", 2048), ("deepseek-v2-lite-16b", 2048))
 OP_WINDOWS = (([1], 16), ([4, 8, 8, 16], 4))
 
 
 def make_kv_caches(cfg, layers: int, batches, context: int, gen, device) -> list:
-    """Per layer and tenant, a random bf16 K and V cache (B, Hkv, S, D)."""
-    shape = (cfg.n_kv_heads, context, cfg.resolved_head_dim)
+    """Per layer and tenant, a random bf16 K and V cache (B, Hkv, S, D) of
+    the decode bundle's attention (MLA's materialized form for
+    DeepSeek-V2: 16 heads of 192, ROADMAP C11)."""
+    (attn,) = [d for d in decode_step_op_descs(cfg, 1, context)
+               if d.family == "flash_attention"]
+    shape = (attn.Hkv, attn.Skv, attn.D)
     return [[tuple(torch.randn((b,) + shape, generator=gen, device=device,
                                dtype=torch.bfloat16) for _ in range(2))
              for b in batches] for _ in range(layers)]
 
 
+def make_op_weights(cfg, layers: int, gen, device) -> tuple:
+    """Per layer, the weights of `unfused_descs` in order, stored (K, N),
+    and the layer's routed experts (None without them): one (E, D, F) up
+    and one (E, F, D) down tensor, each expert's weight a view.  The dense
+    per-expert triples of the bundle (ROADMAP C11) are views into them:
+    expert e's gate and up are the up weights of experts 2e and 2e + 1,
+    its down the down weight of expert e, so they take no memory."""
+    if not cfg.n_routed_experts:
+        weights = make_unfused_weights(cfg, layers, gen, device)
+        return weights, [None] * layers
+    E, D, F = cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.bfloat16).mul_(shape[-2] ** -0.5)
+
+    weights, experts = [], []
+    for _ in range(layers):
+        up, down = rnd(E, D, F), rnd(E, F, D)
+        wl = []
+        for tag, bundle in decode_step_descs(cfg, 1):
+            m = re.fullmatch(r"expert(\d+)-(up|down)", tag)
+            if m is None:
+                wl += [rnd(d.K, d.N) for d in bundle]
+            elif m[2] == "up":
+                wl += [up[2 * int(m[1])], up[2 * int(m[1]) + 1]]
+            else:
+                wl.append(down[int(m[1])])
+        for d, w in zip(unfused_descs(cfg, 1), wl, strict=True):
+            if tuple(w.shape) != (d.K, d.N):
+                raise AssertionError(f"weight {tuple(w.shape)} for {d.key()}")
+        weights.append(wl)
+        experts.append((up, down))
+    return weights, experts
+
+
+def storage_gb(tensors) -> float:
+    """GB of the distinct storages under ``tensors`` (views count once)."""
+    seen = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in tensors}
+    return sum(seen.values()) / 1e9
+
+
+def pool_weights(experts, d, li: int, ti: int) -> list:
+    """The G expert weights a grouped member reads, by pointer: views into
+    the layer's up or down tensor (whichever has the member's (K, N)) of a
+    seeded choice of G distinct experts, the same for a tenant's up and
+    down pools of one layer."""
+    up, down = experts
+    w = up if tuple(up.shape[1:]) == (d.K, d.N) else down
+    if tuple(w.shape[1:]) != (d.K, d.N):
+        raise AssertionError(f"{d.key()}: no expert tensor of (K, N) = ({d.K}, {d.N})")
+    idx = np.random.default_rng((SEED, li, ti)).choice(w.shape[0], d.G, replace=False)
+    return [w[int(e)] for e in idx]
+
+
 def op_request(d, weight, kv, gen, device):
     """One bundle member with its operands: a GEMM's activations and
-    weight, the attention's query and KV cache, or the scan's inputs
-    (head-broadcast B/C, as Mamba2's group-shared layout)."""
+    weight, a grouped member's rows and its experts' weights (``weight``,
+    a list of views), the attention's query and KV cache, or the scan's
+    inputs (head-broadcast B/C, as Mamba2's group-shared layout)."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)
 
     if d.family == "gemm":
         return GemmRequest(desc=d, a=rnd(d.M, d.K), b=weight)
+    if d.family == "grouped_gemm":
+        return bind_operands(d, (rnd(d.M, d.K), weight))
     if d.family == "flash_attention":
         k, v = kv
         return bind_operands(d, (rnd(d.B, d.Hq, d.Sq, d.D), k[:d.B], v[:d.B]))
@@ -2039,7 +2215,18 @@ def op_request(d, weight, kv, gen, device):
     return bind_operands(d, (rnd(d.B, d.T, d.H, d.P), da, bm, cm))
 
 
-def drive_op_bundles(rt: Runtime, cfg, weights, kv, batches, context: int, gen):
+def member_weight(d, ws, experts, li: int, ti: int):
+    """A bundle member's weight: a GEMM's next of ``ws``, a grouped
+    member's expert views (`pool_weights`), else None."""
+    if d.family == "gemm":
+        return next(ws)
+    if d.family == "grouped_gemm":
+        return pool_weights(experts[li], d, li, ti)
+    return None
+
+
+def drive_op_bundles(rt: Runtime, cfg, weights, kv, batches, context: int, gen,
+                     experts=None):
     """Per layer, every tenant submits its whole decode-step bundle, and
     the runtime drains.  Returns the bundle tickets, the wall time up to
     the last result being ready, the window's records and launches."""
@@ -2050,7 +2237,7 @@ def drive_op_bundles(rt: Runtime, cfg, weights, kv, batches, context: int, gen):
         for ti, batch in enumerate(batches):
             descs = decode_step_op_descs(cfg, batch, context)
             ws = iter(wl)
-            reqs = [op_request(d, next(ws) if d.family == "gemm" else None, kv[li][ti],
+            reqs = [op_request(d, member_weight(d, ws, experts, li, ti), kv[li][ti],
                                gen, rt.device) for d in descs]
             handles.append(rt.submit(reqs, tenant=f"tenant{ti}"))
         launches += rt.drain()
@@ -2065,6 +2252,11 @@ def check_op_tickets(tickets) -> None:
         what = f"ticket {tk.seq} {tk.desc.key()} ({tk.plan.mode})"
         if fam == "gemm":
             check_close(tk.result, gemm_ref(r.a, r.b), abs_product(r.a, r.b), what)
+        elif fam == "grouped_gemm":
+            a, ws = r.inputs
+            sizes = list(tk.desc.row_vector())
+            check_close(tk.result, ragged_gemm_ref(a, ws, sizes), ragged_abs(a, ws, sizes),
+                        what)
         elif fam == "flash_attention":
             check_attention(tk.result, *r.inputs, tk.desc.Skv - tk.desc.Sq, what)
         else:
@@ -2072,19 +2264,46 @@ def check_op_tickets(tickets) -> None:
                       SCAN_TOL, SCAN_TOL + 2.0 ** -8, what)
 
 
-def op_bundle_window(rt, cfg, weights, kv, batches, context, gen) -> dict:
+def expected_ragged(launches) -> int:
+    """The `ragged_matmul` launches a list of runtime launches makes: per
+    grouped member, `pool_launches` at the tile it was planned at."""
+    n = 0
+    for ln in launches:
+        for tk, tile in zip(ln.tickets, ln.plan.tiles or [ln.plan.tile] * len(ln.tickets)):
+            if tk.desc.family == "grouped_gemm":
+                n += pool_launches(tk.desc, tile.bm)
+    return n
+
+
+def check_ragged(label: str, before: int, launches, device) -> int:
+    """Fail unless ``launches`` made exactly `expected_ragged`'s
+    `ragged_matmul` launches since the count read ``before``."""
+    got, want = grouped_kernel.ragged_matmul.launches - before, expected_ragged(launches)
+    if device == "cuda" and got != want:
+        raise AssertionError(f"{label}: {got} ragged_matmul launches, the grouped "
+                             f"members' ragged_chunks give {want}")
+    return got
+
+
+def op_bundle_window(rt, cfg, weights, kv, batches, context, gen, experts) -> dict:
+    before = grouped_kernel.ragged_matmul.launches
     handles, wall, recs, launches = drive_op_bundles(rt, cfg, weights, kv, batches,
-                                                     context, gen)
+                                                     context, gen, experts)
+    ragged = check_ragged(f"{cfg.name} op-bundle window {batches}", before, launches,
+                          rt.device.type)
     if not all(h.done for h in handles):
         raise AssertionError("a bundle was left unfinished")
     tickets = [m for h in handles for m in h.members]
     check_op_tickets(tickets)
     fams = Counter(tk.desc.family for tk in tickets)
     weight_b = sum(tk.request.b.numel() * 2 for tk in tickets if tk.desc.family == "gemm")
+    weight_b += sum(w.numel() * 2 for tk in tickets if tk.desc.family == "grouped_gemm"
+                    for w in tk.request.inputs[1])
     kv_b = sum((tk.request.inputs[1].numel() + tk.request.inputs[2].numel()) * 2
                for tk in tickets if tk.desc.family == "flash_attention")
     return dict(requests=len(tickets), families=dict(fams),
-                launches=dict(Counter(g.mode for g in recs)), wall_s=wall,
+                launches=dict(Counter(g.mode for g in recs)), ragged_launches=ragged,
+                wall_s=wall,
                 device_s=sum(g.achieved_time_s or 0.0 for g in recs),
                 weight_gb=weight_b / 1e9, kv_gb=kv_b / 1e9, launch_list=launches)
 
@@ -2095,14 +2314,19 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
     cfg = cfg.reduced() if reduced else cfg
     layers = layers or cfg.n_layers
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    weights = make_unfused_weights(cfg, layers, gen, device)
+    t0 = time.perf_counter()
+    weights, experts = make_op_weights(cfg, layers, gen, device)
     tenants = max((b for b, _ in OP_WINDOWS), key=len)
     kv = make_kv_caches(cfg, layers, tenants, context, gen, device)
-    model_gb = sum(w.numel() * 2 for wl in weights for w in wl) / 1e9
+    model_gb = storage_gb([w for wl in weights for w in wl]
+                          + [t for ex in experts if ex for t in ex])
     kv_gb = sum(t.numel() * 2 for lkv in kv for pair in lkv for t in pair) / 1e9
+    routed = (f" (routed experts {storage_gb([t for ex in experts for t in ex]):.2f} GB; "
+              "the dense per-expert GEMMs are views into them)" if experts[0] else "")
     print(f"# op-bundle serving {cfg.name}: {layers} layers, context {context}, bundle "
           f"{[d.key() for d in decode_step_op_descs(cfg, 1, context)]}; weights "
-          f"{model_gb:.2f} GB, KV caches {kv_gb:.2f} GB ({sum(tenants)} sequences) on {device}")
+          f"{model_gb:.2f} GB{routed}, KV caches {kv_gb:.2f} GB ({sum(tenants)} "
+          f"sequences) on {device}")
     rt = Runtime(ConcurrencyController(),
                  RuntimeConfig(window_s=0.0, execute=True), device=device)
     reset_counts()
@@ -2110,12 +2334,16 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
     for batches, available in OP_WINDOWS:
         rt.set_available(available)
         for run in ("cold", "warm"):
-            w = op_bundle_window(rt, cfg, weights, kv, batches, context, gen)
+            w = op_bundle_window(rt, cfg, weights, kv, batches, context, gen, experts)
             w.update(batches=batches, available=available, plans=run)
             windows.append(w)
+            pools = (f", ragged_matmul launches {w['ragged_launches']} (as ragged_chunks "
+                     "gives for each grouped member)" if w["families"].get("grouped_gemm")
+                     else "")
             print(f"# {cfg.name} op-bundle window batches {batches} available {available} "
                   f"({run} plans): {w['requests']} requests {w['families']}, launches "
-                  f"{w['launches']}, wall {w['wall_s']:.6f} s, device {w['device_s']:.6f} s; "
+                  f"{w['launches']}{pools}, wall {w['wall_s']:.6f} s, device "
+                  f"{w['device_s']:.6f} s; "
                   f"weights {w['weight_gb']:.3f} GB + KV {w['kv_gb']:.3f} GB read, "
                   f"{(w['weight_gb'] + w['kv_gb']) / w['wall_s']:.1f} GB/s of wall")
     counts = {k: LAUNCHERS[k].launches for k in LAUNCHERS}
@@ -2158,47 +2386,62 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
             rt.set_available(available)
             profile_window(f"{cfg.name} op-bundle window batches {batches} available "
                            f"{available}", lambda: drive_op_bundles(
-                               rt, cfg, weights, kv, batches, context, gen)[1::2])
+                               rt, cfg, weights, kv, batches, context, gen, experts)[1::2])
     check_healthy(rt, f"{cfg.name} op-bundle serving, profiled windows")
     for w in windows:
         del w["launch_list"]
-    graph_part(cfg, weights, kv, context, gen, device)
+    graph_part(cfg, weights, kv, context, gen, device, experts)
+    print(f"# {cfg.name} op-bundle phase: {time.perf_counter() - t0:.1f} s (host clock, "
+          "weights made and checks included)")
     return dict(counts=counts, scan_routes=routes, windows=windows, model_gb=model_gb,
                 kv_gb=kv_gb)
 
 
 # --------------------------------------------------------- graph serving
-def bind_graph(cfg, weights, kv, ti: int, batch: int, context: int, gen, device):
+def bind_graph(cfg, weights, kv, ti: int, batch: int, context: int, gen, device,
+               experts=None):
     """Tenant ``ti``'s `decode_step_graph` over every layer of ``weights``,
     each node's static operands attached by name (``L{ℓ}.q``, ...): each
     layer's roots take the layer input ``a``, every GEMM its layer's
-    weight, the attention the tenant's KV cache (and, where no data edge
-    feeds it, a query), the scan xd, da and head-broadcast B/C views as
-    `op_request` makes them; every other slot arrives by a data edge."""
+    weight of its tag (the bundle's GEMMs of that tag in order), the
+    expert pools their experts' weights (`pool_weights`) and, moe-up, its
+    routed rows, the attention the tenant's KV cache (and, where no data
+    edge feeds it, a query), the scan xd, da and head-broadcast B/C views
+    as `op_request` makes them; every other slot arrives by a data edge.
+    Every tag the graph's GEMMs carry takes all of its weights; the
+    dense per-expert GEMMs have no node (ROADMAP C11)."""
     g = decode_step_graph(cfg, batch, context, layers=len(weights))
     wired = {(e.dst, e.slot) for e in g.edges if e.slot is not None}
+    tags = [tag for tag, bundle in decode_step_descs(cfg, batch) for _ in bundle]
     for li, wl in enumerate(weights):
         prefix = f"L{li}." if len(weights) > 1 else ""
         x = torch.randn((batch, cfg.d_model), generator=gen, device=device,
                         dtype=torch.bfloat16)
-        ws = iter(wl)
+        by_tag = {}
+        for tag, w in zip(tags, wl, strict=True):
+            by_tag.setdefault(tag, []).append(w)
+        taken = Counter()
         for name, node in g.nodes.items():
             d = node.desc
             if not name.startswith(prefix):
                 continue
             if family_of(d) == "gemm":
-                w = next(ws)
+                w = by_tag[node.tag][taken[node.tag]]
+                taken[node.tag] += 1
                 if tuple(w.shape) != (d.K, d.N):
                     raise AssertionError(f"{name}: weight {tuple(w.shape)} for {d.key()}")
                 node.operands["b"] = w
                 if (name, "a") not in wired:
                     node.operands["a"] = x
             else:
-                ops = op_request(d, None, kv[li][ti], gen, device).inputs
+                w = pool_weights(experts[li], d, li, ti) if d.family == "grouped_gemm" else None
+                ops = op_request(d, w, kv[li][ti], gen, device).inputs
                 node.operands.update((s, t) for s, t in enumerate(ops)
                                      if (name, s) not in wired)
-        if next(ws, None) is not None:
-            raise AssertionError(f"layer {li}: a weight no GEMM node took")
+        left = {t: len(ws) - taken[t] for t, ws in by_tag.items()
+                if taken[t] and taken[t] != len(ws)}
+        if left:
+            raise AssertionError(f"layer {li}: weights no GEMM node took {left}")
     return g
 
 
@@ -2350,22 +2593,25 @@ def graph_shadow(cfg, context: int, layers: int, device) -> list:
                 cfg, context, device, bind, shadow=True)]
 
 
-def graph_part(cfg, weights, kv, context: int, gen, device) -> None:
+def graph_part(cfg, weights, kv, context: int, gen, device, experts=None) -> None:
     """Graph serving on phase 7's weights and KV caches, its launches
     counted apart: `graph_windows` executed, every graph run held by
     `check_graph_run` and every wave ticket to its plain version; each
     run's launches must equal the shadow planner's; one attention launch
     per attention node and one decode-kernel scan launch per scan node;
-    no fault, no fallback, every `matmul` launch counted on the TMA feed.
-    The graph and waves figures are printed side by side, not gated."""
+    for each run exactly the `ragged_matmul` launches `ragged_chunks`
+    gives its grouped nodes; no fault, no fallback, every `matmul` launch
+    counted on the TMA feed.  The graph and waves figures are printed
+    side by side, not gated."""
     t0 = time.perf_counter()
     shadow = graph_shadow(cfg, context, len(weights), device)
     take_counts()
     nodes = Counter()
 
     def bind(ti: int, batch: int):
-        return bind_graph(cfg, weights, kv, ti, batch, context, gen, device)
+        return bind_graph(cfg, weights, kv, ti, batch, context, gen, device, experts)
 
+    ragged0 = grouped_kernel.ragged_matmul.launches
     for i, (batches, available, run, res) in enumerate(
             graph_windows(cfg, context, device, bind)):
         label = f"{cfg.name} {run} batches {batches} available {available}"
@@ -2383,8 +2629,12 @@ def graph_part(cfg, weights, kv, context: int, gen, device) -> None:
         if signature(launches) != shadow[i][3]:
             raise AssertionError(f"{label}: the launches differ from the shadow "
                                  "planner's")
+        ragged = check_ragged(label, ragged0, launches, device)
+        ragged0 = grouped_kernel.ragged_matmul.launches
+        pools = (f"; ragged_matmul launches {ragged}, as ragged_chunks gives"
+                 if nodes["grouped_gemm"] else "")
         print(graph_stats_line(cfg.name, batches, available, run, stats)
-              + "; launches as the shadow planner's")
+              + "; launches as the shadow planner's" + pools)
         del res, launches, tickets      # this run's outputs, before the next run
     routes = dict(mamba_scan_fwd.routes)
     feeds = check_feeds(f"{cfg.name} graph serving", device)
@@ -3036,7 +3286,11 @@ def main() -> int:
           "agree with their plain versions")
     print(f"# attention and scan kernels: {attention_scan_cases(gen)} small cases agree "
           "with their plain versions")
+    print(f"# expert pools: grouped_for_desc at {pool_bm_cases(gen)} (pool, bm) cases of "
+          "DeepSeek-V2-Lite's batch-16 pools agrees with its plain version, with the "
+          "ragged_matmul launches ragged_chunks gives")
     rows = main_path_kernels(gen)
+    rows["ragged_matmul"] += moe_ragged_rows(gen, default_library())
     rows.update(split_stream_kernels(gen))
     rows.update(attention_scan_kernels(gen, default_library()))
     torch.cuda.empty_cache()
@@ -3055,10 +3309,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         ops[name] = op_bundle_phase(name, context)
-    op_counts = {k: sum(o["counts"][k] for o in ops.values()) for k in OP_BUNDLE_KERNELS}
+    op_counts = {k: sum(o["counts"][k] for o in ops.values())
+                 for k in OP_BUNDLE_KERNELS + ("ragged_matmul",)}
     scan_routes = {k: sum(o["scan_routes"][k] for o in ops.values())
                    for k in mamba_scan_fwd.routes}
-    missing = [k for k in OP_BUNDLE_KERNELS if op_counts[k] <= 0]
+    missing = [k for k in OP_BUNDLE_KERNELS + ("ragged_matmul",) if op_counts[k] <= 0]
     if missing:
         raise AssertionError(f"the op-bundle path never launched {missing}")
     kernels = []
@@ -3075,7 +3330,12 @@ def main() -> int:
             **({"folded": "the fixup is stream_k_matmul's arrival epilogue; the row "
                           "times the whole one-launch GEMM"}
                if replaces.endswith("_stream_k_fixup_kernel") else {}),
-            "instantiation": r["instantiation"], "launches": path["counts"][name],
+            "instantiation": r.get("instantiation", ""),
+            "launches": path["counts"][name] + (op_counts[name] if name == "ragged_matmul"
+                                                else 0),
+            **({"launches_by_path": {"per_class": path["counts"][name],
+                                     "op_bundles": op_counts[name]}}
+               if name == "ragged_matmul" else {}),
             **({"launches_by_route": scan_routes} if name == "mamba_scan" else {}),
             **({"route": r["route"]} if "route" in r else {}),
             **({"grid": r["grid"]} if "grid" in r else {}),

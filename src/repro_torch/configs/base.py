@@ -133,4 +133,8 @@ def get_arch(name: str) -> ArchConfig:
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import qwen3_14b, zamba2_1p2b  # noqa: F401  (register)
+    from repro_torch.configs import (  # noqa: F401  (register)
+        deepseek_v2_lite_16b,
+        qwen3_14b,
+        zamba2_1p2b,
+    )

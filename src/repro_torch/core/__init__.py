@@ -9,6 +9,7 @@ from repro_torch.core.cost_model import (
     SLICE_OVERHEAD_S,
     TPUSpec,
     group_time,
+    grouped_stats_batch,
     isolated_time,
     sequential_time,
     sliced_time,
@@ -19,6 +20,7 @@ from repro_torch.core.measure import Measurement, Measurer, backend_tag
 from repro_torch.core.op_desc import (
     FAMILIES,
     AttentionDesc,
+    GroupedGemmDesc,
     ScanDesc,
     SlicePlan,
     family_of,
@@ -60,13 +62,13 @@ __all__ = [
     "AttentionDesc", "CDS", "CLASSES", "CP_OVERHEAD_S", "ConcurrencyController",
     "CostCalibrator", "DEFAULT_SPEC", "EVAL_COUNTER", "FAMILIES", "FAMILY_TILES",
     "GOEntry",
-    "GOLibrary", "GemmDesc", "GemmRequest", "GroupPlan", "Measurement",
+    "GOLibrary", "GroupedGemmDesc", "GemmDesc", "GemmRequest", "GroupPlan", "Measurement",
     "Measurer", "OpRequest", "Predictor", "RC_FRACTIONS", "SLICE_OVERHEAD_S",
     "ScanDesc", "Schedule", "SlicePlan", "TPUSpec", "accuracy_by_available",
     "backend_tag",
     "bind_operands", "compat_key", "default_library", "execute_schedule",
     "family_of", "gemm_features", "generate_gemm_pool", "group_time",
-    "isolated_time", "op_features", "op_from_key", "profile_dataset",
+    "grouped_stats_batch", "isolated_time", "op_features", "op_from_key", "profile_dataset",
     "requests_from_numpy", "sequential_time", "slice_plan", "sliced_time",
     "split_spans",
     "train_predictor", "tune_gemm", "tune_gemm_batch", "tune_op",

@@ -1,6 +1,6 @@
 """Analytical cost model (`repro/core/cost_model.py`): the GEMM paths and
-the flash-attention and SSD-scan families (`:363-376, 407-420, 558-660,
-782-973`).
+the flash-attention, grouped expert-GEMM and SSD-scan families
+(`:363-376, 407-420, 558-660, 782-973`).
 
 The port plans exactly as the reference does: the model is the same
 float64 NumPy code over the same `TPUSpec`, so the tuner, the library
@@ -39,7 +39,9 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.core.gemm_desc import GemmDesc
-from repro_torch.core.op_desc import AttentionDesc, ScanDesc, family_of
+from repro_torch.core.op_desc import (
+    AttentionDesc, GroupedGemmDesc, ScanDesc, family_of,
+)
 from repro_torch.kernels.gemm.ops import TileConfig
 
 
@@ -545,8 +547,9 @@ def _fold(x: np.ndarray) -> float:
 
 
 # ------------------------------------------------------- non-GEMM families
-# Flash attention and the SSD scan reuse the `TileConfig` container with
-# family meanings (attention: bm = q block, bn = kv block; scan: bm =
+# Flash attention, the grouped expert GEMM and the SSD scan reuse the
+# `TileConfig` container with family meanings (attention: bm = q block,
+# bn = kv block; grouped: a GEMM tile over each expert's rows; scan: bm =
 # chunk length) and compose through the same rooflines as the GEMMs.
 def _tile_dims(t):
     return np.asarray(t.bm), np.asarray(t.bn), np.asarray(t.bk)
@@ -604,6 +607,66 @@ def attention_stats_batch(
     )
 
 
+def _grouped_geom(d: GroupedGemmDesc, t, spec: TPUSpec):
+    """(bm, bn, bk, ws, a_panel) of the ragged expert pool; the
+    per-expert row counts add an expert axis that `grouped_stats_batch`
+    reduces, so the result broadcasts like every other family's."""
+    bm, bn, bk = _tile_dims(t)
+    mxu = spec.mxu_dim
+    bm_c = np.minimum(bm, _round_up(d.M, mxu))
+    bn_c = np.minimum(bn, _round_up(d.N, mxu))
+    bk_c = np.minimum(bk, _round_up(d.K, mxu))
+    ib = d.in_bytes
+    ws = (2 * (bm_c * bk_c + bk_c * bn_c) * ib
+          + bm_c * bn_c * 4 + bm_c * bn_c * ib)
+    a_panel = bm_c * d.K * ib
+    return bm_c, bn_c, bk_c, ws, a_panel
+
+
+def grouped_stats_batch(
+    d: GroupedGemmDesc, t, vmem_budget=None, spec: TPUSpec = DEFAULT_SPEC,
+) -> KernelStatsBatch:
+    """Ragged grouped GEMM: G experts, each expert's rows padded up to the
+    bm block (the ragged launch's tail waste), the expert weights
+    streamed once per m-tile sweep."""
+    budget = spec.vmem_bytes if vmem_budget is None else vmem_budget
+    bm_c, bn_c, bk_c, ws, a_panel = _grouped_geom(d, t, spec)
+    rows = np.asarray(d.row_vector(), np.int64)
+    base = np.broadcast_shapes(np.shape(bm_c), np.shape(ws),
+                               np.shape(np.asarray(budget)))
+    r = rows.reshape((d.G,) + (1,) * len(base))
+    bm_e = np.minimum(bm_c, _round_up(np.maximum(r, 1), 8))
+    tm = np.where(r > 0, _cdiv(np.maximum(r, 1), bm_e), 0)
+    tn = _cdiv(d.N, bn_c)
+    tk = _cdiv(d.K, bk_c)
+    ib = d.in_bytes
+    n_tiles = np.maximum((tm * tn).sum(0), 1)
+    resid_frac = np.minimum(np.maximum(
+        (budget - ws) / a_panel, 0.0), 1.0)
+    a_resident = resid_frac >= 1.0
+    eff_reads = tn - resid_frac * (tn - 1)
+    a_unit = d.M * d.K * ib
+    b_bytes = tm.sum(0) * (d.K * d.N * ib)
+    c_bytes = d.M * d.N * ib
+    hbm = eff_reads * a_unit + b_bytes + c_bytes
+    flops = 2.0 * (tm * bm_e).sum(0) * (tn * bn_c) * (tk * bk_c)
+    util = (_align_eff(bm_c, spec.mxu_dim) * _align_eff(bn_c, spec.mxu_dim)
+            * _align_eff(bk_c, spec.mxu_dim))
+    slots = np.maximum(1, budget // ws)
+    waves = n_tiles / np.minimum(slots, spec.pipeline_fill_tiles * 4)
+    occ = np.minimum(1.0, (ws + resid_frac * a_panel) / budget)
+    EVAL_COUNTER.add(np.size(waves))
+    return KernelStatsBatch(
+        n_tiles=np.asarray(n_tiles), waves=np.asarray(waves),
+        occupancy=np.asarray(occ),
+        vmem_bytes=np.asarray(ws + np.where(a_resident, a_panel, 0.0)),
+        hbm_bytes=np.asarray(hbm), flops=np.asarray(flops),
+        mxu_util=np.asarray(util), a_resident=np.asarray(a_resident),
+        splits=np.ones_like(np.asarray(n_tiles)),
+        streams=np.zeros_like(np.asarray(n_tiles)),
+    )
+
+
 def _scan_geom(d: ScanDesc, t, spec: TPUSpec):
     """(L, n_chunks, ws): the chunk length L is the tunable axis (bm);
     the chunk sweep is sequential per (batch, head)."""
@@ -651,16 +714,19 @@ def scan_stats_batch(
 
 _FAMILY_STATS = {
     "flash_attention": attention_stats_batch,
+    "grouped_gemm": grouped_stats_batch,
     "mamba_scan": scan_stats_batch,
 }
 
 
 def op_tile_ws(d, t, spec: TPUSpec = DEFAULT_SPEC):
-    """Raw per-instance working set of a (desc, tile) pair for any ported
+    """Raw per-instance working set of a (desc, tile) pair for any
     family — the tuner's feasibility predicate (``ws ≤ RC budget``)."""
     fam = family_of(d)
     if fam == "flash_attention":
         return _attn_geom(d, t, spec)[4]
+    if fam == "grouped_gemm":
+        return _grouped_geom(d, t, spec)[3]
     if fam == "mamba_scan":
         return _scan_geom(d, t, spec)[2]
     return t.vmem_bytes(d.in_bytes)

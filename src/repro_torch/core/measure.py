@@ -105,7 +105,7 @@ def reject_outliers(samples: Sequence[float], k: float = 4.0) -> List[float]:
 
 
 def synth_request(desc, seed: int = 0, device="cuda") -> GemmRequest:
-    """Random operands for a descriptor of a ported family, drawn from a
+    """Random operands for a descriptor of any family, drawn from a
     `torch.Generator` seeded with ``seed`` on ``device``, in the shapes
     and dtypes the reference's harness gives them (`_run_op`'s
     positional order).  Batched GEMMs have no execute path and raise."""
@@ -132,6 +132,10 @@ def synth_request(desc, seed: int = 0, device="cuda") -> GemmRequest:
         k = randn((desc.B, desc.Hkv, desc.Skv, desc.D), dt)
         v = randn((desc.B, desc.Hkv, desc.Skv, desc.D), dt)
         return GemmRequest(desc=desc, inputs=(q, k, v))
+    if fam == "grouped_gemm":
+        dt = torch.bfloat16 if desc.dtype == "bf16" else torch.float32
+        a = randn((desc.M, desc.K), dt)
+        return GemmRequest(desc=desc, inputs=(a, randn((desc.G, desc.K, desc.N), dt)))
     if fam == "mamba_scan":
         # The scan stages everything in f32 (op_desc.ScanDesc).
         f32 = torch.float32

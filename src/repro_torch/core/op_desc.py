@@ -1,9 +1,10 @@
-"""Heterogeneous op descriptors (`repro/core/op_desc.py`, but for
-`GroupedGemmDesc`): the unit the port tunes, predicts and schedules across
-the kernel families a decode step launches.
+"""Heterogeneous op descriptors (`repro/core/op_desc.py`): the unit the
+port tunes, predicts and schedules across the kernel families a decode
+step launches.
 
 - `GemmDesc` (in `core/gemm_desc.py`) — family ``"gemm"``;
 - `AttentionDesc` — flash attention, O(Sq·Skv) with causal credit;
+- `GroupedGemmDesc` — a ragged expert pool (MoE routed FFNs);
 - `ScanDesc` — chunked SSD scan, bandwidth-bound with a sequential
   chunk sweep.
 
@@ -15,9 +16,8 @@ compatibility classes never collide with GEMM keys), ``flops``,
 ``can_slice`` and ``slice(parts)``, with `slice_plan` carrying a sliced
 op's operand split and merge (`SlicePlan`).
 
-`GroupedGemmDesc`, the MoE expert pool, and with it `SlicePlan`'s
-``"experts"`` kind, is ROADMAP A10: no grouped descriptor reaches
-`slice_plan` (`op_from_key` raises for its keys).
+`op_from_key` inverts ``key()`` for every family (ragged row vectors
+round-trip exactly).
 """
 from __future__ import annotations
 
@@ -120,6 +120,70 @@ class AttentionDesc:
 
 
 @dataclass(frozen=True, order=True)
+class GroupedGemmDesc:
+    """A ragged expert pool: G independent GEMMs sharing (K, N) weight
+    shapes with per-expert row counts — the MoE routed-FFN launch.
+
+    ``rows`` is the per-expert row vector; omitted, the M total is spread
+    evenly (the cost model's default routing assumption)."""
+
+    G: int
+    M: int                 # total rows across experts
+    N: int
+    K: int
+    dtype: str = "bf16"
+    rows: Tuple[int, ...] = ()
+
+    family = "grouped_gemm"
+
+    def __post_init__(self):
+        if self.rows:
+            assert len(self.rows) == self.G and sum(self.rows) == self.M, (
+                "rows must have one entry per expert summing to M")
+
+    def row_vector(self) -> Tuple[int, ...]:
+        if self.rows:
+            return self.rows
+        base, extra = divmod(self.M, self.G)
+        return tuple(base + (1 if g < extra else 0) for g in range(self.G))
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.M * self.N * self.K
+
+    @property
+    def in_bytes(self) -> int:
+        return DTYPE_BYTES[self.dtype]
+
+    @property
+    def mnk_like(self) -> Tuple[int, int, int]:
+        return (self.M, self.N, self.K)
+
+    def key(self) -> str:
+        r = ("_r" + "-".join(str(x) for x in self.rows)) if self.rows else ""
+        return f"gg_{self.G}_{self.M}_{self.N}_{self.K}_{self.dtype}{r}"
+
+    # ------------------------------------------------------------ slicing
+    @property
+    def can_slice(self) -> bool:
+        return self.G >= 2
+
+    def slice(self, parts: int) -> list:
+        """Split along experts into ≤ ``parts`` contiguous expert spans,
+        each an ordinary pool with its span's explicit row vector; ``a``'s
+        rows are in expert order, so outputs merge by row concatenation.
+        ``slice(1)`` is the identity."""
+        if parts <= 1 or not self.can_slice:
+            return [self]
+        rows = self.row_vector()
+        return [
+            GroupedGemmDesc(hi - lo, sum(rows[lo:hi]), self.N, self.K,
+                            self.dtype, rows=tuple(rows[lo:hi]))
+            for lo, hi in split_spans(self.G, parts)
+        ]
+
+
+@dataclass(frozen=True, order=True)
 class ScanDesc:
     """One chunked SSD scan launch: B × H sequences of length T with head
     dim P and state dim N.  The chunk sweep is sequential per (batch,
@@ -192,7 +256,7 @@ class SlicePlan:
 
     parent: object
     pieces: Tuple[object, ...]
-    kind: str                           # "m" | "sq" | "batch"
+    kind: str                           # "m" | "experts" | "sq" | "batch"
     spans: Tuple[Tuple[int, int], ...]
     merge_axis: int
 
@@ -203,13 +267,22 @@ class SlicePlan:
     def split_operands(self, operands: Tuple) -> List[Tuple]:
         """Per-piece operand tuples in the family op's order: GEMM
         ``(a, b)`` (rows of ``a``, or its columns when stored transposed;
-        ``b`` shared), attention ``(q, k, v)`` (a causal Sq piece also
+        ``b`` shared), grouped ``(a, b)`` (the span's rows of ``a`` and
+        its experts' weights: a slice of a stacked tensor or of a
+        sequence of weights), attention ``(q, k, v)`` (a causal Sq piece also
         trims k and v to its Skv), scan ``(xd, da, Bm, Cm)`` (batch)."""
         if self.kind == "m":
             a, b = operands
             ta = self.parent.ta
             return [((a[:, lo:hi] if ta else a[lo:hi]), b)
                     for lo, hi in self.spans]
+        if self.kind == "experts":
+            rows = self.parent.row_vector()
+            offs = [0]
+            for r in rows:
+                offs.append(offs[-1] + r)
+            a, b = operands
+            return [(a[offs[lo]:offs[hi]], b[lo:hi]) for lo, hi in self.spans]
         if self.kind == "sq":
             q, k, v = operands
             out = []
@@ -237,6 +310,8 @@ def slice_plan(d, parts: int) -> SlicePlan:
     fam = family_of(d)
     if fam == "gemm":
         kind, total, axis = "m", d.M, 0
+    elif fam == "grouped_gemm":
+        kind, total, axis = "experts", d.G, 0
     elif fam == "mamba_scan":
         kind, total, axis = "batch", d.B, 0
     else:
@@ -250,17 +325,19 @@ def slice_plan(d, parts: int) -> SlicePlan:
 
 
 def op_from_key(key: str):
-    """Inverse of ``key()`` for every ported family (GEMM keys carry no
-    family prefix).  A ``gg_`` key (grouped expert GEMM) raises: that
-    family is ROADMAP A10."""
+    """Inverse of ``key()`` for every family (GEMM keys carry no family
+    prefix)."""
     if key.startswith("fa_"):
         p = key.split("_")
         return AttentionDesc(int(p[1]), int(p[2]), int(p[3]), int(p[4]),
                              int(p[5]), int(p[6]), bool(int(p[7])), p[8])
     if key.startswith("gg_"):
-        raise NotImplementedError(
-            f"{key}: GroupedGemmDesc (the MoE expert pool) is not ported yet "
-            "(ROADMAP A10)")
+        p = key.split("_")
+        rows: Tuple[int, ...] = ()
+        if len(p) > 6 and p[6].startswith("r"):
+            rows = tuple(int(x) for x in p[6][1:].split("-"))
+        return GroupedGemmDesc(int(p[1]), int(p[2]), int(p[3]), int(p[4]),
+                               p[5], rows)
     if key.startswith("ms_"):
         p = key.split("_")
         return ScanDesc(int(p[1]), int(p[2]), int(p[3]), int(p[4]),

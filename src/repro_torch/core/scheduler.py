@@ -15,8 +15,11 @@ fuse-vs-group policy for GEMMs sharing their input.  With a
 its raw modeled times.  Planning is the reference's logic unchanged, so
 both packages produce identical `Schedule`s; `execute_schedule` runs one
 through the port's kernels, a ``mixed`` group's members at once on CUDA
-streams.  A bundle's members may be of any ported family — GEMMs, flash
-attention, SSD scans — and each runs through its family op (`_run_op`).
+streams.  A bundle's members may be of any family — GEMMs, flash
+attention, the MoE expert pool (a grouped expert GEMM), SSD scans — and
+each runs through its family op (`_run_op`).  A pool of identical
+non-GEMM ops planned per class becomes one ``mixed`` group, as in the
+reference: no single kernel fuses them.
 """
 from __future__ import annotations
 
@@ -38,7 +41,12 @@ from repro_torch.kernels.flash_attention.ops import (
     attention_for_desc,
 )
 from repro_torch.kernels.gemm.ops import TileConfig, gemm, gemm_buffers
-from repro_torch.kernels.grouped_gemm.ops import grouped_gemm, ragged_gemm
+from repro_torch.kernels.grouped_gemm.ops import (
+    grouped_buffers,
+    grouped_for_desc,
+    grouped_gemm,
+    ragged_gemm,
+)
 from repro_torch.kernels.mamba_scan.ops import scan_buffers, scan_for_desc
 
 # CP overhead (paper §5.4/§6.5): queue inspect + predict + packet rewrite.
@@ -50,7 +58,9 @@ class GemmRequest:
     """One op ticket.  A GEMM carries its operands in ``a`` (stored (M,K),
     or (K,M) when ``desc.ta``) and ``b`` ((K,N) or (N,K)); any other
     family carries them in ``inputs``, in its family op's positional
-    order: (q, k, v) for attention, (xd, da, Bm, Cm) for the SSD scan."""
+    order: (q, k, v) for attention, (a, b) for the expert pool (``b`` a
+    stacked (G, K, N) tensor or a sequence of G (K, N) weights), (xd, da,
+    Bm, Cm) for the SSD scan."""
 
     desc: GemmDesc
     a: Optional[torch.Tensor] = None
@@ -84,22 +94,30 @@ def bind_operands(desc, operands: Optional[tuple] = None,
 @dataclass(frozen=True)
 class OpFamily:
     """How the executor runs a member of one non-GEMM family:
-    ``run(desc, *inputs, tile=, out=)``, and ``buffers(*inputs)``, what
-    ``run`` writes, for the caller to allocate (on the launching stream,
-    before a mixed launch forks)."""
+    ``run(desc, *inputs, tile=, out=)``, and ``buffers(desc, *inputs,
+    tile=)``, what ``run`` writes, for the caller to allocate (on the
+    launching stream, before a mixed launch forks)."""
 
     run: Callable
     buffers: Callable
 
 
-# The ported families besides "gemm", whose requests carry ``a``/``b`` and
-# which has launch modes of its own (grouped, ragged).  A family is
-# admitted and executed iff it is "gemm" or a key here; its cost model and
-# tile space are the reference's tables (`cost_model._FAMILY_STATS`,
-# `tuner.FAMILY_TILES`).
+def _by_inputs(buffers: Callable) -> Callable:
+    """The ``buffers`` hook of a family whose outputs depend only on its
+    inputs."""
+    return lambda desc, *inputs, tile=None: buffers(*inputs)
+
+
+# Every family besides "gemm", whose requests carry ``a``/``b`` and which
+# has launch modes of its own (grouped, ragged): flash attention, the
+# grouped expert GEMM (the MoE pool, on the ragged kernel) and the SSD
+# scan.  A family is admitted and executed iff it is "gemm" or a key here;
+# its cost model and tile space are the reference's tables
+# (`cost_model._FAMILY_STATS`, `tuner.FAMILY_TILES`).
 OP_FAMILIES: Dict[str, OpFamily] = {
-    "flash_attention": OpFamily(attention_for_desc, attention_buffers),
-    "mamba_scan": OpFamily(scan_for_desc, scan_buffers),
+    "flash_attention": OpFamily(attention_for_desc, _by_inputs(attention_buffers)),
+    "grouped_gemm": OpFamily(grouped_for_desc, grouped_buffers),
+    "mamba_scan": OpFamily(scan_for_desc, _by_inputs(scan_buffers)),
 }
 
 
@@ -259,7 +277,8 @@ class ConcurrencyController:
     ) -> tuple[GroupPlan, List[int]]:
         """Plan exactly ONE launch from the head of ``pending``: pool the
         head's identical or compatible followers, pick the CD, and return
-        the plan with the remaining pending indices."""
+        the plan with the remaining pending indices.  A pool of identical
+        non-GEMM ops is one ``mixed`` group at the CD's tile."""
         pending = list(pending)
         cap = self.max_cd if available is None else max(1, min(self.max_cd, available))
         head = descs[pending[0]]
@@ -288,11 +307,17 @@ class ConcurrencyController:
             mode = "single"
             tile = entry.isolated
             t = isolated_time(head, tile, self.spec)
+        elif family_of(head) != "gemm":
+            # independent launches (no kernel fuses them), modeled as a
+            # mixed group
+            mode = "mixed"
+            t = group_time([(descs[i], tile) for i in take], self.spec)
         else:
             mode = "ragged" if hetero else "grouped"
             t = group_time([(descs[i], tile) for i in take], self.spec)
         gp = GroupPlan(indices=take, cd=cd_exec, tile=tile, mode=mode,
-                       modeled_time_s=t)
+                       modeled_time_s=t,
+                       tiles=[tile] * cd_exec if mode == "mixed" else None)
         taken = set(take)
         return gp, [i for i in pending if i not in taken]
 
@@ -475,10 +500,10 @@ def _run_mixed(reqs: Sequence[GemmRequest],
     On the CPU the members run in order, as in the reference.  On the
     card they run at once, one side stream each: every buffer a member
     writes (outputs, Stream-K partials, attention's split partials and
-    counters, a scan's final state) is allocated on the launching
-    stream first, the side streams wait on an event recorded there,
-    and the launching stream waits on each member's end event
-    before this returns — so no buffer is freed while a side stream
+    counters, a scan's final state, an expert pool's packed rows and
+    ragged partials) is allocated on the launching stream first, the
+    side streams wait on an event recorded there, and the launching
+    stream waits on each member's end event before this returns — so no buffer is freed while a side stream
     still uses it, and work queued after the launch sees every result.
     The attention and scan kernels read their inputs through strides, so
     no member stages a copy on its side stream."""
@@ -494,7 +519,8 @@ def _run_mixed(reqs: Sequence[GemmRequest],
     bufs = {j: gemm_buffers(reqs[j].a, reqs[j].b, ta=reqs[j].desc.ta,
                             tb=reqs[j].desc.tb, tile=tiles[j])
             if family_of(reqs[j].desc) == "gemm"
-            else OP_FAMILIES[family_of(reqs[j].desc)].buffers(*reqs[j].inputs)
+            else OP_FAMILIES[family_of(reqs[j].desc)].buffers(
+                reqs[j].desc, *reqs[j].inputs, tile=tiles[j])
             for j in live}
     launching = torch.cuda.current_stream(dev)
     fork = torch.cuda.Event()

@@ -55,6 +55,16 @@ ATTENTION_TILES: tuple[TileConfig, ...] = tuple(
     for bkv in (128, 256, 512)
 )
 
+# Grouped (ragged MoE) GEMM: the GEMM axes; bm rows 8-64 dominate because
+# per-expert row counts are tiny at decode time and the ragged launch pads
+# every expert up to bm.
+GROUPED_TILES: tuple[TileConfig, ...] = tuple(
+    TileConfig(bm, bn, bk)
+    for bm in (8, 16, 32, 64, 128)
+    for bn in (128, 256, 512)
+    for bk in (128, 256, 512)
+)
+
 # SSD scan: bm = chunk length L (bn/bk unused).  Long chunks amortize the
 # sequential sweep, short ones shrink the working set.
 SCAN_TILES: tuple[TileConfig, ...] = tuple(
@@ -63,6 +73,7 @@ SCAN_TILES: tuple[TileConfig, ...] = tuple(
 
 FAMILY_TILES = {
     "gemm": CANDIDATE_TILES,
+    "grouped_gemm": GROUPED_TILES,
     "flash_attention": ATTENTION_TILES,
     "mamba_scan": SCAN_TILES,
 }
@@ -285,7 +296,7 @@ def tune_gemm(desc: GemmDesc, spec: TPUSpec = DEFAULT_SPEC,
 
 def tune_op(desc, spec: TPUSpec = DEFAULT_SPEC,
             cds: Sequence[int] = CDS, measure=None) -> GOEntry:
-    """Step ① + Step ② for any ported family: the best tile per RC
+    """Step ① + Step ② for any family: the best tile per RC
     fraction on the family's tile axes, then per CD the fastest RC winner
     in a group of ``cd`` copies.  GEMMs take `tune_gemm`.  ``measure``
     as for `tune_gemm`."""

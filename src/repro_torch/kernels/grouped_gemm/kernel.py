@@ -295,22 +295,35 @@ def ragged_workgroups(device: torch.device, dtype: torch.dtype,
     return sms * ragged_resources(device, dtype, out_dtype, tb, rows)[0]
 
 
-def ragged_matmul(a: torch.Tensor, b, group_sizes, *, bm: int, out_dtype=None
-                  ) -> torch.Tensor:
-    """Row block i = rows [i·bm, (i+1)·bm) of ``a`` (Mtotal, K) times the
-    weight of member ``ops.block_groups(sizes, ·, bm, G)[i]`` on the
-    card, f32 accumulation; ``b`` is a stacked (G, K, N) tensor or G
-    (K, N) weights (module docstring), ``group_sizes`` the G members' row
-    counts (host integers, or a tensor).  Every size but the last must
-    be a multiple of ``bm``, so that each row lies in its own member's
-    block (the plain version's function); else this raises.  ``bm``
-    must be ≤ 16 or a multiple of the 64-row CTA tile.  Returns
-    (Mtotal, N) in ``out_dtype`` (default: the operands' dtype).  Adds
-    one to ``ragged_matmul.launches`` per kernel launch: one per chunk
-    of `MAX_MEMBERS` members that owns a block."""
+class RaggedBuffers(NamedTuple):
+    """What one `ragged_matmul` call writes: C (Mtotal, N) and, for each
+    of its launches (`ragged_chunks`), the walk's f32 partials and its
+    int32 counters, zeroed."""
+
+    c: torch.Tensor
+    partials: Tuple[torch.Tensor, ...]
+    counters: Tuple[torch.Tensor, ...]
+
+
+class _RaggedCall(NamedTuple):
+    dtype: torch.dtype
+    out: torch.dtype
+    ends: List[int]
+    tb: bool
+    ptrs: List[int]
+    lds: List[int]
+    N: int
+    K: int
+    cta: int
+    launches: List[Tuple[RaggedChunk, RaggedWalk]]
+
+
+def _ragged_call(a: torch.Tensor, b, group_sizes, bm: int, out_dtype
+                 ) -> _RaggedCall:
+    """Check a ragged call's arguments and lay out its launches."""
     cta = cta_rows(bm)
     if bm < 1 or (bm > cta and bm % cta):
-        raise ValueError(f"bm={bm}: the ragged kernel takes bm ≤ 16 or a "
+        raise ValueError(f"bm={bm}: the ragged kernel takes bm ≤ 64 or a "
                          "multiple of 64")
     ends = row_ends(group_sizes)
     sizes = [e - s for s, e in zip([0] + ends, ends)]
@@ -326,29 +339,69 @@ def ragged_matmul(a: torch.Tensor, b, group_sizes, *, bm: int, out_dtype=None
     tb, ptrs, lds = weight_table(ws, K, dtype, a.device, "ragged_matmul")
     N = ws[0].shape[1]
     out = _out_dtype(dtype, out_dtype, "ragged_matmul")
-    c = torch.empty((Mtotal, N), dtype=out, device=a.device)
-    if c.numel() == 0:
-        return c
-    if K == 0:
-        return c.zero_()
-    lib = _build.load("grouped_gemm", _SIGNATURES)
-    w = ragged_workgroups(a.device, dtype, out, tb, cta)
-    with torch.cuda.device(a.device):
+    launches = []
+    if Mtotal and N and K:
+        w = ragged_workgroups(a.device, dtype, out, tb, cta)
         for ch in ragged_chunks(ends, Mtotal, bm):
             geo = ragged_walk(ch.row_hi - ch.row_lo, N, K, dtype, bm, w)
             if geo.total + geo.ipw >= 2 ** 31:
                 raise ValueError(f"ragged_matmul: {geo.total} MAC iterations "
                                  "exceed the kernel's 32-bit walk")
-            partials = torch.empty((geo.live, 2, cta * CTA_COLS),
-                                   dtype=torch.float32, device=a.device)
-            counters = torch.zeros(geo.live, dtype=torch.int32, device=a.device)
+            launches.append((ch, geo))
+    return _RaggedCall(dtype, out, ends, tb, ptrs, lds, N, K, cta, launches)
+
+
+def _ragged_buffers(a: torch.Tensor, call: _RaggedCall) -> RaggedBuffers:
+    c = torch.empty((a.shape[0], call.N), dtype=call.out, device=a.device)
+    return RaggedBuffers(
+        c,
+        tuple(torch.empty((geo.live, 2, call.cta * CTA_COLS), dtype=torch.float32,
+                          device=a.device) for _, geo in call.launches),
+        tuple(torch.zeros(geo.live, dtype=torch.int32, device=a.device)
+              for _, geo in call.launches))
+
+
+def ragged_buffers(a: torch.Tensor, b, group_sizes, *, bm: int, out_dtype=None
+                   ) -> RaggedBuffers:
+    """Allocate, on the current stream, what `ragged_matmul` with the same
+    arguments writes (so a caller can allocate it on the launching stream
+    before a mixed launch forks)."""
+    return _ragged_buffers(a, _ragged_call(a, b, group_sizes, bm, out_dtype))
+
+
+def ragged_matmul(a: torch.Tensor, b, group_sizes, *, bm: int, out_dtype=None,
+                  out: RaggedBuffers | None = None) -> torch.Tensor:
+    """Row block i = rows [i·bm, (i+1)·bm) of ``a`` (Mtotal, K) times the
+    weight of member ``ops.block_groups(sizes, ·, bm, G)[i]`` on the
+    card, f32 accumulation; ``b`` is a stacked (G, K, N) tensor or G
+    (K, N) weights (module docstring), ``group_sizes`` the G members' row
+    counts (host integers, or a tensor).  Every size but the last must
+    be a multiple of ``bm``, so that each row lies in its own member's
+    block (the plain version's function); else this raises.  ``bm``
+    must be ≤ 64 or a multiple of the 64-row CTA tile (a block smaller
+    than the CTA's rows runs in its rows, the rest masked).  Returns
+    (Mtotal, N) in ``out_dtype`` (default: the operands' dtype), written
+    into ``out`` (`ragged_buffers` of the same arguments) when given.
+    Adds one to ``ragged_matmul.launches`` per kernel launch: one per
+    chunk of `MAX_MEMBERS` members that owns a block."""
+    call = _ragged_call(a, b, group_sizes, bm, out_dtype)
+    bufs = out if out is not None else _ragged_buffers(a, call)
+    c = bufs.c
+    if c.numel() == 0:
+        return c
+    if call.K == 0:
+        return c.zero_()
+    lib = _build.load("grouped_gemm", _SIGNATURES)
+    with torch.cuda.device(a.device):
+        for (ch, geo), partials, counters in zip(call.launches, bufs.partials,
+                                                 bufs.counters, strict=True):
             code = lib.repro_ragged_matmul(
-                a.data_ptr(), _pointers(ptrs[ch.g0:ch.g1]),
-                _longs(lds[ch.g0:ch.g1]), _longs(ends[ch.g0:ch.g1]),
+                a.data_ptr(), _pointers(call.ptrs[ch.g0:ch.g1]),
+                _longs(call.lds[ch.g0:ch.g1]), _longs(call.ends[ch.g0:ch.g1]),
                 ch.g1 - ch.g0, c.data_ptr(), partials.data_ptr(),
-                counters.data_ptr(), DTYPE_CODES[dtype], DTYPE_CODES[out],
-                int(tb), cta, bm, ch.row_lo, ch.row_hi, N, K, geo.tn, geo.tk,
-                geo.total, geo.ipw, geo.live, _stream(a.device))
+                counters.data_ptr(), DTYPE_CODES[call.dtype], DTYPE_CODES[call.out],
+                int(call.tb), call.cta, bm, ch.row_lo, ch.row_hi, call.N, call.K,
+                geo.tn, geo.tk, geo.total, geo.ipw, geo.live, _stream(a.device))
             raise_on_error(lib, code, "ragged_matmul")
             ragged_matmul.launches += 1
     return c

@@ -19,9 +19,10 @@ one edge per slot, data edges without a ``transform`` size-consistent
 sets: what a caller restricted to bundles must submit with a barrier
 between each.
 
-The grouped expert GEMM (``grouped_gemm``) is ROADMAP A10: its slots are
-listed, as in the reference, but `out_shape` and `slot_shape` raise for
-it.
+A grouped expert GEMM's weight slot (1) holds the experts' weights as
+one stacked (G, K, N) tensor or as a sequence of G (K, N) tensors, read
+where they lie by the kernel (`operand_shape` gives both the same
+shape).
 """
 from __future__ import annotations
 
@@ -47,12 +48,6 @@ FAMILY_SLOTS: Dict[str, Tuple[object, ...]] = {
 }
 
 
-def _unported(d) -> NotImplementedError:
-    return NotImplementedError(
-        f"{d.key()}: GroupedGemmDesc (the MoE expert pool) is not ported yet "
-        "(ROADMAP A10)")
-
-
 def out_shape(d) -> Tuple[int, ...]:
     """Output shape of the launch ``d`` describes."""
     fam = family_of(d)
@@ -61,7 +56,7 @@ def out_shape(d) -> Tuple[int, ...]:
     if fam == "flash_attention":
         return (d.B, d.Hq, d.Sq, d.D)
     if fam == "grouped_gemm":
-        raise _unported(d)
+        return (d.M, d.N)
     if fam == "mamba_scan":
         return (d.B, d.T, d.H, d.P)
     raise GraphError(f"unknown op family: {fam}")
@@ -82,13 +77,26 @@ def slot_shape(d, slot) -> Tuple[int, ...]:
         return ((d.B, d.Hq, d.Sq, d.D) if slot == 0
                 else (d.B, d.Hkv, d.Skv, d.D))
     if fam == "grouped_gemm":
-        raise _unported(d)
+        return (d.M, d.K) if slot == 0 else (d.G, d.K, d.N)
     # mamba_scan: xd (B,T,H,P), da (B,T,H), B/C (B,T,H,N)
     if slot == 0:
         return (d.B, d.T, d.H, d.P)
     if slot == 1:
         return (d.B, d.T, d.H)
     return (d.B, d.T, d.H, d.N)
+
+
+def operand_shape(value) -> Tuple[int, ...]:
+    """Shape of an operand as a slot sees it: a tensor's own, or for a
+    sequence of G same-shape tensors (a grouped GEMM's expert weights
+    passed by pointer) (G, *shape)."""
+    if isinstance(value, (list, tuple)):
+        inner = {tuple(v.shape) for v in value}
+        if len(inner) != 1:
+            raise GraphError(f"a sequence operand needs {len(value)} tensors "
+                             f"of one shape, got shapes {sorted(inner)}")
+        return (len(value),) + inner.pop()
+    return tuple(value.shape)
 
 
 @dataclass(frozen=True)

@@ -9,8 +9,9 @@ once depends on traffic — the runtime-only-known parallelism of paper
 shared-input projections (QKV; FFN gate+up) become one wide fused GEMM
 when the cost model prefers fusion, else separate concurrent GEMMs.
 `decode_step_op_descs` is one layer's whole decode-step bundle: its GEMMs
-plus the attention read over the KV cache and, for SSM/hybrid layers,
-the SSD state update (§14).  `decode_step_graph` is the same op
+plus the attention read over the KV cache, for SSM/hybrid layers the SSD
+state update and, for MoE layers, the routed-expert pool as two ragged
+grouped-GEMM launches (§14).  `decode_step_graph` is the same op
 population as a dependency graph (`runtime/graph.py`), layer after layer,
 with the chains the flat bundle erases.
 """
@@ -21,14 +22,10 @@ from dataclasses import replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.gemm_desc import GemmDesc
-from repro_torch.core.op_desc import AttentionDesc, ScanDesc
+from repro_torch.core.op_desc import AttentionDesc, GroupedGemmDesc, ScanDesc
 from repro_torch.core.scheduler import ConcurrencyController, GemmRequest
 from repro_torch.runtime.graph import OpGraph, out_shape, slot_shape
 from repro_torch.runtime.runtime import Runtime, Ticket
-
-_MOE = ("the routed-expert pool (GroupedGemmDesc) is not ported yet "
-        "(ROADMAP A10)")
-
 
 def _shared_input_requests(
     ctrl: ConcurrencyController,
@@ -117,12 +114,13 @@ def decode_step_op_descs(cfg, batch: int, context: int = 1024,
     """The whole decode-step op bundle of one layer
     (`repro/runtime/integration.py:126-175`): the GEMMs of
     `decode_step_descs` (unfused), the attention read over ``context``
-    cached tokens (`AttentionDesc`, Sq = 1 per sequence) and, for
-    SSM/hybrid blocks, the SSD state update (`ScanDesc`, T = 1).  A
-    routed-expert (MoE) configuration raises: its grouped expert GEMM
-    (`GroupedGemmDesc`) is ROADMAP A10."""
-    if cfg.n_routed_experts:
-        raise NotImplementedError(f"{cfg.name}: {_MOE}")
+    cached tokens (`AttentionDesc`, Sq = 1 per sequence), for SSM/hybrid
+    blocks the SSD state update (`ScanDesc`, T = 1) and, for MoE blocks,
+    the routed-expert pool as one ragged grouped-GEMM launch per up and
+    down projection (`GroupedGemmDesc`: the §6.7 pool collapsed into the
+    kernel that runs it).  As in the reference, the routed experts also
+    stay among the GEMMs as `decode_step_descs`' dense per-expert
+    triples (ROADMAP C11)."""
     descs: List[object] = [
         d for _, bundle in decode_step_descs(cfg, batch, dtype)
         for d in bundle
@@ -144,6 +142,14 @@ def decode_step_op_descs(cfg, batch: int, context: int = 1024,
         hp = 2 * cfg.d_model // cfg.n_heads
         descs.append(ScanDesc(batch, 1, cfg.n_heads, hp, hp, dtype))
         descs.append(ScanDesc(batch, 1, cfg.n_heads, 1, hp, dtype))
+    if cfg.n_routed_experts:
+        # batch·top_k rows spread over the active experts
+        g = min(cfg.n_routed_experts, max(batch * cfg.moe_top_k, 1))
+        rows = batch * cfg.moe_top_k
+        descs.append(GroupedGemmDesc(g, rows, cfg.moe_d_ff, cfg.d_model,
+                                     dtype))
+        descs.append(GroupedGemmDesc(g, rows, cfg.d_model, cfg.moe_d_ff,
+                                     dtype))
     return descs
 
 
@@ -201,13 +207,15 @@ def decode_step_graph(
       gate/up → down (up feeds down; gate is a control edge);
     - MLA: q/kv down-projections → q up-projection → attention →
       O-projection (a control edge where v_head_dim ≠ the qk head dim);
+    - MoE: the routed pool as its two ragged grouped-GEMM launches (the
+      routing scatter a control edge in, up → down a data edge) and the
+      shared experts' gate/up → down, all after the O-projection;
     - SSM/hybrid: in-projection → SSD scan → out-projection, with the
       attention (hybrid) off the layer input beside it.
 
     Each layer's roots follow the previous layer's sinks by control
     edges.  Node names carry the prefix ``L<i>.`` when ``layers > 1``
-    (``"L0.attn"``).  A routed-expert (MoE) configuration raises: its
-    grouped expert GEMMs are ROADMAP A10.  `waves()` of this graph, one
+    (``"L0.attn"``).  `waves()` of this graph, one
     barriered bundle a wave, is what a caller limited to bundles
     submits."""
     g = OpGraph()
@@ -292,8 +300,29 @@ def _add_decode_layer(
                           feeds={"a": attn}, tag="attn-out")
 
     if cfg.n_routed_experts:
-        raise NotImplementedError(f"{cfg.name}: {_MOE}")
-    if cfg.d_ff > 0:
+        # The routed pool as the ragged launches that run it; the dense
+        # per-expert GEMMs are the same work before the collapse, so the
+        # graph carries only the grouped form (ROADMAP C11).
+        ga = min(cfg.n_routed_experts, max(batch * cfg.moe_top_k, 1))
+        rows = batch * cfg.moe_top_k
+        up = _wire(g, P + "moe-up",
+                   GroupedGemmDesc(ga, rows, cfg.moe_d_ff, cfg.d_model,
+                                   dtype),
+                   feeds={0: block_out}, tag="moe-up")
+        sinks.append(_wire(g, P + "moe-down",
+                           GroupedGemmDesc(ga, rows, cfg.d_model,
+                                           cfg.moe_d_ff, dtype),
+                           feeds={0: up}, tag="moe-down"))
+        if cfg.n_shared_experts:
+            sg = _wire(g, P + "shared-gate", bundles["shared-up"][0],
+                       feeds={"a": block_out}, tag="shared-up")
+            su = _wire(g, P + "shared-up", bundles["shared-up"][1],
+                       feeds={"a": block_out}, tag="shared-up")
+            sinks.append(_wire(g, P + "shared-down",
+                               bundles["shared-down"][0],
+                               feeds={"a": su}, after=[sg],
+                               tag="shared-down"))
+    elif cfg.d_ff > 0:
         gate = _wire(g, P + "gate", bundles["ffn-up"][0],
                      feeds={"a": block_out}, tag="ffn-up")
         up = _wire(g, P + "up", bundles["ffn-up"][1],

@@ -3,16 +3,19 @@
 - `submit()` admits a GEMM `GemmRequest` from a tenant into its
   compatibility class's queue (`core.scheduler.compat_key`), or a
   sequence of requests — a heterogeneous bundle such as one layer's
-  decode-step ops (GEMMs, the attention read over the KV cache, the SSD
-  state update; §14) — into the shared ``MIXED_CLASS`` queue, returning
-  one ``"bundle"`` ticket over per-member tickets, or an `OpGraph`
-  (`runtime/graph.py`): its ready frontier enters the ``MIXED_CLASS``
-  queue, each dependent follows when its producers complete, their
-  outputs wired into its operand slots, and one ``"graph"`` ticket,
-  one logical request, holds a ticket per node.  Attention and scan ops
-  run only in bundles and graphs.  Each queue is kept in canonical
-  order at admission, so its plan-cache signature never needs a
-  re-sort.
+  decode-step ops (GEMMs, the attention read over the KV cache, the MoE
+  expert pool, the SSD state update; §14) — into the shared
+  ``MIXED_CLASS`` queue, returning one ``"bundle"`` ticket over
+  per-member tickets, or an `OpGraph` (`runtime/graph.py`): its ready
+  frontier enters the ``MIXED_CLASS`` queue, each dependent follows
+  when its producers complete, their outputs wired into its operand
+  slots, and one ``"graph"`` ticket, one logical request, holds a ticket
+  per node.  A lone attention, expert-pool or scan op enters its own
+  class queue, as a GEMM does, and a pool of identical ones is planned
+  as one ``mixed`` group.  A grouped request's expert weights may be one
+  stacked (G, K, N) tensor or a sequence of G (K, N) tensors; every
+  operand walk here takes both.  Each queue is kept in canonical order
+  at admission, so its plan-cache signature never needs a re-sort.
 - `flush()` serves every class whose head waited ``window_s``: it plans
   each queue through a plan cache keyed by the queue signature and the
   available slots (a hit costs zero cost-model evaluations) — class
@@ -33,8 +36,9 @@ submit gets an absolute deadline (``now + p99_target_s``) and a rank
 - ``slicing`` with a ``flush_budget_s``: admission cuts an op whose
   modeled isolated time exceeds ``flush_budget_s · slice_budget_frac``
   into just enough pieces to fit (at most ``max_slices``; `slice_plan`):
-  GEMM rows, attention query rows (prefill) or batch, scan batch.  Only
-  the pieces enter the queues; the caller holds the parent, which
+  GEMM rows, attention query rows (prefill) or batch, an expert pool's
+  experts (with their rows and weights), scan batch.  Only the pieces
+  enter the queues; the caller holds the parent, which
   completes with its last piece and whose result is the pieces' outputs
   concatenated (`SlicePlan.merge`, a new tensor: the pieces keep
   theirs).  A piece of a GEMM stored transposed (``ta``) gets its own
@@ -100,8 +104,7 @@ Departures from the reference:
   a ValueError naming the node and the slot, before anything is
   queued, so no check fires halfway through a flush.
 
-The ``"experts"`` slicing of grouped expert GEMMs and the grouped
-family itself (A10) and meshes (`set_mesh`, A13) are not ported.
+Meshes (`set_mesh`, A13) are not ported.
 """
 from __future__ import annotations
 
@@ -142,7 +145,13 @@ from repro_torch.runtime.faults import (
     NonFiniteOutput,
     fault_kind,
 )
-from repro_torch.runtime.graph import FAMILY_SLOTS, GraphState, OpGraph
+from repro_torch.runtime.graph import (
+    FAMILY_SLOTS,
+    GraphState,
+    OpGraph,
+    operand_shape,
+    slot_shape,
+)
 from repro_torch.runtime.telemetry import GroupRecord, Telemetry
 
 Signature = Tuple[Tuple[str, ...], int]
@@ -448,8 +457,8 @@ class Runtime:
         tenant: str = "default",
         now: float | None = None,
     ) -> Ticket:
-        """Admit one GEMM into its class queue, a sequence of ops of any
-        ported family — a heterogeneous bundle — into the shared
+        """Admit one op into its class queue, a sequence of ops of any
+        family — a heterogeneous bundle — into the shared
         ``MIXED_CLASS`` queue, which `flush` plans with
         `ConcurrencyController.plan_mixed`, or an `OpGraph`, whose ready
         nodes enter that queue as they become ready.  Returns one
@@ -464,11 +473,7 @@ class Runtime:
             return self._submit_graph(work, tenant, now)
         if isinstance(work, (list, tuple)):
             return self._submit_bundle(work, tenant, now)
-        request = self._admissible(work)
-        if family_of(request.desc) != "gemm":
-            raise ValueError(f"{request.desc.key()}: a {request.desc.family} "
-                             "op runs in a bundle; submit a sequence")
-        return self._admit(request, tenant, now)
+        return self._admit(self._admissible(work), tenant, now)
 
     def _submit_bundle(self, work: Sequence, tenant: str, now: float) -> Ticket:
         """Every member is one logical request (its own latency); the
@@ -496,17 +501,13 @@ class Runtime:
             if operands is None or any(t is None for t in operands):
                 raise ValueError(f"{request.desc.key()}: an executing "
                                  "runtime needs the request's operands")
-        for t in operands or ():
+        for t in _tensors(operands or ()):
             self._check_device(t, request.desc.key())
         return request
 
     def _check_family(self, desc) -> None:
-        """A ported family; with ``execute``, a GEMM of batch 1."""
+        """A known family; with ``execute``, a GEMM of batch 1."""
         fam = family_of(desc)
-        if fam == "grouped_gemm":
-            raise NotImplementedError(
-                f"{desc.key()}: GroupedGemmDesc (the MoE expert pool) is not "
-                "ported yet (ROADMAP A10)")
         if fam != "gemm" and fam not in OP_FAMILIES:
             raise NotImplementedError(
                 f"{desc.key()}: the {fam} family is not ported")
@@ -568,14 +569,21 @@ class Runtime:
 
     def _check_graph(self, graph: OpGraph) -> None:
         """`_admissible` for every node of a graph, before anything is
-        queued: a ported family, every static operand on the runtime's
-        device and, with ``execute``, every slot of the node's family
-        filled by a static operand or a data edge."""
+        queued: a known family, every static operand on the runtime's
+        device and of its slot's shape (`operand_shape`: a grouped
+        node's expert weights as one (G, K, N) tensor or G (K, N) ones)
+        and, with ``execute``, every slot of the node's family filled by
+        a static operand or a data edge."""
         wired = {(e.dst, e.slot) for e in graph.edges if e.slot is not None}
         for name, node in graph.nodes.items():
             self._check_family(node.desc)
             for slot, t in node.operands.items():
-                self._check_device(t, f"node {name!r} slot {slot!r}")
+                what = f"node {name!r} slot {slot!r}"
+                for x in _tensors((t,)):
+                    self._check_device(x, what)
+                if t is not None and operand_shape(t) != slot_shape(node.desc, slot):
+                    raise ValueError(f"{what}: operand of shape {operand_shape(t)}, "
+                                     f"the slot takes {slot_shape(node.desc, slot)}")
             if not self.config.execute:
                 continue
             for slot in FAMILY_SLOTS[family_of(node.desc)]:
@@ -1137,6 +1145,18 @@ class Runtime:
     @property
     def plan_cache_size(self) -> int:
         return len(self._plan_cache)
+
+
+def _tensors(operands) -> List[torch.Tensor]:
+    """The tensors of an operand tuple, a grouped request's sequence of
+    expert weights unpacked; None operands are skipped."""
+    out: List[torch.Tensor] = []
+    for t in operands:
+        if isinstance(t, (list, tuple)):
+            out += _tensors(t)
+        elif t is not None:
+            out.append(t)
+    return out
 
 
 def _graph_ids(tickets: List[Ticket]) -> Tuple[int, ...]:

@@ -84,6 +84,15 @@ its producer's output, the same storage; the counters show one attention
 launch per attention node and one decode-kernel launch per scan node.  A
 user transform that hands a GEMM a strided view raises (ROADMAP C10) and
 computes nothing.
+
+The MoE expert pool on the card: `grouped_for_desc` packs each expert's
+rows to the tile's bm and runs `ragged_matmul`, at every bm of
+`GROUPED_TILES`, over a 64-expert pool with zero-row experts (four
+launches of at most 16 members) and its weights as views into one
+(64, K, N) tensor or stacked; held to `ragged_gemm_ref` on the raw rows,
+with exactly the launches `ragged_chunks` gives.  A reduced-width
+DeepSeek-V2-Lite op bundle through an executing runtime, every member
+held to its plain version, every grouped member on the ragged kernel.
 """
 import pytest
 import torch
@@ -134,7 +143,14 @@ from repro_torch.kernels.gemm import (
     stream_k_workspace,
 )
 from repro_torch.kernels.gemm import kernel as gk
-from repro_torch.kernels.grouped_gemm import grouped_gemm_ref, ragged_gemm_ref
+from repro_torch.core.tuner import GROUPED_TILES
+from repro_torch.core import GroupedGemmDesc
+from repro_torch.kernels.grouped_gemm import (
+    grouped_for_desc,
+    grouped_gemm_ref,
+    pool_launches,
+    ragged_gemm_ref,
+)
 from repro_torch.kernels.grouped_gemm import kernel as ggk
 from repro_torch.kernels.mamba_scan import mamba_scan_fwd, ssd_chunk_ref
 from repro_torch.kernels.mamba_scan.kernel import decode_residency
@@ -1016,3 +1032,86 @@ def test_graph_transform_to_a_strided_view_raises(card):
     assert not h["y"].request.a.is_contiguous()
     assert h["x"].done_t is not None and h["y"].done_t is None and not h.done
     assert rt.drain() == [] and not rt.telemetry.fault_events
+
+
+# ------------------------------------------------------- the MoE expert pool
+POOL_ROWS = tuple([2, 1, 0, 3] * 16)    # 64 experts, 16 of them with no row
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["views", "stacked"])
+@pytest.mark.parametrize("bm", sorted({t.bm for t in GROUPED_TILES}))
+def test_grouped_for_desc_at_every_bm_matches_plain(card, bm, stacked):
+    d = GroupedGemmDesc(64, sum(POOL_ROWS), 1408, 2048, rows=POOL_ROWS)
+    g = torch.Generator(device=card).manual_seed(bm)
+    a = torch.randn((d.M, d.K), generator=g, device=card, dtype=torch.bfloat16)
+    w = torch.randn((64, d.K, d.N), generator=g, device=card,
+                    dtype=torch.bfloat16).mul_(d.K ** -0.5)
+    b = w if stacked else list(w.unbind(0))
+    before = ggk.ragged_matmul.launches
+    out = grouped_for_desc(d, a, b, tile=TileConfig(bm, 128, 128))
+    assert ggk.ragged_matmul.launches - before == pool_launches(d, bm) == 4
+    assert out.shape == (d.M, d.N) and out.dtype == torch.bfloat16
+    sizes = list(d.row_vector())
+    _close(out, ragged_gemm_ref(a, w, sizes),
+           ragged_gemm_ref(a.float().abs(), w.float().abs(), sizes), f"pool bm {bm}")
+    again = grouped_for_desc(d, a, b, tile=TileConfig(bm, 128, 128))
+    assert torch.equal(again, out)
+
+
+def test_reduced_moe_bundle_through_the_runtime(card):
+    """One layer of a reduced-width DeepSeek-V2-Lite bundle (MLA attention,
+    dense per-expert GEMMs, both expert pools with their weights as views,
+    the shared experts) at batches 1 and 4, executed: every member within
+    its plain version's tolerance, one ragged launch per chunk of each
+    grouped member, no fault and no fallback."""
+    cfg = get_arch("deepseek-v2-lite-16b").reduced()
+    g = torch.Generator(device=card).manual_seed(23)
+    rt = Runtime(ConcurrencyController(GOLibrary()),
+                 RuntimeConfig(window_s=0.0, execute=True), device=card)
+    rt.set_available(4)
+    handles = []
+    for batch in (1, 4):
+        reqs = []
+        for d in decode_step_op_descs(cfg, batch, 256):
+            if d.family == "gemm":
+                ops = (torch.randn((d.M, d.K), generator=g, device=card),
+                       torch.randn((d.K, d.N), generator=g, device=card) * d.K ** -0.5)
+            elif d.family == "grouped_gemm":
+                w = torch.randn((d.G, d.K, d.N), generator=g, device=card) * d.K ** -0.5
+                ops = (torch.randn((d.M, d.K), generator=g, device=card),
+                       list(w.to(torch.bfloat16).unbind(0)))
+            else:
+                ops = tuple(torch.randn(s, generator=g, device=card) for s in (
+                    (d.B, d.Hq, d.Sq, d.D), (d.B, d.Hkv, d.Skv, d.D),
+                    (d.B, d.Hkv, d.Skv, d.D)))
+            ops = tuple(x if isinstance(x, list) else x.to(torch.bfloat16) for x in ops)
+            reqs.append(bind_operands(d, ops))
+        handles.append(rt.submit(reqs))
+    before = (ggk.ragged_matmul.launches, flash_attention_fwd.launches)
+    launches = rt.drain()
+    torch.cuda.synchronize()
+    assert all(h.done for h in handles)
+    assert not rt.telemetry.fault_events and not rt.telemetry.fallback_events
+    members = [m for h in handles for m in h.members]
+    want_ragged = 0
+    for ln in launches:
+        for tk, tile in zip(ln.tickets, ln.plan.tiles or [ln.plan.tile]):
+            if tk.desc.family == "grouped_gemm":
+                want_ragged += pool_launches(tk.desc, tile.bm)
+    assert ggk.ragged_matmul.launches - before[0] == want_ragged > 0
+    assert flash_attention_fwd.launches - before[1] == 2
+    for tk in members:
+        r = tk.request
+        if tk.desc.family == "gemm":
+            _check(tk.result, r.a, r.b, False, False, tk.desc.key())
+        elif tk.desc.family == "grouped_gemm":
+            a, ws = r.inputs
+            sizes = list(tk.desc.row_vector())
+            _close(tk.result, ragged_gemm_ref(a, ws, sizes),
+                   ragged_gemm_ref(a.float().abs(), _abs(ws), sizes), tk.desc.key())
+        else:
+            q, k, v = (x.float() for x in r.inputs)
+            ref = flash_ref(q, k, v, q_offset=k.shape[2] - q.shape[2])
+            atol, rtol = attention_tol(torch.bfloat16)
+            err = (tk.result.float() - ref).abs()
+            assert bool((err <= atol + rtol * ref.abs()).all()), tk.desc.key()

@@ -348,7 +348,7 @@ def test_random_fault_schedules_equal_the_reference(seed, p_raise, p_nan, p_stal
 @pytest.mark.parametrize("exc", [
     ValueError("splitk_matmul: split 17 exceeds the cluster limit of 16"),
     RuntimeError("CUDA kernel build failed:\ngemm.cu"),
-    NotImplementedError("the grouped_gemm family is not ported"),
+    NotImplementedError("8_64_64_00_f32_b4: batched GEMMs have no kernel in the port yet"),
 ], ids=["refusal", "build", "unported"])
 def test_refusals_propagate_at_once_with_no_strike(exc):
     prt, _ = _runtimes()

@@ -5,7 +5,7 @@
 - Structure: the same validation errors, word for word, and the same
   waves, sinks and topological order; `decode_step_graph` gives the
   reference's nodes, descriptors, tags, edges (kind and slot) and waves
-  for every configuration without routed experts, which raise (A10).
+  for every configuration, DeepSeek-V2-Lite's routed experts included.
 - Semantics, in shadow mode: both runtimes make the same launches
   (class, mode, CD, tiles, members, modeled times, place on the
   timeline, cache hits), give every ticket — graph, node, piece, bundle
@@ -55,6 +55,7 @@ from repro_torch.core import (
     GemmDesc,
     GemmRequest,
     GOLibrary,
+    GroupedGemmDesc,
     ScanDesc,
     family_of,
 )
@@ -69,12 +70,13 @@ from repro_torch.runtime import (
     Runtime,
     RuntimeConfig,
     TenantSLO,
+    decode_step_descs,
     decode_step_graph,
     decode_step_op_descs,
     submit_decode_graph,
     submit_decode_step,
 )
-from repro_torch.runtime.graph import out_shape, slot_shape
+from repro_torch.runtime.graph import operand_shape, out_shape, slot_shape
 from tests.hypothesis_compat import given, settings, st
 
 D = GemmDesc(32, 32, 32, dtype="f32")          # square: any wiring is legal
@@ -358,49 +360,83 @@ def test_family_slots_and_shapes_match_reference():
 
 
 def test_grouped_expert_gemm_raises_naming_a10():
-    """The grouped expert GEMM is ROADMAP A10: its shapes raise, and a graph
-    holding one is refused at submit."""
-    gd = JGrouped(4, 32, 64, 128, "bf16")
-    with pytest.raises(NotImplementedError, match="A10"):
-        out_shape(gd)
-    with pytest.raises(NotImplementedError, match="A10"):
-        slot_shape(gd, 0)
-    g = OpGraph()
-    g.add("experts", gd)
-    rt = Runtime(ConcurrencyController(GOLibrary()), RuntimeConfig(window_s=0.0),
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        rt.submit(g, now=0.0)
-    assert rt.pending() == 0 and rt.telemetry.submitted == 0
+    """The grouped expert GEMM, once refused naming ROADMAP A10: its
+    shapes are the reference's, its weight slot takes one (G, K, N) tensor
+    or G (K, N) ones, and a graph holding two chained pools plans and
+    completes as the reference's in shadow mode."""
+    gd = GroupedGemmDesc(4, 32, 64, 128, "bf16")
+    assert _j(gd) == JGrouped(4, 32, 64, 128, "bf16")
+    assert out_shape(gd) == jout_shape(_j(gd)) == (32, 64)
+    for slot in FAMILY_SLOTS["grouped_gemm"]:
+        assert slot_shape(gd, slot) == jslot_shape(_j(gd), slot)
+    stacked = torch.zeros(4, 128, 64)
+    assert operand_shape(stacked) == operand_shape(list(stacked)) == slot_shape(gd, 1)
+    with pytest.raises(GraphError, match="one shape"):
+        operand_shape([torch.zeros(128, 64), torch.zeros(64, 128)])
+    down = GroupedGemmDesc(4, 32, 128, 64, "bf16")
+    pair = Pair()
+    graphs = []
+    for G in (JGraph, OpGraph):
+        g = G()
+        g.add("up", gd if G is OpGraph else _j(gd))
+        g.add("down", down if G is OpGraph else _j(down), deps={0: "up"})
+        graphs.append(g)
+    pair.submit_graphs(*graphs)
+    pair.drain()
+    pair.check()
+    assert [ln.plan.mode for ln in pair.launches[1]] == ["single", "single"]
 
 
 # --------------------------------------------------------- decode graphs
 @pytest.mark.parametrize("layers", [1, 3])
 @pytest.mark.parametrize("batch", [1, 8, 16])
 @pytest.mark.parametrize("arch", ["qwen3-14b", "zamba2-1.2b", "stablelm-3b",
-                                  "xlstm-350m", "mla", "mla-q"])
+                                  "xlstm-350m", "mla", "mla-q",
+                                  "deepseek-v2-lite-16b"])
 def test_decode_step_graph_equals_reference(arch, batch, layers):
     pcfg, jcfg = _cfgs(arch)
     pg = decode_step_graph(pcfg, batch, 2048, layers=layers)
     jg = jdecode_graph(jcfg, batch, 2048, layers=layers)
     assert _structure(pg) == _structure(jg)
     assert len(pg.waves()) >= 3 and pg.sinks()
-    # the same op population as the flat bundle, layer after layer
-    assert sorted(d.key() for d in pg.descs()) == sorted(
-        d.key() for d in decode_step_op_descs(pcfg, batch, 2048) * layers)
+    # the same op population as the flat bundle, layer after layer, but
+    # the routed experts' dense per-expert GEMMs: the graph carries them
+    # only as the grouped pools (ROADMAP C11)
+    flat = decode_step_op_descs(pcfg, batch, 2048)
+    for tag, bundle in decode_step_descs(pcfg, batch):
+        if tag.startswith("expert"):
+            for d in bundle:
+                flat.remove(d)
+    assert sorted(d.key() for d in pg.descs()) == sorted(d.key() for d in flat * layers)
     if layers > 1:
         assert all(n.startswith(("L0.", "L1.", "L2.")) for n in pg.nodes)
 
 
 def test_decode_step_graph_refuses_routed_experts():
-    pcfg, _ = _cfgs("deepseek-v2-lite-16b")
-    with pytest.raises(NotImplementedError, match="A10"):
-        decode_step_graph(pcfg, 4)
-    rt = Runtime(ConcurrencyController(GOLibrary()), RuntimeConfig(window_s=0.0),
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        submit_decode_graph(rt, pcfg, 4)
-    assert rt.pending() == 0
+    """The routed-expert graph, once refused naming ROADMAP A10: the
+    reference's MoE wiring (moe-up → moe-down a data edge, moe-up after
+    the O-projection by a control edge, the shared experts' gate/up →
+    down), and `submit_decode_graph` in shadow mode launching as the
+    reference's."""
+    pcfg, jcfg = _cfgs("deepseek-v2-lite-16b")
+    assert get_arch("deepseek-v2-lite-16b") == pcfg
+    g = decode_step_graph(pcfg, 4)
+    edges = {(e.src, e.dst): e.slot for e in g.edges}
+    assert edges[("moe-up", "moe-down")] == 0 and edges[("o", "moe-up")] is None
+    assert edges[("shared-up", "shared-down")] == "a"
+    assert edges[("shared-gate", "shared-down")] is None
+    assert g.nodes["moe-up"].desc == GroupedGemmDesc(24, 24, 1408, 2048)
+    assert sorted(g.sinks()) == ["moe-down", "shared-down"]
+    pair = Pair()
+    for ti, batch in enumerate((1, 16)):
+        pair.handles.append((jsubmit_graph(pair.j, jcfg, batch, 2048, layers=2,
+                                           tenant=f"t{ti}", now=0.0),
+                             submit_decode_graph(pair.p, pcfg, batch, 2048, layers=2,
+                                                 tenant=f"t{ti}", now=0.0)))
+    pair.drain()
+    pair.check()
+    modes = {ln.plan.mode for ln in pair.launches[1]}
+    assert pair.p.pending() == 0 and modes <= {"single", "mixed"}
 
 
 # --------------------------------------------- the one submit() surface

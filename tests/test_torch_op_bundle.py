@@ -24,6 +24,7 @@ from repro.core.cost_model import kernel_stats_batch as jkernel_stats_batch
 from repro.core.cost_model import op_tile_ws as jop_tile_ws
 from repro.core.cost_model import sequential_time as jsequential_time
 from repro.core.op_desc import AttentionDesc as JAttn
+from repro.core.op_desc import GroupedGemmDesc as JGrouped
 from repro.core.op_desc import ScanDesc as JScan
 from repro.core.op_desc import op_from_key as jop_from_key
 from repro.core.scheduler import bind_operands as jbind
@@ -43,6 +44,7 @@ from repro_torch.core import (
     GemmDesc,
     GemmRequest,
     GOLibrary,
+    GroupedGemmDesc,
     ScanDesc,
     bind_operands,
     execute_schedule,
@@ -100,11 +102,15 @@ def test_descriptor_protocol_matches_reference(d):
 
 
 def test_op_from_key_gemm_and_unported_family():
+    """Every family's keys invert, the grouped expert GEMM's (once refused
+    naming ROADMAP A10) with and without explicit rows."""
     g = GemmDesc(8, 5120, 17408, True, False, "f32")
     assert op_from_key(g.key()) == g and jop_from_key(g.key()).key() == g.key()
     assert set(FAMILIES) == {"gemm", "grouped_gemm", "flash_attention", "mamba_scan"}
-    with pytest.raises(NotImplementedError, match="A10"):
-        op_from_key("gg_4_32_128_256_bf16")
+    for key in ("gg_4_32_128_256_bf16", "gg_3_5_128_256_f32_r2-0-3"):
+        d = op_from_key(key)
+        assert isinstance(d, GroupedGemmDesc) and d.key() == key
+        assert jop_from_key(key) == JGrouped(d.G, d.M, d.N, d.K, d.dtype, d.rows)
 
 
 # ------------------------------------------------------------- cost model
@@ -198,9 +204,16 @@ def test_decode_step_op_descs_match_reference(name):
 
 
 def test_decode_step_op_descs_refuses_routed_experts():
-    moe = replace(get_arch("qwen3-14b"), n_routed_experts=8, moe_top_k=2, moe_d_ff=64)
-    with pytest.raises(NotImplementedError, match="A10"):
-        decode_step_op_descs(moe, 4)
+    """Routed experts, once refused naming ROADMAP A10: the reference's
+    bundle, dense per-expert GEMMs and the two grouped pools."""
+    moe = dict(n_routed_experts=8, moe_top_k=2, moe_d_ff=64)
+    pcfg = replace(get_arch("qwen3-14b"), **moe)
+    jcfg = replace(jget_arch("qwen3-14b"), **moe)
+    for batch in (1, 4, 16):
+        descs = decode_step_op_descs(pcfg, batch)
+        assert [d.key() for d in descs] == [d.key() for d in jop_descs(jcfg, batch)]
+        assert descs[-2:] == [GroupedGemmDesc(min(8, 2 * batch), 2 * batch, 64, 5120),
+                              GroupedGemmDesc(min(8, 2 * batch), 2 * batch, 5120, 64)]
 
 
 @pytest.mark.parametrize("available", [1, 2, 4, 16])
@@ -330,9 +343,11 @@ def test_bundle_admission_of_op_families():
                                [_operands(np.random.default_rng(0), attn, 16)],
                                device="cpu")
     assert r.inputs[0].shape == (1, 2, 1, 8) and r.a is None
-    with pytest.raises(ValueError, match="bundle"):
-        rt.submit(r)
-    assert rt.pending() == 0
+    t = rt.submit(r)      # a lone op enters its own class queue
+    assert rt.queue_depths() == {attn.key(): 1}
+    (launch,) = rt.drain()
+    assert launch.class_key == attn.key() and launch.plan.mode == "single"
+    assert t.result.shape == (1, 2, 1, 8)
     rt.submit([r])
     (launch,) = rt.drain()
     assert launch.plan.mode == "single" and launch.tickets[0].result.shape == (1, 2, 1, 8)
