@@ -86,8 +86,9 @@ Phases, each fatal on failure (nothing here catches an error):
    profiler, which counts its split-K and Stream-K launches beside the
    GEMMs planned and finds no reduce and no fixup kernel;
 6. attention and scan kernels: the flash-attention kernel and both scan
-   kernels (the decode kernel at T = 1, the chunk loop otherwise, each
-   case checked to have launched on the route `scan_route` names)
+   routes (the decode kernel at T = 1, the chunked form's three passes
+   otherwise, each case checked to have launched on the route
+   `scan_route` names)
    against their plain versions on small cases (GQA and MHA,
    causal with ``q_offset``, a window, S not a multiple of ``bkv``,
    prefill, dv ≠ dqk, strided q/k/v, bf16 and f32; T not a multiple of
@@ -107,15 +108,36 @@ Phases, each fatal on failure (nothing here catches an error):
    pairs per CTA, column slices, CTAs per SM, shared memory); a planted
    fault (one pair's B xdᵀ term dropped from the state) must fail the
    scan check, and a ``copy_`` of the state into the rotating buffers is
-   printed as the card's write ceiling at that size.  The long prefill
-   (B1 T4096 L128) runs on the chunk loop.  DeepSeek-V2-Lite-16B's
+   printed as the card's write ceiling at that size.  Zamba2-1.2B's
+   4,096-token prompt scan (B1 T4096 H64 P64 N64 L128, B/C
+   head-broadcast) runs on the chunks route in bf16 and f32: y, the state
+   and the workspace's carried states held to the plain versions, a
+   planted lost carry (the middle chunk's incoming state taken as zero)
+   that must fail the scan check, each pass's CTAs, occupancy, waves and
+   shared memory printed, timed on input, output and workspace sets
+   rotating beyond the L2.  DeepSeek-V2-Lite-16B's
    attention (16 heads of 192 over 2,048 keys, MLA in materialized
    form, on the 256-wide instantiation) is held and timed the same way
    at batches 16 and 1.  Before the kernel rows, `grouped_for_desc` is
    held to its plain version at every bm of `GROUPED_TILES` on
    DeepSeek's batch-16 pools (64 experts, 4 launches each), and
    `ragged_matmul` is timed at DeepSeek's pools (G 64 at batch 16, G 6
-   at batch 1, up and down) beside `torch.bmm` on equal padded groups;
+   at batch 1, up and down) beside `torch.bmm` on equal padded groups.
+   Then Zamba2-1.2B's prompt scan through the runtime, its launches
+   counted per layer (zeroed just before, read just after): per layer
+   (38) its own xd and da and group-shared B/C views,
+   `ScanDesc(1, 4096, 64, 64, 64)` as a one-member bundle, drained; each
+   must launch the chunks route once, its y must be within the scan
+   tolerance, the same inputs launched again must give the same y bits
+   and a final state within it, and the runtime must show no fault or
+   fallback.  The layers' device time is printed as the runtime's CUDA
+   events bracket each attempt and for the same launches queued behind a
+   sleep of the card (`probes/scan_chunks/ab.py TREE LABEL`, run in the
+   same call on a checkout of the parent commit, gives the parent's
+   per-launch time beside it).  The kernels line counts `mamba_scan`'s
+   calls on both of its paths, the op bundles (phase 7) and these prompt
+   scans: one per call, which on the chunks route is three kernel
+   launches (state, carry, output), on the decode route one;
 7. op-bundle serving: for Qwen3-14B (40 layers, context 4,096),
    Zamba2-1.2B (38 layers, context 2,048) and DeepSeek-V2-Lite-16B (27
    layers, context 2,048), at full width, every layer's whole
@@ -209,7 +231,7 @@ Phases, each fatal on failure (nothing here catches an error):
    through both windows' runtimes, where every sliced GEMM's merged
    result must equal the unsliced run bitwise, and a batch-sliced
    Zamba2-width scan (`ScanDesc(4, 1024, 64, 64, 64)`, one-member
-   bundle) whose pieces must launch the chunk loop and whose merged y
+   bundle) whose pieces must launch the chunks route and whose merged y
    must be within the scan tolerance;
 10. one JSON line ``{"kernels": [...]}`` and, last, the device line.
 
@@ -337,13 +359,27 @@ from repro_torch.kernels.grouped_gemm import (  # noqa: E402
 )
 from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    chunk_grid,
+    chunk_workspace,
     decode_grid,
     mamba_scan_fwd,
     scan_route,
     ssd_chunk_ref,
 )
-from repro_torch.kernels.mamba_scan.kernel import decode_residency  # noqa: E402
-from repro_torch.kernels.mamba_scan.ops import scan_buffers, scan_chunk  # noqa: E402
+from repro_torch.kernels.mamba_scan.kernel import (  # noqa: E402
+    chunk_residency,
+    decode_residency,
+)
+from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
+    ssd_carry_ref,
+    ssd_chunk_states_ref,
+    ssd_lost_carry,
+)
+from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
+    scan_buffers,
+    scan_chunk,
+    ssd_scan,
+)
 from repro_torch.runtime import (  # noqa: E402
     MIXED_CLASS,
     FaultInjector,
@@ -1247,7 +1283,8 @@ KERNEL_KINDS = (("stream_k_matmul_kernel", "stream_k_matmul"),
                 ("splitk_kernel", "splitk_matmul"),
                 ("fixup_kernel", "stream-K fixup"),
                 ("ragged_kernel", "ragged_matmul"), ("flash_bf16_kernel", "flash_attention"),
-                ("mamba_decode_kernel", "mamba_scan"), ("mamba_kernel", "mamba_scan"),
+                ("mamba_decode_kernel", "mamba_scan"), ("ssd_state_kernel", "mamba_scan"),
+                ("ssd_carry_kernel", "mamba_scan"), ("ssd_output_kernel", "mamba_scan"),
                 ("Cat", "stack/cat copy"), ("indexSelect", "pool packing"),
                 ("reduce", "isfinite checks"))
 
@@ -1770,7 +1807,7 @@ SCAN_CASES = (
     (16, 1, 64, 64, 64, 32, True, False),     # decode: a state, per-head B/C
     (1, 1, 64, 64, 64, 32, True, True),       # decode at batch 1: column slices
     (3, 1, 5, 30, 10, 16, True, False),       # decode: rows of 30 floats
-    (2, 2, 64, 64, 64, 32, True, True),       # T = 2: the chunk loop
+    (2, 2, 64, 64, 64, 32, True, True),       # T = 2: the chunked form
     (1, 600, 2, 64, 64, 512, True, False),
     (1, 300, 2, 32, 16, 8, True, True),
     (1, 200, 4, 64, 128, 64, False, False),
@@ -1899,15 +1936,19 @@ def attention_scan_cases(gen) -> int:
     return n
 
 
-def scan_flops(B, T, H, P, N, L) -> int:
+def scan_flops(B, T, H, P, N, L, groups: int | None = None) -> int:
     """The chunked scan's multiply-adds ×2 for these shapes: per (batch,
-    head) and chunk of Lr rows, C·Bᵀ and the weighted xd over the lower
-    triangle, C·S_prev, and the state update."""
-    per = 0
+    head) and chunk of Lr rows, the weighted xd over the lower triangle,
+    C·S_prev and the state update; C·Bᵀ over the lower triangle once per
+    (batch, chunk, B/C group).  ``groups``: the distinct B/C heads (1 for
+    head-broadcast views; H, one per head, when None)."""
+    groups = H if groups is None else groups
+    per_head = per_group = 0
     for c0 in range(0, T, L):
         lr = min(L, T - c0)
-        per += lr * (lr + 1) * (N + P) + 4 * lr * N * P + N * P
-    return B * H * per
+        per_head += lr * (lr + 1) * P + 4 * lr * N * P + N * P
+        per_group += lr * (lr + 1) * N
+    return B * (H * per_head + groups * per_group)
 
 
 def dropped_split_fault(q, k, v, bufs, q_offset: int) -> None:
@@ -2049,7 +2090,7 @@ def decode_row(B: int, with_s0: bool, gen, L: int) -> dict:
     set_b = state_b * (2 if with_s0 else 1) + B * H * P * 2
     n_sets = max(4, -(-L2_BYTES * 5 // 4 // set_b))
     sets = [(randn((B, H, N, P), gen, torch.float32) if with_s0 else None,
-             *scan_buffers(xd, da, bm, cm)) for _ in range(n_sets)]
+             *scan_buffers(xd, da, bm, cm)[:2]) for _ in range(n_sets)]
     s0, y, state = sets[0]
     before = dict(mamba_scan_fwd.routes)
     mamba_scan_fwd(xd, da, bm, cm, chunk=L, initial_state=s0, out=(y, state))
@@ -2092,34 +2133,175 @@ def decode_row(B: int, with_s0: bool, gen, L: int) -> dict:
         bound=bound(nbytes, decode_flops(B, H, P, N, with_s0), torch.bfloat16))
 
 
+def chunk_passes(dtype, B: int, T: int, H: int, P: int, N: int, L: int) -> dict:
+    """The chunks route's three passes at these shapes (B/C head-broadcast):
+    CTAs, CTAs per SM (occupancy query), waves on this card and dynamic
+    shared memory per CTA, each pass printed on a line of its own."""
+    g = chunk_grid(B, T, H, P, N, L, True, dtype)
+    blocks, smem = chunk_residency(torch.device("cuda"), dtype, g.heads_per_cta, N, P, L)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, ctas, per_sm, shared in (("state", g.state_ctas, blocks[0], smem[0]),
+                                       ("carry", g.carry_ctas, blocks[1], 0),
+                                       ("output", g.output_ctas, blocks[2], smem[1])):
+        out[name] = dict(ctas=ctas, ctas_per_sm=per_sm, waves=ctas / (per_sm * sms),
+                         smem_bytes=shared)
+        print(f"# mamba_scan chunks {dtype} B{B} T{T} H{H} P{P} N{N} L{L}, {name} pass: "
+              f"{ctas} CTAs, {per_sm} per SM, {ctas / (per_sm * sms):.2f} waves, "
+              f"{shared} B dynamic shared memory; {g.heads_per_cta} heads a CTA")
+    return out
+
+
+def carried_close(incoming, decay, xd, da, bm, cm, s0, L: int, what: str) -> None:
+    """The chunks route's workspace after a launch (each chunk's incoming
+    state and decay) against the plain passes', within the scan tolerance."""
+    f32 = [t.float() for t in (xd, da, bm, cm)]
+    states, want_decay = ssd_chunk_states_ref(*f32, chunk=L)
+    want_in, _ = ssd_carry_ref(states, want_decay, s0)
+    check_tol(incoming, want_in, SCAN_TOL, SCAN_TOL, what + " carried states")
+    check_tol(decay, want_decay, SCAN_TOL, SCAN_TOL, what + " chunk decays")
+
+
+def planted_carry_fault(y, state, ws, xd, da, bm, cm, L: int) -> None:
+    """The scan check's power at the prompt shape: the kernel's y and state
+    with the middle chunk's incoming state taken as zero (`ssd_lost_carry`)
+    must fail `check_scan`."""
+    lost = ws[0].shape[2] // 2
+    fy, fs = ssd_lost_carry(y, state, *ws, xd, da, bm, cm, chunk=L, lost=lost)
+    ex = scan_excess(fy, fs, xd, da, bm, cm, None, "planted carry fault")
+    print(f"# planted carry fault (chunk {lost}'s incoming state taken as zero) at "
+          f"{tuple(xd.shape)}: y {ex['y'][1]} elements beyond the scan tolerance (max |err| "
+          f"{ex['y'][0]:.4g}), state {ex['state'][1]} (max |err| {ex['state'][0]:.4g})")
+    if not (ex["y"][1] or ex["state"][1]):
+        raise AssertionError("check_scan lets a lost carry through")
+
+
+def chunk_row(gen, dtype) -> dict:
+    """Zamba2-1.2B's 4,096-token prompt scan (B1 H64 P64 N64, L 128, B/C
+    head-broadcast) on the chunks route: checked on the first set (y, the
+    state and the workspace's carried states; in bf16 a planted lost carry
+    must fail the check), then timed on sets rotating beyond the 50 MB L2,
+    each of its inputs, y, the state and the workspace (two sets or more)."""
+    B, T, H, P, N, L = 1, ZAMBA_PROMPT, 64, 64, 64, 128
+    e = torch.finfo(dtype).bits // 8
+    nc = -(-T // L)
+    set_b = (e * (2 * B * T * H * P + B * T * H + 2 * B * T * N) + 4 * B * H * N * P
+             + 4 * B * H * nc * (N * P + 1))
+    n_sets = max(2, -(-L2_BYTES * 5 // 4 // set_b))
+    sets = [(*scan_inputs(B, T, H, P, N, gen, dtype, broadcast=True),
+             torch.empty((B, T, H, P), device="cuda", dtype=dtype),
+             torch.empty((B, H, N, P), device="cuda"),
+             chunk_workspace(B, T, H, P, N, L, "cuda")) for _ in range(n_sets)]
+    xd, da, bm, cm, y, state, ws = sets[0]
+    before = dict(mamba_scan_fwd.routes)
+    mamba_scan_fwd(xd, da, bm, cm, chunk=L, out=(y, state), workspace=ws)
+    if mamba_scan_fwd.routes["chunks"] != before["chunks"] + 1:
+        raise AssertionError("the prompt scan missed the chunks route")
+    what = f"scan chunks T{T} {dtype}"
+    err = check_scan(y, state, xd, da, bm, cm, None, what)
+    carried_close(*ws, xd, da, bm, cm, None, L, what)
+    if dtype == torch.bfloat16:
+        planted_carry_fault(y, state, ws, xd, da, bm, cm, L)
+    grid = chunk_passes(dtype, B, T, H, P, N, L)
+    # the function's bytes: inputs read once (B/C: their (B,T,N) storage),
+    # y and the state written
+    nbytes = e * (2 * xd.numel() + da.numel() + 2 * B * T * N) + state.numel() * 4
+    return dict(
+        shape=f"B{B} T{T} H{H} P{P} N{N} L{L} {str(dtype)[6:]}, B/C head-broadcast (chunks)",
+        instantiation=(f"{str(dtype)[6:]}, chunks in parallel, 3 passes, "
+                       f"{chunk_grid(B, T, H, P, N, L, True, dtype).heads_per_cta} heads a CTA; "
+                       f"{n_sets} rotating sets of {set_b / 1e6:.1f} MB"),
+        route="chunks", grid=grid, max_abs_err=err,
+        ms=time_ms(rotating(lambda *a: mamba_scan_fwd(*a[:4], chunk=L, out=a[4:6],
+                                                      workspace=a[6]), sets)),
+        plain_ms=time_ms(lambda: ssd_chunk_ref(xd, da, bm, cm, chunk=L), reps=3, warmup=1),
+        library_ms=None,
+        bound=bound(nbytes, scan_flops(B, T, H, P, N, L, groups=1), dtype))
+
+
 def scan_rows(gen, lib) -> list:
     """The scan's rows: Zamba2's tenant-16 decode member (the serving
     path's shape) without and with an initial state and its batch-1
-    member, on the decode kernel and rotating outputs; then one long
-    prefill (B1 T4096 L128) on the chunk loop, one set (1.1 MB of
-    outputs)."""
+    member, on the decode kernel and rotating outputs; then Zamba2's
+    4,096-token prompt scan (B1 T4096 L128) on the chunks route, in bf16
+    and f32, on rotating input, output and workspace sets (y alone is
+    33.5 MB in bf16)."""
     sdesc = ScanDesc(16, 1, 64, 64, 64)
     L = scan_chunk(lib.get(sdesc).isolated)
     rows = [decode_row(16, False, gen, L), decode_row(16, True, gen, L),
             decode_row(1, False, gen, L)]
-    B, T, H, P, N, L = 1, 4096, 64, 64, 64, 128
-    xd, da, bm, cm = scan_inputs(B, T, H, P, N, gen, torch.bfloat16, broadcast=True)
-    before = dict(mamba_scan_fwd.routes)
-    y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=L)
-    if mamba_scan_fwd.routes["chunks"] != before["chunks"] + 1:
-        raise AssertionError("the prefill row missed the chunk loop")
-    err = check_scan(y, state, xd, da, bm, cm, None, f"scan main T{T}")
-    # inputs read once (B/C: their (B,T,N) storage), y and the state written
-    nbytes = (xd.numel() + da.numel() + 2 * B * T * N + y.numel()) * 2 + state.numel() * 4
-    rows.append(dict(
-        shape=f"B{B} T{T} H{H} P{P} N{N} L{L}, B/C head-broadcast (chunks)",
-        instantiation="bf16, 32-row sub-blocks", route="chunks", max_abs_err=err,
-        ms=time_ms(lambda: mamba_scan_fwd(xd, da, bm, cm, chunk=L, out=(y, state))),
-        plain_ms=time_ms(lambda: ssd_chunk_ref(xd, da, bm, cm, chunk=L), reps=3,
-                         warmup=1),
-        library_ms=None,
-        bound=bound(nbytes, scan_flops(B, T, H, P, N, L), torch.bfloat16)))
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(chunk_row(gen, dtype))
+        torch.cuda.empty_cache()
     return rows
+
+
+# ------------------------------------------------------- prompt scans
+ZAMBA = "zamba2-1.2b"
+ZAMBA_PROMPT = 4096   # tokens of Zamba2's prompt scan
+
+
+def prompt_scan_phase(device="cuda", prompt: int = ZAMBA_PROMPT, layers=None) -> dict:
+    """Zamba2-1.2B's prompt scan at full width through the runtime: per
+    layer its own xd and da and group-shared B/C views, `ScanDesc(1,
+    prompt, 64, 64, 64)` submitted as a one-member bundle and drained; the
+    counts zeroed just before each layer and read just after, which must
+    show one launch on the chunks route.  Each result within the scan
+    tolerance of `ssd_chunk_ref`; the same inputs launched again directly
+    give the same y bits, and that launch's final state is checked too.
+    Prints the layers' device time as the runtime's CUDA events bracket
+    each attempt (the host's enqueue inside) and the same launches queued
+    behind a sleep of the card (kernels alone)."""
+    cfg = get_arch(ZAMBA)
+    layers = layers or cfg.n_layers
+    sdesc = next(d for d in decode_step_op_descs(cfg, 1, 2048) if d.family == "mamba_scan")
+    desc = replace(sdesc, T=prompt)
+    rt = Runtime(ConcurrencyController(), RuntimeConfig(window_s=0.0, execute=True),
+                 device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    counts, routes, bracket_s, modes = Counter(), Counter(), 0.0, Counter()
+    t0 = time.perf_counter()
+    direct = []
+    for li in range(layers):
+        req = op_request(desc, None, None, gen, device)
+        n0 = len(rt.telemetry.groups)
+        take_counts()
+        h = rt.submit([req], tenant="prefill", now=float(li))
+        launches = rt.drain(now=float(li))
+        layer_routes = dict(mamba_scan_fwd.routes)
+        counts += take_counts()
+        routes.update(layer_routes)
+        recs = rt.telemetry.groups[n0:]
+        bracket_s += sum(g.achieved_time_s or 0.0 for g in recs)
+        modes.update(g.mode for g in recs)
+        if device == "cuda" and layer_routes != {"decode": 0, "chunks": 1}:
+            raise AssertionError(f"prompt scan layer {li}: routes {layer_routes}")
+        tk = h.members[0]
+        check_op_tickets([tk])
+        L = scan_chunk(launches[0].plan.tile)
+        y, state = ssd_scan(*req.inputs, chunk=L)
+        if device == "cuda" and not torch.equal(y, tk.result):
+            raise AssertionError(f"prompt scan layer {li}: a second launch gave other bits")
+        check_scan(y, state, *req.inputs, None, f"prompt scan layer {li}")
+        direct.append((req.inputs, L, y, state))
+    check_healthy(rt, "prompt scans")
+    per = bracket_s * 1e3 / layers
+    kernels_ms = None
+    if device == "cuda":
+        ws = chunk_workspace(desc.B, desc.T, desc.H, desc.P, desc.N, direct[0][1], device)
+        queued = device_s(lambda: [ssd_scan(*ins, chunk=L, out=(y, st, ws))
+                                      for ins, L, y, st in direct])
+        kernels_ms = None if queued is None else queued * 1e3
+    take_counts()
+    print(f"# {cfg.name} prompt scans: {layers} layers of {desc.key()} through the runtime, "
+          f"launches by mode {dict(modes)}, scan launches by route {dict(routes)}, each y "
+          f"and state within the scan tolerance; device time in the runtime's attempt "
+          f"brackets {bracket_s * 1e3:.4f} ms ({per:.4f} ms a launch), the same launches "
+          f"queued behind a sleep {kernels_ms if kernels_ms is None else round(kernels_ms, 4)} "
+          f"ms; {time.perf_counter() - t0:.1f} s (host clock, checks included)")
+    out = dict(counts=counts, routes=dict(routes), device_ms=bracket_s * 1e3,
+               kernels_ms=kernels_ms)
+    return out
 
 
 # --------------------------------------------------- op-bundle serving
@@ -3208,7 +3390,7 @@ def exact_layer(cfg, prompt: int, gen, device) -> None:
 
 def sliced_scan(gen, device) -> None:
     """`SLO_SCAN` as a one-member bundle through window B's runtime: sliced
-    by batch, each piece on the chunk loop, the merged y within the scan
+    by batch, each piece on the chunks route, the merged y within the scan
     tolerance of the plain version."""
     rt = slo_runtime(device, dict(SLO_WINDOWS)["B"])
     h = rt.submit([op_request(SLO_SCAN, None, None, gen, rt.device)], tenant="prefill",
@@ -3294,6 +3476,9 @@ def main() -> int:
     rows.update(split_stream_kernels(gen))
     rows.update(attention_scan_kernels(gen, default_library()))
     torch.cuda.empty_cache()
+    prompt = prompt_scan_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
     serving = serving_phase()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3311,7 +3496,7 @@ def main() -> int:
         ops[name] = op_bundle_phase(name, context)
     op_counts = {k: sum(o["counts"][k] for o in ops.values())
                  for k in OP_BUNDLE_KERNELS + ("ragged_matmul",)}
-    scan_routes = {k: sum(o["scan_routes"][k] for o in ops.values())
+    scan_routes = {k: sum(o["scan_routes"][k] for o in ops.values()) + prompt["routes"][k]
                    for k in mamba_scan_fwd.routes}
     missing = [k for k in OP_BUNDLE_KERNELS + ("ragged_matmul",) if op_counts[k] <= 0]
     if missing:
@@ -3332,12 +3517,18 @@ def main() -> int:
                if replaces.endswith("_stream_k_fixup_kernel") else {}),
             "instantiation": r.get("instantiation", ""),
             "launches": path["counts"][name] + (op_counts[name] if name == "ragged_matmul"
-                                                else 0),
+                                                else 0)
+                        + (prompt["counts"][name] if name == "mamba_scan" else 0),
             **({"launches_by_path": {"per_class": path["counts"][name],
                                      "op_bundles": op_counts[name]}}
                if name == "ragged_matmul" else {}),
-            **({"launches_by_route": scan_routes} if name == "mamba_scan" else {}),
-            **({"route": r["route"]} if "route" in r else {}),
+            **({"launches_by_path": {"op_bundles": op_counts[name],
+                                     "prompt_scans": prompt["counts"][name]}}
+               if name == "mamba_scan" else {}),
+            **({"launches_by_route": scan_routes,
+                "kernel_launches_per_count": {"decode": 1, "chunks": 3}}
+               if name == "mamba_scan" else {}),
+            **({"scan_route": r["route"]} if "route" in r else {}),
             **({"grid": r["grid"]} if "grid" in r else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -3345,7 +3536,7 @@ def main() -> int:
             **({"feed": r["feed"], "ring_ms": r["ring_ms"]} if "feed" in r else {}),
             **({"host_us": r["host_us"]} if "host_us" in r else {}),
             **({"more_shapes": [{
-                "shape": m["shape"], **({"route": m["route"]} if "route" in m else {}),
+                "shape": m["shape"], **({"scan_route": m["route"]} if "route" in m else {}),
                 **({"grid": m["grid"]} if "grid" in m else {}),
                 **({"feed": m["feed"], "ring_ms": m["ring_ms"]} if "feed" in m else {}),
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],

@@ -47,7 +47,7 @@ from repro_torch.kernels.grouped_gemm.ops import (
     grouped_gemm,
     ragged_gemm,
 )
-from repro_torch.kernels.mamba_scan.ops import scan_buffers, scan_for_desc
+from repro_torch.kernels.mamba_scan.ops import scan_desc_buffers, scan_for_desc
 
 # CP overhead (paper §5.4/§6.5): queue inspect + predict + packet rewrite.
 CP_OVERHEAD_S = 8e-6
@@ -117,7 +117,7 @@ def _by_inputs(buffers: Callable) -> Callable:
 OP_FAMILIES: Dict[str, OpFamily] = {
     "flash_attention": OpFamily(attention_for_desc, _by_inputs(attention_buffers)),
     "grouped_gemm": OpFamily(grouped_for_desc, grouped_buffers),
-    "mamba_scan": OpFamily(scan_for_desc, _by_inputs(scan_buffers)),
+    "mamba_scan": OpFamily(scan_for_desc, scan_desc_buffers),
 }
 
 
@@ -500,10 +500,11 @@ def _run_mixed(reqs: Sequence[GemmRequest],
     On the CPU the members run in order, as in the reference.  On the
     card they run at once, one side stream each: every buffer a member
     writes (outputs, Stream-K partials, attention's split partials and
-    counters, a scan's final state, an expert pool's packed rows and
-    ragged partials) is allocated on the launching stream first, the
-    side streams wait on an event recorded there, and the launching
-    stream waits on each member's end event before this returns — so no buffer is freed while a side stream
+    counters, a scan's final state and its chunked form's workspace, an
+    expert pool's packed rows and ragged partials) is allocated on the
+    launching stream first, the side streams wait on an event recorded
+    there, and the launching stream waits on each member's end event
+    before this returns — so no buffer is freed while a side stream
     still uses it, and work queued after the launch sees every result.
     The attention and scan kernels read their inputs through strides, so
     no member stages a copy on its side stream."""

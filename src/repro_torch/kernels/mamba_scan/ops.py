@@ -6,8 +6,9 @@
                        GO-tuned chunk length (`TileConfig.bm`).
 
 CPU tensors take the plain version (`ref.ssd_chunk_ref`); CUDA tensors
-take one of the two hand-written kernels (`kernel.scan_route`: the decode
-kernel at T = 1, the chunk loop otherwise) or raise.  The reference sends a call with
+take one of the two hand-written routes (`kernel.scan_route`: the decode
+kernel at T = 1, the chunked form's three passes otherwise) or raise.
+The reference sends a call with
 an ``initial_state`` to its XLA version; here a CUDA call with one goes
 to the kernel's ``s0`` (the same function), since no plain path runs on
 the card.  The backward pass is not ported (serving needs none).
@@ -16,27 +17,41 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan_fwd, scan_shapes
+from repro_torch.kernels.mamba_scan.kernel import (
+    chunk_workspace,
+    mamba_scan_fwd,
+    scan_route,
+    scan_shapes,
+)
 from repro_torch.kernels.mamba_scan.ref import _mamba_args, ssd_chunk_ref
 
 
 def ssd_scan(xd, da, Bm, Cm, *, chunk: int = 128, initial_state=None,
              out=None):
     """General SSD: xd (B,T,H,P); da (B,T,H); Bm/Cm (B,T,H,N).  Returns
-    (y, final_state); ``out`` (CUDA only) is a `scan_buffers` pair."""
+    (y, final_state); ``out`` (CUDA only) is a `scan_buffers` triple for
+    this ``chunk``."""
     if all(t.device.type == "cpu" for t in (xd, da, Bm, Cm)):
         return ssd_chunk_ref(xd, da, Bm, Cm, chunk=chunk,
                              initial_state=initial_state)
+    y, state, workspace = out if out is not None else (None, None, None)
     return mamba_scan_fwd(xd, da, Bm, Cm, chunk=chunk,
-                          initial_state=initial_state, out=out)
+                          initial_state=initial_state,
+                          out=None if out is None else (y, state),
+                          workspace=workspace)
 
 
-def scan_buffers(xd, da, Bm, Cm) -> tuple[torch.Tensor, torch.Tensor]:
+def scan_buffers(xd, da, Bm, Cm, *, chunk: int = 128) -> tuple:
     """Allocate, on the current stream, what a scan launch writes: y
-    (B,T,H,P) in xd's dtype and the final state (B,H,N,P) float32."""
+    (B,T,H,P) in xd's dtype, the final state (B,H,N,P) float32 and, on
+    the chunks route, the `chunk_workspace` for ``chunk`` (None on the
+    decode route, which needs none)."""
     B, T, H, P, N = scan_shapes(xd, da, Bm, Cm)
+    workspace = (chunk_workspace(B, T, H, P, N, chunk, xd.device)
+                 if scan_route(T, P, N, chunk) == "chunks" else None)
     return (torch.empty((B, T, H, P), dtype=xd.dtype, device=xd.device),
-            torch.empty((B, H, N, P), dtype=torch.float32, device=xd.device))
+            torch.empty((B, H, N, P), dtype=torch.float32, device=xd.device),
+            workspace)
 
 
 def scan_chunk(tile) -> int:
@@ -44,9 +59,18 @@ def scan_chunk(tile) -> int:
     return 128 if tile is None else max(8, min(int(tile.bm), 512))
 
 
+def scan_desc_buffers(desc, xd, da, Bm, Cm, *, tile=None) -> tuple:
+    """`scan_buffers` for the launch `scan_for_desc` makes at ``tile``:
+    the family's ``buffers`` hook, so that a mixed launch takes a scan
+    member's y, state and workspace on the launching stream
+    (`core/scheduler.py:_run_mixed`)."""
+    return scan_buffers(xd, da, Bm, Cm, chunk=scan_chunk(tile))
+
+
 def scan_for_desc(desc, xd, da, Bm, Cm, *, tile=None, out=None):
     """Run the SSD-scan launch a `ScanDesc` describes at the group's GO
-    ``tile``; returns y."""
+    ``tile``, into ``out`` (its `scan_desc_buffers`) when given; returns
+    y."""
     y, _ = ssd_scan(xd, da, Bm, Cm, chunk=scan_chunk(tile), out=out)
     return y
 

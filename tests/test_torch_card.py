@@ -53,7 +53,15 @@ tests' tolerance; half a bf16 unit more for a bf16 y): bf16 and f32, with
 and without an initial state, head-broadcast and per-head B/C, (N, P) of
 (8, 16), (64, 64), (128, 128) and (10, 30), batch 1 (column slices) and
 16; a strided xd; ``out=`` buffers, one of them unaligned; the same bits
-on a second run.  A T = 2 call still takes the chunk loop.
+on a second run.  A T = 2 call still takes the chunked form.
+
+The scan's chunked form (every T > 1: three launches, the chunks in
+parallel, the products on tensor cores) must match `ssd_chunk_ref` within
+the same tolerance at every T > 1 shape of `chip_smoke.py`'s SCAN_CASES,
+Zamba2's 4,096-token prompt and a phase-9 piece, bf16 and f32, its
+workspace's carried states the plain passes'; read strided inputs and
+write ``out=``; give the same bits on a second run; and fail the check
+when chunk 16's incoming state is taken as zero (a planted lost carry).
 
 GEMM tolerance (as in `chip_smoke.py`): |kernel − plain| ≤ 2⁻⁷·|plain|
 (bf16 outputs only: one rounding each) + 2⁻¹⁶·|A|·|B| (f32 summation
@@ -152,8 +160,17 @@ from repro_torch.kernels.grouped_gemm import (
     ragged_gemm_ref,
 )
 from repro_torch.kernels.grouped_gemm import kernel as ggk
-from repro_torch.kernels.mamba_scan import mamba_scan_fwd, ssd_chunk_ref
-from repro_torch.kernels.mamba_scan.kernel import decode_residency
+from repro_torch.core.scheduler import OP_FAMILIES
+from repro_torch.kernels.mamba_scan import (
+    chunk_workspace,
+    mamba_scan_fwd,
+    scan_for_desc,
+    ssd_carry_ref,
+    ssd_chunk_ref,
+    ssd_chunk_states_ref,
+)
+from repro_torch.kernels.mamba_scan.kernel import chunk_residency, decode_residency
+from repro_torch.kernels.mamba_scan.ref import ssd_lost_carry
 from repro_torch.runtime import (
     FAMILY_SLOTS,
     FaultInjector,
@@ -758,7 +775,7 @@ def test_scan_decode_second_run_is_bitwise_equal(card):
 
 
 def test_scan_t2_still_takes_the_chunk_loop(card):
-    """T = 2 is no decode step: it launches `mamba_kernel` (the chunks
+    """T = 2 is no decode step: it launches the chunked form (the chunks
     route) and agrees with the plain version."""
     xd, da, bm, cm = _scan_inputs(card, 2, 2, 64, 64, 64, torch.bfloat16, True, 6)
     before, routes = mamba_scan_fwd.launches, dict(mamba_scan_fwd.routes)
@@ -778,6 +795,124 @@ def test_scan_decode_residency(card):
                 per_sm, smem = decode_residency(card, dtype, vec, s0)
                 assert per_sm >= 4
                 assert smem == (256 * 16 if s0 else 0)
+
+
+# ------------------------------------------------ the scan's chunked form
+# chip_smoke.py's SCAN_CASES with T > 1 (B, T, H, P, N, chunk, initial
+# state, head-broadcast B/C), Zamba2's prompt scan and the phase-9 piece.
+CHUNK_CASES = [(2, 70, 3, 16, 8, 32, False, False), (2, 2, 64, 64, 64, 32, True, True),
+               (1, 600, 2, 64, 64, 512, True, False), (1, 300, 2, 32, 16, 8, True, True),
+               (1, 200, 4, 64, 128, 64, False, False), (2, 97, 2, 128, 32, 128, True, True),
+               (1, 4096, 64, 64, 64, 128, False, True), (2, 1024, 64, 64, 64, 128, True, True)]
+
+
+def _chunks(xd, da, bm, cm, chunk, **kw):
+    """`mamba_scan_fwd` on a T > 1 call, asserting one call on the chunks
+    route; returns y, the state and the workspace after the launch."""
+    B, T, H, P = xd.shape
+    ws = chunk_workspace(B, T, H, P, bm.shape[-1], chunk, xd.device)
+    before, routes = mamba_scan_fwd.launches, dict(mamba_scan_fwd.routes)
+    y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=chunk, workspace=ws, **kw)
+    assert mamba_scan_fwd.launches == before + 1
+    assert mamba_scan_fwd.routes == {**routes, "chunks": routes["chunks"] + 1}
+    return y, state, ws
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", CHUNK_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_scan_chunks_match_plain(card, case, dtype):
+    """The chunked form against `ssd_chunk_ref` (y and the final state), and
+    its carried states (the workspace after the launch: each chunk's
+    incoming state) against the plain passes' within the same tolerance."""
+    B, T, H, P, N, L, with_s0, bcast = case
+    xd, da, bm, cm = _scan_inputs(card, B, T, H, P, N, dtype, bcast, T + N + P)
+    g = torch.Generator(device=card).manual_seed(L)
+    s0 = torch.randn((B, H, N, P), generator=g, device=card) if with_s0 else None
+    y, state, (incoming, decay) = _chunks(xd, da, bm, cm, L, initial_state=s0)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    _scan_close(y, state, xd, da, bm, cm, s0, f"chunks {case}")
+    f32 = [t.float() for t in (xd, da, bm, cm)]
+    states, want_decay = ssd_chunk_states_ref(*f32, chunk=L)
+    want_in, _ = ssd_carry_ref(states, want_decay, s0)
+    for got, want, name in ((incoming, want_in, "incoming"), (decay, want_decay, "decay")):
+        err = (got - want).abs()
+        assert bool((err <= SCAN_TOL + SCAN_TOL * want.abs()).all()), \
+            f"chunks {case} {name}: max |err| {err.max().item():.3g}"
+
+
+def test_scan_chunks_second_run_is_bitwise_equal(card):
+    for dtype in (torch.bfloat16, torch.float32):
+        xd, da, bm, cm = _scan_inputs(card, 2, 1024, 64, 64, 64, dtype, True, 21)
+        s0 = torch.randn((2, 64, 64, 64), device=card)
+        y, state, _ = _chunks(xd, da, bm, cm, 128, initial_state=s0)
+        y2, state2, _ = _chunks(xd, da, bm, cm, 128, initial_state=s0)
+        assert torch.equal(y, y2) and torch.equal(state, state2)
+
+
+def test_scan_chunks_read_strided_inputs_and_write_out_buffers(card):
+    """xd a (B,T,H,P) view of wider (B,H,T,P+8) storage and B/C per head
+    views of (B,T,N+8,H) storage: every stride but the last read as it
+    is, rows not 16-byte aligned (element loads); ``out=`` written."""
+    B, T, H, P, N, L = 2, 300, 4, 64, 64, 128
+    g = torch.Generator(device=card).manual_seed(22)
+    xd = torch.randn((B, H, T, P + 8), generator=g, device=card).bfloat16()[..., 1:P + 1]
+    xd = xd.transpose(1, 2)
+    bm, cm = (torch.randn((B, T, H, N + 8), generator=g, device=card).mul_(0.5)
+              .bfloat16()[..., 3:N + 3] for _ in range(2))
+    da = (torch.rand((B, T, H), generator=g, device=card) * -0.5).bfloat16()
+    assert not xd.is_contiguous() and bm.stride(2) == N + 8
+    y = torch.full((B, T, H, P), float("nan"), device=card, dtype=torch.bfloat16)
+    state = torch.full((B, H, N, P), float("nan"), device=card)
+    got = _chunks(xd, da, bm, cm, L, out=(y, state))
+    assert got[0] is y and got[1] is state
+    _scan_close(y, state, xd, da, bm, cm, None, "chunks strided")
+
+
+def test_scan_chunks_planted_carry_fault_fails_the_check(card):
+    """At Zamba2's prompt shape, the kernel's outputs with chunk 16's
+    incoming state taken as zero (`ssd_lost_carry`) must fail the scan
+    tolerance: the check sees a lost carry."""
+    xd, da, bm, cm = _scan_inputs(card, 1, 4096, 64, 64, 64, torch.bfloat16, True, 23)
+    y, state, (incoming, decay) = _chunks(xd, da, bm, cm, 128)
+    _scan_close(y, state, xd, da, bm, cm, None, "prompt scan")
+    fy, fs = ssd_lost_carry(y, state, incoming, decay, xd, da, bm, cm, chunk=128, lost=16)
+    with pytest.raises(AssertionError):
+        _scan_close(fy, fs, xd, da, bm, cm, None, "lost carry")
+
+
+def test_scan_family_buffers_hold_the_chunks_workspace(card):
+    """A scan member's family ``buffers`` hook (what a mixed launch takes on
+    its launching stream) gives y, the state and the workspace at the
+    tile's chunk: `scan_for_desc` into them allocates nothing, and the
+    workspace after the launch holds each chunk's incoming state."""
+    desc, L = ScanDesc(2, 1024, 64, 64, 64), 64
+    xd, da, bm, cm = _scan_inputs(card, 2, 1024, 64, 64, 64, torch.bfloat16, True, 24)
+    tile = TileConfig(L, 128, 128)
+    bufs = OP_FAMILIES["mamba_scan"].buffers(desc, xd, da, bm, cm, tile=tile)
+    incoming, decay = bufs[2]
+    assert incoming.shape == (2, 64, 1024 // L, 64, 64)
+    incoming.fill_(float("nan"))
+    torch.cuda.synchronize(card)
+    allocs = torch.cuda.memory_stats(card)["allocation.all.allocated"]
+    y = scan_for_desc(desc, xd, da, bm, cm, tile=tile, out=bufs)
+    torch.cuda.synchronize(card)
+    assert torch.cuda.memory_stats(card)["allocation.all.allocated"] == allocs
+    assert y is bufs[0]
+    _scan_close(y, bufs[1], xd, da, bm, cm, None, "family buffers")
+    f32 = [t.float() for t in (xd, da, bm, cm)]
+    want_in, _ = ssd_carry_ref(*ssd_chunk_states_ref(*f32, chunk=L), None)
+    err = (incoming - want_in).abs()
+    assert bool((err <= SCAN_TOL + SCAN_TOL * want_in.abs()).all())
+
+
+def test_scan_chunk_residency(card):
+    """The chunked form's passes fit the card at Zamba2's prompt widths:
+    two CTAs or more per SM for each pass in bf16, and shared memory within
+    a CTA's 227 KB at the widest f32 instantiation."""
+    blocks, smem = chunk_residency(card, torch.bfloat16, 2, 64, 64, 128)
+    assert min(blocks) >= 2, blocks
+    blocks, smem = chunk_residency(card, torch.float32, 1, 128, 128, 512)
+    assert min(blocks) >= 1 and max(smem) <= 232448
 
 
 # ----------------------------------------------------------------- measure

@@ -3,8 +3,9 @@ against the JAX package's Pallas body in interpret mode, on the same
 numpy inputs: y and the final state.
 
 On CPU tensors `ssd_scan` runs its plain version (`ssd_chunk_ref`); the
-CUDA kernels themselves (the decode step at T = 1, the chunk loop
-otherwise: `scan_route`) run only on the card (`chip_smoke.py`,
+CUDA kernels themselves (the decode step at T = 1, the chunked form
+otherwise: `scan_route`; its passes' plain version is held here in
+`tests/test_torch_scan_chunks.py`) run only on the card (`chip_smoke.py`,
 `tests/test_torch_card.py`).  Here the route rule and the decode grid
 are checked as plain functions.  The
 tolerance is the reference tests' own, 3e-4
