@@ -233,7 +233,30 @@ Phases, each fatal on failure (nothing here catches an error):
    Zamba2-width scan (`ScanDesc(4, 1024, 64, 64, 64)`, one-member
    bundle) whose pieces must launch the chunks route and whose merged y
    must be within the scan tolerance;
-10. one JSON line ``{"kernels": [...]}`` and, last, the device line.
+10. the models, after phase 7 with its weights freed, through the entry
+   points a user calls (`build_model`, `greedy_decode`,
+   `repro_torch.launch.serve.main`): (a) Qwen3-14B at 2 layers,
+   Zamba2-1.2B at 6 (its shared attention block runs once) and
+   DeepSeek-V2-Lite-16B at 2 (its dense layer and one MoE layer), full
+   width, float32, weights from a seed on the card copied to the CPU; a
+   batch-2, 64-token prompt and 4 greedy steps on the card, the card's
+   tokens teacher-forced on the CPU (the plain versions): every call's
+   logits within MODEL_TOL, the kernels' launches exact; (b) each model
+   at full width and depth in bf16 (weights and caches), batch 4,
+   1,000-token prompts, 32 greedy steps, with the plain versions of
+   attention, the scan and the grouped GEMM made to raise for the whole
+   run: tokens in range, logits finite at every call, the launches exact
+   (`flash_attention` once per attention layer per prefill and never in
+   decode; `mamba_scan` once per Mamba layer on the chunks route per
+   prefill and on the decode kernel per layer and step; per forward
+   three grouped GEMMs per MoE layer, one `grouped_matmul` launch per
+   16 experts), the prefill's and the decode steps' times (CUDA events:
+   the device's timeline, host gaps included; the median step) and
+   tokens/s printed beside their bounds (`serve_bounds`); one warm-up
+   run first.  (c) `repro_torch.launch.serve.main` on Zamba2-1.2B at
+   full width in f32, `--runtime --graph`, its launches exact.  (b)'s
+   launches are the kernels line's ``model_serve`` path;
+11. one JSON line ``{"kernels": [...]}`` and, last, the device line.
 
 Tolerance of every comparison of a GEMM or of partials (float32, kernel
 vs plain version on the same inputs): |kernel − plain| ≤ 2⁻⁷·|plain| +
@@ -267,6 +290,13 @@ output itself (~0.026 at 4,096 keys) and would pass a kernel that
 skipped a 64-key sub-tile; the kernel phase shows that this one fails
 such a kernel.
 
+A model's logits on the card (phase 10a, f32) are held to the same
+weights on the CPU within MODEL_TOL·max(1, max |CPU|), MODEL_TOL = 2e-3:
+each kernel on the path is held to its plain version within 2e-4
+(attention) or 3e-4 (scan) relative per call, cuBLAS and the CPU sum the
+f32 GEMMs in other orders, and a layer's error reaches the next; a wrong
+head, expert, chunk or cache slot moves logits by O(1).
+
 A sliced parent (phase 9) is held to the plain version of the whole op
 within the same tolerance as an op run whole: its merge concatenates the
 pieces' outputs, so each output element comes from one piece, whose
@@ -297,6 +327,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.shapes import InputShape  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     CDS,
     CLASSES,
@@ -321,10 +352,12 @@ from repro_torch.core import (  # noqa: E402
     tune_gemm,
 )
 from repro_torch.core.library import default_library  # noqa: E402
+from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.core.measure import schedule_for, synth_request  # noqa: E402
 from repro_torch.core.scheduler import _run_op  # noqa: E402
 from repro_torch.core.tuner import GROUPED_TILES  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_buffers,
     attention_tol,
@@ -358,6 +391,7 @@ from repro_torch.kernels.grouped_gemm import (  # noqa: E402
     ragged_gemm_ref,
 )
 from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel  # noqa: E402
+from repro_torch.kernels.grouped_gemm import ops as grouped_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     chunk_grid,
     chunk_workspace,
@@ -375,11 +409,17 @@ from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
     ssd_chunk_states_ref,
     ssd_lost_carry,
 )
+from repro_torch.kernels.mamba_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
     scan_buffers,
     scan_chunk,
     ssd_scan,
 )
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.models import Model, build_model  # noqa: E402
+from repro_torch.models import moe as model_moe  # noqa: E402
+from repro_torch.models.blocks import zamba_shared_specs  # noqa: E402
+from repro_torch.models.spec import param_count as spec_param_count  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     MIXED_CLASS,
     FaultInjector,
@@ -393,6 +433,7 @@ from repro_torch.runtime import (  # noqa: E402
     decode_step_op_descs,
     decode_step_requests,
 )
+from repro_torch.train.serve_loop import greedy_decode  # noqa: E402
 
 SEED = 0
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and operations/s by type.
@@ -3448,6 +3489,485 @@ def slo_phase(cfg, unfused, device="cuda", prompt: int = PROMPT,
     print(f"# SLO serving: {time.perf_counter() - t0:.1f} s (host clock, the phase's "
           "checks included)")
 
+# ------------------------------------------------------------ model serving
+# (a) each model at full width and a small depth, float32, on the card and
+# on the CPU with the same weights: Zamba2-1.2B at 6 layers runs its
+# shared attention block once (layer 5), DeepSeek-V2-Lite-16B at 2 has its
+# dense layer and one MoE layer.
+MODEL_CHECKS = (("qwen3-14b", 2), ("zamba2-1.2b", 6), ("deepseek-v2-lite-16b", 2))
+CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS = 2, 64, 4
+# Card against CPU logits, per call: max |Δ| ≤ MODEL_TOL·max(1, max |CPU|).
+# Each kernel on the path is held to its plain version within 2e-4
+# (attention) and 3e-4 (scan) of |plain| per call in f32, cuBLAS and the
+# CPU sum f32 GEMMs in other orders, and a layer's error passes to the
+# next; a wrong head, expert, chunk or cache slot moves logits by O(1).
+MODEL_TOL = 2e-3
+# (b) each model at full width and depth in bf16, the serving traffic
+SERVE_MODELS = ("qwen3-14b", "zamba2-1.2b", "deepseek-v2-lite-16b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 1000, 32
+MODEL_KERNELS = ("flash_attention", "mamba_scan", "grouped_matmul")
+# The plain versions the model path could reach on the card; made to raise
+# while (b) and (c) run.
+PLAIN_VERSIONS = ((flash_ops, "flash_ref"), (scan_ops, "ssd_chunk_ref"),
+                  (grouped_ops, "grouped_gemm_ref"), (grouped_ops, "ragged_gemm_ref"))
+
+
+def free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mark() -> torch.cuda.Event:
+    """A point on the device's timeline: a recorded CUDA event."""
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def plain_versions_raise():
+    """Make every plain version of `PLAIN_VERSIONS` raise; returns the call
+    that puts them back."""
+    saved = [(m, n, getattr(m, n)) for m, n in PLAIN_VERSIONS]
+
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on the card's model path")
+
+    for m, n, _ in saved:
+        setattr(m, n, plain)
+    return lambda: [setattr(m, n, f) for m, n, f in saved]
+
+
+def model_launches(cfg, steps: int) -> tuple[Counter, dict]:
+    """The kernel launches (and scan routes) of one greedy run of ``steps``
+    decode steps: flash attention once per attention layer in the prefill
+    (a decode step reads the cache by einsums), the scan once per Mamba
+    layer on the chunks route in the prefill and on the decode kernel per
+    step, and per forward three grouped GEMMs per MoE layer, each one
+    launch per `MAX_MEMBERS` experts."""
+    attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+    mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+    moe = cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
+    grouped = moe * 3 * -(-cfg.n_routed_experts // grouped_kernel.MAX_MEMBERS)
+    want = +Counter(flash_attention=attn, mamba_scan=mamba * (1 + steps),
+                    grouped_matmul=grouped * (1 + steps))
+    return want, {"decode": mamba * steps, "chunks": mamba}
+
+
+def check_model_launches(label: str, cfg, steps: int, counts: Counter,
+                         routes: dict) -> None:
+    want, want_routes = model_launches(cfg, steps)
+    if counts != want or routes != want_routes:
+        raise AssertionError(f"{label}: launches {dict(counts)}, scan routes {routes}; "
+                             f"the model path makes {dict(want)}, {want_routes}")
+
+
+def model_check(name: str, layers: int) -> None:
+    """(a): ``name`` at full width and ``layers`` deep in f32, weights from a
+    seed on the card and copied to the CPU; a batch-2, 64-token prompt and
+    4 greedy steps on the card, the same tokens teacher-forced on the CPU
+    (the plain versions); every call's logits within MODEL_TOL, and each
+    greedy token the CPU's argmax unless the CPU's top two lie within the
+    tolerance of each other."""
+    t0 = time.perf_counter()
+    cfg = replace(get_arch(name), n_layers=layers)
+    card = build_model(cfg, device="cuda", dtype=torch.float32, seed=SEED + 6)
+    cpu = build_model(cfg, device="cpu", seed=None)
+    cpu.load_state_dict(card.state_dict())
+    prompt = make_batch(cfg, InputShape("check", CHECK_PROMPT, CHECK_BATCH, "prefill"),
+                        0)["tokens"]
+    s_max = CHECK_PROMPT + CHECK_STEPS + 1
+    seen = []
+    reset_counts()
+    toks = greedy_decode(card, {"tokens": prompt}, s_max=s_max, steps=CHECK_STEPS,
+                         device="cuda", on_step=seen.append).cpu()
+    routes = dict(mamba_scan_fwd.routes)
+    counts = take_counts()
+    check_model_launches(f"{name} at {layers} layers", cfg, CHECK_STEPS, counts, routes)
+    with torch.inference_mode():
+        cache = cpu.init_cache(CHECK_BATCH, s_max, torch.float32)
+        logits, cache, n = cpu.prefill({"tokens": prompt}, cache)
+        ref = [logits]
+        for i in range(CHECK_STEPS):
+            logits, cache, n = cpu.decode_step(toks[:, i:i + 1], cache, n)
+            ref.append(logits)
+    errs, flips = [], 0
+    for i, (got, want) in enumerate(zip(seen, ref)):
+        got = got.cpu()
+        what = f"{name} at {layers} layers, {'prefill' if i == 0 else f'decode {i}'}"
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: non-finite logits on the card")
+        err = float((got - want).abs().max())
+        tol = MODEL_TOL * max(1.0, float(want.abs().max()))
+        if err > tol:
+            raise AssertionError(f"{what}: card logits off the CPU's by {err:.4g} > {tol:.4g}")
+        errs.append(err)
+        if i < CHECK_STEPS:
+            top2 = want[:, -1].topk(2, dim=-1).values
+            for b in range(CHECK_BATCH):
+                tok = int(toks[b, i])
+                if tok != int(want[b, -1].argmax()):
+                    flips += 1
+                    if float(top2[b, 0] - want[b, -1, tok]) > 2 * tol:
+                        raise AssertionError(f"{what}: card token {tok} is not the CPU's "
+                                             "argmax beyond the tolerance")
+    print(f"# model check {name} at full width, {layers} of {get_arch(name).n_layers} "
+          f"layers, f32 ({card.param_count() / 1e9:.3f} B parameters): batch "
+          f"{CHECK_BATCH}, {CHECK_PROMPT}-token prompt, {CHECK_STEPS} greedy steps; "
+          f"card vs CPU logits max |Δ| per call {[float(f'{e:.4g}') for e in errs]} "
+          f"(tolerance {MODEL_TOL}·max(1, |CPU|)); greedy tokens other than the CPU's "
+          f"argmax: {flips}; kernel launches {dict(counts)}, scan routes {routes}; "
+          f"{time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def shared_reapplied(cfg) -> int:
+    """Parameters that Zamba2's weight-tied shared block adds past its
+    first application: it runs on ``n_layers // attn_every`` layers, and
+    each application multiplies by all its weights and reads them again
+    (67M parameters, 134 MB in bf16, do not stay in the 50 MB L2).  The
+    parameter counts hold the block once."""
+    if cfg.family != "hybrid":
+        return 0
+    return (cfg.n_layers // cfg.attn_every - 1) * spec_param_count(zamba_shared_specs(cfg))
+
+
+def weights_read(cfg, routed_experts: int | None) -> int:
+    """Weight bytes (bf16) one decode step must read: every weight but the
+    token table (B rows gathered), Zamba2's shared block once per
+    application; of an MoE model's routed experts only ``routed_experts``
+    (summed over its MoE layers) FFNs."""
+    n = (Model(cfg, device="meta").param_count() - cfg.vocab_size * cfg.d_model
+         + shared_reapplied(cfg))
+    if cfg.family == "moe":
+        per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+        n -= (cfg.n_layers - cfg.first_dense_layers) * cfg.n_routed_experts * per_expert
+        n += routed_experts * per_expert
+    return 2 * n
+
+
+def cache_bytes(cfg, B: int, length: int) -> int:
+    """Cache bytes a decode step must read at ``length`` cached tokens
+    (bf16 K/V or latents; Zamba2's f32 SSM state read and written, conv
+    tail read and written) and write (one token's entries)."""
+    if cfg.family == "hybrid":
+        kv = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * (cfg.n_layers // cfg.attn_every)
+        conv = (cfg.ssm_d_inner + 2 * cfg.ssm_state) * (cfg.ssm_conv - 1) * 2
+        state = cfg.ssm_n_heads * cfg.ssm_state * cfg.ssm_head_dim * 4
+        return B * (2 * kv * (length + 1) + cfg.n_layers * 2 * (conv + state))
+    if cfg.attn_type == "mla":
+        per = (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * cfg.n_layers
+    else:
+        per = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * cfg.n_layers
+    return 2 * B * per * (length + 1)
+
+
+def attention_flops(cfg, B: int, T: int, past: int) -> int:
+    """Multiply-adds ×2 of the attention scores and values of T new tokens
+    after ``past`` cached ones, causal (the tokens each query sees)."""
+    seen = T * past + T * (T + 1) // 2
+    if cfg.family == "hybrid":
+        layers, width = cfg.n_layers // cfg.attn_every, 2 * cfg.resolved_head_dim
+    elif cfg.attn_type == "mla":
+        layers = cfg.n_layers
+        width = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim
+                 if T > 1 else 2 * cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    else:
+        layers, width = cfg.n_layers, 2 * cfg.resolved_head_dim
+    return 2 * B * layers * cfg.n_heads * seen * width
+
+
+def serve_bounds(cfg, routed: list) -> dict:
+    """Least times (ms) at the H100's peaks for (b)'s prefill and its mean
+    decode step: bytes over the HBM rate vs bf16 operations over the
+    peak, whichever is larger.  Operations: 2 per active weight and
+    token (Zamba2's shared block once per application; the LM head on
+    the last token only in the prefill) plus attention; bytes: the
+    weights as `weights_read`, the caches as `cache_bytes`.
+    ``routed``: per decode step, the distinct experts its routing chose
+    (summed over the MoE layers)."""
+    B, T, V, d = SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, cfg.d_model
+    active = cfg.active_param_count() - 2 * V * d + shared_reapplied(cfg)
+    every_expert = cfg.n_routed_experts * (cfg.n_layers - cfg.first_dense_layers)
+    prefill = bound(weights_read(cfg, every_expert) + cache_bytes(cfg, B, T - 1),
+                    2 * B * T * active + 2 * B * V * d + attention_flops(cfg, B, T, 0),
+                    torch.bfloat16)
+    steps = []
+    for i, r in enumerate(routed or [None] * SERVE_STEPS):
+        n = T + i
+        steps.append(bound(weights_read(cfg, r) + cache_bytes(cfg, B, n),
+                           2 * B * (active + V * d) + attention_flops(cfg, B, 1, n),
+                           torch.bfloat16))
+    mean = sum(t for t, _ in steps) / len(steps)
+    return dict(prefill=prefill, decode_ms=mean, decode_by=steps[0][1],
+                decode_gb=(weights_read(cfg, routed[0] if routed else None)
+                           + cache_bytes(cfg, B, T)) / 1e9)
+
+
+def model_serve(name: str) -> dict:
+    """(b): ``name`` at full width and depth in bf16 (weights and caches),
+    batch 4, 1,000-token prompts, 32 greedy steps, with every plain
+    version made to raise; one run to warm up, then the counted and timed
+    run: exact launch counts, tokens in range, logits finite at every
+    step, prefill and decode times by CUDA events at each call's end
+    (the decode step's from one to the next: the device's timeline,
+    host launch gaps included) beside their bounds."""
+    t0 = time.perf_counter()
+    cfg = get_arch(name)
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED + 7)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    prompt = make_batch(cfg, InputShape("serve", SERVE_PROMPT, SERVE_BATCH, "prefill"),
+                        0)["tokens"]
+    s_max = SERVE_PROMPT + SERVE_STEPS + 1
+    run = dict(s_max=s_max, steps=SERVE_STEPS, cache_dtype=torch.bfloat16, device="cuda")
+    restore = plain_versions_raise()
+    greedy_decode(model, {"tokens": prompt}, **run)        # warm-up
+    torch.cuda.synchronize()
+    routing, real_route = [], model_moe._route
+
+    def route(p, xt, c):
+        w, ids, aux = real_route(p, xt, c)
+        routing.append(ids)
+        return w, ids, aux
+
+    model_moe._route = route
+    marks, logits = [], []
+
+    def on_step(lg):
+        marks.append(mark())
+        logits.append(lg)
+
+    reset_counts()
+    h0 = time.perf_counter()
+    start = mark()
+    toks = greedy_decode(model, {"tokens": prompt}, on_step=on_step, **run).cpu()
+    wall = time.perf_counter() - h0
+    routes = dict(mamba_scan_fwd.routes)
+    counts = take_counts()
+    model_moe._route = real_route
+    check_model_launches(f"{name} serving", cfg, SERVE_STEPS, counts, routes)
+    if toks.shape != (SERVE_BATCH, SERVE_STEPS) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{name} serving: tokens {tuple(toks.shape)} out of range")
+    finite = [bool(torch.isfinite(lg).all()) for lg in logits]
+    if len(finite) != SERVE_STEPS + 1 or not all(finite):
+        raise AssertionError(f"{name} serving: non-finite logits at calls "
+                             f"{[i for i, f in enumerate(finite) if not f]}")
+    prefill_ms = start.elapsed_time(marks[0])
+    steps_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    decode_ms = steps_ms[len(steps_ms) // 2]
+    moe_layers = cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
+    routed = None
+    if moe_layers:
+        per_forward = [routing[i:i + moe_layers] for i in range(0, len(routing), moe_layers)]
+        routed = [sum(int(torch.unique(ids).numel()) for ids in f) for f in per_forward[1:]]
+    bd = serve_bounds(cfg, routed)
+    decode_s = sum(steps_ms) / 1e3
+    print(f"# model serving {name} at full width and depth, bf16 "
+          f"({model.param_count() / 1e9:.3f} B parameters, made from a seed on the card "
+          f"in {made_s:.1f} s): batch {SERVE_BATCH}, {SERVE_PROMPT}-token prompts, "
+          f"{SERVE_STEPS} greedy steps, every plain version raising; kernel launches "
+          f"{dict(counts)}, scan routes {routes} (as the model path makes them)")
+    print(f"#   prefill {prefill_ms:.3f} ms (bound {bd['prefill'][0]:.3f} ms, "
+          f"{bd['prefill'][1]}); decode step median {decode_ms:.3f} ms, min "
+          f"{steps_ms[0]:.3f}, max {steps_ms[-1]:.3f} (mean bound {bd['decode_ms']:.3f} ms, "
+          f"{bd['decode_by']}: {bd['decode_gb']:.2f} GB at the first step"
+          + (f", distinct routed experts per step {routed[0]}..{routed[-1]} of "
+             f"{moe_layers * cfg.n_routed_experts}" if routed else "")
+          + f"); {SERVE_BATCH * SERVE_STEPS / decode_s:.1f} tokens/s over the decode "
+          f"steps, {SERVE_BATCH * SERVE_STEPS / wall:.1f} tokens/s of wall for the run "
+          f"({wall:.3f} s, prefill included); {time.perf_counter() - t0:.1f} s (host clock)")
+    profile_model(model, prompt)
+    restore()
+    del model
+    return dict(counts=counts, routes=routes, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                bounds=bd)
+
+
+def launcher_on_card() -> None:
+    """(c): `repro_torch.launch.serve.main` as a user runs it, on Zamba2-1.2B
+    at full width and depth in its default f32, the decode steps shadowed
+    through the runtime as graphs; its defaults (batch 4, a 32-token
+    prompt, 16 steps) give the launches `model_launches` names."""
+    restore = plain_versions_raise()
+    reset_counts()
+    toks = serve_launcher.main(["--arch", ZAMBA, "--runtime", "--graph"])
+    routes = dict(mamba_scan_fwd.routes)
+    counts = take_counts()
+    restore()
+    if toks.shape != (4, 16) or toks.device.type != "cuda":
+        raise AssertionError(f"launcher: tokens {tuple(toks.shape)} on {toks.device}")
+    check_model_launches("launcher", get_arch(ZAMBA), 16, counts, routes)
+    print(f"# launcher on the card (zamba2-1.2b, f32, --runtime --graph): kernel "
+          f"launches {dict(counts)}, scan routes {routes}")
+
+
+# (B, Hq, Hkv, T, S, D, Dv): the prefill attention of each model as it
+# calls the kernel: q, and k/v of Qwen3-14B and Zamba2-1.2B read from the
+# (B, S_max, Hkv, D) cache through a transposed view, of
+# DeepSeek-V2-Lite-16B's MLA the expanded latents (B, T, H, 192/128)
+MODEL_ATTENTION = (("qwen3-14b", (4, 40, 8, 1000, 1033, 128, 128)),
+                   ("zamba2-1.2b", (4, 32, 32, 1000, 1033, 64, 64)),
+                   ("deepseek-v2-lite-16b", (4, 16, 16, 1000, 1000, 192, 128)))
+
+
+def model_attention_row(name: str, shape: tuple, gen) -> dict:
+    """A model's prefill attention (causal, q_offset 0) in bf16, in the
+    model's layouts: compared with the plain version in f32, timed beside
+    it and beside `scaled_dot_product_attention` (causal, top-left
+    aligned: the same function, keys past the prompt masked)."""
+    B, Hq, Hkv, T, S, D, Dv = shape
+    q = randn((B, T, Hq, D), gen).transpose(1, 2)
+    k = torch.zeros((B, S, Hkv, D), dtype=torch.bfloat16, device="cuda")
+    v = torch.zeros((B, S, Hkv, Dv), dtype=torch.bfloat16, device="cuda")
+    k[:, :T], v[:, :T] = randn((B, T, Hkv, D), gen), randn((B, T, Hkv, Dv), gen)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    out = flash_attention_fwd(q, k, v, causal=True, q_offset=0)
+    err = check_attention(out, q, k, v, 0, f"{name} prefill attention")
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                            enable_gqa=True)
+    check_tol(sdpa, attention_f32_ref(q, k, v, 0), SDPA_TOL, SDPA_TOL,
+              f"SDPA {name} prefill")
+    seen = B * Hq * T * (T + 1) // 2
+    nbytes = 2 * (q.numel() + B * Hkv * T * (D + Dv) + out.numel())
+    return dict(
+        shape=f"{name} prefill B{B} Hq{Hq} Hkv{Hkv} T{T} S{S} D{D}/{Dv} bf16, causal, "
+              "the model's strided views",
+        instantiation=f"bf16 head dim ≤ {width_for(D, Dv)}, bq 128, bkv 128",
+        max_abs_err=err,
+        ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=True, q_offset=0)),
+        plain_ms=time_ms(lambda: flash_ref(q, k, v, q_offset=0), reps=3, warmup=1),
+        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        bound=bound(nbytes, 2 * seen * (D + Dv), torch.bfloat16))
+
+
+def model_kernel_rows(gen) -> dict:
+    """The kernels at the model path's own shapes (phase 10b), each
+    compared with its plain version, then timed beside it and the
+    PyTorch call computing the same function: the three models' prefill
+    attention; Zamba2-1.2B's prefill scan as the model hands it over
+    (float32 xd and da, B/C head-broadcast views of (B, T, N), chunk
+    128); DeepSeek-V2-Lite-16B's grouped up-projection at the prefill's
+    capacity (C 469) and a decode step's (C 1), at the GO tile for CD 16."""
+    rows = {"flash_attention": [model_attention_row(n, sh, gen)
+                                for n, sh in MODEL_ATTENTION]}
+    torch.cuda.empty_cache()
+    B, T, H, P, N, L = 4, SERVE_PROMPT, 64, 64, 64, 128
+    f32 = torch.float32
+    xd, da, bm, cm = scan_inputs(B, T, H, P, N, gen, f32, broadcast=True)
+    before = dict(mamba_scan_fwd.routes)
+    y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=L)
+    if mamba_scan_fwd.routes["chunks"] != before["chunks"] + 1:
+        raise AssertionError("the model's prefill scan missed the chunks route")
+    err = check_scan(y, state, xd, da, bm, cm, None, "zamba2-1.2b prefill scan")
+    nbytes = 4 * (2 * xd.numel() + da.numel() + 2 * B * T * N) + state.numel() * 4
+    rows["mamba_scan"] = [dict(
+        shape=f"zamba2-1.2b prefill B{B} T{T} H{H} P{P} N{N} L{L} f32, B/C "
+              "head-broadcast (chunks)", route="chunks", max_abs_err=err,
+        ms=time_ms(lambda: mamba_scan_fwd(xd, da, bm, cm, chunk=L)),
+        plain_ms=time_ms(lambda: ssd_chunk_ref(xd, da, bm, cm, chunk=L), reps=3, warmup=1),
+        library_ms=None,
+        bound=bound(nbytes, scan_flops(B, T, H, P, N, L, groups=1), f32))]
+    del xd, da, bm, cm, y, state
+    cfg = get_arch("deepseek-v2-lite-16b")
+    E, D, F = cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff
+    w = randn((E, D, F), gen, scale=D ** -0.5)
+    rows["grouped_matmul"] = []
+    for what, C in (("prefill", 469), ("decode step", 1)):
+        tile = default_library().tile(GemmDesc(C, F, D), min(16, E))
+        a = randn((E, C, D), gen)
+        out = grouped_kernel.grouped_matmul(a, w, bm=tile.bm)
+        err = check_close(out, grouped_gemm_ref(a, w), grouped_abs(a, w),
+                          f"deepseek grouped up, {what}")
+        rows["grouped_matmul"].append(dict(
+            shape=f"deepseek-v2-lite-16b {what} expert up-projection G{E} {C}x{F}x{D} "
+                  f"bf16 at {tile.key()}",
+            max_abs_err=err,
+            ms=time_ms(lambda: grouped_kernel.grouped_matmul(a, w, bm=tile.bm)),
+            plain_ms=time_ms(lambda: grouped_gemm_ref(a, w), reps=3, warmup=1),
+            library_ms=time_ms(lambda: torch.bmm(a, w)),
+            bound=bound(2 * E * (C * D + D * F + C * F), 2 * E * C * F * D,
+                        torch.bfloat16)))
+    torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        for r in rs:
+            lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"# {name:<15} {r['shape']:<60} kernel {r['ms']:.4f} ms | plain "
+                  f"{r['plain_ms']:.4f} | torch {lib_ms} | bound {r['bound'][0]:.6f} "
+                  f"({r['bound'][1]}) | max err {r['max_abs_err']:.4g}")
+    return rows
+
+
+def profile_model(model, prompt, steps: int = 2) -> None:
+    """The model's prefill and ``steps`` decode steps (bf16 caches), each
+    under `torch.profiler`: wall (host clock to a synchronize), kernel
+    launches and time, the device's busy share (the union of kernel
+    intervals) and the kernels taking the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B, T = prompt.shape
+    cache = model.init_cache(B, T + steps + 1, torch.bfloat16)
+    tokens, state = prompt.to(model.device), {}
+
+    def window(label: str, fn) -> None:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            h0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - h0
+        by_key, n, total = Counter(), 0, 0.0
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA:
+                by_key[evt.key[:48]] += evt.self_device_time_total
+                n += evt.count
+                total += evt.self_device_time_total
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy, end = 0.0, float("-inf")
+        for lo, hi in spans:
+            busy += max(0.0, hi - max(lo, end))
+            end = max(end, hi)
+        top = ", ".join(f"{k} {v / total:.1%}" for k, v in by_key.most_common(6))
+        print(f"#   profiled {label}: wall {wall * 1e3:.3f} ms, {n} kernel launches, "
+              f"kernel time {total / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms (idle "
+              f"{1 - busy / 1e6 / wall:.1%}); most time: {top}")
+
+    def prefill():
+        state["out"] = model.prefill({"tokens": tokens}, cache)
+
+    def decode():
+        logits, _, n = state["out"]
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        for i in range(steps):
+            logits, _, _ = model.decode_step(tok, cache, n + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+
+    with torch.inference_mode():
+        window("prefill", prefill)
+        window(f"{steps} decode steps", decode)
+    take_counts()
+
+
+def model_phase() -> dict:
+    """(a), (b) and (c), with the launches of each counted apart; (b)'s
+    are the kernels line's ``model_serve`` path."""
+    t0 = time.perf_counter()
+    for name, layers in MODEL_CHECKS:
+        model_check(name, layers)
+        free()
+    served, counts = {}, Counter()
+    for name in SERVE_MODELS:
+        served[name] = model_serve(name)
+        counts += served[name]["counts"]
+        free()
+    launcher_on_card()
+    free()
+    print(f"# model phase: {time.perf_counter() - t0:.1f} s (host clock)")
+    return dict(counts=counts, served=served)
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3501,11 +4021,27 @@ def main() -> int:
     missing = [k for k in OP_BUNDLE_KERNELS + ("ragged_matmul",) if op_counts[k] <= 0]
     if missing:
         raise AssertionError(f"the op-bundle path never launched {missing}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    models = model_phase()
+    model_counts = models["counts"]
+    for name, more in model_kernel_rows(gen).items():
+        rows[name] += more
+    for served in models["served"].values():
+        for k, n in served["routes"].items():
+            scan_routes[k] += n
     kernels = []
     for name, replaces in REPLACES:
         r, *more = rows[name]
-        path = (serving if name in PER_CLASS_KERNELS else
-                {"counts": op_counts} if name in OP_BUNDLE_KERNELS else mixed)
+        by_path = ({"per_class": serving["counts"][name]} if name in PER_CLASS_KERNELS else
+                   {"op_bundles": op_counts[name]} if name in OP_BUNDLE_KERNELS else
+                   {"mixed": mixed["counts"][name]})
+        if name == "ragged_matmul":
+            by_path["op_bundles"] = op_counts[name]
+        if name == "mamba_scan":
+            by_path["prompt_scans"] = prompt["counts"][name]
+        if name in MODEL_KERNELS:
+            by_path["model_serve"] = model_counts[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "shape": r["shape"],
@@ -3516,15 +4052,8 @@ def main() -> int:
                           "times the whole one-launch GEMM"}
                if replaces.endswith("_stream_k_fixup_kernel") else {}),
             "instantiation": r.get("instantiation", ""),
-            "launches": path["counts"][name] + (op_counts[name] if name == "ragged_matmul"
-                                                else 0)
-                        + (prompt["counts"][name] if name == "mamba_scan" else 0),
-            **({"launches_by_path": {"per_class": path["counts"][name],
-                                     "op_bundles": op_counts[name]}}
-               if name == "ragged_matmul" else {}),
-            **({"launches_by_path": {"op_bundles": op_counts[name],
-                                     "prompt_scans": prompt["counts"][name]}}
-               if name == "mamba_scan" else {}),
+            "launches": sum(by_path.values()),
+            **({"launches_by_path": by_path} if len(by_path) > 1 else {}),
             **({"launches_by_route": scan_routes,
                 "kernel_launches_per_count": {"decode": 1, "chunks": 3}}
                if name == "mamba_scan" else {}),

@@ -1,3 +1,3 @@
-from repro_torch.configs.base import ArchConfig, get_arch, register
+from repro_torch.configs.base import ArchConfig, get_arch, list_archs, register
 
-__all__ = ["ArchConfig", "get_arch", "register"]
+__all__ = ["ArchConfig", "get_arch", "list_archs", "register"]

@@ -2,10 +2,11 @@
 `repro/configs/base.py`, which the port never imports).
 
 Every architecture is a frozen ``ArchConfig`` registered under its
-public id.  The serving path reads only the projection widths
+public id.  A config fully determines the model `models.build_model`
+builds and the decode-step ops the runtime plans
 (`runtime/integration.py:decode_step_descs`); ``reduced()`` derives the
 tiny same-family config the CPU parity tests use, with exactly the
-reference's rules so both packages plan the same GEMMs.
+reference's rules so both packages build and plan the same shapes.
 """
 from __future__ import annotations
 
@@ -78,6 +79,78 @@ class ArchConfig:
     def ssm_n_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
 
+    @property
+    def is_recurrent(self) -> bool:
+        """Archs with O(1)/bounded decode state (run long_500k)."""
+        return self.family in ("ssm", "hybrid")
+
+    def supports_shape(self, shape_name: str) -> bool:
+        if shape_name == "long_500k":
+            return self.is_recurrent
+        return True
+
+    def param_count(self) -> int:
+        """Parameters by the reference's closed forms
+        (`repro/configs/base.py:94-181`; embedding counted once per table,
+        used for MODEL_FLOPS = 6ND)."""
+        d = self.d_model
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "moe":
+            return self._moe_count(self.n_routed_experts + self.n_shared_experts)
+        if self.family in ("dense", "audio", "vlm"):
+            per_layer = self._attn_params() + 3 * d * self.d_ff + 2 * d
+        elif self.family == "ssm":
+            # xLSTM: mLSTM block params approx (qkv + out + gates + up/down)
+            di = 2 * d
+            per_layer = 4 * d * di + 3 * di + 2 * d
+        elif self.family == "hybrid":
+            di, nh = self.ssm_d_inner, self.ssm_n_heads
+            mamba = (d * (2 * di + nh)                # in_proj (x, z) + dt
+                     + di * (2 * self.ssm_state)      # B, C proj (grouped)
+                     + di * d                         # out_proj
+                     + self.ssm_conv * di
+                     + 2 * nh)
+            # the shared block is counted once (its weights are tied)
+            shared = self._attn_params() + 3 * d * self.d_ff + 2 * d
+            return emb + self.n_layers * (mamba + 2 * d) + shared + d
+        else:
+            per_layer = 0
+        return emb + self.n_layers * per_layer + d
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.resolved_head_dim
+        if self.attn_type == "mla":
+            r = self.kv_lora_rank
+            qd = self.qk_rope_head_dim + self.qk_nope_head_dim
+            q = (d * self.q_lora_rank + self.q_lora_rank * self.n_heads * qd
+                 if self.q_lora_rank else d * self.n_heads * qd)
+            kv = d * (r + self.qk_rope_head_dim) + r * self.n_heads * (
+                self.qk_nope_head_dim + self.v_head_dim)
+            return q + kv + self.n_heads * self.v_head_dim * d
+        q = d * self.n_heads * hd
+        kv = 2 * d * self.n_kv_heads * hd
+        o = self.n_heads * hd * d
+        b = (self.n_heads + 2 * self.n_kv_heads) * hd if self.qkv_bias else 0
+        return q + kv + o + b
+
+    def _moe_count(self, experts: int) -> int:
+        """An MoE model's count with ``experts`` FFNs per MoE layer."""
+        d = self.d_model
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        dense_ff = self.dense_d_ff or self.d_ff
+        total = self.first_dense_layers * (
+            self._attn_params() + 3 * d * dense_ff + 2 * d)
+        total += (self.n_layers - self.first_dense_layers) * (
+            self._attn_params() + experts * 3 * d * self.moe_d_ff
+            + d * self.n_routed_experts + 2 * d)
+        return emb + total + d
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.family != "moe":
+            return self.param_count()
+        return self._moe_count(self.moe_top_k + self.n_shared_experts)
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's rules,
         `repro/configs/base.py:183-219`)."""
@@ -130,6 +203,11 @@ def get_arch(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
 
 
 def _ensure_loaded() -> None:

@@ -79,6 +79,10 @@ class GOLibrary:
                 e = self._entries.setdefault(key, e)
         return self._sanitize(key, e)
 
+    def tile(self, desc, cd: int = 1) -> TileConfig:
+        """The tile ``desc`` runs at in a group of ``cd`` (its GO tile)."""
+        return self.get(desc).tile_for_cd(cd)
+
     def prewarm(self, descs: Sequence) -> int:
         """Tune ahead of traffic: missing GEMMs in ONE `tune_gemm_batch`
         sweep, other families through `tune_op` per descriptor; returns

@@ -1,0 +1,64 @@
+"""Carry the reference's weights into the port: `from_reference` loads a
+``Model.init(...)`` tree of the JAX package, handed over as nested dicts
+of numpy arrays (no JAX needed here), into a `Model`'s parameters.
+
+Both packages keep the same dict keys and (in, out) layouts, so a
+weight is a copy, never a transpose; the reference's scanned layer axis
+(a leading dim on every leaf of a stack) is unstacked into the
+`ModuleList`.  Every shape is checked, and any leaf left unread or any
+parameter left unfilled raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.spec import tree_params
+
+
+def _leaves(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+@torch.no_grad()
+def from_reference(model, tree: dict):
+    """Fill every parameter of ``model`` from ``tree`` (the reference's
+    parameter tree as nested dicts of numpy arrays); returns ``model``.
+    A parameter at layer ``i`` of a stack reads slice ``i`` of its
+    stacked leaf, which must hold exactly that stack's layers."""
+    leaves: Dict[Tuple, np.ndarray] = dict(_leaves(tree))
+    stacks: Dict[Tuple, set] = {}
+    filled = set()
+    for path, spec, param in tree_params(model, model.specs()):
+        key = tuple(k for k in path if not isinstance(k, int))
+        index = tuple(k for k in path if isinstance(k, int))
+        if key not in leaves:
+            raise KeyError(f"from_reference: no leaf {'/'.join(key)} for "
+                           f"parameter {'.'.join(map(str, path))}")
+        leaf = leaves[key]
+        if leaf.shape[len(index):] != spec.shape:
+            raise ValueError(f"from_reference: leaf {'/'.join(key)} has shape "
+                             f"{leaf.shape}, parameter {'.'.join(map(str, path))} "
+                             f"wants {spec.shape} under {len(index)} stacked axes")
+        param.copy_(torch.tensor(leaf[index]))
+        stacks.setdefault(key, set()).add(index)
+        filled.add(id(param))
+    for key, leaf in leaves.items():
+        seen = stacks.get(key)
+        if seen is None:
+            raise ValueError(f"from_reference: leaf {'/'.join(key)} "
+                             f"{leaf.shape} matches no parameter")
+        depth = len(next(iter(seen)))
+        if len(seen) != int(np.prod(leaf.shape[:depth], dtype=np.int64)):
+            raise ValueError(f"from_reference: leaf {'/'.join(key)} stacks "
+                             f"{leaf.shape[:depth]} layers, the model has {len(seen)}")
+    unfilled = [n for n, p in model.named_parameters() if id(p) not in filled]
+    if unfilled:
+        raise ValueError(f"from_reference: parameters left unfilled: {unfilled}")
+    return model

@@ -1,0 +1,201 @@
+"""Models (`repro/models/model.py`): any ported architecture built from
+its `ArchConfig`, as one `nn.Module`.
+
+    specs() / param_count    — declarative specs (spec.py)
+    forward(batch)           — full-sequence logits (+ MoE aux loss)
+    init_cache / prefill / decode_step — serving with per-family caches
+
+Ported families: dense, moe (capacity path) and hybrid (zamba2).  A
+layer stack is a `ModuleList` run in a Python loop (the reference scans
+stacked weights).  Caches keep the reference's layout, a leading layer
+axis on each buffer, and are written in place; ``cache_len`` is a host
+integer.  A family or option not ported yet raises `NotImplementedError`
+naming it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models.attention import init_kv_cache, init_mla_cache
+from repro_torch.models.common import (
+    embed_apply,
+    embed_specs,
+    lm_head_apply,
+    rms_norm,
+    rms_norm_spec,
+)
+from repro_torch.models.spec import build_params, init_params, param_count, stack_specs
+from repro_torch.models.ssm import init_mamba_cache
+
+FAMILIES = ("dense", "moe", "hybrid")
+
+
+def _check_ported(cfg: ArchConfig, moe_mode: str, remat: str) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"(ported: {', '.join(FAMILIES)})")
+    if cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is "
+                                  "not ported yet")
+    if cfg.sliding_window:
+        raise NotImplementedError(f"{cfg.name}: sliding_window is not ported yet")
+    if remat != "none":
+        raise NotImplementedError(f"remat={remat!r} is not ported yet")
+    if moe_mode not in ("auto", "capacity"):
+        raise NotImplementedError(f"moe_mode={moe_mode!r} (expert parallelism) "
+                                  "is not ported yet")
+
+
+class Model(nn.Module):
+    """``cfg``'s model with empty parameters on ``device`` in ``dtype``
+    (`build_model` initialises them).  ``moe_mode`` "auto" is the
+    capacity path here (no mesh)."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 dtype: torch.dtype = torch.float32, moe_mode: str = "auto",
+                 moe_capacity_factor: float = 1.25, remat: str = "none"):
+        super().__init__()
+        _check_ported(cfg, moe_mode, remat)
+        self.cfg = cfg
+        self.moe_capacity_factor = moe_capacity_factor
+        build_params(self, self.specs(), resolve_device(device), dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+    # ------------------------------------------------------------- specs
+    def specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        s: Dict[str, Any] = {"embed": embed_specs(cfg.vocab_size, cfg.d_model,
+                                                  cfg.tie_embeddings),
+                             "final_norm": rms_norm_spec(cfg.d_model)}
+        if cfg.family == "dense":
+            s["layers"] = stack_specs(
+                B.attn_block_specs(cfg, cfg.d_ff, moe=False), cfg.n_layers)
+        elif cfg.family == "moe":
+            s["dense_layers"] = stack_specs(
+                B.attn_block_specs(cfg, cfg.dense_d_ff or cfg.d_ff, moe=False),
+                cfg.first_dense_layers)
+            s["layers"] = stack_specs(B.attn_block_specs(cfg, cfg.d_ff, moe=True),
+                                      cfg.n_layers - cfg.first_dense_layers)
+        else:  # hybrid
+            s["layers"] = stack_specs(B.zamba_layer_specs(cfg), cfg.n_layers)
+            s["shared"] = B.zamba_shared_specs(cfg)
+        return s
+
+    def param_count(self) -> int:
+        return param_count(self.specs())
+
+    def init(self, gen: torch.Generator) -> "Model":
+        """Initialise every parameter from ``gen`` (on the model's device)."""
+        init_params(self, self.specs(), gen)
+        return self
+
+    # ------------------------------------------------------------ layers
+    def _run_layers(self, x, positions, cache=None, cache_len: int = 0):
+        cfg = self.cfg
+        aux = torch.zeros((), device=x.device)
+        if cfg.family in ("dense", "moe"):
+            if cfg.family == "moe" and cfg.first_dense_layers:
+                x, _ = self._run_attn(self.dense_layers, x, positions, moe=False,
+                                      cache=None if cache is None else cache["dense"],
+                                      cache_len=cache_len)
+            x, aux = self._run_attn(self.layers, x, positions,
+                                    moe=cfg.family == "moe",
+                                    cache=None if cache is None else cache["main"],
+                                    cache_len=cache_len)
+        else:
+            for i, p in enumerate(self.layers):
+                c = None if cache is None else {
+                    "mamba": _layer(cache["mamba"], i), "kv": _layer(cache["kv"], i)}
+                x, _ = B.zamba_layer_apply(p, self.shared, x, cfg, positions, i,
+                                           cache=c, cache_len=cache_len)
+        return rms_norm(self.final_norm, x, cfg.norm_eps), aux
+
+    def _run_attn(self, stack, x, positions, *, moe: bool, cache, cache_len: int):
+        aux = torch.zeros((), device=x.device)
+        for i, p in enumerate(stack):
+            x, _, a = B.attn_block_apply(
+                p, x, self.cfg, positions, moe=moe,
+                cache=None if cache is None else _layer(cache, i),
+                cache_len=cache_len, moe_capacity_factor=self.moe_capacity_factor)
+            aux = aux + a
+        return x, aux
+
+    def _positions(self, tokens, start: int, T: int):
+        return (torch.arange(start, start + T, device=tokens.device)[None]
+                .expand(tokens.shape[0], T))
+
+    # ----------------------------------------------------------- forward
+    def forward(self, batch):
+        """Full-sequence logits (B, T, V) and the MoE aux loss."""
+        tokens = batch["tokens"]
+        x = embed_apply(self.embed, tokens)
+        x, aux = self._run_layers(x, self._positions(tokens, 0, tokens.shape[1]))
+        return lm_head_apply(self.embed, x), aux
+
+    def loss(self, batch):
+        raise NotImplementedError("Model.loss (cross_entropy) waits for the "
+                                  "training loop")
+
+    def cache_pspecs(self, mesh, cache):
+        raise NotImplementedError("Model.cache_pspecs waits for distribution")
+
+    # ------------------------------------------------------------ serving
+    def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16) -> dict:
+        """Zeroed caches, each buffer with a leading layer axis; the SSM
+        state is float32 whatever ``dtype``."""
+        cfg, dev = self.cfg, self.device
+        kv = init_mla_cache if cfg.attn_type == "mla" else init_kv_cache
+        if cfg.family == "dense":
+            return {"dense": None,
+                    "main": kv(cfg, batch, s_max, dtype, dev, cfg.n_layers)}
+        if cfg.family == "moe":
+            return {"dense": kv(cfg, batch, s_max, dtype, dev, cfg.first_dense_layers),
+                    "main": kv(cfg, batch, s_max, dtype, dev,
+                               cfg.n_layers - cfg.first_dense_layers)}
+        return {"mamba": init_mamba_cache(cfg, batch, dtype, dev, cfg.n_layers),
+                "kv": init_kv_cache(cfg, batch, s_max, dtype, dev, cfg.n_layers)}
+
+    def prefill(self, batch, cache):
+        """Feed a prompt; returns (last-token logits (B, 1, V), the cache
+        written in place, its new length)."""
+        tokens = batch["tokens"]
+        T = tokens.shape[1]
+        x = embed_apply(self.embed, tokens)
+        x, _ = self._run_layers(x, self._positions(tokens, 0, T), cache=cache,
+                                cache_len=0)
+        return lm_head_apply(self.embed, x[:, -1:]), cache, T
+
+    def decode_step(self, tokens, cache, cache_len: int):
+        """One token per sequence, tokens (B, 1), at position ``cache_len``;
+        returns (logits (B, 1, V), the cache, cache_len + 1)."""
+        x = embed_apply(self.embed, tokens)
+        x, _ = self._run_layers(x, self._positions(tokens, cache_len, 1),
+                                cache=cache, cache_len=cache_len)
+        return lm_head_apply(self.embed, x), cache, cache_len + 1
+
+
+def _layer(stacked, i: int):
+    """Layer ``i``'s views of a stacked cache (a NamedTuple of buffers)."""
+    return type(stacked)(*(t[i] for t in stacked))
+
+
+def build_model(cfg: ArchConfig, *, device="cuda", dtype: torch.dtype = torch.float32,
+                seed: int | None = 0, **kw) -> Model:
+    """``cfg``'s model on ``device`` (CUDA unless asked for the CPU; raises
+    without it), its weights random from ``seed`` by a `torch.Generator`
+    on that device, or left empty for `convert.from_reference` when
+    ``seed`` is None."""
+    model = Model(cfg, device=device, dtype=dtype, **kw)
+    if seed is not None:
+        model.init(torch.Generator(device=model.device).manual_seed(seed))
+    return model

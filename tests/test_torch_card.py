@@ -108,6 +108,7 @@ import torch
 import repro_torch.kernels.flash_attention.ops as fops
 import repro_torch.kernels.gemm.ops as gops
 import repro_torch.kernels.grouped_gemm.ops as ggops
+import repro_torch.kernels.mamba_scan.ops as mops
 from repro_torch.configs import get_arch
 from repro_torch.core import (
     AttentionDesc,
@@ -183,6 +184,8 @@ from repro_torch.runtime import (
     decode_step_op_descs,
 )
 from repro_torch.runtime.graph import slot_shape
+from repro_torch.models import build_model
+from repro_torch.train.serve_loop import greedy_decode
 
 pytestmark = pytest.mark.cuda
 
@@ -1250,3 +1253,63 @@ def test_reduced_moe_bundle_through_the_runtime(card):
             atol, rtol = attention_tol(torch.bfloat16)
             err = (tk.result.float() - ref).abs()
             assert bool((err <= atol + rtol * ref.abs()).all()), tk.desc.key()
+
+
+# ------------------------------------------------------------ the models
+MODEL_TOL = 2e-3   # as chip_smoke.py's model check: ·max(1, max |CPU|)
+
+
+def _model_launches():
+    return (flash_attention_fwd.launches, dict(mamba_scan_fwd.routes),
+            ggk.grouped_matmul.launches)
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "zamba2-1.2b", "deepseek-v2-lite-16b"])
+def test_reduced_model_greedy_on_the_card_matches_the_cpu(card, name, monkeypatch):
+    """One reduced-width model per family: `greedy_decode` on the card
+    with every plain version made to raise (the kernels alone run: one
+    attention launch per attention layer in the prefill, the scan on the
+    chunks route per Mamba layer in the prefill and on the decode kernel
+    per layer and step, three grouped launches per MoE layer and
+    forward), then the same weights on the CPU fed the card's tokens:
+    every call's logits within MODEL_TOL.  The 150-token prompt spans two
+    of the scan's 128-row chunks."""
+    cfg = get_arch(name).reduced()
+    model = build_model(cfg, device=card, seed=11)
+    cpu = build_model(cfg, device="cpu", seed=None)
+    cpu.load_state_dict(model.state_dict())
+    prompt = torch.randint(0, cfg.vocab_size, (2, 150),
+                           generator=torch.Generator().manual_seed(5))
+    steps, seen = 4, []
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    with monkeypatch.context() as m:
+        for mod, fn in ((fops, "flash_ref"), (mops, "ssd_chunk_ref"),
+                        (ggops, "grouped_gemm_ref"), (ggops, "ragged_gemm_ref")):
+            m.setattr(mod, fn, plain)
+        attn0, routes0, grouped0 = _model_launches()
+        toks = greedy_decode(model, {"tokens": prompt}, s_max=156, steps=steps,
+                             device=card, on_step=seen.append).cpu()
+        attn1, routes1, grouped1 = _model_launches()
+    hybrid, moe = cfg.family == "hybrid", cfg.family == "moe"
+    mamba = cfg.n_layers if hybrid else 0
+    assert attn1 - attn0 == (cfg.n_layers // cfg.attn_every if hybrid else cfg.n_layers)
+    assert {k: routes1[k] - routes0[k] for k in routes1} == {"decode": mamba * steps,
+                                                             "chunks": mamba}
+    moe_layers = cfg.n_layers - cfg.first_dense_layers if moe else 0
+    assert grouped1 - grouped0 == (steps + 1) * 3 * moe_layers * -(
+        -cfg.n_routed_experts // ggk.MAX_MEMBERS)
+    with torch.inference_mode():
+        cache = cpu.init_cache(2, 156, torch.float32)
+        logits, cache, n = cpu.prefill({"tokens": prompt}, cache)
+        ref = [logits]
+        for i in range(steps):
+            logits, cache, n = cpu.decode_step(toks[:, i:i + 1], cache, n)
+            ref.append(logits)
+    for i, (got, want) in enumerate(zip(seen, ref)):
+        got = got.cpu()
+        assert torch.isfinite(got).all()
+        err = float((got - want).abs().max())
+        assert err <= MODEL_TOL * max(1.0, float(want.abs().max())), (i, err)
