@@ -256,7 +256,31 @@ Phases, each fatal on failure (nothing here catches an error):
    run first.  (c) `repro_torch.launch.serve.main` on Zamba2-1.2B at
    full width in f32, `--runtime --graph`, its launches exact.  (b)'s
    launches are the kernels line's ``model_serve`` path;
-11. one JSON line ``{"kernels": [...]}`` and, last, the device line.
+11. training, after phase 10 with its weights freed, with the plain
+   versions of attention, the scan and the grouped GEMM raising on the
+   card everywhere but inside the backward of their autograd Functions
+   (where each call is a VJP's recompute, counted): the GEMM backward
+   (`gemm`'s `Gemm` Function) at 8 x 5120 x 5120, bf16 and f32, all four
+   layouts, one tile of each decomposition, against its plain version;
+   (a) one f32 `make_train_step` step at full width on the card and on
+   the CPU from the same masters, Qwen3-14B at 2 layers and Zamba2-1.2B
+   at 6 (on the rescaled tree, and on its init as drawn reported beside
+   the CPU's own one-ulp sensitivity): loss, gradient norm and every
+   leaf's gradient within GRAD_TOL, masters within MASTER_TOL where |g|
+   is above its tolerance, launches and recomputes exact; (b) bf16
+   compute with f32 masters: Zamba2-1.2B at full depth through
+   `repro_torch.launch.train.main` (batch 4, 512 tokens, 8 steps,
+   checkpoints at 4 and 8), then the step-8 checkpoint removed and the
+   same command resuming at step 4 (its losses printed beside the first
+   run's), and Qwen3-14B at 2 of 40 layers through `build_model`,
+   `train_init` and `make_train_step` for 8 steps: losses and gradient
+   norms finite, launches exact (per step `flash_attention` once per
+   attention layer, `mamba_scan` once per Mamba layer on the chunks
+   route, no grouped launch; one VJP recompute each), the median step
+   time of steps 3-8 (CUDA events), tokens/s, peak memory and the bound
+   (`train_bound`), one step each under the profiler.  (b)'s launches
+   are the kernels line's ``train`` path;
+12. one JSON line ``{"kernels": [...]}`` and, last, the device line.
 
 Tolerance of every comparison of a GEMM or of partials (float32, kernel
 vs plain version on the same inputs): |kernel − plain| ≤ 2⁻⁷·|plain| +
@@ -311,6 +335,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -353,6 +378,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.library import default_library  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
+from repro_torch.dist import checkpoint as ckpt  # noqa: E402
 from repro_torch.core.measure import schedule_for, synth_request  # noqa: E402
 from repro_torch.core.scheduler import _run_op  # noqa: E402
 from repro_torch.core.tuner import GROUPED_TILES  # noqa: E402
@@ -416,10 +442,13 @@ from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
     ssd_scan,
 )
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import Model, build_model  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models.blocks import zamba_shared_specs  # noqa: E402
+from repro_torch.models.spec import iter_specs  # noqa: E402
 from repro_torch.models.spec import param_count as spec_param_count  # noqa: E402
+from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     MIXED_CLASS,
     FaultInjector,
@@ -434,6 +463,7 @@ from repro_torch.runtime import (  # noqa: E402
     decode_step_requests,
 )
 from repro_torch.train.serve_loop import greedy_decode  # noqa: E402
+from repro_torch.train.train_loop import TrainState, make_train_step, train_init  # noqa: E402
 
 SEED = 0
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and operations/s by type.
@@ -3968,6 +3998,545 @@ def model_phase() -> dict:
     return dict(counts=counts, served=served)
 
 
+# ----------------------------------------------------------------- training
+# (a) one training step in f32 at full width and a small depth, on the card
+# and on the CPU from the same f32 masters: Qwen3-14B at 2 layers,
+# Zamba2-1.2B at 6 (its shared block runs once).  batch 2, 64 markov
+# tokens.  Qwen3 on its init as drawn (the reference's rule); Zamba2 held
+# on the tree the CPU tests hold it on (`rescale`), and on its init as
+# drawn only reported: there a one-ulp move of the masters moves the CPU's
+# own embedding gradient by ~3× GRAD_TOL (the "sensitivity" tree prints
+# that move beside the card's deviation), as the reference's init leaves
+# the reduced Zamba2 in f32
+# (`tests/test_torch_models_hybrid.py::test_zamba2_reference_scale_is_ill_conditioned`).
+TRAIN_CHECKS = (("qwen3-14b", 2, "reference"), ("zamba2-1.2b", 6, "rescaled"),
+                ("zamba2-1.2b", 6, "sensitivity"))
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 64
+TRAIN_LR = 1e-3
+# Card against CPU gradients, per leaf: max |Δ| ≤ GRAD_TOL·max(1, max |CPU
+# leaf|), and the global norm within GRAD_TOL·max(1, |CPU norm|).  A
+# gradient is the forward's saved activations (each held to the CPU within
+# MODEL_TOL, the kernels to their plain versions within 2e-4 and 3e-4 per
+# call) multiplied into the backward's f32 GEMMs, which cuBLAS and the CPU
+# sum in other orders over the 128 tokens and the layers' widths; the
+# attention's and the scan's backward are the VJPs of their plain versions
+# on both sides.  So a gradient carries the forward's relative error and
+# adds the backward's own, as the loss does: GRAD_TOL = MODEL_TOL.  A
+# wrong head, chunk, layer or dropped VJP term moves a leaf by O(max).
+GRAD_TOL = MODEL_TOL
+# Where |g| > 2·GRAD_TOL·max(1, max |leaf|) both sides step by
+# lr·(sign(g)·|ĝ|/(|ĝ| + ε) + wd·p) (AdamW's first step), which differ by
+# about ε/|ĝ| and a rounding of p: masters within 2⁻²⁰·max(1, |p|) there.
+MASTER_TOL = 2.0 ** -20
+# The GEMM backward at the serving path's 8 x 5120 x 5120, one tile of each
+# decomposition (the bf16 un-split tile takes the TMA feed; f32 the ring).
+GEMM_BWD_SHAPE = (8, 5120, 5120)
+GEMM_BWD_TILES = (("matmul", TileConfig(8, 128, 128)),
+                  ("split-K s4", TileConfig(8, 128, 128, split_k=4)),
+                  ("Stream-K g8", TileConfig(8, 128, 128, stream_k=8)))
+# (b) bf16 compute, f32 masters: Zamba2-1.2B at full depth through the
+# launcher (then resumed at step 4), Qwen3-14B at 2 of 40 layers through
+# build_model, train_init and make_train_step.
+TRAIN_ARGS = ("--batch", "4", "--seq", "512", "--steps", "8", "--ckpt-every", "4",
+              "--log-every", "1")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_RESUME = 4, 512, 8, 4
+QWEN_TRAIN_LAYERS = 2
+TRAIN_KERNELS = ("flash_attention", "mamba_scan", "grouped_matmul")
+# The optimizer's bytes a parameter: f32 master, first and second moments
+# read and written (24), the bf16 gradient read (2).
+OPT_BYTES = 26
+
+
+class PlainCalls:
+    """The plain versions of attention, the scan and the grouped GEMM,
+    made to raise on CUDA tensors everywhere but inside the backward of
+    their autograd Function (`FlashAttention`, `SSDScan`), where each call
+    is the VJP's recompute and is counted; CPU tensors (the (a) step's CPU
+    side) take them as they are.  `restore` puts them back."""
+
+    def __init__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in PLAIN_VERSIONS]
+        self.backward = {flash_ops.FlashAttention.backward.__code__: "flash_attention",
+                         scan_ops.SSDScan.backward.__code__: "mamba_scan"}
+        self.recomputes = Counter()
+        for m, n, real in self.saved:
+            setattr(m, n, self._guard(n, real))
+
+    def _guard(self, name, real):
+        def plain(*args, **kw):
+            tensors = [a for a in args if torch.is_tensor(a)]
+            if all(t.device.type == "cpu" for t in tensors):
+                return real(*args, **kw)
+            kernel = self.backward.get(sys._getframe(1).f_code)
+            if kernel is None:
+                raise AssertionError(f"{name} ran on the card outside its VJP")
+            self.recomputes[kernel] += 1
+            return real(*args, **kw)
+        return plain
+
+    def take(self) -> Counter:
+        out, self.recomputes = self.recomputes, Counter()
+        return out
+
+    def restore(self) -> None:
+        for m, n, real in self.saved:
+            setattr(m, n, real)
+
+
+def train_launches(cfg, steps: int) -> Counter:
+    """Kernel launches of ``steps`` training steps: per forward one
+    attention launch per attention layer run, one chunks-route scan per
+    Mamba layer, no grouped launch (MoE training raises on the card); the
+    backward launches none (its VJPs are plain recomputes, one per
+    launch)."""
+    attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+    mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+    return +Counter(flash_attention=attn * steps, mamba_scan=mamba * steps)
+
+
+def check_train_launches(label: str, cfg, steps: int, counts: Counter, routes: dict,
+                         recomputes: Counter) -> None:
+    want = train_launches(cfg, steps)
+    want_routes = {"decode": 0, "chunks": want["mamba_scan"]}
+    if counts != want or routes != want_routes or recomputes != want:
+        raise AssertionError(f"{label}: launches {dict(counts)}, scan routes {routes}, "
+                             f"VJP recomputes {dict(recomputes)}; the training path "
+                             f"makes {dict(want)}, {want_routes}, one recompute each")
+
+
+def gemm_backward_cases(gen) -> int:
+    """`gemm`'s gradients on the card at GEMM_BWD_SHAPE, bf16 and f32, all
+    four layouts, one tile of each decomposition: dA and dB (each one more
+    `gemm` at the forward's tile) held to their plain versions, the f32
+    products g·op(B)ᵀ and op(A)ᵀ·g cast once, within the GEMM tolerance
+    with the backward product's own K (N for dA, M for dB)."""
+    M, N, K = GEMM_BWD_SHAPE
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, tile in GEMM_BWD_TILES:
+            for ta, tb in LAYOUTS:
+                a = randn((K, M) if ta else (M, K), gen, dtype).requires_grad_(True)
+                b = randn((N, K) if tb else (K, N), gen, dtype,
+                          K ** -0.5).requires_grad_(True)
+                c = gemm(a, b, ta=ta, tb=tb, tile=tile)
+                g = randn(c.shape, gen, dtype)
+                da, db = torch.autograd.grad(c, (a, b), g)
+                opa = (a.T if ta else a).detach().float()     # (M, K)
+                opb = (b.T if tb else b).detach().float()     # (K, N)
+                gf = g.float()
+                want_a, abs_a = gf @ opb.T, abs_product(g, opb.T)    # dgrad, K = N
+                want_b, abs_b = opa.T @ gf, abs_product(opa.T, g)    # wgrad, K = M
+                if ta:
+                    want_a, abs_a = want_a.T, abs_a.T
+                if tb:
+                    want_b, abs_b = want_b.T, abs_b.T
+                what = f"gemm backward {label} {dtype} ta={ta} tb={tb}"
+                check_close(da, want_a.to(dtype), abs_a, f"{what} dA")
+                check_close(db, want_b.to(dtype), abs_b, f"{what} dB")
+                n += 1
+    return n
+
+
+def leaf_excess(got, want) -> tuple[float, float]:
+    """max |got − want| and GRAD_TOL·max(1, max |want|), on ``got``'s
+    device."""
+    want = want.detach().float().to(got.device)
+    return (float((got.detach().float() - want).abs().max()),
+            GRAD_TOL * max(1.0, float(want.abs().max())))
+
+
+def rescale(model, params: dict) -> None:
+    """Move each normal matrix leaf of ``params`` from the reference's σ
+    (scale/√fan_in, `Spec.fan_in`) to scale/√(input width): the
+    better-conditioned tree the CPU tests hold the reduced Zamba2 on
+    (`tests/test_torch_models.py:fan_in_rescaled`)."""
+    specs = {".".join(map(str, p)): s for p, s in iter_specs(model.specs())}
+    for k, p in params.items():
+        s = specs[k]
+        if s.init == "normal" and len(s.shape) >= 2:
+            p.mul_(math.sqrt(max(s.fan_in, 1) / s.shape[-2]))
+
+
+def one_ulp(params: dict, seed: int) -> dict:
+    """``params`` each moved one ulp, up or down at random (seeded)."""
+    gen = torch.Generator().manual_seed(seed)
+    return {k: torch.nextafter(p, torch.where(torch.rand(p.shape, generator=gen) < 0.5,
+                                              -math.inf, math.inf))
+            for k, p in params.items()}
+
+
+def grad_deviation(got: dict, want: dict) -> tuple[float, str]:
+    """The worst leaf's max |got − want| / max(1, max |want|), and its name."""
+    return max((leaf_excess(got[k], w)[0] / max(1.0, float(w.abs().max())), k)
+               for k, w in want.items())
+
+
+def train_check(name: str, layers: int, plain: PlainCalls, tree: str) -> None:
+    """(a): one `make_train_step` step in f32 on the card and on the CPU from
+    the same f32 masters (made on the card from a seed and copied),
+    ``tree`` "reference" (the init as drawn) or "rescaled" (`rescale`):
+    loss, global norm and every leaf's gradient within GRAD_TOL, the
+    masters within MASTER_TOL where |g| is above twice its tolerance; the
+    kernels' launches and the VJPs' recomputes exact.  ``tree``
+    "sensitivity": the init as drawn, where the CPU's own gradient moves
+    by more than GRAD_TOL when the masters move one ulp (Zamba2): the
+    card's deviation from the CPU is printed beside that move, and the
+    loss alone is held to MODEL_TOL."""
+    t0 = time.perf_counter()
+    cfg = replace(get_arch(name), n_layers=layers)
+    card = build_model(cfg, device="cuda", dtype=torch.float32, seed=SEED + 8)
+    cpu = build_model(cfg, device="cpu", seed=None)
+    opt = AdamW(AdamWConfig(lr=TRAIN_LR, total_steps=8, warmup_steps=1))
+    state = train_init(card, opt)
+    if tree == "rescaled":
+        rescale(card, state.params)
+    card.to("meta")   # the step reads the masters alone
+    free()
+    host_params = {k: p.cpu() for k, p in state.params.items()}
+    host = TrainState(host_params, opt.init(host_params), state.step.cpu())
+    batch = make_batch(cfg, InputShape("check", TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH,
+                                       "train"), 0, mode="markov")
+    grads = {}
+
+    def keep(where):
+        def transform(g):
+            grads[where] = g
+            return g
+        return transform
+
+    reset_counts()
+    plain.take()
+    t1 = time.perf_counter()
+    new_card, m_card = make_train_step(card, opt, compute_dtype=torch.float32,
+                                       grad_transform=keep("card"))(state, batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    routes = dict(mamba_scan_fwd.routes)
+    check_train_launches(f"train check {name}", cfg, 1, take_counts(), routes, plain.take())
+    masters = {k: p.clone() for k, p in host.params.items()} if tree == "sensitivity" else None
+    new_cpu, m_cpu = make_train_step(cpu, opt, compute_dtype=torch.float32,
+                                     grad_transform=keep("cpu"))(host, batch)
+    t3 = time.perf_counter()
+    loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+    label = f"train check {name} ({tree} tree)"
+    if loss_err > MODEL_TOL * max(1.0, abs(float(m_cpu["loss"]))):
+        raise AssertionError(f"{label}: loss {float(m_card['loss'])} on the card, "
+                             f"{float(m_cpu['loss'])} on the CPU")
+    n = sum(p.numel() for p in state.params.values())
+    head = (f"# train check {name} at full width, {layers} of {get_arch(name).n_layers} "
+            f"layers, f32, the {tree} tree ({n / 1e9:.3f} B parameters): batch "
+            f"{TRAIN_CHECK_BATCH}, {TRAIN_CHECK_SEQ} markov tokens, one step from the same "
+            f"masters; loss card {float(m_card['loss']):.6f} CPU {float(m_cpu['loss']):.6f} "
+            f"(|Δ| {loss_err:.3g})")
+    if tree == "sensitivity":
+        dev, at = grad_deviation(grads["card"], grads["cpu"])
+        make_train_step(cpu, opt, compute_dtype=torch.float32, grad_transform=keep("ulp"))(
+            TrainState(one_ulp(masters, SEED), opt.init(masters), host.step), batch)
+        sens, at_s = grad_deviation(grads["ulp"], grads["cpu"])
+        print(f"{head}; worst leaf gradient card vs CPU {dev:.3g}·max(1, |CPU|) ({at}); the "
+              f"CPU's own gradient with the masters moved one ulp: {sens:.3g}·max(1, |CPU|) "
+              f"({at_s}); GRAD_TOL {GRAD_TOL}; {time.perf_counter() - t0:.1f} s (host "
+              f"clock)")
+        return
+    gn_err = abs(float(m_card["gnorm"]) - float(m_cpu["gnorm"]))
+    if gn_err > GRAD_TOL * max(1.0, float(m_cpu["gnorm"])):
+        raise AssertionError(f"{label}: gradient norm {float(m_card['gnorm'])} on the "
+                             f"card, {float(m_cpu['gnorm'])} on the CPU")
+    worst, master_err, moved = 0.0, 0.0, 0
+    for k, want in grads["cpu"].items():
+        err, tol = leaf_excess(grads["card"][k], want)
+        if err > tol:
+            raise AssertionError(f"{label}: gradient of {k} off the CPU's by {err:.4g} > "
+                                 f"{tol:.4g}")
+        worst = max(worst, err / tol)
+        sure = want.to("cuda").abs() > 2 * tol
+        p_card = new_card.params[k][sure]
+        p_cpu = new_cpu.params[k].to("cuda")[sure]
+        if p_cpu.numel():
+            d = (p_card - p_cpu).abs() / torch.clamp(p_cpu.abs(), min=1.0)
+            master_err = max(master_err, float(d.max()))
+            moved += p_cpu.numel()
+        del sure, p_card, p_cpu
+    if master_err > MASTER_TOL:
+        raise AssertionError(f"{label}: masters off the CPU's by {master_err:.3g}·max(1,|p|) "
+                             f"> {MASTER_TOL:.3g}")
+    print(f"{head}; gradient norm |Δ| {gn_err:.3g} of {float(m_cpu['gnorm']):.4g}; worst "
+          f"leaf gradient at {worst:.3f} of its tolerance (GRAD_TOL {GRAD_TOL}·max(1, "
+          f"|CPU|)); masters where |g| > 2·tol ({moved} of {n}) within {master_err:.3g}·"
+          f"max(1, |p|) (MASTER_TOL {MASTER_TOL:.3g}); card step {t2 - t1:.1f} s, CPU step "
+          f"{t3 - t2:.1f} s, {time.perf_counter() - t0:.1f} s in all (host clock)")
+
+
+def dense_params(cfg) -> int:
+    """Parameters multiplied in a forward: all but the token table (a
+    gather), Zamba2's shared block once per application."""
+    return Model(cfg, device="meta").param_count() - cfg.vocab_size * cfg.d_model \
+        + shared_reapplied(cfg)
+
+
+def train_bound(cfg, n_params: int) -> dict:
+    """Least time (ms) of one training step of TRAIN_BATCH x TRAIN_SEQ tokens:
+    the larger of its operations at the bf16 peak (6 per multiplied
+    parameter and token, and three times the forward's causal attention)
+    and the optimizer's bytes (OPT_BYTES a parameter) at the HBM rate."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * dense_params(cfg) * tokens + 3 * attention_flops(cfg, TRAIN_BATCH,
+                                                                 TRAIN_SEQ, 0)
+    t, by = bound(OPT_BYTES * n_params, flops, torch.bfloat16)
+    return dict(ms=t, by=by, flops=flops, opt_bytes=OPT_BYTES * n_params)
+
+
+TRAIN_KINDS = (("flash_attention", ("flash_bf16", "flash_f32")),
+               ("ssd state", ("ssd_state_kernel",)), ("ssd carry", ("ssd_carry_kernel",)),
+               ("ssd output", ("ssd_output_kernel",)),
+               ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "splitKreduce")))
+TRAIN_RANGES = ("train: attention VJP", "train: scan VJP", "train: optimizer")
+
+
+def train_ranges():
+    """Wrap the attention and scan backward and the optimizer's update in
+    profiler ranges; returns the call that unwraps them."""
+    from torch.profiler import record_function
+
+    wrapped = [(flash_ops.FlashAttention, "backward", TRAIN_RANGES[0]),
+               (scan_ops.SSDScan, "backward", TRAIN_RANGES[1])]
+    saved = [(cls, n, cls.__dict__[n]) for cls, n, _ in wrapped]
+    for cls, n, label in wrapped:
+        real = cls.__dict__[n].__func__
+
+        def ranged(*a, _real=real, _label=label):
+            with record_function(_label):
+                return _real(*a)
+        setattr(cls, n, staticmethod(ranged))
+    real_update = AdamW.update
+
+    def update(self, *a, **kw):
+        with record_function(TRAIN_RANGES[2]):
+            return real_update(self, *a, **kw)
+    AdamW.update = update
+
+    def undo():
+        for cls, n, f in saved:
+            setattr(cls, n, f)
+        AdamW.update = real_update
+    return undo
+
+
+def profile_train_step(label: str, step) -> None:
+    """One training step under `torch.profiler`: its wall (host clock to a
+    synchronize), kernel launches and time, the device's idle share, and
+    kernel time by kind (names) and by range (the VJPs' plain recomputes
+    with their backward, the optimizer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    undo = train_ranges()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - h0
+    undo()
+    kinds, ranges, n, total = Counter(), Counter(), 0, 0.0
+    for evt in prof.key_averages():
+        if evt.key in TRAIN_RANGES:   # its kernels are counted by kind below
+            if evt.device_type == DeviceType.CPU:
+                ranges[evt.key] += evt.device_time_total
+            continue
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        kind = next((k for k, pats in TRAIN_KINDS if any(p in evt.key for p in pats)),
+                    "elementwise and other")
+        kinds[kind] += evt.self_device_time_total
+        n += evt.count
+        total += evt.self_device_time_total
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name not in TRAIN_RANGES)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    by_kind = ", ".join(f"{k} {v / total:.1%}" for k, v in kinds.most_common())
+    by_range = ", ".join(f"{k[7:]} {ranges[k] / 1e3:.3f} ms ({ranges[k] / total:.1%})"
+                         for k in TRAIN_RANGES)
+    print(f"#   profiled {label} step: wall {wall * 1e3:.3f} ms, {n} kernel launches, "
+          f"kernel time {total / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms (idle "
+          f"{1 - busy / 1e6 / wall:.1%}); by kind: {by_kind}; by range: {by_range}")
+
+
+def step_line(label: str, cfg, n_params: int, steps_ms: list, peak: int) -> dict:
+    """Print and return (b)'s numbers for one model: the median of steps
+    3..8, tokens/s, peak memory and the bound."""
+    late = sorted(steps_ms[2:])
+    med = late[len(late) // 2]
+    bd = train_bound(cfg, n_params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"#   {label}: step ms {[round(t, 3) for t in steps_ms]}; median of steps 3-"
+          f"{len(steps_ms)} {med:.3f} ms, {tokens / med * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB (max_memory_allocated); bound {bd['ms']:.3f} ms "
+          f"({bd['by']}: {bd['flops'] / 1e12:.2f} TFLOP at 989 TFLOP/s, optimizer "
+          f"{bd['opt_bytes'] / 1e9:.2f} GB at 3.35 TB/s)")
+    return dict(median_ms=med, tokens_per_s=tokens / med * 1e3, peak_gb=peak / 1e9,
+                bound_ms=bd["ms"], bound_by=bd["by"])
+
+
+def timed_steps(marks: list):
+    """A `make_train_step` that records CUDA events around every step into
+    ``marks``."""
+    def make(*a, **kw):
+        inner = make_train_step(*a, **kw)
+
+        def step(state, batch):
+            start = mark()
+            out = inner(state, batch)
+            marks.append((start, mark()))
+            return out
+        return step
+    return make
+
+
+def zamba_train(plain: PlainCalls, ckpt_dir: str) -> dict:
+    """(b), Zamba2-1.2B at full width and depth through
+    `repro_torch.launch.train.main`: 8 steps with checkpoints at 4 and 8,
+    then the step-8 checkpoint removed (a run lost after step 4) and the
+    same command again, which resumes at step 4; its losses for steps 5-8
+    printed beside the first run's.  Launches and recomputes exact; step
+    times, peak memory and one profiled step."""
+    t0 = time.perf_counter()
+    cfg = get_arch(ZAMBA)
+    args = ["--arch", ZAMBA, "--ckpt-dir", ckpt_dir, *TRAIN_ARGS]
+    marks: list = []
+    train_launcher.make_train_step = timed_steps(marks)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    plain.take()
+    first = train_launcher.main(args)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(mamba_scan_fwd.routes)
+    counts = take_counts()
+    check_train_launches("zamba2 training", cfg, TRAIN_STEPS, counts, routes, plain.take())
+    steps_ms = [a.elapsed_time(b) for a, b in marks]
+    n_params = sum(p.numel() for p in first["state"].params.values())
+    del first["state"]
+    free()
+    saved = ckpt.all_steps(ckpt_dir)
+    shutil.rmtree(Path(ckpt_dir) / f"{ckpt.STEP_PREFIX}{TRAIN_STEPS:08d}")
+    reset_counts()
+    t1 = time.perf_counter()
+    second = train_launcher.main(args)
+    t_second = time.perf_counter() - t1
+    routes2 = dict(mamba_scan_fwd.routes)
+    counts2 = take_counts()
+    check_train_launches("zamba2 resumed training", cfg, TRAIN_STEPS - TRAIN_RESUME,
+                         counts2, routes2, plain.take())
+    losses = first["losses"]
+    resumed = second["losses"]
+    if (len(losses) != TRAIN_STEPS or len(resumed) != TRAIN_STEPS - TRAIN_RESUME
+            or not all(math.isfinite(x) for x in losses + resumed)
+            or second["final_step"] != TRAIN_STEPS):
+        raise AssertionError(f"zamba2 training: losses {losses}, resumed {resumed}, "
+                             f"final step {second['final_step']}")
+    diff = max(abs(a - b) for a, b in zip(losses[TRAIN_RESUME:], resumed))
+    print(f"# training {ZAMBA} at full width and depth through launch.train, bf16 "
+          f"compute, f32 masters ({n_params / 1e9:.3f} B parameters), batch "
+          f"{TRAIN_BATCH}, {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps, checkpoints {saved}; "
+          f"losses {[round(x, 5) for x in losses]}; kernel launches {dict(counts)} + "
+          f"{dict(counts2)} resumed, scan routes {routes} + {routes2}, every plain "
+          f"version raising outside its VJP")
+    print(f"#   resumed at step {TRAIN_RESUME}: losses of steps 5-8 {resumed} beside "
+          f"{losses[TRAIN_RESUME:]}, largest difference {diff:.3g}")
+    res = step_line(ZAMBA, cfg, n_params, steps_ms, peak)
+    train_launcher.make_train_step = make_train_step
+    state = second.pop("state")
+    model = build_model(cfg, device="meta", seed=None)   # the step reads the masters
+    step_fn = make_train_step(model, AdamW(AdamWConfig(total_steps=TRAIN_STEPS)))
+    batch = make_batch(cfg, InputShape("t", TRAIN_SEQ, TRAIN_BATCH, "train"), TRAIN_STEPS)
+    t2 = time.perf_counter()
+    profile_train_step(ZAMBA, lambda: step_fn(state, batch))
+    plain.take()
+    take_counts()
+    del state, step_fn
+    free()
+    print(f"#   {ZAMBA} training: {time.perf_counter() - t0:.1f} s (host clock): the first "
+          f"launcher run {t_first:.1f} s, the resumed one {t_second:.1f} s (model, masters, "
+          f"host snapshot, checkpoints and steps), the profiled step "
+          f"{time.perf_counter() - t2:.1f} s")
+    return dict(counts=counts + counts2, **res)
+
+
+def qwen_train(plain: PlainCalls) -> dict:
+    """(b), Qwen3-14B at full width, 2 of 40 layers, through `build_model`
+    (bf16 weights: the masters are their f32 copies), `train_init` and
+    `make_train_step`: 8 steps on markov batches, bf16 compute."""
+    t0 = time.perf_counter()
+    cfg = replace(get_arch("qwen3-14b"), n_layers=QWEN_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED + 9)
+    opt = AdamW(AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=2))
+    state = train_init(model, opt)
+    model.to("meta")   # the step reads the masters alone
+    free()
+    marks: list = []
+    step_fn = timed_steps(marks)(model, opt)
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    reset_counts()
+    plain.take()
+    losses, gnorms = [], []
+    for i in range(TRAIN_STEPS):
+        state, metrics = step_fn(state, make_batch(cfg, shape, i, mode="markov"))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+    peak = torch.cuda.max_memory_allocated()
+    routes = dict(mamba_scan_fwd.routes)
+    counts = take_counts()
+    check_train_launches("qwen3 training", cfg, TRAIN_STEPS, counts, routes, plain.take())
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"qwen3 training: losses {losses}, gradient norms {gnorms}")
+    n_params = sum(p.numel() for p in state.params.values())
+    print(f"# training qwen3-14b at full width, {QWEN_TRAIN_LAYERS} of 40 layers, bf16 "
+          f"compute, f32 masters ({n_params / 1e9:.3f} B parameters), batch {TRAIN_BATCH}, "
+          f"{TRAIN_SEQ} markov tokens, {TRAIN_STEPS} steps: losses "
+          f"{[round(x, 5) for x in losses]}, gradient norms {[round(x, 4) for x in gnorms]}; "
+          f"kernel launches {dict(counts)}, every plain version raising outside its VJP")
+    res = step_line("qwen3-14b", cfg, n_params, [a.elapsed_time(b) for a, b in marks], peak)
+    batch = make_batch(cfg, shape, TRAIN_STEPS, mode="markov")
+    profile_train_step("qwen3-14b", lambda: step_fn(state, batch))
+    plain.take()
+    take_counts()
+    del state, step_fn
+    free()
+    print(f"#   qwen3-14b training: {time.perf_counter() - t0:.1f} s (host clock)")
+    return dict(counts=counts, **res)
+
+
+def training_phase() -> dict:
+    """(a) and (b), with the plain versions raising outside their VJPs for
+    the whole phase; (b)'s launches are the kernels line's ``train`` path."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    reset_counts()
+    print(f"# gemm backward: {gemm_backward_cases(gen)} cases at "
+          f"{'x'.join(map(str, GEMM_BWD_SHAPE))} (bf16 and f32, four layouts, "
+          f"{', '.join(lbl for lbl, _ in GEMM_BWD_TILES)}) agree with their plain "
+          f"versions; kernel launches (not in the kernels line) {dict(take_counts())}")
+    free()
+    plain = PlainCalls()
+    for name, layers, tree in TRAIN_CHECKS:
+        train_check(name, layers, plain, tree)
+        free()
+    disk = shutil.disk_usage(_build.BUILD_DIR)
+    print(f"# checkpoints under the build directory: {disk.free / 1e9:.1f} GB free")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        zamba = zamba_train(plain, tmp)
+    qwen = qwen_train(plain)
+    plain.restore()
+    print(f"# training phase: {time.perf_counter() - t0:.1f} s (host clock)")
+    return dict(counts=zamba["counts"] + qwen["counts"], zamba=zamba, qwen=qwen)
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4030,6 +4599,10 @@ def main() -> int:
     for served in models["served"].values():
         for k, n in served["routes"].items():
             scan_routes[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = training_phase()
+    scan_routes["chunks"] += trained["counts"]["mamba_scan"]
     kernels = []
     for name, replaces in REPLACES:
         r, *more = rows[name]
@@ -4042,6 +4615,8 @@ def main() -> int:
             by_path["prompt_scans"] = prompt["counts"][name]
         if name in MODEL_KERNELS:
             by_path["model_serve"] = model_counts[name]
+        if name in TRAIN_KERNELS:
+            by_path["train"] = trained["counts"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "shape": r["shape"],

@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import make_batch
+from repro_torch.data.pipeline import DataLoader, input_specs, make_batch
 
-__all__ = ["make_batch"]
+__all__ = ["DataLoader", "input_specs", "make_batch"]

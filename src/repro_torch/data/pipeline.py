@@ -1,17 +1,24 @@
-"""Deterministic synthetic data (`repro/data/pipeline.py`), token
-frontends in ``uniform`` mode.
+"""Deterministic synthetic data (`repro/data/pipeline.py`): token
+frontends in ``uniform`` and ``markov`` mode, their input specs, and a
+prefetching loader.
 
 Tokens are a counter-based function of (step, salt) alone: numpy's
 Philox generator keyed by them, so every host computes the same batch
 for a step with no state to keep.  They are not the reference's tokens
 (it draws threefry bits through JAX, which the port does not import);
 a test that needs the same tokens in both packages hands them over.
-The ``markov`` mode, the audio and vision frontends and the prefetching
-loader wait for the training loop.
+The ``markov`` stream is the reference's construction from the same
+source: a fixed bigram table of 4 successors a token, each sequence a
+walk through it, so the stream is learnable (its entropy is log 4, far
+below log V).  The audio and vision frontends wait for their slice
+(ROADMAP A12d).
 """
 from __future__ import annotations
 
-from typing import Dict
+import collections
+import threading
+from functools import lru_cache
+from typing import Dict, Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -20,18 +27,130 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import InputShape
 
 SEED = 0x5EED
+TABLE_SEED = 0xB16A      # the bigram table's key (the reference's table key)
+WALK_SEED = 0xC4A1       # the walks' key, with the step
+SUCCESSORS = 4
+MODES = ("uniform", "markov")
+
+
+def _philox(*key: int) -> np.random.Generator:
+    return np.random.Generator(np.random.Philox(key=list(key)))
 
 
 def _tokens(step: int, shape: tuple, vocab: int, salt: int = 0) -> torch.Tensor:
     """int32 tokens in [0, vocab), from Philox keyed by (step, salt)."""
-    rng = np.random.Generator(np.random.Philox(key=[SEED, step * 2 + salt]))
+    rng = _philox(SEED, step * 2 + salt)
     return torch.from_numpy(rng.integers(0, vocab, shape, dtype=np.int32))
 
 
-def make_batch(cfg: ArchConfig, shape: InputShape, step: int) -> Dict[str, torch.Tensor]:
-    """``{"tokens", "labels"}``, (global_batch, seq_len) int32 CPU tensors
-    of ``shape``, labels the tokens shifted by one."""
+@lru_cache(maxsize=8)
+def successor_table(vocab: int) -> np.ndarray:
+    """(vocab, 4) int32: each token's plausible successors, fixed."""
+    return _philox(TABLE_SEED, 0).integers(0, vocab, (vocab, SUCCESSORS), dtype=np.int32)
+
+
+def _markov_tokens(step: int, shape: tuple, vocab: int) -> torch.Tensor:
+    """(B, T) int32: per sequence a first token and T successor choices
+    keyed by ``step``; token t is the chosen successor of token t−1 (of
+    the first token for t = 0)."""
+    B, T = shape
+    succ = successor_table(vocab)
+    rng = _philox(WALK_SEED, step)
+    tok = rng.integers(0, vocab, (B,), dtype=np.int32)
+    choices = rng.integers(0, SUCCESSORS, (B, T), dtype=np.int32)
+    out = np.empty((B, T), dtype=np.int32)
+    for t in range(T):
+        tok = succ[tok, choices[:, t]]
+        out[:, t] = tok
+    return torch.from_numpy(out)
+
+
+def _check(cfg: ArchConfig, mode: str) -> None:
     if cfg.frontend:
         raise NotImplementedError(f"the {cfg.frontend} frontend is not ported yet")
-    toks = _tokens(step, (shape.global_batch, shape.seq_len + 1), cfg.vocab_size)
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}; have {MODES}")
+
+
+def make_batch(cfg: ArchConfig, shape: InputShape, step: int,
+               mode: str = "uniform") -> Dict[str, torch.Tensor]:
+    """``{"tokens", "labels"}``, (global_batch, seq_len) int32 CPU tensors
+    of ``shape``, labels the tokens shifted by one; ``mode`` "uniform"
+    draws every token alike, "markov" walks the bigram table."""
+    _check(cfg, mode)
+    draw = _markov_tokens if mode == "markov" else _tokens
+    toks = draw(step, (shape.global_batch, shape.seq_len + 1), cfg.vocab_size)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class TensorSpec(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, TensorSpec]:
+    """Shapes and dtypes of every model input of this shape: a decode
+    step's one token, a prefill's tokens, and a training step's labels
+    besides (`repro/data/pipeline.py:87`)."""
+    _check(cfg, "uniform")
+    B, T = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": TensorSpec((B, 1), torch.int32)}
+    specs = {"tokens": TensorSpec((B, T), torch.int32)}
+    if shape.kind == "train":
+        specs["labels"] = TensorSpec((B, T), torch.int32)
+    return specs
+
+
+class DataLoader:
+    """Batches made on a background thread, ``prefetch`` ahead: iterating
+    yields ``(step, batch)`` from ``start_step`` on, the batches CPU
+    tensors (`make_batch` with ``**kw``).  `close` (or leaving a ``with``
+    block) stops the thread."""
+
+    def __init__(self, cfg: ArchConfig, shape: InputShape, start_step: int = 0,
+                 prefetch: int = 2, **kw):
+        _check(cfg, kw.get("mode", "uniform"))
+        self.cfg, self.shape, self.kw = cfg, shape, kw
+        self.step, self.prefetch = start_step, prefetch
+        self._ready: collections.deque = collections.deque()
+        self._cv = threading.Condition()
+        self._stop = False
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="data-loader")
+        self._thread.start()
+
+    def _worker(self) -> None:
+        s = self.step
+        while True:
+            batch = make_batch(self.cfg, self.shape, s, **self.kw)
+            with self._cv:
+                self._cv.wait_for(lambda: self._stop or len(self._ready) < self.prefetch)
+                if self._stop:
+                    return
+                self._ready.append((s, batch))
+                self._cv.notify_all()
+            s += 1
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        with self._cv:
+            self._cv.wait_for(lambda: self._ready)
+            item = self._ready.popleft()
+            self._cv.notify_all()
+        return item
+
+    def __enter__(self) -> "DataLoader":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join()

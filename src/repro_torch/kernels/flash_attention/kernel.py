@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm.kernel import DTYPE_CODES, output, raise_on_error
+from repro_torch.kernels.gemm.kernel import DTYPE_CODES, output, raise_on_error, refuse_grad
 
 _LL, _P, _I, _F = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -167,6 +167,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     as in the TPU kernel.  ``out`` (`attention_buffers`) receives the
     output and the split partials; its counter must be zero (as
     `attention_buffers` makes it and every launch leaves it)."""
+    refuse_grad("flash_attention_fwd", q, k, v,
+                backward="call `ops.flash_attention`, whose autograd Function "
+                         "runs the backward")
     for t in (q, k, v):
         if t.device.type != "cuda":
             raise ValueError("flash_attention_fwd: the CUDA kernel needs CUDA "

@@ -8,9 +8,19 @@ and, on the card, the kernel's split partials, so a mixed launch
 allocates them before it forks.  The q/kv block sizes are the family's
 tile axes: `attention_for_desc` maps a GO-library `TileConfig` onto them
 (bm → bq, bn → bkv), so the scheduler runs an `AttentionDesc` member at
-its tuned tile.  The backward pass is not ported (serving needs none).
+its tuned tile.
+
+The backward (`repro/kernels/flash_attention/ops.py:25-50`): on the card,
+where an operand requires grad, `flash_attention` runs `FlashAttention`,
+an autograd Function whose forward is the hand-written kernel and whose
+backward is the VJP of the plain `flash_ref`, recomputed from the saved
+q, k and v, as the reference's backward is the VJP of its XLA
+`flash_ref`.  On the CPU `flash_ref` runs both ways, as in the reference
+off the TPU.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
     AttentionBuffers,
@@ -18,6 +28,23 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_fwd,
 )
 from repro_torch.kernels.flash_attention.ref import flash_ref
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward, and the VJP of `flash_ref` for backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, bq, bkv, out):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+        return flash_attention_fwd(q, k, v, bq=bq, bkv=bkv, out=out, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_ref(q, k, v, **ctx.kw)
+        return (*torch.autograd.grad(out, (q, k, v), g), *(None,) * 7)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -29,10 +56,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     the output (`:71-77`); the kernel reads V at its own width, which is
     the same function with no padding copy.  ``out`` (CUDA only, an
     `AttentionBuffers` from `attention_buffers`) receives the result and
-    the kernel's split partials."""
+    the kernel's split partials.  On the card, where grad is enabled and
+    an operand requires it, the call runs through `FlashAttention`."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_ref(q, k, v, causal=causal, window=window, scale=scale,
                          q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
+                                    bq, bkv, out)
     return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                scale=scale, q_offset=q_offset, bq=bq, bkv=bkv,
                                out=out)

@@ -25,6 +25,9 @@ is the plain versions in `ref.py`, chosen by `ops.gemm` from the
 tensors' device.  Each launcher writes into ``out`` when given (the
 mixed launch allocates every buffer before it forks onto its streams),
 else allocates it, and adds one to its ``launches`` count per launch.
+A launch returns a tensor with no autograd history, so each launcher
+refuses to run where autograd would record it (`refuse_grad`): the ops'
+autograd Functions launch with grad disabled.
 """
 from __future__ import annotations
 
@@ -254,6 +257,21 @@ def gemm_dims(a: torch.Tensor, b: torch.Tensor, ta: bool, tb: bool
 
 
 # ----------------------------------------------------------------- checks
+def refuse_grad(what: str, *tensors, backward: str) -> None:
+    """Raise when grad is enabled and an operand requires it: the launch's
+    output would carry no ``grad_fn``, and the gradients would be lost
+    without a sound.  ``backward`` names where the op's backward is (its
+    autograd Function, which launches with grad disabled), or that it
+    has none."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{what}: an operand requires grad, and a launch "
+                           f"records no backward; {backward}")
+
+
+GEMM_BACKWARD = "call `ops.gemm`, whose autograd Function runs the backward"
+
+
 def check_operands(*tensors: torch.Tensor, what: str = "kernel"
                    ) -> torch.dtype:
     """Raise unless every tensor is a contiguous CUDA tensor of one
@@ -357,6 +375,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
     the `TileConfig` row block (`cta_rows` maps it to the CTA tile).
     The feed is `matmul_feed`'s; each launch adds one to
     ``matmul.launches`` and to ``matmul.feeds[feed]``."""
+    refuse_grad("matmul", a, b, backward=GEMM_BACKWARD)
     dtype = check_operands(a, b, what="matmul")
     out_dtype = dtype if out_dtype is None else out_dtype
     if out_dtype not in DTYPE_CODES:
@@ -445,6 +464,7 @@ def splitk_matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
     partial is allocated.  A split outside 1-`MAX_CLUSTER` raises: the
     H100 has no larger cluster (the reference and the plain version take
     any split; ROADMAP queue C)."""
+    refuse_grad("splitk_matmul", a, b, backward=GEMM_BACKWARD)
     if not 1 <= split <= MAX_CLUSTER:
         raise ValueError(f"splitk_matmul: split={split} exceeds the largest "
                          f"thread-block cluster, {MAX_CLUSTER} CTAs, that runs "
@@ -487,6 +507,7 @@ def stream_k_matmul(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
     is allocated when not given.  The launch counts on the current
     stream's counters (`stream_counters`), which it leaves zero, so no
     launch zeroes them."""
+    refuse_grad("stream_k_matmul", a, b, backward=GEMM_BACKWARD)
     dtype = check_operands(a, b, what="stream_k_matmul")
     out_dtype = dtype if out_dtype is None else out_dtype
     if out_dtype not in DTYPE_CODES:

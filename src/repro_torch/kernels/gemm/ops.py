@@ -17,8 +17,16 @@ G) and slot order; the card runs the walk in its own units
 (`kernel.card_geometry`) and sums in runs, which regroups the f32
 partials and so the summation order, not the function
 (`ref.stream_k_matmul_ref` is the card's order).  The kernels mask ragged edges themselves, so operands are
-never padded.  The backward pass (two independent GEMMs) belongs to
-training and is not ported yet.
+never padded.
+
+The backward (`repro/kernels/gemm/ops.py:76-147`, a custom VJP on every
+path): where grad is enabled and an operand requires it, `gemm` runs
+`Gemm`, an autograd Function whose forward is the tile's decomposition
+and whose backward is two more `gemm` calls at the same tile, dgrad and
+wgrad, with the reference's operand flags for each (ta, tb) and the
+output gradient cast to the operands' dtype.  The card's launchers take
+contiguous operands only (ROADMAP C10), so the backward makes the
+output gradient contiguous first.
 """
 from __future__ import annotations
 
@@ -116,6 +124,32 @@ def gemm_buffers(a, b, *, ta: bool = False, tb: bool = False,
     return GemmBuffers(out)
 
 
+class Gemm(torch.autograd.Function):
+    """`gemm` forward; backward (`_gemm_bwd`, `:132-147`): dgrad and wgrad
+    as two independent `gemm` calls at the forward's tile."""
+
+    @staticmethod
+    def forward(ctx, a, b, ta, tb, tile, out_dtype, buffers):
+        ctx.save_for_backward(a, b)
+        ctx.flags = (ta, tb, tile)
+        return _gemm(a, b, ta, tb, tile, out_dtype, buffers)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ta, tb, tile = ctx.flags
+        g = g.to(a.dtype).contiguous()
+        if not ta:
+            da = _gemm(g, b, False, not tb, tile, a.dtype, None)
+        else:
+            da = _gemm(b, g, tb, True, tile, a.dtype, None)
+        if not tb:
+            db = _gemm(a, g, not ta, False, tile, b.dtype, None)
+        else:
+            db = _gemm(g, a, True, ta, tile, b.dtype, None)
+        return da, db, None, None, None, None, None
+
+
 def gemm(a, b, *, ta: bool = False, tb: bool = False,
          tile: TileConfig = TileConfig(), out_dtype=None,
          buffers: GemmBuffers | None = None):
@@ -123,8 +157,17 @@ def gemm(a, b, *, ta: bool = False, tb: bool = False,
     by the decomposition the tile names.  On CPU tensors: the plain
     versions of that decomposition's kernels.  On CUDA tensors: its
     kernels, writing into ``buffers`` when given (`gemm_buffers`), else
-    into new ones."""
+    into new ones.  Where grad is enabled and an operand requires it, on
+    either device, the call runs through `Gemm`."""
     out_dtype = out_dtype or a.dtype
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return Gemm.apply(a, b, ta, tb, tile, out_dtype, buffers)
+    return _gemm(a, b, ta, tb, tile, out_dtype, buffers)
+
+
+def _gemm(a, b, ta: bool, tb: bool, tile: TileConfig, out_dtype, buffers):
+    """`gemm` with no autograd: the tile's decomposition on the operands'
+    device."""
     K = gemm_dims(a, b, ta, tb)[2]
     split, slice_k = split_k_slices(K, tile.bk, tile.split_k)
     if a.device.type == "cpu" and b.device.type == "cpu":

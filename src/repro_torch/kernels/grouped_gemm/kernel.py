@@ -43,6 +43,7 @@ from repro_torch.kernels.gemm.kernel import (
     cta_k,
     cta_rows,
     raise_on_error,
+    refuse_grad,
 )
 
 _LL, _P, _I = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
@@ -58,6 +59,10 @@ _SIGNATURES = {
     "repro_error_string": (ctypes.c_char_p, (_I,)),
 }
 MAX_MEMBERS = 16    # `kMaxMembers` of csrc/grouped_gemm.cu: max(CLASSES)
+# The reference defines no backward of its grouped GEMMs: a Pallas call has
+# no transpose, so MoE training through them has none on the TPU either.
+GROUPED_BACKWARD = ("the grouped kernels have no backward (ROADMAP A16: MoE "
+                    "training on the card needs a grouped-GEMM backward)")
 
 
 # ----------------------------------------------------------------- members
@@ -71,6 +76,10 @@ def member_weights(b, G: int | None = None) -> List[torch.Tensor]:
     if G is not None and len(ws) != G:
         raise ValueError(f"{len(ws)} weights for {G} members")
     return ws
+
+
+def _weight_tensors(b) -> List[torch.Tensor]:
+    return [b] if isinstance(b, torch.Tensor) else list(b)
 
 
 def weight_table(ws: Sequence[torch.Tensor], K: int, dtype: torch.dtype,
@@ -149,6 +158,7 @@ def grouped_matmul(a: torch.Tensor, b, *, bm: int = 16, out_dtype=None
     (module docstring); C (G, M, N) in ``out_dtype`` (default: the
     operands' dtype).  Adds one to ``grouped_matmul.launches`` per kernel
     launch: one per chunk of `MAX_MEMBERS` members."""
+    refuse_grad("grouped_matmul", a, *_weight_tensors(b), backward=GROUPED_BACKWARD)
     dtype = check_operands(a, what="grouped_matmul")
     if a.dim() != 3:
         raise ValueError(f"grouped_matmul takes a (G, M, K), got {tuple(a.shape)}")
@@ -321,6 +331,7 @@ class _RaggedCall(NamedTuple):
 def _ragged_call(a: torch.Tensor, b, group_sizes, bm: int, out_dtype
                  ) -> _RaggedCall:
     """Check a ragged call's arguments and lay out its launches."""
+    refuse_grad("ragged_matmul", a, *_weight_tensors(b), backward=GROUPED_BACKWARD)
     cta = cta_rows(bm)
     if bm < 1 or (bm > cta and bm % cta):
         raise ValueError(f"bm={bm}: the ragged kernel takes bm ≤ 64 or a "

@@ -12,6 +12,11 @@ the plain versions, CUDA tensors the kernels or raise.
 ``grouped_for_desc`` runs the launch a `GroupedGemmDesc` describes (the
 MoE expert pool, DESIGN.md §14) on ``ragged_gemm``'s kernel, and
 ``grouped_buffers`` allocates what it writes on the card.
+
+No backward: the reference's grouped GEMM is a Pallas call with no VJP.
+On the CPU the plain versions differentiate by autograd, as the
+reference's einsum path does; on the card the launchers refuse an
+operand that requires grad (ROADMAP A16).
 """
 from __future__ import annotations
 

@@ -34,6 +34,7 @@ from repro_torch.kernels.gemm.kernel import (
     DTYPE_CODES,
     output,
     raise_on_error,
+    refuse_grad,
     sm_count,
 )
 
@@ -280,6 +281,10 @@ def mamba_scan_fwd(xd: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     incoming state and decay).  ``chunk`` is the chunked form's L (a
     decode step is one row whatever it is).  The counts are per call: a
     decode-route call is one kernel launch, a chunks-route call three."""
+    refuse_grad("mamba_scan_fwd", xd, da, Bm, Cm, initial_state,
+                backward="call `ops.ssd_scan` with no initial state, whose "
+                         "autograd Function runs the backward (a call with one "
+                         "has none, as in the reference, which sends it to XLA)")
     for t in (xd, da, Bm, Cm):
         if t.device.type != "cuda":
             raise ValueError("mamba_scan_fwd: the CUDA kernel needs CUDA "

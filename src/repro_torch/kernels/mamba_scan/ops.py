@@ -11,7 +11,17 @@ kernel at T = 1, the chunked form's three passes otherwise) or raise.
 The reference sends a call with
 an ``initial_state`` to its XLA version; here a CUDA call with one goes
 to the kernel's ``s0`` (the same function), since no plain path runs on
-the card.  The backward pass is not ported (serving needs none).
+the card.
+
+The backward (`repro/kernels/mamba_scan/ops.py:25-64`): on the card, a
+call with no initial state whose operands require grad runs `SSDScan`,
+an autograd Function whose forward is the hand-written kernel (the
+chunks route for T > 1) and whose backward is the VJP of the plain
+`ssd_chunk_ref` at the same ``chunk``, recomputed from the saved
+operands, as the reference's `_ssd` does.  A call with an initial state
+has no backward on the card (the reference's goes to XLA, with no
+custom VJP): its launcher refuses to run under grad.  On the CPU
+`ssd_chunk_ref` runs both ways.
 """
 from __future__ import annotations
 
@@ -26,19 +36,44 @@ from repro_torch.kernels.mamba_scan.kernel import (
 from repro_torch.kernels.mamba_scan.ref import _mamba_args, ssd_chunk_ref
 
 
+class SSDScan(torch.autograd.Function):
+    """The kernel forward, (y, final state), and the VJP of `ssd_chunk_ref`
+    at the same chunk for backward."""
+
+    @staticmethod
+    def forward(ctx, xd, da, Bm, Cm, chunk, out):
+        ctx.save_for_backward(xd, da, Bm, Cm)
+        ctx.chunk = chunk
+        return _launch(xd, da, Bm, Cm, chunk, None, out)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        inputs = tuple(t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            y, state = ssd_chunk_ref(*inputs, chunk=ctx.chunk)
+        return (*torch.autograd.grad((y, state), inputs, (gy, gstate)), None, None)
+
+
+def _launch(xd, da, Bm, Cm, chunk, initial_state, out):
+    y, state, workspace = out if out is not None else (None, None, None)
+    return mamba_scan_fwd(xd, da, Bm, Cm, chunk=chunk, initial_state=initial_state,
+                          out=None if out is None else (y, state),
+                          workspace=workspace)
+
+
 def ssd_scan(xd, da, Bm, Cm, *, chunk: int = 128, initial_state=None,
              out=None):
     """General SSD: xd (B,T,H,P); da (B,T,H); Bm/Cm (B,T,H,N).  Returns
     (y, final_state); ``out`` (CUDA only) is a `scan_buffers` triple for
-    this ``chunk``."""
+    this ``chunk``.  On the card, with no initial state, where grad is
+    enabled and an operand requires it, the call runs through `SSDScan`."""
     if all(t.device.type == "cpu" for t in (xd, da, Bm, Cm)):
         return ssd_chunk_ref(xd, da, Bm, Cm, chunk=chunk,
                              initial_state=initial_state)
-    y, state, workspace = out if out is not None else (None, None, None)
-    return mamba_scan_fwd(xd, da, Bm, Cm, chunk=chunk,
-                          initial_state=initial_state,
-                          out=None if out is None else (y, state),
-                          workspace=workspace)
+    if (initial_state is None and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (xd, da, Bm, Cm))):
+        return SSDScan.apply(xd, da, Bm, Cm, chunk, out)
+    return _launch(xd, da, Bm, Cm, chunk, initial_state, out)
 
 
 def scan_buffers(xd, da, Bm, Cm, *, chunk: int = 128) -> tuple:

@@ -1,8 +1,8 @@
 """Shared layers (`repro/models/common.py`): RMSNorm, RoPE, SwiGLU MLP,
 embeddings and the LM head, as plain functions on tensors.  ``p`` is a
 `ParamTree` whose parameters carry the reference's dict keys; weights
-are (in, out), applied as ``x @ W``.  The training loss waits for the
-training loop."""
+are (in, out), applied as ``x @ W``.  `cross_entropy` is the training
+loss."""
 from __future__ import annotations
 
 import torch
@@ -71,3 +71,16 @@ def embed_apply(p, tokens):
 def lm_head_apply(p, x):
     w = getattr(p, "head", None)
     return x @ (p.tok.T if w is None else w)
+
+
+# ----------------------------------------------------------------- losses
+def cross_entropy(logits, labels, mask=None):
+    """Mean token NLL in f32 (`repro/models/common.py:87`); labels < 0 are
+    ignored, and so are tokens where ``mask`` is False."""
+    logits = logits.float()
+    valid = labels >= 0 if mask is None else mask & (labels >= 0)
+    lbl = torch.clamp(labels, min=0).long()
+    lp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(lp, -1, lbl[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / torch.clamp(valid.sum(), min=1)

@@ -3,14 +3,16 @@ its `ArchConfig`, as one `nn.Module`.
 
     specs() / param_count    — declarative specs (spec.py)
     forward(batch)           — full-sequence logits (+ MoE aux loss)
+    loss(batch)              — training loss: cross-entropy + MoE aux
     init_cache / prefill / decode_step — serving with per-family caches
 
 Ported families: dense, moe (capacity path) and hybrid (zamba2).  A
 layer stack is a `ModuleList` run in a Python loop (the reference scans
 stacked weights).  Caches keep the reference's layout, a leading layer
 axis on each buffer, and are written in place; ``cache_len`` is a host
-integer.  A family or option not ported yet raises `NotImplementedError`
-naming it.
+integer.  Training passes no cache (`loss`); on the card the attention
+and scan kernels then run through their autograd Functions.  A family
+or option not ported yet raises `NotImplementedError` naming it.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import init_kv_cache, init_mla_cache
 from repro_torch.models.common import (
+    cross_entropy,
     embed_apply,
     embed_specs,
     lm_head_apply,
@@ -34,6 +37,7 @@ from repro_torch.models.spec import build_params, init_params, param_count, stac
 from repro_torch.models.ssm import init_mamba_cache
 
 FAMILIES = ("dense", "moe", "hybrid")
+MOE_AUX_COEF = 1e-3
 
 
 def _check_ported(cfg: ArchConfig, moe_mode: str, remat: str) -> None:
@@ -56,16 +60,20 @@ def _check_ported(cfg: ArchConfig, moe_mode: str, remat: str) -> None:
 class Model(nn.Module):
     """``cfg``'s model with empty parameters on ``device`` in ``dtype``
     (`build_model` initialises them).  ``moe_mode`` "auto" is the
-    capacity path here (no mesh)."""
+    capacity path here (no mesh).  ``requires_grad``: whether the
+    parameters require grad (serving leaves them frozen; the training
+    step differentiates with respect to its own cast of the masters)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype = torch.float32, moe_mode: str = "auto",
-                 moe_capacity_factor: float = 1.25, remat: str = "none"):
+                 moe_capacity_factor: float = 1.25, remat: str = "none",
+                 requires_grad: bool = False):
         super().__init__()
         _check_ported(cfg, moe_mode, remat)
         self.cfg = cfg
         self.moe_capacity_factor = moe_capacity_factor
-        build_params(self, self.specs(), resolve_device(device), dtype)
+        build_params(self, self.specs(), resolve_device(device), dtype,
+                     requires_grad)
 
     @property
     def device(self) -> torch.device:
@@ -143,8 +151,13 @@ class Model(nn.Module):
         return lm_head_apply(self.embed, x), aux
 
     def loss(self, batch):
-        raise NotImplementedError("Model.loss (cross_entropy) waits for the "
-                                  "training loop")
+        """The training loss (`repro/models/model.py:235-242`): mean token
+        cross-entropy of ``batch["labels"]`` (labels < 0 ignored) plus
+        `MOE_AUX_COEF` × the MoE load-balance loss; returns (loss,
+        {"ce", "aux"})."""
+        logits, aux = self(batch)
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}
 
     def cache_pspecs(self, mesh, cache):
         raise NotImplementedError("Model.cache_pspecs waits for distribution")

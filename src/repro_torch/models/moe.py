@@ -9,7 +9,10 @@ dropped.  The expert-parallel path waits for the distribution slice.
 The reference's ``mode="drop"`` scatters become scatters into a buffer
 one row longer than the capacity buffer, whose last row (the sentinel
 slot E·C) is cut off; its ``segment_sum`` is an ``index_add_``.
-Nothing here reads a device value back to the host.
+Nothing here reads a device value back to the host.  Training: on the
+CPU the plain grouped GEMMs differentiate; on the card the grouped
+kernels have no backward (nor has the reference's Pallas call), so a
+training forward raises there (ROADMAP A16).
 """
 from __future__ import annotations
 

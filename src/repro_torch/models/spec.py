@@ -9,14 +9,16 @@ submodule, each list a `ModuleList`), their initialisation from a
 A stack of layers is a list of per-layer spec dicts (`stack_specs`), not
 a leading axis: the port runs its layers in a Python loop, one module
 each.  `models/convert.py` unstacks the reference's scanned axis into
-that list.  Logical axes are kept for the sharding rules to come; the
-port does not read them yet.
+that list.  Each per-layer `Spec` of a stack carries the stack's size
+(``stack``), so that its random init keeps the reference's rule, which
+reads shape[0] of the stacked leaf (`Spec.fan_in`).  Logical axes are
+kept for the sharding rules to come; the port does not read them yet.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Callable, Iterator, Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +32,8 @@ class Spec:
     scale: float = 1.0
     # custom(generator, shape, device) -> float32 tensor
     custom: Optional[Callable[..., torch.Tensor]] = None
+    # layers of the `stack_specs` stack this spec is one layer of, if any
+    stack: Optional[int] = None
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -40,15 +44,38 @@ class Spec:
 
     @property
     def fan_in(self) -> int:
-        """The input width a (…, in, out) weight multiplies: its
-        second-to-last dim (an expert axis in front is not summed over);
-        a vector's size."""
-        return self.shape[-2] if len(self.shape) > 1 else self.size
+        """The reference's fan of this leaf (`repro/models/spec.py:55`):
+        shape[0] of the leaf as the reference declares it, or its size
+        for a vector.  A layer of a stack is declared there with the
+        stack's axis in front, so its fan is the stack's size; an
+        unstacked expert tensor's is E; an unstacked matrix's its first
+        dim (a weight's input width, the token table's vocabulary)."""
+        if self.stack is not None:
+            return self.stack
+        return self.shape[0] if len(self.shape) > 1 else self.size
+
+    @property
+    def ndim(self) -> int:
+        """Dims of this leaf as the reference declares it: a layer of a
+        stack has the stack's axis in front.  The reference's training
+        step casts and weight-decays a leaf by this count
+        (`repro/train/train_loop.py:34`, `repro/optim/adamw.py:78`), so a
+        per-layer vector of a stack is a matrix there."""
+        return len(self.shape) + (self.stack is not None)
+
+
+def _in_stack(specs, n: int):
+    if isinstance(specs, Spec):
+        return replace(specs, stack=n)
+    if isinstance(specs, dict):
+        return {k: _in_stack(v, n) for k, v in specs.items()}
+    return [_in_stack(v, n) for v in specs]
 
 
 def stack_specs(specs: dict, n: int) -> list:
-    """``n`` layers of ``specs``: one entry per layer of the stack."""
-    return [specs] * n
+    """``n`` layers of ``specs``: one entry per layer of the stack, each
+    spec marked as one layer of ``n`` (`Spec.stack`)."""
+    return [_in_stack(specs, n)] * n
 
 
 def iter_specs(specs, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Spec]]:
@@ -61,6 +88,12 @@ def iter_specs(specs, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Spec]]:
             yield from iter_specs(s, prefix + (k,))
 
 
+def declared_ndims(specs) -> Dict[str, int]:
+    """`Spec.ndim` of every leaf by its parameter name (path joined by
+    dots, as `nn.Module.named_parameters` names it)."""
+    return {".".join(map(str, path)): s.ndim for path, s in iter_specs(specs)}
+
+
 def param_count(specs) -> int:
     return sum(s.size for _, s in iter_specs(specs))
 
@@ -68,8 +101,8 @@ def param_count(specs) -> int:
 def init_tensor(t: torch.Tensor, spec: Spec, gen: torch.Generator) -> None:
     """Fill ``t`` in place from ``gen`` as ``spec`` says: zeros, ones, its
     custom init, or (normal) a normal truncated at ±2σ with
-    σ = scale / √fan_in.  Random values are drawn in float32 on ``t``'s
-    device and cast once."""
+    σ = scale / √max(fan_in, 1), the reference's rule (`Spec.fan_in`).
+    Random values are drawn in float32 on ``t``'s device and cast once."""
     if spec.init == "zeros":
         t.zero_()
     elif spec.init == "ones":
@@ -93,25 +126,29 @@ class ParamTree(nn.Module):
     key (shape and layout as declared: weights are (in, out), applied as
     ``x @ W``), each dict a `ParamTree`, each list a `ModuleList` of
     them.  Parameters are allocated empty (`init_params` fills them) and
-    do not require grad: the port serves, it does not train yet."""
+    require grad only when asked: serving leaves them frozen, and the
+    training step differentiates with respect to its own cast of the
+    masters (`train/train_loop.py`)."""
 
-    def __init__(self, specs: dict, device, dtype: torch.dtype):
+    def __init__(self, specs: dict, device, dtype: torch.dtype,
+                 requires_grad: bool = False):
         super().__init__()
-        build_params(self, specs, device, dtype)
+        build_params(self, specs, device, dtype, requires_grad)
 
 
-def build_params(module: nn.Module, specs: dict, device, dtype) -> None:
+def build_params(module: nn.Module, specs: dict, device, dtype,
+                 requires_grad: bool = False) -> None:
     """Register ``specs`` on ``module`` (see `ParamTree`)."""
     for k, s in specs.items():
         if isinstance(s, Spec):
             module.register_parameter(k, nn.Parameter(
                 torch.empty(s.shape, device=device, dtype=dtype),
-                requires_grad=False))
+                requires_grad=requires_grad))
         elif isinstance(s, dict):
-            module.add_module(k, ParamTree(s, device, dtype))
+            module.add_module(k, ParamTree(s, device, dtype, requires_grad))
         else:
             module.add_module(k, nn.ModuleList(
-                ParamTree(x, device, dtype) for x in s))
+                ParamTree(x, device, dtype, requires_grad) for x in s))
 
 
 def tree_params(module: nn.Module, specs) -> Iterator[Tuple[Tuple, Spec, torch.Tensor]]:

@@ -1313,3 +1313,210 @@ def test_reduced_model_greedy_on_the_card_matches_the_cpu(card, name, monkeypatc
         assert torch.isfinite(got).all()
         err = float((got - want).abs().max())
         assert err <= MODEL_TOL * max(1.0, float(want.abs().max())), (i, err)
+
+
+# ---------------------------------------------------------------- training
+def _grad_launchers(card):
+    """Each launcher with one operand that requires grad."""
+    f32 = dict(device=card, dtype=torch.float32)
+    a = torch.randn((64, 128), **f32, requires_grad=True)
+    b = torch.randn((128, 256), **f32)
+    q = torch.randn((1, 2, 16, 64), **f32, requires_grad=True)
+    kv = torch.randn((1, 2, 16, 64), **f32)
+    xd = torch.randn((1, 16, 2, 8), **f32, requires_grad=True)
+    da = -torch.rand((1, 16, 2), **f32)
+    bc = torch.randn((1, 16, 2, 8), **f32)
+    return {
+        "matmul": lambda: gk.matmul(a, b),
+        "splitk_matmul": lambda: gk.splitk_matmul(a, b, split=2, slice_k=64),
+        "stream_k_matmul": lambda: gk.stream_k_matmul(a, b, grid_g=4),
+        "grouped_matmul": lambda: ggk.grouped_matmul(a[None], b[None]),
+        "ragged_matmul": lambda: ggk.ragged_matmul(a, b[None], [64], bm=16),
+        "flash_attention_fwd": lambda: flash_attention_fwd(q, kv, kv),
+        "mamba_scan_fwd": lambda: mamba_scan_fwd(xd, da, bc, bc),
+    }
+
+
+@pytest.mark.parametrize("name", ["matmul", "splitk_matmul", "stream_k_matmul",
+                                  "grouped_matmul", "ragged_matmul",
+                                  "flash_attention_fwd", "mamba_scan_fwd"])
+def test_launcher_refuses_grad_outside_its_function(card, name):
+    """A launch records no backward: under grad, with an operand that
+    requires it, each launcher raises and launches nothing; with grad
+    disabled it runs."""
+    calls = _grad_launchers(card)
+    counters = [gk.matmul, gk.splitk_matmul, gk.stream_k_matmul, ggk.grouped_matmul,
+                ggk.ragged_matmul, flash_attention_fwd, mamba_scan_fwd]
+    before = [fn.launches for fn in counters]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        calls[name]()
+    assert [fn.launches for fn in counters] == before
+    with torch.no_grad():
+        calls[name]()
+    assert sum(fn.launches for fn in counters) == sum(before) + 1
+
+
+GRAD_TILES = (TileConfig(8, 128, 128), TileConfig(8, 128, 128, split_k=4),
+              TileConfig(8, 128, 128, stream_k=8))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("tile", GRAD_TILES, ids=lambda t: t.key())
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True), (True, False),
+                                   (True, True)])
+def test_gemm_gradients_on_the_card_match_plain(card, ta, tb, tile, dtype):
+    """`gemm` under grad runs `Gemm`: dA and dB, two more `gemm` calls at
+    the forward's tile, held to the f32 products g·op(B)ᵀ and op(A)ᵀ·g
+    within the GEMM tolerance with each product's own K."""
+    g0 = torch.Generator(device=card).manual_seed(31)
+    M, N, K = 40, 300, 520
+    a, b = _operands(g0, M, N, K, ta, tb, dtype, card)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    c = gemm(a, b, ta=ta, tb=tb, tile=tile)
+    g = torch.randn(c.shape, generator=g0, device=card, dtype=dtype)
+    da, db = torch.autograd.grad(c, (a, b), g)
+    opa = (a.T if ta else a).detach().float()
+    opb = (b.T if tb else b).detach().float()
+    want_a, want_b = g.float() @ opb.T, opa.T @ g.float()
+    abs_a, abs_b = g.float().abs() @ opb.T.abs(), opa.T.abs() @ g.float().abs()
+    if ta:
+        want_a, abs_a = want_a.T, abs_a.T
+    if tb:
+        want_b, abs_b = want_b.T, abs_b.T
+    _close(da, want_a.to(dtype), abs_a, "dA")
+    _close(db, want_b.to(dtype), abs_b, "dB")
+
+
+ATTN_GRAD_CASES = (  # B, Hq, Hkv, T, S, D, Dv, causal, window, q_offset
+    (2, 4, 4, 64, 64, 64, 64, True, 0, 0),
+    (1, 8, 2, 48, 80, 64, 64, True, 0, 32),
+    (1, 4, 4, 96, 96, 64, 64, True, 24, 0),
+    (2, 4, 4, 40, 40, 192, 128, True, 0, 0),
+)
+
+
+@pytest.mark.parametrize("case", ATTN_GRAD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_gradients_on_the_card_match_plain(card, case):
+    """`flash_attention` under grad runs `FlashAttention`: the kernel's
+    output within `attention_tol` of `flash_ref`, and q, k and v's
+    gradients those of `flash_ref`'s autograd on the same inputs (the
+    backward is that VJP), within the f32 tolerance."""
+    B, Hq, Hkv, T, S, D, Dv, causal, window, q_offset = case
+    g0 = torch.Generator(device=card).manual_seed(32)
+    q = torch.randn((B, Hq, T, D), generator=g0, device=card).requires_grad_(True)
+    k = torch.randn((B, Hkv, S, D), generator=g0, device=card).requires_grad_(True)
+    v = torch.randn((B, Hkv, S, Dv), generator=g0, device=card).requires_grad_(True)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention_fwd.launches
+    out = fops.flash_attention(q, k, v, **kw)
+    assert flash_attention_fwd.launches == before + 1
+    g = torch.randn(out.shape, generator=g0, device=card)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    ref = flash_ref(q, k, v, **kw)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    atol, rtol = attention_tol(torch.float32)
+    assert torch.allclose(out, ref, atol=atol, rtol=rtol)
+    for x, y, what in zip(got, want, "qkv"):
+        assert torch.allclose(x, y, atol=atol, rtol=rtol), what
+
+
+@pytest.mark.parametrize("broadcast", [False, True], ids=["per_head", "broadcast"])
+@pytest.mark.parametrize("T", [100, 300])
+def test_scan_gradients_on_the_card_match_plain(card, T, broadcast):
+    """`ssd_scan` under grad runs `SSDScan`: y and the final state within
+    3e-4 of `ssd_chunk_ref`, and every input's gradient that of
+    `ssd_chunk_ref`'s autograd at the same chunk (the backward is that
+    VJP) within 3e-4."""
+    g0 = torch.Generator(device=card).manual_seed(33)
+    B, H, P, N = 2, 4, 16, 8
+    xd = torch.randn((B, T, H, P), generator=g0, device=card).requires_grad_(True)
+    da = (-torch.rand((B, T, H), generator=g0, device=card) * 0.5).requires_grad_(True)
+    if broadcast:
+        b0 = torch.randn((B, T, N), generator=g0, device=card).requires_grad_(True)
+        c0 = torch.randn((B, T, N), generator=g0, device=card).requires_grad_(True)
+        bm, cm = (t[:, :, None].expand(B, T, H, N) for t in (b0, c0))
+    else:
+        b0 = bm = torch.randn((B, T, H, N), generator=g0, device=card).requires_grad_(True)
+        c0 = cm = torch.randn((B, T, H, N), generator=g0, device=card).requires_grad_(True)
+    routes = dict(mamba_scan_fwd.routes)
+    y, s = mops.ssd_scan(xd, da, bm, cm, chunk=64)
+    assert mamba_scan_fwd.routes["chunks"] == routes["chunks"] + 1
+    gy, gs = torch.randn_like(y), torch.randn_like(s)
+    got = torch.autograd.grad((y, s), (xd, da, b0, c0), (gy, gs))
+    ry, rs = ssd_chunk_ref(xd, da, bm, cm, chunk=64)
+    want = torch.autograd.grad((ry, rs), (xd, da, b0, c0), (gy, gs))
+    assert torch.allclose(y, ry, atol=3e-4, rtol=3e-4)
+    assert torch.allclose(s, rs, atol=3e-4, rtol=3e-4)
+    for x, w, what in zip(got, want, ("xd", "da", "B", "C")):
+        assert torch.allclose(x, w, atol=3e-4, rtol=3e-4), what
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "zamba2-1.2b"])
+def test_reduced_model_train_step_on_the_card_matches_the_cpu(card, name, monkeypatch):
+    """One f32 `make_train_step` step of a reduced model on the card (every
+    plain version raising outside its VJP) and on the CPU from the same
+    masters: loss within MODEL_TOL, every leaf's gradient within
+    MODEL_TOL·max(1, max |CPU leaf|)."""
+    from repro_torch.dist.checkpoint import tree_map
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train.train_loop import make_train_step, train_init
+
+    cfg = get_arch(name).reduced()
+    model = build_model(cfg, device=card, seed=12)
+    cpu = build_model(cfg, device="cpu", seed=None)
+    opt = AdamW(AdamWConfig(lr=1e-3, total_steps=4, warmup_steps=1))
+    state = train_init(model, opt)
+    host = tree_map(lambda t: t.cpu(), state)
+    toks = torch.randint(0, cfg.vocab_size, (2, 151),
+                         generator=torch.Generator().manual_seed(6))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    grads = {}
+
+    def keep(where):
+        def tf(g):
+            grads[where] = g
+            return g
+        return tf
+
+    real = {(fops, "flash_ref"): fops.flash_ref, (mops, "ssd_chunk_ref"): mops.ssd_chunk_ref}
+    backward = {fops.FlashAttention.backward.__code__, mops.SSDScan.backward.__code__}
+
+    def guarded(fn):
+        def plain(*a, **kw):
+            import sys
+            assert sys._getframe(1).f_code in backward, "a plain version ran on the card"
+            return fn(*a, **kw)
+        return plain
+
+    with monkeypatch.context() as m:
+        for (mod, n), fn in real.items():
+            m.setattr(mod, n, guarded(fn))
+        _, mc = make_train_step(model, opt, compute_dtype=torch.float32,
+                                grad_transform=keep("card"))(state, batch)
+    _, mh = make_train_step(cpu, opt, compute_dtype=torch.float32,
+                            grad_transform=keep("cpu"))(host, batch)
+    assert abs(float(mc["loss"]) - float(mh["loss"])) <= MODEL_TOL * max(
+        1.0, abs(float(mh["loss"])))
+    for k, want in grads["cpu"].items():
+        err = float((grads["card"][k].cpu() - want).abs().max())
+        assert err <= MODEL_TOL * max(1.0, float(want.abs().max())), (k, err)
+
+
+def test_moe_training_on_the_card_raises_naming_the_grouped_backward(card):
+    """The grouped kernels have no backward (nor has the reference's Pallas
+    grouped GEMM): a DeepSeek-V2-Lite training step on the card raises,
+    naming the ROADMAP item, before any grouped launch."""
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train.train_loop import make_train_step, train_init
+
+    cfg = get_arch("deepseek-v2-lite-16b").reduced()
+    model = build_model(cfg, device=card, seed=13)
+    opt = AdamW(AdamWConfig())
+    state = train_init(model, opt)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=torch.Generator().manual_seed(7))
+    before = ggk.grouped_matmul.launches
+    with pytest.raises(RuntimeError, match="A16"):
+        make_train_step(model, opt, compute_dtype=torch.float32)(
+            state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert ggk.grouped_matmul.launches == before

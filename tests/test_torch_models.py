@@ -4,8 +4,8 @@ attention, and dense Qwen3-14B (reduced, float32) through prefill,
 teacher-forced decode steps and greedy decoding.
 
 The reference's weights are made by its own ``init`` from a seed (for
-Zamba2 alone rescaled to the port's fan-in rule: `fan_in_rescaled` says
-why) and carried across by `from_reference` (numpy arrays, unstacked
+Zamba2 alone rescaled to a better-conditioned scale: `fan_in_rescaled`
+says why) and carried across by `from_reference` (numpy arrays, unstacked
 into the port's layer lists); inputs are numpy arrays from a seed.  The JAX
 package takes its XLA reference paths here, as its own CPU tests do;
 on CPU tensors the port's kernels run their plain versions.  Tolerance:
@@ -112,18 +112,20 @@ RESCALED = frozenset({"zamba2-1.2b"})
 
 
 def fan_in_rescaled(jmodel, params):
-    """The reference's ``init`` tree with each normal leaf rescaled from the
-    reference's fan-in rule to the port's.  The reference draws a leaf at
-    σ = scale/√shape[0] of its *stacked* spec, so every layer weight of a
-    stack gets σ = scale/√n_layers (0.5 at the reduced depth 4) where the
-    port's init takes the weight's input width (`Spec.fan_in`).  At the
-    reference's scale the reduced Zamba2's SSD decays sum to |Σ dt·A| ~ 10⁴
-    within a chunk, where its own chunked cumsum keeps about 3.5 digits of
-    each decay: a one-ulp change of its own weights moves its own logits
-    by 0.9× the 1e-4 bound at a 40-token prompt and 3–4× at 200 tokens
+    """The reference's ``init`` tree with each normal matrix leaf rescaled
+    from σ = scale/√shape[0] (the reference's rule, which both packages
+    draw by: every layer weight of a stack gets σ = scale/√n_layers, 0.5
+    at the reduced depth 4) to σ = scale/√(input width), a better-
+    conditioned tree for the reduced Zamba2, not either package's init.
+    At the reference's own scale the reduced Zamba2's SSD decays sum to
+    |Σ dt·A| ~ 10⁴ within a chunk, where its own chunked cumsum keeps
+    about 3.5 digits of each decay: a one-ulp change of its own weights
+    moves its own logits by 0.9× the 1e-4 bound at a 40-token prompt and
+    3–4× at 200 tokens
     (`test_torch_models_hybrid.py::test_zamba2_reference_scale_is_ill_conditioned`),
     so no f32 evaluation in another summation order can be held to 1e-4
-    there; on the rescaled tree the same change moves them by 0.015×.  Both packages get the same rescaled weights."""
+    there; on the rescaled tree the same change moves them by 0.015×.
+    Both packages get the same rescaled weights."""
     def one(spec, leaf):
         if spec.init != "normal" or leaf.ndim < 2:
             return leaf
@@ -375,8 +377,9 @@ def test_qwen3_greedy_tokens_equal_the_reference(qwen):
 # -------------------------------------------------------------- build_model
 def test_build_model_initialises_from_a_generator():
     """Weights from ``seed`` by a torch.Generator: equal seeds equal
-    weights; normals truncated at ±2σ with σ = scale/√fan_in (the
-    (in, out) fan-in of each layer's weight); norms ones, biases zeros."""
+    weights; normals truncated at ±2σ with σ = scale/√fan_in, the
+    reference's rule: shape[0] of the leaf as the reference declares it,
+    so n_layers for a layer weight of a stack; norms ones, biases zeros."""
     cfg = get_arch("qwen3-14b").reduced()
     a = build_model(cfg, device="cpu", seed=3)
     b = build_model(cfg, device="cpu", seed=3)
@@ -386,11 +389,11 @@ def test_build_model_initialises_from_a_generator():
         assert torch.isfinite(x).all(), n
     assert not torch.equal(a.layers[0].attn.wq, c.layers[0].attn.wq)
     wq = a.layers[1].attn.wq
-    sigma = 1.0 / np.sqrt(cfg.d_model)
+    sigma = 1.0 / np.sqrt(cfg.n_layers)
     assert float(wq.abs().max()) <= 2 * sigma
     assert 0.75 * sigma < float(wq.std()) < 0.95 * sigma   # truncated: ≈ 0.88σ
     down = a.layers[0].mlp.down
-    assert float(down.abs().max()) <= 2 * 0.5 / np.sqrt(cfg.d_ff)
+    assert float(down.abs().max()) <= 2 * 0.5 / np.sqrt(cfg.n_layers)
     assert torch.equal(a.layers[0].attn_norm, torch.ones(cfg.d_model))
     assert torch.equal(a.final_norm, torch.ones(cfg.d_model))
 
@@ -416,7 +419,5 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="moe_mode"):
         Model(cfg, device="meta", moe_mode="ep")
     m = Model(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="loss"):
-        m.loss({})
     with pytest.raises(NotImplementedError, match="cache_pspecs"):
         m.cache_pspecs(None, None)
