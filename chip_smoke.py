@@ -91,10 +91,12 @@ Phases, each fatal on failure (nothing here catches an error):
    `scan_route` names)
    against their plain versions on small cases (GQA and MHA,
    causal with ``q_offset``, a window, S not a multiple of ``bkv``,
-   prefill, dv ≠ dqk, strided q/k/v, bf16 and f32; T not a multiple of
-   the chunk, chunks 8-512, a nonzero initial state, a head-broadcast
-   B/C view, decode steps with and without a state, per-head B/C, rows
-   not 16-byte groups), then timed at the path's shapes beside their
+   prefill, a windowed prefill, D 80, dv ≠ dqk, strided q/k/v, bf16 and
+   f32; T not a multiple of the chunk, chunks 8-512, a nonzero initial
+   state, a head-broadcast B/C view, decode steps with and without a
+   state, per-head B/C, rows not 16-byte groups, N and P to 512 on the
+   wide passes and the decode kernel's wide instantiation, held within
+   the scan tolerance plus 2⁻¹⁶ of the terms' magnitude), then timed at the path's shapes beside their
    plain versions and, for attention, PyTorch's
    ``scaled_dot_product_attention``: Qwen3-14B's tenant-16 member and
    its batch-1 member, each with its grid (CTAs, kv splits) and shared
@@ -202,8 +204,9 @@ Phases, each fatal on failure (nothing here catches an error):
    injector must show no fault and no fallback (`check_healthy`);
 9. SLO serving, run after phase 8 on phase 5's unfused weights (before
    phase 7, whose weights would not fit beside them), its launches
-   counted apart: a 4,096-token prompt of Qwen3-14B at full width and
-   full depth (tenant ``prefill``, batch class, weight 1, p99 target 1 s)
+   counted apart: a 4,096-token prompt of Qwen3-14B at full width on 10
+   of its 40 layers (`SLO_LAYERS`; tenant ``prefill``, batch class,
+   weight 1, p99 target 1 s)
    beside decode traffic (tenant ``decode``, latency class, weight 4,
    p99 target 20 ms).  Per layer ℓ, at ℓ ms on the runtime's clock: the
    prompt's seven GEMMs at M = 4096, each submitted alone, and its causal
@@ -255,7 +258,34 @@ Phases, each fatal on failure (nothing here catches an error):
    tokens/s printed beside their bounds (`serve_bounds`); one warm-up
    run first.  (c) `repro_torch.launch.serve.main` on Zamba2-1.2B at
    full width in f32, `--runtime --graph`, its launches exact.  (b)'s
-   launches are the kernels line's ``model_serve`` path;
+   launches are the kernels line's ``model_serve`` path.  Then the
+   kernel rows at the models' prefill shapes.
+   10d. the model zoo, the seven other architectures through the same
+   entry points (MusicGen, whose step takes a frame, by `Model.prefill`
+   and `Model.decode_step` on seeded frames: `greedy_decode` refuses it):
+   (a) full width, f32, card against CPU as in (a) above: StableLM-3B,
+   Qwen2-72B, DeepSeek-V2-236B, MusicGen-medium and Pixtral-12B at 2
+   layers, xLSTM-350M at 8 (2 groups of 3 mLSTM layers and an sLSTM
+   layer), Gemma3-27B at 6 (5 local, 1 global) with its window cut from
+   1,024 to 64 so that the 96-position prompt crosses it; Pixtral's
+   prompt is its 256 patches and 64 tokens; (b) each at full width in
+   bf16, batch 4, 1,000-position prompts (Gemma3's 2,048: its local
+   layers mask; Pixtral's 256 patches and 744 tokens), 8 greedy steps,
+   the plain versions raising: full depth for xLSTM-350M, MusicGen-medium,
+   StableLM-3B, Pixtral-12B and Gemma3-27B, 8 of Qwen2-72B's 80 layers, 4
+   of DeepSeek-V2-236B's 60 (its dense layer and 3 MoE layers), each
+   freed before the next: launches exact (`mamba_scan` 36 a prefill on
+   the chunks route and 36 a step on the decode kernel for xLSTM, two
+   per mLSTM layer), times beside `serve_bounds` (xLSTM's state bytes and
+   f32 scans, windowed attention's keys), xLSTM's and Gemma3's prefill
+   and 2 steps profiled (with the host time in xLSTM's sLSTM loops).
+   Then the new kernel shapes: the five new prefill attention shapes
+   (Gemma3's windowed beside SDPA with the window as a mask),
+   DeepSeek-V2-236B's grouped up-projection, and xLSTM's scans at N =
+   512 (its memory P = 512 and normaliser P = 1, a prompt on the wide
+   chunked passes, a step on the decode kernel's wide instantiation; a
+   planted dropped N block must fail the check).  (b)'s launches are the
+   kernels line's ``model_zoo`` path;
 11. training, after phase 10 with its weights freed, with the plain
    versions of attention, the scan and the grouped GEMM raising on the
    card everywhere but inside the backward of their autograd Functions
@@ -427,6 +457,7 @@ from repro_torch.kernels.mamba_scan import (  # noqa: E402
     ssd_chunk_ref,
 )
 from repro_torch.kernels.mamba_scan.kernel import (  # noqa: E402
+    NARROW_DIM,
     chunk_residency,
     decode_residency,
 )
@@ -444,6 +475,7 @@ from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import Model, build_model  # noqa: E402
+from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models.blocks import zamba_shared_specs  # noqa: E402
 from repro_torch.models.spec import iter_specs  # noqa: E402
@@ -1858,6 +1890,14 @@ def mixed_phase(device="cuda", cfg=None, layers=None) -> dict:
 
 # -------------------------------------------- attention and scan kernels
 SCAN_TOL = 3e-4
+# Above N, P = 128 the reference tests have no shape: at N = P = 512 a y
+# sums 4x the terms of their widest, and the f32 route's split products
+# (about 2^-17 of each term: the kernel's and its bf16x2 emulation's error
+# both measured under 1.8e-6 of the terms' magnitude on an H100, PERF.md
+# section 6)
+# reach past SCAN_TOL near zero crossings.  The wide checks add this share
+# of the terms' magnitudes, as the GEMM checks add 2^-16·|A|·|B|.
+WIDE_SUM_TOL = 2.0 ** -16
 # The reference tests' bf16 attention tolerance (atol = rtol): only for
 # SDPA, a library call with roundings of its own, timed beside the kernel.
 SDPA_TOL = 3e-2
@@ -1870,6 +1910,8 @@ ATTN_CASES = (
     (1, 8, 2, 130, 130, 128, 128, True, 0, 128, 512),  # prefill, q block > rows
     (1, 2, 2, 20, 100, 32, 16, False, 0, 8, 256),     # dv != dqk, not causal
     (1, 4, 4, 9, 140, 192, 128, True, 0, 8, 128),     # dv != dqk, 256-wide
+    (2, 4, 2, 300, 300, 128, 128, True, 100, 128, 128),  # a windowed prefill
+    (2, 4, 4, 100, 100, 80, 80, True, 0, 128, 128),   # D 80 on the 128-wide kernel
 )
 # (B, T, H, P, N, chunk, initial state, head-broadcast B/C)
 SCAN_CASES = (
@@ -1883,6 +1925,13 @@ SCAN_CASES = (
     (1, 300, 2, 32, 16, 8, True, True),
     (1, 200, 4, 64, 128, 64, False, False),
     (2, 97, 2, 128, 32, 128, True, True),
+    # the wide passes (N or P > 128): xLSTM's memory and normaliser at a
+    # prompt and a step, odd wide widths
+    (2, 300, 2, 512, 512, 128, True, False),
+    (2, 300, 2, 1, 512, 128, True, False),
+    (4, 1, 4, 512, 512, 32, True, False),
+    (4, 1, 4, 1, 512, 32, False, True),
+    (2, 97, 2, 200, 300, 64, True, True),
 )
 
 
@@ -1942,13 +1991,22 @@ def planted_fault(q, k, v, kw: dict, lo: int = 2048) -> None:
 def scan_excess(y, state, xd, da, bm, cm, s0, what: str) -> dict:
     """y and the state against the plain version in f32 on the same inputs
     (bf16 converts exactly): for each, the max |err| and the elements
-    beyond SCAN_TOL + rtol·|plain| (rtol: SCAN_TOL, plus half a bf16 unit
-    for a bf16 y)."""
-    y_ref, s_ref = ssd_chunk_ref(xd.float(), da.float(), bm.float(), cm.float(),
-                                 chunk=64, initial_state=s0)
+    beyond atol + rtol·|plain| (atol: SCAN_TOL; rtol: SCAN_TOL, plus half
+    a bf16 unit for a bf16 y).  Where N or P exceeds 128 (the wide
+    passes), atol adds WIDE_SUM_TOL·Σ|terms|, as the GEMM checks add
+    2⁻¹⁶·|A|·|B|: Σ|terms| is the plain version on |xd|, |B|, |C| and
+    |s0| (its decays are positive)."""
+    f32 = [t.float() for t in (xd, da, bm, cm)]
+    y_ref, s_ref = ssd_chunk_ref(*f32, chunk=64, initial_state=s0)
+    atol_y = atol_s = SCAN_TOL
+    if max(bm.shape[-1], xd.shape[-1]) > NARROW_DIM:
+        y_abs, s_abs = ssd_chunk_ref(f32[0].abs(), f32[1], f32[2].abs(), f32[3].abs(),
+                                     chunk=64,
+                                     initial_state=None if s0 is None else s0.abs())
+        atol_y, atol_s = SCAN_TOL + WIDE_SUM_TOL * y_abs, SCAN_TOL + WIDE_SUM_TOL * s_abs
     rtol = SCAN_TOL + (2.0 ** -8 if y.dtype == torch.bfloat16 else 0.0)
-    return {"y": tol_excess(y, y_ref, SCAN_TOL, rtol, what + " y"),
-            "state": tol_excess(state, s_ref, SCAN_TOL, SCAN_TOL, what + " state")}
+    return {"y": tol_excess(y, y_ref, atol_y, rtol, what + " y"),
+            "state": tol_excess(state, s_ref, atol_s, SCAN_TOL, what + " state")}
 
 
 def check_scan(y, state, xd, da, bm, cm, s0, what: str) -> float:
@@ -2116,12 +2174,7 @@ def attention_scan_kernels(gen, lib) -> dict:
     torch.cuda.empty_cache()
     rows["mamba_scan"] = scan_rows(gen, lib)
     torch.cuda.empty_cache()
-    for name, rs in rows.items():
-        for r in rs:
-            lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            print(f"# {name:<15} {r['shape']:<60} kernel {r['ms']:.4f} ms | plain "
-                  f"{r['plain_ms']:.4f} | torch {lib_ms} | bound {r['bound'][0]:.6f} "
-                  f"({r['bound'][1]}) | max err {r['max_abs_err']:.4g}")
+    print_rows(rows)
     return rows
 
 
@@ -3195,6 +3248,9 @@ SLO_WINDOWS = (("A", {}),
                ("B", dict(policy="edf", slicing=True, flush_budget_s=1e-3,
                           slice_budget_frac=0.5, max_slices=8)))
 SLO_SCAN = ScanDesc(4, 1024, 64, 64, 64)
+# Layers the SLO windows serve: 10 of phase 5's 40 (window B's host
+# planning grows with them; the script's time limit holds phase 10d too)
+SLO_LAYERS = 10
 GEMM_NAMES = ("q", "k", "v", "o", "gate", "up", "down")
 
 
@@ -3567,15 +3623,26 @@ def plain_versions_raise():
     return lambda: [setattr(m, n, f) for m, n, f in saved]
 
 
+def scan_layers(cfg) -> int:
+    """Scan calls per forward: one per Mamba layer (Zamba2), two per
+    mLSTM layer (xLSTM: its memory and its normaliser)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers
+    if cfg.family == "ssm":
+        return 2 * (cfg.n_layers // cfg.slstm_every) * (cfg.slstm_every - 1)
+    return 0
+
+
 def model_launches(cfg, steps: int) -> tuple[Counter, dict]:
     """The kernel launches (and scan routes) of one greedy run of ``steps``
     decode steps: flash attention once per attention layer in the prefill
-    (a decode step reads the cache by einsums), the scan once per Mamba
-    layer on the chunks route in the prefill and on the decode kernel per
-    step, and per forward three grouped GEMMs per MoE layer, each one
-    launch per `MAX_MEMBERS` experts."""
-    attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
-    mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+    (a decode step reads the cache by einsums), the scan once per call of
+    `scan_layers` on the chunks route in the prefill and on the decode
+    kernel per step, and per forward three grouped GEMMs per MoE layer,
+    each one launch per `MAX_MEMBERS` experts."""
+    attn = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else
+            0 if cfg.family == "ssm" else cfg.n_layers)
+    mamba = scan_layers(cfg)
     moe = cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
     grouped = moe * 3 * -(-cfg.n_routed_experts // grouped_kernel.MAX_MEMBERS)
     want = +Counter(flash_attention=attn, mamba_scan=mamba * (1 + steps),
@@ -3591,34 +3658,84 @@ def check_model_launches(label: str, cfg, steps: int, counts: Counter,
                              f"the model path makes {dict(want)}, {want_routes}")
 
 
-def model_check(name: str, layers: int) -> None:
-    """(a): ``name`` at full width and ``layers`` deep in f32, weights from a
-    seed on the card and copied to the CPU; a batch-2, 64-token prompt and
-    4 greedy steps on the card, the same tokens teacher-forced on the CPU
-    (the plain versions); every call's logits within MODEL_TOL, and each
-    greedy token the CPU's argmax unless the CPU's top two lie within the
-    tolerance of each other."""
+def model_prompt(cfg, B: int, T: int, dtype=torch.bfloat16) -> dict:
+    """A prompt of T positions from `make_batch` (labels dropped): tokens;
+    MusicGen's frames; Pixtral's 256 patches in front of T − 256 tokens.
+    Embeddings in ``dtype``."""
+    batch = make_batch(cfg, InputShape("serve", T, B, "prefill"), 0, embed_dtype=dtype)
+    batch.pop("labels")
+    return batch
+
+
+def generate(model, batch: dict, *, steps: int, s_max: int, cache_dtype,
+             on_step=None) -> torch.Tensor:
+    """``steps`` greedy steps after the prompt ``batch`` on the card:
+    `greedy_decode`, or for MusicGen's audio stub (whose step takes a
+    frame, which the greedy loop cannot feed: it raises) the prefill on
+    the prompt's frames, then one step per seeded frame (`make_batch`'s
+    frames of steps 1, 2, ...); returns the (B, steps) argmax codes."""
+    if model.cfg.frontend != "audio_frames":
+        return greedy_decode(model, batch, s_max=s_max, steps=steps, device="cuda",
+                             cache_dtype=cache_dtype, on_step=on_step)
+    B = batch["frames"].shape[0]
+    frames = step_frames(model.cfg, B, steps, batch["frames"].dtype)
+    out = []
+    with torch.inference_mode():
+        cache = model.init_cache(B, s_max, cache_dtype)
+        logits, cache, n = model.prefill({"frames": batch["frames"].cuda()}, cache)
+        for f in frames:
+            if on_step is not None:
+                on_step(logits)
+            out.append(logits[:, -1].argmax(-1, keepdim=True))
+            logits, cache, n = model.decode_step(f, cache, n)
+        if on_step is not None:
+            on_step(logits)
+    return torch.cat(out, 1)
+
+
+def step_frames(cfg, B: int, steps: int, dtype) -> list:
+    """MusicGen's decode inputs: the (B, 1, D) frames of `make_batch`'s
+    steps 1 .. ``steps``, on the card."""
+    return [make_batch(cfg, InputShape("step", 1, B, "prefill"), 1 + i,
+                       embed_dtype=dtype)["frames"].cuda() for i in range(steps)]
+
+
+def model_check(name: str, layers: int, prompt_len: int = CHECK_PROMPT,
+                rescaled: bool = False, **fields) -> Counter:
+    """(a): ``name`` at full width and ``layers`` deep (``fields`` replaced
+    besides) in f32, weights from a seed on the card (``rescaled``: moved
+    to the better-conditioned tree, `rescale`) and copied to the CPU; a
+    batch-2 prompt of ``prompt_len`` positions and 4 greedy steps
+    on the card (MusicGen: seeded frames), the same inputs teacher-forced
+    on the CPU (the plain versions); every call's logits within
+    MODEL_TOL, and each greedy token the CPU's argmax unless the CPU's top
+    two lie within the tolerance of each other.  Returns the launches."""
     t0 = time.perf_counter()
-    cfg = replace(get_arch(name), n_layers=layers)
+    cfg = replace(get_arch(name), n_layers=layers, **fields)
     card = build_model(cfg, device="cuda", dtype=torch.float32, seed=SEED + 6)
+    if rescaled:
+        with torch.no_grad():
+            rescale(card, dict(card.named_parameters()))
     cpu = build_model(cfg, device="cpu", seed=None)
     cpu.load_state_dict(card.state_dict())
-    prompt = make_batch(cfg, InputShape("check", CHECK_PROMPT, CHECK_BATCH, "prefill"),
-                        0)["tokens"]
-    s_max = CHECK_PROMPT + CHECK_STEPS + 1
+    prompt = model_prompt(cfg, CHECK_BATCH, prompt_len, torch.float32)
+    s_max = prompt_len + CHECK_STEPS + 1
     seen = []
     reset_counts()
-    toks = greedy_decode(card, {"tokens": prompt}, s_max=s_max, steps=CHECK_STEPS,
-                         device="cuda", on_step=seen.append).cpu()
+    toks = generate(card, prompt, steps=CHECK_STEPS, s_max=s_max,
+                    cache_dtype=torch.float32, on_step=seen.append).cpu()
     routes = dict(mamba_scan_fwd.routes)
     counts = take_counts()
     check_model_launches(f"{name} at {layers} layers", cfg, CHECK_STEPS, counts, routes)
+    audio = cfg.frontend == "audio_frames"
+    fed = ([f.cpu() for f in step_frames(cfg, CHECK_BATCH, CHECK_STEPS, torch.float32)]
+           if audio else [toks[:, i:i + 1] for i in range(CHECK_STEPS)])
     with torch.inference_mode():
         cache = cpu.init_cache(CHECK_BATCH, s_max, torch.float32)
-        logits, cache, n = cpu.prefill({"tokens": prompt}, cache)
+        logits, cache, n = cpu.prefill(prompt, cache)
         ref = [logits]
-        for i in range(CHECK_STEPS):
-            logits, cache, n = cpu.decode_step(toks[:, i:i + 1], cache, n)
+        for x in fed:
+            logits, cache, n = cpu.decode_step(x, cache, n)
             ref.append(logits)
     errs, flips = [], 0
     for i, (got, want) in enumerate(zip(seen, ref)):
@@ -3640,13 +3757,16 @@ def model_check(name: str, layers: int) -> None:
                     if float(top2[b, 0] - want[b, -1, tok]) > 2 * tol:
                         raise AssertionError(f"{what}: card token {tok} is not the CPU's "
                                              "argmax beyond the tolerance")
+    extra = "".join(f", {k} {v}" for k, v in fields.items()) + (
+        ", on the rescaled tree" if rescaled else "")
     print(f"# model check {name} at full width, {layers} of {get_arch(name).n_layers} "
-          f"layers, f32 ({card.param_count() / 1e9:.3f} B parameters): batch "
-          f"{CHECK_BATCH}, {CHECK_PROMPT}-token prompt, {CHECK_STEPS} greedy steps; "
+          f"layers{extra}, f32 ({card.param_count() / 1e9:.3f} B parameters): batch "
+          f"{CHECK_BATCH}, {prompt_len}-position prompt, {CHECK_STEPS} greedy steps; "
           f"card vs CPU logits max |Δ| per call {[float(f'{e:.4g}') for e in errs]} "
           f"(tolerance {MODEL_TOL}·max(1, |CPU|)); greedy tokens other than the CPU's "
           f"argmax: {flips}; kernel launches {dict(counts)}, scan routes {routes}; "
           f"{time.perf_counter() - t0:.1f} s (host clock)")
+    return counts
 
 
 def shared_reapplied(cfg) -> int:
@@ -3660,13 +3780,19 @@ def shared_reapplied(cfg) -> int:
     return (cfg.n_layers // cfg.attn_every - 1) * spec_param_count(zamba_shared_specs(cfg))
 
 
+def tables(cfg) -> int:
+    """Parameters of the token table and the LM head (one table when tied)."""
+    return cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+
+
 def weights_read(cfg, routed_experts: int | None) -> int:
     """Weight bytes (bf16) one decode step must read: every weight but the
-    token table (B rows gathered), Zamba2's shared block once per
-    application; of an MoE model's routed experts only ``routed_experts``
-    (summed over its MoE layers) FFNs."""
-    n = (Model(cfg, device="meta").param_count() - cfg.vocab_size * cfg.d_model
-         + shared_reapplied(cfg))
+    token table (B rows gathered; a tied table is the LM head, read
+    whole), Zamba2's shared block once per application; of an MoE model's
+    routed experts only ``routed_experts`` (summed over its MoE layers)
+    FFNs."""
+    n = (Model(cfg, device="meta").param_count() + shared_reapplied(cfg)
+         - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model))
     if cfg.family == "moe":
         per_expert = 3 * cfg.d_model * cfg.moe_d_ff
         n -= (cfg.n_layers - cfg.first_dense_layers) * cfg.n_routed_experts * per_expert
@@ -3674,83 +3800,152 @@ def weights_read(cfg, routed_experts: int | None) -> int:
     return 2 * n
 
 
+def layer_windows(cfg) -> list:
+    """Each attention layer's window (0: all keys), as `Model.window`
+    gives it; one entry per layer that runs attention."""
+    if cfg.family == "ssm":
+        return []
+    if cfg.family == "hybrid":
+        return [0] * (cfg.n_layers // cfg.attn_every)
+    r = cfg.local_global_ratio
+    return [0 if cfg.sliding_window and r and i % (r + 1) == r else cfg.sliding_window
+            for i in range(cfg.n_layers)]
+
+
+def keys_seen(T: int, past: int, window: int) -> int:
+    """Keys summed over T new queries after ``past`` cached ones, causal,
+    each seeing at most ``window`` keys (all when 0)."""
+    if not window:
+        return T * past + T * (T + 1) // 2
+    return sum(min(past + i + 1, window) for i in range(T))
+
+
+def xlstm_state_bytes(cfg, B: int) -> int:
+    """Bytes of xLSTM's decode state (mLSTM's f32 C and n and bf16 conv
+    tail, sLSTM's four f32 vectors), read and written each call."""
+    groups, k = cfg.n_layers // cfg.slstm_every, cfg.slstm_every
+    di, H = 2 * cfg.d_model, cfg.n_heads
+    N = di // H
+    mlstm = H * N * (N + 1) * 4 + 3 * di * 2
+    return 2 * B * groups * ((k - 1) * mlstm + 4 * cfg.d_model * 4)
+
+
 def cache_bytes(cfg, B: int, length: int) -> int:
     """Cache bytes a decode step must read at ``length`` cached tokens
-    (bf16 K/V or latents; Zamba2's f32 SSM state read and written, conv
-    tail read and written) and write (one token's entries)."""
+    (bf16 K/V or latents, a windowed layer's last ``window`` only;
+    Zamba2's f32 SSM state read and written, conv tail read and written;
+    xLSTM's state) and write (one token's entries)."""
     if cfg.family == "hybrid":
         kv = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * (cfg.n_layers // cfg.attn_every)
         conv = (cfg.ssm_d_inner + 2 * cfg.ssm_state) * (cfg.ssm_conv - 1) * 2
         state = cfg.ssm_n_heads * cfg.ssm_state * cfg.ssm_head_dim * 4
         return B * (2 * kv * (length + 1) + cfg.n_layers * 2 * (conv + state))
+    if cfg.family == "ssm":
+        return xlstm_state_bytes(cfg, B)
     if cfg.attn_type == "mla":
-        per = (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * cfg.n_layers
+        per = cfg.kv_lora_rank + cfg.qk_rope_head_dim
     else:
-        per = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * cfg.n_layers
-    return 2 * B * per * (length + 1)
+        per = 2 * cfg.n_kv_heads * cfg.resolved_head_dim
+    return 2 * B * per * sum(min(length + 1, w) if w else length + 1
+                             for w in layer_windows(cfg))
 
 
 def attention_flops(cfg, B: int, T: int, past: int) -> int:
     """Multiply-adds ×2 of the attention scores and values of T new tokens
-    after ``past`` cached ones, causal (the tokens each query sees)."""
-    seen = T * past + T * (T + 1) // 2
-    if cfg.family == "hybrid":
-        layers, width = cfg.n_layers // cfg.attn_every, 2 * cfg.resolved_head_dim
-    elif cfg.attn_type == "mla":
-        layers = cfg.n_layers
+    after ``past`` cached ones, causal (the tokens each query sees, within
+    a layer's window)."""
+    if cfg.attn_type == "mla":
         width = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim
                  if T > 1 else 2 * cfg.kv_lora_rank + cfg.qk_rope_head_dim)
     else:
-        layers, width = cfg.n_layers, 2 * cfg.resolved_head_dim
-    return 2 * B * layers * cfg.n_heads * seen * width
+        width = 2 * cfg.resolved_head_dim
+    seen = sum(keys_seen(T, past, w) for w in layer_windows(cfg))
+    return 2 * B * cfg.n_heads * seen * width
 
 
-def serve_bounds(cfg, routed: list) -> dict:
+def mlstm_scan_flops(cfg, B: int, T: int) -> int:
+    """xLSTM's scans over T positions (f32 operations): per mLSTM layer its
+    memory (P = N) and normaliser (P = 1) at chunk 128, or per decode step
+    (T = 1) their closed forms with a state."""
+    if cfg.family != "ssm":
+        return 0
+    layers = scan_layers(cfg) // 2
+    H = cfg.n_heads
+    N = 2 * cfg.d_model // H
+    if T == 1:
+        return layers * (decode_flops(B, H, N, N, True) + decode_flops(B, H, 1, N, True))
+    return layers * (scan_flops(B, T, H, N, N, 128) + scan_flops(B, T, H, 1, N, 128))
+
+
+def body_params(cfg) -> int:
+    """Parameters each token multiplies outside the token table and LM
+    head: the active ones (the reference's closed form; for xLSTM, whose
+    closed form is an approximation, the model's own count), Zamba2's
+    shared block once per application."""
+    n = (Model(cfg, device="meta").param_count() if cfg.family == "ssm"
+         else cfg.active_param_count())
+    return n - tables(cfg) + shared_reapplied(cfg)
+
+
+def serve_bounds(cfg, routed: list, B: int = SERVE_BATCH, T: int = SERVE_PROMPT,
+                 steps: int = SERVE_STEPS) -> dict:
     """Least times (ms) at the H100's peaks for (b)'s prefill and its mean
-    decode step: bytes over the HBM rate vs bf16 operations over the
-    peak, whichever is larger.  Operations: 2 per active weight and
-    token (Zamba2's shared block once per application; the LM head on
-    the last token only in the prefill) plus attention; bytes: the
-    weights as `weights_read`, the caches as `cache_bytes`.
-    ``routed``: per decode step, the distinct experts its routing chose
-    (summed over the MoE layers)."""
-    B, T, V, d = SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size, cfg.d_model
-    active = cfg.active_param_count() - 2 * V * d + shared_reapplied(cfg)
+    decode step: bytes over the HBM rate vs operations over the peak,
+    whichever is larger (bf16 operations at 989 TFLOP/s, xLSTM's f32 scans
+    at 67).  Operations: 2 per active weight and token (Zamba2's shared
+    block once per application; the LM head on the last position only in
+    the prefill) plus attention within each layer's window and xLSTM's
+    scans; bytes: the weights as `weights_read`, the caches as
+    `cache_bytes`.  ``routed``: per decode step, the distinct experts its
+    routing chose (summed over the MoE layers)."""
+    V, d = cfg.vocab_size, cfg.d_model
+    active = body_params(cfg)
     every_expert = cfg.n_routed_experts * (cfg.n_layers - cfg.first_dense_layers)
-    prefill = bound(weights_read(cfg, every_expert) + cache_bytes(cfg, B, T - 1),
+
+    def least(nbytes: int, ops: int, f32_ops: int) -> tuple[float, str]:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (ops / PEAK_OPS[torch.bfloat16] + f32_ops / PEAK_OPS[torch.float32]) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    prefill = least(weights_read(cfg, every_expert) + cache_bytes(cfg, B, T - 1),
                     2 * B * T * active + 2 * B * V * d + attention_flops(cfg, B, T, 0),
-                    torch.bfloat16)
-    steps = []
-    for i, r in enumerate(routed or [None] * SERVE_STEPS):
+                    mlstm_scan_flops(cfg, B, T))
+    per_step = []
+    for i, r in enumerate(routed or [None] * steps):
         n = T + i
-        steps.append(bound(weights_read(cfg, r) + cache_bytes(cfg, B, n),
-                           2 * B * (active + V * d) + attention_flops(cfg, B, 1, n),
-                           torch.bfloat16))
-    mean = sum(t for t, _ in steps) / len(steps)
-    return dict(prefill=prefill, decode_ms=mean, decode_by=steps[0][1],
+        per_step.append(least(weights_read(cfg, r) + cache_bytes(cfg, B, n),
+                              2 * B * (active + V * d) + attention_flops(cfg, B, 1, n),
+                              mlstm_scan_flops(cfg, B, 1)))
+    mean = sum(t for t, _ in per_step) / len(per_step)
+    return dict(prefill=prefill, decode_ms=mean, decode_by=per_step[0][1],
                 decode_gb=(weights_read(cfg, routed[0] if routed else None)
                            + cache_bytes(cfg, B, T)) / 1e9)
 
 
-def model_serve(name: str) -> dict:
-    """(b): ``name`` at full width and depth in bf16 (weights and caches),
-    batch 4, 1,000-token prompts, 32 greedy steps, with every plain
-    version made to raise; one run to warm up, then the counted and timed
-    run: exact launch counts, tokens in range, logits finite at every
-    step, prefill and decode times by CUDA events at each call's end
-    (the decode step's from one to the next: the device's timeline,
-    host launch gaps included) beside their bounds."""
+def model_serve(name: str, layers: int | None = None, prompt_len: int = SERVE_PROMPT,
+                steps: int = SERVE_STEPS, profile_steps: int = 2,
+                profile_len: int | None = None) -> dict:
+    """(b): ``name`` at full width (``layers`` deep, all when None) in bf16
+    (weights and caches), batch 4, prompts of ``prompt_len`` positions,
+    ``steps`` greedy steps, with every plain version made to raise; one
+    run to warm up, then the counted and timed run: exact launch counts,
+    tokens in range, logits finite at every step, prefill and decode times
+    by CUDA events at each call's end (the decode step's from one to the
+    next: the device's timeline, host launch gaps included) beside their
+    bounds; then the prefill (of the prompt's first ``profile_len``
+    positions, all when None) and ``profile_steps`` decode steps under the
+    profiler."""
     t0 = time.perf_counter()
-    cfg = get_arch(name)
+    full = get_arch(name)
+    cfg = full if layers is None else replace(full, n_layers=layers)
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED + 7)
     torch.cuda.synchronize()
     made_s = time.perf_counter() - t0
-    prompt = make_batch(cfg, InputShape("serve", SERVE_PROMPT, SERVE_BATCH, "prefill"),
-                        0)["tokens"]
-    s_max = SERVE_PROMPT + SERVE_STEPS + 1
-    run = dict(s_max=s_max, steps=SERVE_STEPS, cache_dtype=torch.bfloat16, device="cuda")
+    prompt = model_prompt(cfg, SERVE_BATCH, prompt_len)
+    s_max = prompt_len + steps + 1
+    run = dict(s_max=s_max, steps=steps, cache_dtype=torch.bfloat16)
     restore = plain_versions_raise()
-    greedy_decode(model, {"tokens": prompt}, **run)        # warm-up
+    generate(model, prompt, **run)        # warm-up
     torch.cuda.synchronize()
     routing, real_route = [], model_moe._route
 
@@ -3769,17 +3964,17 @@ def model_serve(name: str) -> dict:
     reset_counts()
     h0 = time.perf_counter()
     start = mark()
-    toks = greedy_decode(model, {"tokens": prompt}, on_step=on_step, **run).cpu()
+    toks = generate(model, prompt, on_step=on_step, **run).cpu()
     wall = time.perf_counter() - h0
     routes = dict(mamba_scan_fwd.routes)
     counts = take_counts()
     model_moe._route = real_route
-    check_model_launches(f"{name} serving", cfg, SERVE_STEPS, counts, routes)
-    if toks.shape != (SERVE_BATCH, SERVE_STEPS) or int(toks.min()) < 0 \
+    check_model_launches(f"{name} serving", cfg, steps, counts, routes)
+    if toks.shape != (SERVE_BATCH, steps) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"{name} serving: tokens {tuple(toks.shape)} out of range")
     finite = [bool(torch.isfinite(lg).all()) for lg in logits]
-    if len(finite) != SERVE_STEPS + 1 or not all(finite):
+    if len(finite) != steps + 1 or not all(finite):
         raise AssertionError(f"{name} serving: non-finite logits at calls "
                              f"{[i for i, f in enumerate(finite) if not f]}")
     prefill_ms = start.elapsed_time(marks[0])
@@ -3790,12 +3985,13 @@ def model_serve(name: str) -> dict:
     if moe_layers:
         per_forward = [routing[i:i + moe_layers] for i in range(0, len(routing), moe_layers)]
         routed = [sum(int(torch.unique(ids).numel()) for ids in f) for f in per_forward[1:]]
-    bd = serve_bounds(cfg, routed)
+    bd = serve_bounds(cfg, routed, SERVE_BATCH, prompt_len, steps)
     decode_s = sum(steps_ms) / 1e3
-    print(f"# model serving {name} at full width and depth, bf16 "
+    depth = "depth" if layers is None else f"{layers} of {full.n_layers} layers"
+    print(f"# model serving {name} at full width and {depth}, bf16 "
           f"({model.param_count() / 1e9:.3f} B parameters, made from a seed on the card "
-          f"in {made_s:.1f} s): batch {SERVE_BATCH}, {SERVE_PROMPT}-token prompts, "
-          f"{SERVE_STEPS} greedy steps, every plain version raising; kernel launches "
+          f"in {made_s:.1f} s): batch {SERVE_BATCH}, {prompt_len}-position prompts, "
+          f"{steps} greedy steps, every plain version raising; kernel launches "
           f"{dict(counts)}, scan routes {routes} (as the model path makes them)")
     print(f"#   prefill {prefill_ms:.3f} ms (bound {bd['prefill'][0]:.3f} ms, "
           f"{bd['prefill'][1]}); decode step median {decode_ms:.3f} ms, min "
@@ -3803,10 +3999,12 @@ def model_serve(name: str) -> dict:
           f"{bd['decode_by']}: {bd['decode_gb']:.2f} GB at the first step"
           + (f", distinct routed experts per step {routed[0]}..{routed[-1]} of "
              f"{moe_layers * cfg.n_routed_experts}" if routed else "")
-          + f"); {SERVE_BATCH * SERVE_STEPS / decode_s:.1f} tokens/s over the decode "
-          f"steps, {SERVE_BATCH * SERVE_STEPS / wall:.1f} tokens/s of wall for the run "
+          + f"); {SERVE_BATCH * steps / decode_s:.1f} tokens/s over the decode "
+          f"steps, {SERVE_BATCH * steps / wall:.1f} tokens/s of wall for the run "
           f"({wall:.3f} s, prefill included); {time.perf_counter() - t0:.1f} s (host clock)")
-    profile_model(model, prompt)
+    if profile_steps:
+        profile_model(model, {k: v[:, :profile_len] for k, v in prompt.items()},
+                      profile_steps)
     restore()
     del model
     return dict(counts=counts, routes=routes, prefill_ms=prefill_ms, decode_ms=decode_ms,
@@ -3831,44 +4029,96 @@ def launcher_on_card() -> None:
           f"launches {dict(counts)}, scan routes {routes}")
 
 
-# (B, Hq, Hkv, T, S, D, Dv): the prefill attention of each model as it
-# calls the kernel: q, and k/v of Qwen3-14B and Zamba2-1.2B read from the
-# (B, S_max, Hkv, D) cache through a transposed view, of
-# DeepSeek-V2-Lite-16B's MLA the expanded latents (B, T, H, 192/128)
-MODEL_ATTENTION = (("qwen3-14b", (4, 40, 8, 1000, 1033, 128, 128)),
-                   ("zamba2-1.2b", (4, 32, 32, 1000, 1033, 64, 64)),
-                   ("deepseek-v2-lite-16b", (4, 16, 16, 1000, 1000, 192, 128)))
+# (B, Hq, Hkv, T, S, D, Dv, window): the prefill attention of each model
+# as it calls the kernel: q, and k/v of the GQA models read from the
+# (B, S_max, Hkv, D) cache through a transposed view (S_max: the prompt,
+# the greedy steps and one), of the MLA models the expanded latents
+# (B, T, H, 192/128); Gemma3's local layers (52 of 62) attend through a
+# 1,024-token window over its 2,048-token prompt.
+MODEL_ATTENTION = (("qwen3-14b", (4, 40, 8, 1000, 1033, 128, 128, 0)),
+                   ("zamba2-1.2b", (4, 32, 32, 1000, 1033, 64, 64, 0)),
+                   ("deepseek-v2-lite-16b", (4, 16, 16, 1000, 1000, 192, 128, 0)))
+ZOO_ATTENTION = (("gemma3-27b local", (4, 32, 16, 2048, 2057, 128, 128, 1024)),
+                 ("stablelm-3b", (4, 32, 32, 1000, 1009, 80, 80, 0)),
+                 ("qwen2-72b", (4, 64, 8, 1000, 1009, 128, 128, 0)),
+                 ("pixtral-12b", (4, 32, 8, 1000, 1009, 128, 128, 0)),
+                 ("deepseek-v2-236b", (4, 128, 128, 1000, 1000, 192, 128, 0)))
+
+
+def window_mask(T: int, S: int, window: int, device) -> torch.Tensor:
+    """(T, S) bool: key j visible to query i (q_offset 0): j ≤ i and i − j
+    < ``window``; SDPA's mask for the windowed function."""
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    return (j <= i) & (i - j < window)
 
 
 def model_attention_row(name: str, shape: tuple, gen) -> dict:
-    """A model's prefill attention (causal, q_offset 0) in bf16, in the
-    model's layouts: compared with the plain version in f32, timed beside
-    it and beside `scaled_dot_product_attention` (causal, top-left
-    aligned: the same function, keys past the prompt masked)."""
-    B, Hq, Hkv, T, S, D, Dv = shape
+    """A model's prefill attention (causal, q_offset 0, its window) in
+    bf16, in the model's layouts: compared with the plain version in f32,
+    timed beside it and beside `scaled_dot_product_attention` (causal,
+    top-left aligned, or with the window as a boolean mask: the same
+    function, keys past the prompt masked)."""
+    B, Hq, Hkv, T, S, D, Dv, window = shape
     q = randn((B, T, Hq, D), gen).transpose(1, 2)
     k = torch.zeros((B, S, Hkv, D), dtype=torch.bfloat16, device="cuda")
     v = torch.zeros((B, S, Hkv, Dv), dtype=torch.bfloat16, device="cuda")
     k[:, :T], v[:, :T] = randn((B, T, Hkv, D), gen), randn((B, T, Hkv, Dv), gen)
     k, v = k.transpose(1, 2), v.transpose(1, 2)
-    out = flash_attention_fwd(q, k, v, causal=True, q_offset=0)
-    err = check_attention(out, q, k, v, 0, f"{name} prefill attention")
-    sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                            enable_gqa=True)
-    check_tol(sdpa, attention_f32_ref(q, k, v, 0), SDPA_TOL, SDPA_TOL,
+    kw = dict(causal=True, window=window, q_offset=0)
+    out = flash_attention_fwd(q, k, v, **kw)
+    err = check_attention(out, q, k, v, 0, f"{name} prefill attention", causal=True,
+                          window=window)
+    if window:
+        mask = window_mask(T, S, window, q.device)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+    else:
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+    check_tol(sdpa(), attention_f32_ref(q, k, v, 0, window=window), SDPA_TOL, SDPA_TOL,
               f"SDPA {name} prefill")
-    seen = B * Hq * T * (T + 1) // 2
+    seen = B * Hq * keys_seen(T, 0, window)
     nbytes = 2 * (q.numel() + B * Hkv * T * (D + Dv) + out.numel())
     return dict(
-        shape=f"{name} prefill B{B} Hq{Hq} Hkv{Hkv} T{T} S{S} D{D}/{Dv} bf16, causal, "
-              "the model's strided views",
+        shape=f"{name} prefill B{B} Hq{Hq} Hkv{Hkv} T{T} S{S} D{D}/{Dv} bf16, causal"
+              + (f", window {window}" if window else "") + ", the model's strided views",
         instantiation=f"bf16 head dim ≤ {width_for(D, Dv)}, bq 128, bkv 128",
         max_abs_err=err,
-        ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=True, q_offset=0)),
-        plain_ms=time_ms(lambda: flash_ref(q, k, v, q_offset=0), reps=3, warmup=1),
-        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
+        ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+        plain_ms=time_ms(lambda: flash_ref(q, k, v, **kw), reps=3, warmup=1),
+        library_ms=time_ms(sdpa),
         bound=bound(nbytes, 2 * seen * (D + Dv), torch.bfloat16))
+
+
+def grouped_row(name: str, what: str, C: int, w, gen) -> dict:
+    """An MoE model's grouped expert up-projection at capacity C (G experts,
+    K = d, N = d_ff of an expert) at the GO tile for CD 16: compared with
+    its plain version, timed beside it and `bmm`."""
+    E, D, F = w.shape
+    tile = default_library().tile(GemmDesc(C, F, D), min(16, E))
+    a = randn((E, C, D), gen)
+    out = grouped_kernel.grouped_matmul(a, w, bm=tile.bm)
+    err = check_close(out, grouped_gemm_ref(a, w), grouped_abs(a, w), f"{name} grouped up, {what}")
+    return dict(
+        shape=f"{name} {what} expert up-projection G{E} {C}x{F}x{D} bf16 at {tile.key()}",
+        max_abs_err=err,
+        ms=time_ms(lambda: grouped_kernel.grouped_matmul(a, w, bm=tile.bm)),
+        plain_ms=time_ms(lambda: grouped_gemm_ref(a, w), reps=3, warmup=1),
+        library_ms=time_ms(lambda: torch.bmm(a, w)),
+        bound=bound(2 * E * (C * D + D * F + C * F), 2 * E * C * F * D, torch.bfloat16))
+
+
+def print_rows(rows: dict) -> None:
+    for name, rs in rows.items():
+        for r in rs:
+            lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"# {name:<15} {r['shape']:<60} kernel {r['ms']:.4f} ms | plain "
+                  f"{r['plain_ms']:.4f} | torch {lib_ms} | bound {r['bound'][0]:.6f} "
+                  f"({r['bound'][1]}) | max err {r['max_abs_err']:.4g}")
 
 
 def model_kernel_rows(gen) -> dict:
@@ -3900,48 +4150,162 @@ def model_kernel_rows(gen) -> dict:
         bound=bound(nbytes, scan_flops(B, T, H, P, N, L, groups=1), f32))]
     del xd, da, bm, cm, y, state
     cfg = get_arch("deepseek-v2-lite-16b")
-    E, D, F = cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff
-    w = randn((E, D, F), gen, scale=D ** -0.5)
-    rows["grouped_matmul"] = []
-    for what, C in (("prefill", 469), ("decode step", 1)):
-        tile = default_library().tile(GemmDesc(C, F, D), min(16, E))
-        a = randn((E, C, D), gen)
-        out = grouped_kernel.grouped_matmul(a, w, bm=tile.bm)
-        err = check_close(out, grouped_gemm_ref(a, w), grouped_abs(a, w),
-                          f"deepseek grouped up, {what}")
-        rows["grouped_matmul"].append(dict(
-            shape=f"deepseek-v2-lite-16b {what} expert up-projection G{E} {C}x{F}x{D} "
-                  f"bf16 at {tile.key()}",
-            max_abs_err=err,
-            ms=time_ms(lambda: grouped_kernel.grouped_matmul(a, w, bm=tile.bm)),
-            plain_ms=time_ms(lambda: grouped_gemm_ref(a, w), reps=3, warmup=1),
-            library_ms=time_ms(lambda: torch.bmm(a, w)),
-            bound=bound(2 * E * (C * D + D * F + C * F), 2 * E * C * F * D,
-                        torch.bfloat16)))
+    w = randn((cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff), gen,
+              scale=cfg.d_model ** -0.5)
+    rows["grouped_matmul"] = [grouped_row(cfg.name, what, C, w, gen)
+                              for what, C in (("prefill", 469), ("decode step", 1))]
+    del w
     torch.cuda.empty_cache()
-    for name, rs in rows.items():
-        for r in rs:
-            lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            print(f"# {name:<15} {r['shape']:<60} kernel {r['ms']:.4f} ms | plain "
-                  f"{r['plain_ms']:.4f} | torch {lib_ms} | bound {r['bound'][0]:.6f} "
-                  f"({r['bound'][1]}) | max err {r['max_abs_err']:.4g}")
+    print_rows(rows)
     return rows
 
 
-def profile_model(model, prompt, steps: int = 2) -> None:
+# xLSTM-350M's scans as its mLSTM layers hand them over (4 heads of N = P =
+# 2·1024/4 = 512, every operand f32, chunk 128, the cache's state as s0):
+# its memory (P = 512) and normaliser (P = 1), a batch-4 1,000-token
+# prompt on the wide chunked passes and a decode step on the decode
+# kernel's wide instantiation.
+XLSTM_SCANS = (("chunks", 4, 1000, 4, 512, 512), ("chunks", 4, 1000, 4, 1, 512),
+               ("decode", 4, 1, 4, 512, 512), ("decode", 4, 1, 4, 1, 512))
+
+
+def planted_block_fault(xd, da, bm, cm, s0, L: int) -> None:
+    """The scan check's power at xLSTM's prompt shape: the kernel run with
+    C's third 64-row N block zeroed, what a wide output pass that dropped
+    that block of C·S_prev and of G = C·Bᵀ gives, must fail `check_scan`
+    against the true inputs."""
+    dropped = cm.clone()
+    dropped[..., 128:192] = 0
+    fy, fs = mamba_scan_fwd(xd, da, bm, dropped, chunk=L, initial_state=s0)
+    ex = scan_excess(fy, fs, xd, da, bm, cm, s0, "planted N-block fault")
+    print(f"# planted wide-scan fault (C's N rows 128-191 dropped) at {tuple(xd.shape)} "
+          f"N{bm.shape[-1]}: y {ex['y'][1]} of {fy.numel()} elements beyond the scan "
+          f"tolerance (max |err| {ex['y'][0]:.4g}), so check_scan fails it")
+    if not ex["y"][1]:
+        raise AssertionError("check_scan lets a dropped N block through")
+
+
+def wide_scan_rows(gen) -> list:
+    """`XLSTM_SCANS`, each checked against the plain version (the first
+    with a planted dropped N block that must fail the check), its grid and
+    residency printed, then timed beside the plain version and its bound:
+    the chunks route on one input set (its 134 MB workspace is beyond the
+    50 MB L2), the decode route on state sets rotating beyond the L2."""
+    f32, rows = torch.float32, []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for route, B, T, H, P, N in XLSTM_SCANS:
+        L = 128
+        xd, da, bm, cm = scan_inputs(B, T, H, P, N, gen, f32, broadcast=False)
+        state_b = B * H * N * P * 4
+        n_sets = 1 if route == "chunks" else max(4, -(-L2_BYTES * 5 // 4 // (2 * state_b)))
+        sets = [(randn((B, H, N, P), gen, f32), *scan_buffers(xd, da, bm, cm, chunk=L)[:2])
+                for _ in range(n_sets)]
+        s0 = sets[0][0]
+        before = dict(mamba_scan_fwd.routes)
+        y, state = mamba_scan_fwd(xd, da, bm, cm, chunk=L, initial_state=s0)
+        if mamba_scan_fwd.routes[route] != before[route] + 1:
+            raise AssertionError(f"xLSTM scan {route} P{P}: missed the {route} route")
+        what = f"xlstm-350m {route} B{B} T{T} H{H} P{P} N{N}"
+        err = check_scan(y, state, xd, da, bm, cm, s0, what)
+        if route == "chunks":
+            if P == N:
+                planted_block_fault(xd, da, bm, cm, s0, L)
+            g = chunk_grid(B, T, H, P, N, L, False, f32)
+            blocks, smem = chunk_residency(xd.device, f32, 1, N, P, L)
+            grid = {}
+            for name, ctas, per_sm, shared in (("state", g.state_ctas, blocks[0], smem[0]),
+                                               ("carry", g.carry_ctas, blocks[1], 0),
+                                               ("output", g.output_ctas, blocks[2], smem[1])):
+                grid[name] = dict(ctas=ctas, ctas_per_sm=per_sm,
+                                  waves=ctas / (per_sm * sms), smem_bytes=shared)
+                print(f"# mamba_scan wide chunks f32 B{B} T{T} H{H} P{P} N{N} L{L}, {name} "
+                      f"pass: {ctas} CTAs, {per_sm} per SM, {ctas / (per_sm * sms):.2f} "
+                      f"waves, {shared} B dynamic shared memory; {g.col_blocks} column "
+                      f"block(s)")
+            flops = scan_flops(B, T, H, P, N, L)
+        else:
+            g = decode_grid(B * H, P, N, sms)
+            per_sm, smem = decode_residency(xd.device, f32, P % 4 == 0, True, wide=True)
+            grid = dict(ctas=g.ctas, slices=g.slices, pairs_per_cta=g.pairs_per_cta,
+                        ctas_per_sm=per_sm, smem_bytes=smem, rotating_sets=n_sets)
+            print(f"# mamba_scan wide decode f32 B{B} H{H} P{P} N{N}: {g.ctas} CTAs, "
+                  f"{g.slices} column slice(s), {g.row_lanes} row lanes, {per_sm} per SM, "
+                  f"{smem} B shared; {n_sets} rotating state sets")
+            flops = decode_flops(B, H, P, N, True)
+        nbytes = 4 * (xd.numel() + da.numel() + bm.numel() + cm.numel() + y.numel()) + 2 * state_b
+        rows.append(dict(
+            shape=f"{what} L{L} f32, per-head B/C, initial state ({route})",
+            instantiation=f"f32, wide ({'N' if N > 128 else ''}{'P' if P > 128 else ''} > 128)",
+            route=route, grid=grid, max_abs_err=err,
+            ms=time_ms(rotating(lambda s, yy, st: mamba_scan_fwd(
+                xd, da, bm, cm, chunk=L, initial_state=s, out=(yy, st)), sets),
+                reps=50 if route == "decode" else 20),
+            plain_ms=time_ms(lambda: ssd_chunk_ref(xd, da, bm, cm, chunk=L, initial_state=s0),
+                             reps=3, warmup=1),
+            library_ms=None,
+            bound=bound(nbytes, flops, f32)))
+        del xd, da, bm, cm, y, state, sets
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_kernel_rows(gen) -> dict:
+    """Phase 10d's new kernel shapes, each compared with its plain version
+    and timed beside it and the PyTorch call computing the same function:
+    the five new prefill attention shapes (Gemma3's windowed local layers
+    beside SDPA with the window as a mask, StableLM's head dim 80, Qwen2's
+    and Pixtral's 128, DeepSeek-V2-236B's MLA 192/128); DeepSeek-V2-236B's
+    grouped up-projection (160 experts, d 5120, expert d_ff 1536) at the
+    prefill's capacity (C 188) and a decode step's (C 1); xLSTM's wide
+    scans (`wide_scan_rows`)."""
+    rows = {"flash_attention": []}
+    for n, sh in ZOO_ATTENTION:
+        rows["flash_attention"].append(model_attention_row(n, sh, gen))
+        torch.cuda.empty_cache()
+    cfg = get_arch("deepseek-v2-236b")
+    w = randn((cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff), gen,
+              scale=cfg.d_model ** -0.5)
+    rows["grouped_matmul"] = [grouped_row(cfg.name, what, C, w, gen)
+                              for what, C in (("prefill", 188), ("decode step", 1))]
+    del w
+    torch.cuda.empty_cache()
+    rows["mamba_scan"] = wide_scan_rows(gen)
+    print_rows(rows)
+    return rows
+
+
+def positions(batch: dict) -> tuple[int, int]:
+    """(B, positions) of a prompt: its tokens, frames, or patches and tokens."""
+    B = next(iter(batch.values())).shape[0]
+    return B, sum(v.shape[1] for k, v in batch.items() if k in ("tokens", "frames", "patches"))
+
+
+def profile_model(model, batch: dict, steps: int = 2) -> None:
     """The model's prefill and ``steps`` decode steps (bf16 caches), each
     under `torch.profiler`: wall (host clock to a synchronize), kernel
     launches and time, the device's busy share (the union of kernel
-    intervals) and the kernels taking the most time."""
+    intervals) and the kernels taking the most time; for xLSTM also the
+    host seconds inside its sLSTM layers (the loop over tokens)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    B, T = prompt.shape
+    cfg = model.cfg
+    B, T = positions(batch)
     cache = model.init_cache(B, T + steps + 1, torch.bfloat16)
-    tokens, state = prompt.to(model.device), {}
+    inputs, state = {k: v.to(model.device) for k, v in batch.items()}, {}
+    frames = (step_frames(cfg, B, steps, torch.bfloat16)
+              if cfg.frontend == "audio_frames" else None)
+    slstm_s, real_slstm = [0.0], model_blocks.slstm_apply
+
+    def timed_slstm(*a, **kw):
+        h0 = time.perf_counter()
+        out = real_slstm(*a, **kw)
+        slstm_s[0] += time.perf_counter() - h0
+        return out
 
     def window(label: str, fn) -> None:
         torch.cuda.synchronize()
+        slstm_s[0] = 0.0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             h0 = time.perf_counter()
             fn()
@@ -3960,23 +4324,26 @@ def profile_model(model, prompt, steps: int = 2) -> None:
             busy += max(0.0, hi - max(lo, end))
             end = max(end, hi)
         top = ", ".join(f"{k} {v / total:.1%}" for k, v in by_key.most_common(6))
+        host = (f"; host in the sLSTM layers {slstm_s[0] * 1e3:.3f} ms "
+                f"({slstm_s[0] / wall:.1%} of wall)" if cfg.family == "ssm" else "")
         print(f"#   profiled {label}: wall {wall * 1e3:.3f} ms, {n} kernel launches, "
               f"kernel time {total / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms (idle "
-              f"{1 - busy / 1e6 / wall:.1%}); most time: {top}")
+              f"{1 - busy / 1e6 / wall:.1%}){host}; most time: {top}")
 
     def prefill():
-        state["out"] = model.prefill({"tokens": tokens}, cache)
+        state["out"] = model.prefill(inputs, cache)
 
     def decode():
         logits, _, n = state["out"]
-        tok = logits[:, -1].argmax(-1, keepdim=True)
         for i in range(steps):
-            logits, _, _ = model.decode_step(tok, cache, n + i)
-            tok = logits[:, -1].argmax(-1, keepdim=True)
+            x = frames[i] if frames else logits[:, -1].argmax(-1, keepdim=True)
+            logits, _, _ = model.decode_step(x, cache, n + i)
 
+    model_blocks.slstm_apply = timed_slstm
     with torch.inference_mode():
         window("prefill", prefill)
         window(f"{steps} decode steps", decode)
+    model_blocks.slstm_apply = real_slstm
     take_counts()
 
 
@@ -3995,6 +4362,58 @@ def model_phase() -> dict:
     launcher_on_card()
     free()
     print(f"# model phase: {time.perf_counter() - t0:.1f} s (host clock)")
+    return dict(counts=counts, served=served)
+
+
+# ------------------------------------------------------ the model zoo (10d)
+# The seven architectures phase 10 does not serve, through the same entry
+# points.  (a) card against CPU at full width in f32, the launches exact:
+# xLSTM at 8 layers (2 groups), Gemma3 at 6 (5 local layers and its global
+# one) with its window cut to 64 so that the 96-position prompt crosses
+# it, the others at 2 (DeepSeek-V2-236B: its dense layer and one MoE
+# layer); Pixtral's prompt is its 256 patches and 64 tokens.  xLSTM on the
+# rescaled tree (`rescale`), as the CPU tests hold it: at the reference's
+# σ (scale/√2 for its twice-stacked leaves at 2 groups) its residual grows
+# to ~10², where f32 logits move with any order of summation.
+ZOO_CHECKS = (("stablelm-3b", 2, {}), ("qwen2-72b", 2, {}), ("deepseek-v2-236b", 2, {}),
+              ("gemma3-27b", 6, {"sliding_window": 64}),
+              ("xlstm-350m", 8, {"rescaled": True}),
+              ("musicgen-medium", 2, {}), ("pixtral-12b", 2, {}))
+ZOO_CHECK_PROMPT = {"pixtral-12b": 320}
+ZOO_CHECK_DEFAULT = 96
+# (b) each at full width in bf16, batch 4, 1,000-position prompts
+# (Gemma3's 2,048, so that its local layers mask; Pixtral's are 256
+# patches and 744 tokens), 8 greedy steps (MusicGen: seeded frames); full
+# depth but Qwen2-72B (8 of 80 layers) and DeepSeek-V2-236B (4 of 60: its
+# dense layer and 3 MoE layers); each model freed before the next; xLSTM's
+# and Gemma3's prefill and 2 decode steps profiled, xLSTM's prefill on the
+# prompt's first 128 positions (its sLSTM loop launches ~130 kernels a
+# position, and the profiler's processing of a 1,000-position prefill's
+# 133,478 launches took about as long as the rest of the phase).
+ZOO_SERVE = (("xlstm-350m", None, 1000), ("musicgen-medium", None, 1000),
+             ("stablelm-3b", None, 1000), ("pixtral-12b", None, 1000),
+             ("gemma3-27b", None, 2048), ("qwen2-72b", 8, 1000),
+             ("deepseek-v2-236b", 4, 1000))
+ZOO_STEPS = 8
+ZOO_PROFILED = {"xlstm-350m": 128, "gemma3-27b": None}   # name: prefill positions
+
+
+def zoo_phase() -> dict:
+    """Phase 10d: (a) and (b) of `ZOO_CHECKS` and `ZOO_SERVE`, the
+    launches of (a) counted apart; (b)'s are the kernels line's
+    ``model_zoo`` path."""
+    t0 = time.perf_counter()
+    for name, layers, fields in ZOO_CHECKS:
+        model_check(name, layers, ZOO_CHECK_PROMPT.get(name, ZOO_CHECK_DEFAULT), **fields)
+        free()
+    served, counts = {}, Counter()
+    for name, layers, prompt_len in ZOO_SERVE:
+        served[name] = model_serve(name, layers, prompt_len, ZOO_STEPS,
+                                   profile_steps=2 if name in ZOO_PROFILED else 0,
+                                   profile_len=ZOO_PROFILED.get(name))
+        counts += served[name]["counts"]
+        free()
+    print(f"# model zoo phase: {time.perf_counter() - t0:.1f} s (host clock)")
     return dict(counts=counts, served=served)
 
 
@@ -4576,7 +4995,7 @@ def main() -> int:
     self_correction_phase(get_arch("qwen3-14b"), unfused)
     gc.collect()
     torch.cuda.empty_cache()
-    slo_phase(get_arch("qwen3-14b"), unfused)
+    slo_phase(get_arch("qwen3-14b"), unfused[:SLO_LAYERS])
     del unfused
     ops = {}
     for name, context in OP_CONFIGS:
@@ -4601,6 +5020,17 @@ def main() -> int:
             scan_routes[k] += n
     gc.collect()
     torch.cuda.empty_cache()
+    zoo = zoo_phase()
+    missing = [k for k in MODEL_KERNELS if zoo["counts"][k] <= 0]
+    if missing:
+        raise AssertionError(f"the model zoo path never launched {missing}")
+    for name, more in zoo_kernel_rows(gen).items():
+        rows[name] += more
+    for served in zoo["served"].values():
+        for k, n in served["routes"].items():
+            scan_routes[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
     trained = training_phase()
     scan_routes["chunks"] += trained["counts"]["mamba_scan"]
     kernels = []
@@ -4615,6 +5045,7 @@ def main() -> int:
             by_path["prompt_scans"] = prompt["counts"][name]
         if name in MODEL_KERNELS:
             by_path["model_serve"] = model_counts[name]
+            by_path["model_zoo"] = zoo["counts"][name]
         if name in TRAIN_KERNELS:
             by_path["train"] = trained["counts"][name]
         kernels.append({

@@ -212,7 +212,14 @@ def list_archs() -> list[str]:
 
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (register)
+        deepseek_v2_236b,
         deepseek_v2_lite_16b,
+        gemma3_27b,
+        musicgen_medium,
+        pixtral_12b,
+        qwen2_72b,
         qwen3_14b,
+        stablelm_3b,
+        xlstm_350m,
         zamba2_1p2b,
     )

@@ -1,0 +1,28 @@
+"""deepseek-v2-236b [moe] — MLA (kv_lora=512, q_lora=1536), 2 shared + 160
+routed top-6. [arXiv:2405.04434; hf]"""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(
+    ArchConfig(
+        name="deepseek-v2-236b",
+        family="moe",
+        n_layers=60,
+        d_model=5120,
+        n_heads=128,
+        n_kv_heads=128,
+        d_ff=1536,           # per assignment: routed-expert hidden dim
+        vocab_size=102400,
+        attn_type="mla",
+        kv_lora_rank=512,
+        q_lora_rank=1536,
+        qk_rope_head_dim=64,
+        qk_nope_head_dim=128,
+        v_head_dim=128,
+        n_routed_experts=160,
+        n_shared_experts=2,
+        moe_top_k=6,
+        moe_d_ff=1536,
+        first_dense_layers=1,
+        dense_d_ff=12288,
+    )
+)

@@ -112,8 +112,9 @@ namespace repro_ms {
 using namespace repro;  // cp.async staging, ldmatrix and mma.sync
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxDim = 128;  // N and P capacity
-constexpr int kMaxL = 512;    // chunk length capacity
+constexpr int kMaxDim = 128;   // N and P of the narrow instantiations
+constexpr int kMaxWide = 512;  // N and P capacity (the wide chunked form)
+constexpr int kMaxL = 512;     // chunk length capacity
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -158,6 +159,7 @@ struct ChunkParams {
   int mblocks;  // 64-row blocks of the state (Np rows)
   int eblocks;  // carry CTAs per (batch, head), 4 state elements a thread
   int carry_vec;  // 16-byte carry accesses: N * P % 4 == 0, s0 and sf aligned
+  int pblocks;    // kColBlk-column blocks of P a wide CTA takes (1 when narrow)
   int64_t x_sb, x_st, x_sh;
   int64_t a_sb, a_st, a_sh;
   int64_t b_sb, b_st, b_sh;
@@ -808,18 +810,391 @@ __global__ void __launch_bounds__(kOutThreads, 2) ssd_output_kernel(ChunkParams 
   }
 }
 
+// ------------------------------------------------- the wide chunked form
+// N or P above kMaxDim (xLSTM's mLSTM heads, N = P = 512, and their
+// normaliser, P = 1 at N = 512): the narrow passes keep a whole head's N
+// columns of B and C rows in shared memory, and the output pass a whole
+// S_prev (about 1 MB at 512), past the 227 KB a CTA may have.  The wide
+// passes take one head a CTA and give it a column-block axis, P in blocks
+// of kColBlk columns:
+//   - the state pass, a CTA per (batch, chunk, head, column block, 64
+//     state rows), stages only its 64 columns of B and its kColBlk
+//     columns of xd per 64-row j block (the same two-stage ring);
+//   - the output pass, a CTA per (batch, chunk, 128-row block, head,
+//     column block), streams C and S_prev in 64-row N blocks: C . S_prev
+//     accumulates over the N blocks in the y registers, and per 64-row j
+//     block G = C . B^T accumulates over them in registers before it
+//     meets the decays and xd;
+//   - the carry pass is elementwise and serves both forms unchanged.
+// Staging is synchronous (one wait and barrier a block), y is written from
+// the registers, and the products, splits and masks are the narrow
+// passes'.
+constexpr int kColBlk = 128;         // columns of P a wide CTA takes
+constexpr int kWideLd = kBlk + 8;    // row stride of a staged 64-column N window
+constexpr int kWideLdx = kColBlk + 8;  // row stride of a staged column block
+
+inline size_t wide_state_smem(int s2, int Lp) {
+  return 2 * ((size_t)s2 * kBlk * kWideLd + (size_t)s2 * kBlk * kWideLdx) * 2 +
+         (size_t)Lp * 4;
+}
+inline size_t wide_output_smem(int s2, int Lp) {
+  return ((size_t)s2 * kOutRows * kWideLd + (size_t)s2 * kBlk * kWideLd +
+          (size_t)2 * kBlk * kWideLdx) * 2 + (size_t)Lp * 4;
+}
+
+// Pass 1, wide: state rows n0 .. n0 + 63 (warp w: 16 of them) and columns
+// p0 .. p0 + kColBlk - 1 of one chunk's local end state for one head.
+template <typename T>
+__global__ void __launch_bounds__(kChunkThreads) ssd_state_wide_kernel(ChunkParams p) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int S2 = SPLIT ? 2 : 1, PT = kColBlk / 8;
+  constexpr int bplane = kBlk * kWideLd, xplane = kBlk * kWideLdx;
+  constexpr int stage_elems = S2 * bplane + S2 * xplane;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* dec = reinterpret_cast<float*>(ring + 2 * stage_elems);  // [Lp]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q = lane / 8, r8 = lane % 8, tig = lane % 4, grp = lane / 4;
+  int idx = blockIdx.x;
+  const int mb = idx % p.mblocks;
+  idx /= p.mblocks;
+  const int pb = idx % p.pblocks;
+  idx /= p.pblocks;
+  const int h = idx % p.H;
+  idx /= p.H;
+  const int c = idx % p.nc;
+  const int64_t b = idx / p.nc;
+  const int64_t t0 = (int64_t)c * p.L;
+  const int Lr = (int)(p.T - t0 < p.L ? p.T - t0 : p.L);
+  const int n0 = mb * kBlk, p0 = pb * kColBlk;
+  const int nrows = p.N - n0 < kBlk ? p.N - n0 : kBlk;         // real state rows
+  const int pcols = p.P - p0 < kColBlk ? p.P - p0 : kColBlk;   // real columns
+  const int pw = (pcols + 15) / 16 * 16;
+  const T* bm = static_cast<const T*>(p.bm) + b * p.b_sb + h * p.b_sh + t0 * p.b_st + n0;
+  const T* xd = static_cast<const T*>(p.xd) + b * p.x_sb + h * p.x_sh + t0 * p.x_st + p0;
+
+  const int njb = (Lr + kBlk - 1) / kBlk;
+  auto stage = [&](int jb) {
+    bf16* st = ring + (jb & 1) * stage_elems;
+    const int r0 = jb * kBlk, rows = Lr - r0 < kBlk ? Lr - r0 : kBlk;
+    stage_rows<T, kChunkThreads>(st, kWideLd, bplane, bm + r0 * p.b_st, p.b_st, rows, nrows,
+                                 kBlk);
+    stage_rows<T, kChunkThreads>(st + S2 * bplane, kWideLdx, xplane, xd + r0 * p.x_st, p.x_st,
+                                 rows, pcols, pw);
+    cp_async_commit();
+  };
+  stage(0);
+
+  // dec[j] = exp(s_L - s_j) for the chunk's rows, 0 past them.
+  const float last = cumsum_da<T, 1>(p, dec, b, h, t0, Lr);
+  if (warp == 0) {
+    for (int j = lane; j < p.Lp; j += 32) dec[j] = j < Lr ? expf(last - dec[j]) : 0.f;
+    if (mb == 0 && pb == 0 && lane == 0) p.decay[(b * p.H + h) * p.nc + c] = expf(last);
+  }
+
+  float acc[PT][4];
+#pragma unroll
+  for (int t = 0; t < PT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  const int m0 = warp * 16;  // this warp's rows of the block
+  const bool live = m0 < nrows;
+  const int pt = pw / 8;
+
+  for (int jb = 0; jb < njb; ++jb) {
+    if (jb + 1 < njb) {
+      stage(jb + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // block jb (and, at jb = 0, dec) is in
+    const bf16* Bb = ring + (jb & 1) * stage_elems;
+    const bf16* Xb = Bb + S2 * bplane;
+    const int kend = Lr - jb * kBlk < kBlk ? Lr - jb * kBlk : kBlk;
+    if (live) {
+      for (int kk = 0; kk < kend; kk += 16) {
+        unsigned a[4], al[4] = {0u, 0u, 0u, 0u};
+        const bf16* pa = Bb + (kk + r8 + (q >> 1) * 8) * kWideLd + m0 + (q & 1) * 8;
+        ldsm_x4_t(a[0], a[1], a[2], a[3], pa);
+        if (SPLIT) ldsm_x4_t(al[0], al[1], al[2], al[3], pa + bplane);
+        const int j = jb * kBlk + kk + tig * 2;
+        const float2 d0 = *reinterpret_cast<const float2*>(dec + j);
+        const float2 d8 = *reinterpret_cast<const float2*>(dec + j + 8);
+        unsigned ah[4], alo[4];
+        scale_split<SPLIT>(a[0], al[0], d0, ah[0], alo[0]);
+        scale_split<SPLIT>(a[1], al[1], d0, ah[1], alo[1]);
+        scale_split<SPLIT>(a[2], al[2], d8, ah[2], alo[2]);
+        scale_split<SPLIT>(a[3], al[3], d8, ah[3], alo[3]);
+#pragma unroll
+        for (int nt = 0; nt < PT; nt += 2) {
+          if (nt < pt) {
+            const int off = (kk + r8 + (q & 1) * 8) * kWideLdx + (nt + (q >> 1)) * 8;
+            unsigned bx[4];
+            ldsm_x4_t(bx[0], bx[1], bx[2], bx[3], Xb + off);
+            mma_bf16(acc[nt], ah, bx[0], bx[1]);
+            mma_bf16(acc[nt], alo, bx[0], bx[1]);
+            mma_bf16(acc[nt + 1], ah, bx[2], bx[3]);
+            mma_bf16(acc[nt + 1], alo, bx[2], bx[3]);
+            if (SPLIT) {
+              ldsm_x4_t(bx[0], bx[1], bx[2], bx[3], Xb + xplane + off);
+              mma_bf16(acc[nt], ah, bx[0], bx[1]);
+              mma_bf16(acc[nt + 1], ah, bx[2], bx[3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // block jb is read: its stage takes block jb + 2
+  }
+
+  if (!live) return;
+  float* out = p.ws + ((b * p.H + h) * p.nc + c) * (int64_t)p.N * p.P;
+#pragma unroll
+  for (int nt = 0; nt < PT; ++nt) {
+    if (nt < pt) {
+      const int col = p0 + nt * 8 + tig * 2;
+      store_f32_pair(out, p.N, p.P, n0 + m0 + grp, col, acc[nt][0], acc[nt][1]);
+      store_f32_pair(out, p.N, p.P, n0 + m0 + grp + 8, col, acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+// Pass 3, wide: rows i0 .. i0 + 127 (warp w: 16 of them) and columns
+// p0 .. p0 + kColBlk - 1 of one chunk's y for one head.  First C . S_prev,
+// over the 64-row N blocks (C's and S_prev's), scaled by exp(s_i); then per
+// 64-row j block up to the diagonal, G = C . B^T over the N blocks for the
+// warp's 16-j steps not wholly above its last row, and W = G o exp(s_i -
+// s_j) [i >= j] (split into hi and lo) times xd.
+template <typename T>
+__global__ void __launch_bounds__(kOutThreads, 1) ssd_output_wide_kernel(ChunkParams p) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int S2 = SPLIT ? 2 : 1, PT = kColBlk / 8, KQ = kBlk / 16;
+  constexpr int cplane = kOutRows * kWideLd, bplane = kBlk * kWideLd, xplane = kBlk * kWideLdx;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Cs = reinterpret_cast<bf16*>(smem);  // S2 planes of a 64-column N block of C
+  bf16* Bs = Cs + S2 * cplane;               // S2 planes of B's j rows, the same columns
+  bf16* Xs = Bs + S2 * bplane;               // S_prev's N block (hi, lo), or xd's j rows
+  float* sc = reinterpret_cast<float*>(Xs + 2 * xplane);  // [Lp] cumsum x log2(e)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q = lane / 8, r8 = lane % 8, tig = lane % 4, grp = lane / 4;
+  int idx = blockIdx.x;
+  const int pb = idx % p.pblocks;
+  idx /= p.pblocks;
+  const int h = idx % p.H;
+  idx /= p.H;
+  const int rb = idx % p.rblocks;
+  idx /= p.rblocks;
+  const int c = idx % p.nc;
+  const int64_t b = idx / p.nc;
+  const int64_t t0 = (int64_t)c * p.L;
+  const int Lr = (int)(p.T - t0 < p.L ? p.T - t0 : p.L);
+  const int i0 = rb * kOutRows;
+  if (i0 >= Lr) return;  // a row block past a short last chunk
+  const int rmax = i0 + kOutRows < Lr ? i0 + kOutRows : Lr;
+  const int p0 = pb * kColBlk;
+  const int pcols = p.P - p0 < kColBlk ? p.P - p0 : kColBlk;
+  const int pw = (pcols + 15) / 16 * 16, pt = pw / 8;
+  const T* cm = static_cast<const T*>(p.cm) + b * p.c_sb + h * p.c_sh + t0 * p.c_st;
+  const T* bm = static_cast<const T*>(p.bm) + b * p.b_sb + h * p.b_sh + t0 * p.b_st;
+  const T* xd = static_cast<const T*>(p.xd) + b * p.x_sb + h * p.x_sh + t0 * p.x_st + p0;
+  const float* sprev = p.ws + ((b * p.H + h) * p.nc + c) * (int64_t)p.N * p.P + p0;
+
+  // C's rows i0 .. rmax - 1, columns nb * 64 .. nb * 64 + 63.
+  auto stage_c = [&](int nb) {
+    const int n0 = nb * kBlk;
+    stage_rows<T, kOutThreads, kOutRows>(Cs, kWideLd, cplane, cm + i0 * p.c_st + n0, p.c_st,
+                                         rmax - i0, p.N - n0 < kBlk ? p.N - n0 : kBlk, kBlk);
+  };
+  cumsum_da<T, 1>(p, sc, b, h, t0, rmax, kLog2e);
+
+  const int iw = warp * 16;       // this warp's first row of the block
+  const int ia = i0 + iw + grp;   // chunk row of accumulator elements 0, 1 (2, 3: + 8)
+  const bool live = i0 + iw < Lr;
+  float acc[PT][4];
+#pragma unroll
+  for (int t = 0; t < PT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  // The inter-chunk term C . S_prev, 64 rows of N at a time.
+  for (int nb = 0; nb < p.mblocks; ++nb) {
+    const int n0 = nb * kBlk;
+    stage_c(nb);
+    stage_rows<float, kOutThreads>(Xs, kWideLdx, xplane, sprev + (int64_t)n0 * p.P, p.P,
+                                   p.N - n0 < kBlk ? p.N - n0 : kBlk, pcols, pw);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // C's and S_prev's N block (and, at nb = 0, the cumsum) are in
+    if (live) {
+      for (int kn = 0; kn < kBlk; kn += 16) {
+        unsigned a[4], al[4];
+        const bf16* pc = Cs + (iw + r8 + (q & 1) * 8) * kWideLd + kn + (q >> 1) * 8;
+        ldsm_x4(a[0], a[1], a[2], a[3], pc);
+        if (SPLIT) ldsm_x4(al[0], al[1], al[2], al[3], pc + cplane);
+#pragma unroll
+        for (int nt = 0; nt < PT; nt += 2) {
+          if (nt < pt) {
+            const int off = (kn + r8 + (q & 1) * 8) * kWideLdx + (nt + (q >> 1)) * 8;
+            unsigned bh[4], bl[4];
+            ldsm_x4_t(bh[0], bh[1], bh[2], bh[3], Xs + off);
+            ldsm_x4_t(bl[0], bl[1], bl[2], bl[3], Xs + xplane + off);
+            mma_bf16(acc[nt], a, bh[0], bh[1]);
+            mma_bf16(acc[nt], a, bl[0], bl[1]);
+            mma_bf16(acc[nt + 1], a, bh[2], bh[3]);
+            mma_bf16(acc[nt + 1], a, bl[2], bl[3]);
+            if (SPLIT) {
+              mma_bf16(acc[nt], al, bh[0], bh[1]);
+              mma_bf16(acc[nt + 1], al, bh[2], bh[3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the block is read: the next one takes its place
+  }
+  float si[2];  // s x log2(e) at the thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) si[r] = ia + 8 * r < Lr ? sc[ia + 8 * r] : 0.f;
+  {
+    const float e0 = ia < Lr ? exp2f(si[0]) : 0.f;
+    const float e1 = ia + 8 < Lr ? exp2f(si[1]) : 0.f;
+#pragma unroll
+    for (int t = 0; t < PT; ++t) {
+      acc[t][0] *= e0;
+      acc[t][1] *= e0;
+      acc[t][2] *= e1;
+      acc[t][3] *= e1;
+    }
+  }
+
+  const int ilast = (i0 + iw + 15 < Lr ? i0 + iw + 15 : Lr - 1);  // the warp's last row
+  const int njb = (rmax + kBlk - 1) / kBlk;
+  for (int jb = 0; jb < njb; ++jb) {
+    const int j0 = jb * kBlk;
+    const int jrows = Lr - j0 < kBlk ? Lr - j0 : kBlk;
+    float G[KQ][2][4];
+#pragma unroll
+    for (int kq = 0; kq < KQ; ++kq)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) G[kq][t][0] = G[kq][t][1] = G[kq][t][2] = G[kq][t][3] = 0.f;
+    for (int nb = 0; nb < p.mblocks; ++nb) {
+      const int n0 = nb * kBlk;
+      stage_c(nb);
+      stage_rows<T, kOutThreads>(Bs, kWideLd, bplane, bm + j0 * p.b_st + n0, p.b_st, jrows,
+                                 p.N - n0 < kBlk ? p.N - n0 : kBlk, kBlk);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (live) {
+#pragma unroll
+        for (int kq = 0; kq < KQ; ++kq) {
+          if (j0 + 16 * kq > ilast) continue;
+          // G (16 rows x 16 j) += C . B^T over this N block, as two 8-column tiles.
+          for (int kn = 0; kn < kBlk; kn += 16) {
+            unsigned a[4], al[4], bb[4];
+            const bf16* pc = Cs + (iw + r8 + (q & 1) * 8) * kWideLd + kn + (q >> 1) * 8;
+            ldsm_x4(a[0], a[1], a[2], a[3], pc);
+            const bf16* pbp = Bs + (16 * kq + r8 + (q >> 1) * 8) * kWideLd + kn + (q & 1) * 8;
+            ldsm_x4(bb[0], bb[1], bb[2], bb[3], pbp);
+            mma_bf16(G[kq][0], a, bb[0], bb[1]);
+            mma_bf16(G[kq][1], a, bb[2], bb[3]);
+            if (SPLIT) {
+              ldsm_x4(al[0], al[1], al[2], al[3], pc + cplane);
+              mma_bf16(G[kq][0], al, bb[0], bb[1]);
+              mma_bf16(G[kq][1], al, bb[2], bb[3]);
+              ldsm_x4(bb[0], bb[1], bb[2], bb[3], pbp + bplane);
+              mma_bf16(G[kq][0], a, bb[0], bb[1]);
+              mma_bf16(G[kq][1], a, bb[2], bb[3]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // C's and B's block are read
+    }
+    stage_rows<T, kOutThreads>(Xs, kWideLdx, xplane, xd + j0 * p.x_st, p.x_st, jrows, pcols, pw);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // xd's j rows are in
+    if (live) {
+#pragma unroll
+      for (int kq = 0; kq < KQ; ++kq) {
+        if (j0 + 16 * kq > ilast) continue;
+        float w[8];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          const int t = e / 4, r = (e % 4) / 2;
+          const int i = ia + 8 * r;
+          const int j = j0 + 16 * kq + t * 8 + tig * 2;  // and j + 1
+          const float2 sj = *reinterpret_cast<const float2*>(sc + j);
+          const bool ok0 = j <= i && i < Lr, ok1 = j + 1 <= i && i < Lr;
+          const float d0 = exp2f(ok0 ? si[r] - sj.x : 0.f);
+          const float d1 = exp2f(ok1 ? si[r] - sj.y : 0.f);
+          w[e] = ok0 ? G[kq][t][e % 4] * d0 : 0.f;
+          w[e + 1] = ok1 ? G[kq][t][e % 4 + 1] * d1 : 0.f;
+        }
+        unsigned ah[4], alo[4];
+        split_pair(w[0], w[1], ah[0], alo[0]);
+        split_pair(w[2], w[3], ah[1], alo[1]);
+        split_pair(w[4], w[5], ah[2], alo[2]);
+        split_pair(w[6], w[7], ah[3], alo[3]);
+#pragma unroll
+        for (int nt = 0; nt < PT; nt += 2) {
+          if (nt < pt) {
+            const int off = (kq * 16 + r8 + (q & 1) * 8) * kWideLdx + (nt + (q >> 1)) * 8;
+            unsigned bx[4];
+            ldsm_x4_t(bx[0], bx[1], bx[2], bx[3], Xs + off);
+            mma_bf16(acc[nt], ah, bx[0], bx[1]);
+            mma_bf16(acc[nt], alo, bx[0], bx[1]);
+            mma_bf16(acc[nt + 1], ah, bx[2], bx[3]);
+            mma_bf16(acc[nt + 1], alo, bx[2], bx[3]);
+            if (SPLIT) {
+              ldsm_x4_t(bx[0], bx[1], bx[2], bx[3], Xs + xplane + off);
+              mma_bf16(acc[nt], ah, bx[0], bx[1]);
+              mma_bf16(acc[nt + 1], ah, bx[2], bx[3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // xd's rows are read: the next j block takes the buffers
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = ia + 8 * r;
+    if (row >= Lr) continue;
+    T* yr = static_cast<T*>(p.y) + ((b * p.T + t0 + row) * p.H + h) * (int64_t)p.P;
+#pragma unroll
+    for (int nt = 0; nt < PT; ++nt)
+      if (nt < pt) store_y_pair(yr, p0 + nt * 8 + tig * 2, p.P, acc[nt][2 * r], acc[nt][2 * r + 1]);
+  }
+}
+
+// Whether N or P takes the wide passes.
+inline bool is_wide(long long N, long long P) { return N > kMaxDim || P > kMaxDim; }
+
 // f(state kernel, output kernel) of the instantiation for dtype (0 bf16,
 // 1 f32), heads per CTA (2 only with P <= 64) and P's 8-column tiles
-// (8: P <= 64; 16: P <= 128).
+// (8: P <= 64; 16: P <= 128), or of the wide passes (N or P > 128).
 template <typename T, typename F>
-static int with_chunks_t(int hpc, int pt, F&& f) {
+static int with_chunks_t(int hpc, int pt, bool wide, F&& f) {
+  if (wide) return f(ssd_state_wide_kernel<T>, ssd_output_wide_kernel<T>);
   if (hpc == 2) return f(ssd_state_kernel<T, 2, 8>, ssd_output_kernel<T, 2, 8>);
   if (pt == 8) return f(ssd_state_kernel<T, 1, 8>, ssd_output_kernel<T, 1, 8>);
   return f(ssd_state_kernel<T, 1, 16>, ssd_output_kernel<T, 1, 16>);
 }
 template <typename F>
-static int with_chunks(int dtype, int hpc, int pt, F&& f) {
-  return dtype == 0 ? with_chunks_t<bf16>(hpc, pt, f) : with_chunks_t<float>(hpc, pt, f);
+static int with_chunks(int dtype, int hpc, int pt, bool wide, F&& f) {
+  return dtype == 0 ? with_chunks_t<bf16>(hpc, pt, wide, f)
+                    : with_chunks_t<float>(hpc, pt, wide, f);
+}
+
+// Dynamic shared memory of the state and output passes.
+inline size_t chunk_state_smem(int s2, int hpc, int Np, int Pp, int Lp, bool wide) {
+  return wide ? wide_state_smem(s2, Lp) : state_smem(s2, hpc, Np, Pp, Lp);
+}
+inline size_t chunk_output_smem(int s2, int hpc, int Np, int Pp, int Lp, bool wide) {
+  return wide ? wide_output_smem(s2, Lp) : output_smem(s2, hpc, Np, Pp, Lp);
 }
 
 // The geometry of the chunked form for these shapes and heads per CTA
@@ -836,20 +1211,23 @@ static bool chunk_geometry(ChunkParams& p, int hpc) {
   p.carry_vec = (p.N * p.P) % 4 == 0 && reinterpret_cast<uintptr_t>(p.s0) % 16 == 0 &&
                 reinterpret_cast<uintptr_t>(p.sf) % 16 == 0 &&
                 reinterpret_cast<uintptr_t>(p.ws) % 16 == 0;
+  const bool wide = is_wide(p.N, p.P);
+  p.pblocks = wide ? (p.P + kColBlk - 1) / kColBlk : 1;
   if (hpc != 1 && hpc != 2) return false;
-  if (hpc == 2 && (p.H % 2 || p.Pp > 64 || p.b_sh != 0 || p.c_sh != 0)) return false;
+  if (hpc == 2 && (wide || p.H % 2 || p.Pp > 64 || p.b_sh != 0 || p.c_sh != 0)) return false;
   p.groups = p.H / hpc;
   const long long cap = (1LL << 31) - 1;
-  return (long long)p.B * p.nc * p.groups * p.mblocks <= cap &&
-         (long long)p.B * p.nc * p.groups * p.rblocks <= cap &&
+  return (long long)p.B * p.nc * p.groups * p.mblocks * p.pblocks <= cap &&
+         (long long)p.B * p.nc * p.groups * p.rblocks * p.pblocks <= cap &&
          (long long)p.B * p.H * p.eblocks <= cap;
 }
 
 static int launch_chunks(const ChunkParams& p, int dtype, int hpc, cudaStream_t s) {
   const int s2 = dtype == 0 ? 1 : 2, pt = p.Pp <= 64 ? 8 : 16;
-  const size_t st_smem = state_smem(s2, hpc, p.Np, p.Pp, p.Lp);
-  const size_t out_smem = output_smem(s2, hpc, p.Np, p.Pp, p.Lp);
-  return with_chunks(dtype, hpc, pt, [&](auto state_k, auto output_k) {
+  const bool wide = is_wide(p.N, p.P);
+  const size_t st_smem = chunk_state_smem(s2, hpc, p.Np, p.Pp, p.Lp, wide);
+  const size_t out_smem = chunk_output_smem(s2, hpc, p.Np, p.Pp, p.Lp, wide);
+  return with_chunks(dtype, hpc, pt, wide, [&](auto state_k, auto output_k) {
     cudaError_t e = cudaFuncSetAttribute(
         state_k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)st_smem);
     if (e == cudaSuccess)
@@ -857,15 +1235,15 @@ static int launch_chunks(const ChunkParams& p, int dtype, int hpc, cudaStream_t 
                                (int)out_smem);
     if (e != cudaSuccess) return (int)e;
     if (p.nc > 0) {
-      state_k<<<(unsigned)((long long)p.B * p.nc * p.groups * p.mblocks), kChunkThreads,
-                st_smem, s>>>(p);
+      state_k<<<(unsigned)((long long)p.B * p.nc * p.groups * p.mblocks * p.pblocks),
+                kChunkThreads, st_smem, s>>>(p);
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
     ssd_carry_kernel<<<(unsigned)((long long)p.B * p.H * p.eblocks), kCarryThreads, 0, s>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     if (p.nc > 0) {
-      output_k<<<(unsigned)((long long)p.B * p.nc * p.groups * p.rblocks), kOutThreads,
-                 out_smem, s>>>(p);
+      output_k<<<(unsigned)((long long)p.B * p.nc * p.groups * p.rblocks * p.pblocks),
+                 kOutThreads, out_smem, s>>>(p);
       e = cudaGetLastError();
     }
     return (int)e;
@@ -936,11 +1314,13 @@ __device__ __forceinline__ void store4(float* __restrict__ p, float4 v, int left
 // VEC: P % 4 == 0 and the state (and S0) start 16-byte aligned, so every
 // row group is one float4.  S0: an initial state is given; only then do
 // the threads meet at a barrier, to add their C . S0 partial sums.
-template <typename T, bool VEC, bool S0>
-__global__ void __launch_bounds__(kDecodeThreads, S0 ? 4 : 1)
+// CB: C and B values a lane holds for C . B, kMaxDim / 32 for N <= 128
+// (the narrow instantiations) and kMaxWide / 32 for the wide state.
+template <typename T, bool VEC, bool S0, int CB>
+__global__ void __launch_bounds__(kDecodeThreads, S0 ? (CB == kMaxDim / 32 ? 4 : 2) : 1)
     mamba_decode_kernel(DecodeParams p) {
   __shared__ float4 part[S0 ? kDecodeThreads : 1];  // C . S0 partial sums
-  constexpr int kCb = kMaxDim / 32;                 // C and B values per lane
+  constexpr int kCb = CB;                           // C and B values per lane
   const int tid = threadIdx.x, lane = tid % 32;
   const int N = p.N, P = p.P, H = p.H;
   const int tp = kDecodeThreads / p.ppc;  // threads per pair
@@ -1042,31 +1422,37 @@ __global__ void __launch_bounds__(kDecodeThreads, S0 ? 4 : 1)
   }
 }
 
-// f(kernel) for the decode kernel's instantiation of dtype, vec and s0.
-template <typename T, typename F>
-static int with_decode_t(bool vec, bool s0, F&& f) {
+// f(kernel) for the decode kernel's instantiation of dtype, vec, s0 and
+// width (wide: N > kMaxDim).
+template <typename T, int CB, typename F>
+static int with_decode_cb(bool vec, bool s0, F&& f) {
   if (vec)
-    return s0 ? f(mamba_decode_kernel<T, true, true>)
-              : f(mamba_decode_kernel<T, true, false>);
-  return s0 ? f(mamba_decode_kernel<T, false, true>)
-            : f(mamba_decode_kernel<T, false, false>);
+    return s0 ? f(mamba_decode_kernel<T, true, true, CB>)
+              : f(mamba_decode_kernel<T, true, false, CB>);
+  return s0 ? f(mamba_decode_kernel<T, false, true, CB>)
+            : f(mamba_decode_kernel<T, false, false, CB>);
+}
+template <typename T, typename F>
+static int with_decode_t(bool vec, bool s0, bool wide, F&& f) {
+  return wide ? with_decode_cb<T, kMaxWide / 32>(vec, s0, f)
+              : with_decode_cb<T, kMaxDim / 32>(vec, s0, f);
 }
 template <typename F>
-static int with_decode(int dtype, bool vec, bool s0, F&& f) {
-  return dtype == 0 ? with_decode_t<__nv_bfloat16>(vec, s0, f)
-                    : with_decode_t<float>(vec, s0, f);
+static int with_decode(int dtype, bool vec, bool s0, bool wide, F&& f) {
+  return dtype == 0 ? with_decode_t<__nv_bfloat16>(vec, s0, wide, f)
+                    : with_decode_t<float>(vec, s0, wide, f);
 }
 
 }  // namespace repro_ms
 
 // dtype: 0 = bf16, 1 = f32 (xd, da, bm and cm share it; y takes it too).
-// N, P <= 128, 1 <= L <= 512.  Strides are in elements, (batch, time,
+// N, P <= 512 (above 128 on the wide passes), 1 <= L <= 512.  Strides are in elements, (batch, time,
 // head) for each input; the last dim of xd, bm and cm is contiguous.
 // s0 may be null (zero initial state).  ws is an f32 workspace of
 // B * H * ceil(T / L) * N * P floats and decay one of B * H * ceil(T / L):
 // after the launches ws holds each chunk's incoming state and decay each
-// chunk's exp(s_L).  heads_per_cta: 1, or 2 when H is even, P <= 64 and
-// B and C are head-broadcast (b_sh = c_sh = 0).  Three launches on
+// chunk's exp(s_L).  heads_per_cta: 1, or 2 when H is even, P <= 64,
+// N <= 128 and B and C are head-broadcast (b_sh = c_sh = 0).  Three launches on
 // `stream`; returns the cudaError_t of the first that fails (0 on
 // success; cudaErrorInvalidValue for shapes outside these).
 extern "C" int repro_mamba_scan(
@@ -1076,7 +1462,7 @@ extern "C" int repro_mamba_scan(
     long long x_sb, long long x_st, long long x_sh, long long a_sb, long long a_st,
     long long a_sh, long long b_sb, long long b_st, long long b_sh,
     long long c_sb, long long c_st, long long c_sh, int heads_per_cta, void* stream) {
-  if (N < 1 || P < 1 || N > repro_ms::kMaxDim || P > repro_ms::kMaxDim ||
+  if (N < 1 || P < 1 || N > repro_ms::kMaxWide || P > repro_ms::kMaxWide ||
       L < 1 || L > repro_ms::kMaxL || B < 0 || T < 0 || H < 0 ||
       B >= (1LL << 31) || H >= (1LL << 31) || (T + L - 1) / L >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -1122,18 +1508,20 @@ extern "C" int repro_mamba_scan(
 extern "C" int repro_mamba_chunk_occupancy(int dtype, int heads_per_cta, long long N,
                                            long long P, long long L, int* blocks,
                                            int* smem_bytes) {
-  if (N < 1 || P < 1 || N > repro_ms::kMaxDim || P > repro_ms::kMaxDim || L < 1 ||
+  if (N < 1 || P < 1 || N > repro_ms::kMaxWide || P > repro_ms::kMaxWide || L < 1 ||
       L > repro_ms::kMaxL || (heads_per_cta != 1 && heads_per_cta != 2))
     return (int)cudaErrorInvalidValue;
   const int Np = (int)(N + 15) / 16 * 16, Pp = (int)(P + 15) / 16 * 16;
   const int Lp = (int)(L + repro_ms::kBlk - 1) / repro_ms::kBlk * repro_ms::kBlk;
-  if (heads_per_cta == 2 && Pp > 64) return (int)cudaErrorInvalidValue;
+  const bool wide = repro_ms::is_wide(N, P);
+  if (heads_per_cta == 2 && (Pp > 64 || wide)) return (int)cudaErrorInvalidValue;
   const int s2 = dtype == 0 ? 1 : 2, pt = Pp <= 64 ? 8 : 16;
-  const size_t st = repro_ms::state_smem(s2, heads_per_cta, Np, Pp, Lp);
-  const size_t out = repro_ms::output_smem(s2, heads_per_cta, Np, Pp, Lp);
+  const size_t st = repro_ms::chunk_state_smem(s2, heads_per_cta, Np, Pp, Lp, wide);
+  const size_t out = repro_ms::chunk_output_smem(s2, heads_per_cta, Np, Pp, Lp, wide);
   smem_bytes[0] = (int)st;
   smem_bytes[1] = (int)out;
-  return repro_ms::with_chunks(dtype, heads_per_cta, pt, [&](auto state_k, auto output_k) {
+  return repro_ms::with_chunks(dtype, heads_per_cta, pt, wide,
+                               [&](auto state_k, auto output_k) {
     cudaError_t e = cudaFuncSetAttribute(
         state_k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)st);
     if (e == cudaSuccess)
@@ -1152,8 +1540,9 @@ extern "C" int repro_mamba_chunk_occupancy(int dtype, int heads_per_cta, long lo
   });
 }
 
-// One decode step (T = 1) on the decode kernel.  dtype as above; y is
-// (B, 1, H, P) and the state (B, H, N, P), both contiguous.  slices: column
+// One decode step (T = 1) on the decode kernel.  dtype as above; N, P <=
+// 512 (N above 128 on the wide instantiation); y is (B, 1, H, P) and the
+// state (B, H, N, P), both contiguous.  slices: column
 // slices per pair (1 .. ceil(P / 4)); pairs_per_cta: 1, 2, 4 or 8, and 1
 // when slices > 1.  Strides are in elements, (batch, head) for each input.
 // Returns the cudaError_t of the launch (0 on success;
@@ -1166,7 +1555,7 @@ extern "C" int repro_mamba_decode(
     long long c_sh, int slices, int pairs_per_cta, void* stream) {
   const long long groups = (P + 3) / 4;
   const int ppc = pairs_per_cta;
-  if (N < 1 || P < 1 || N > repro_ms::kMaxDim || P > repro_ms::kMaxDim ||
+  if (N < 1 || P < 1 || N > repro_ms::kMaxWide || P > repro_ms::kMaxWide ||
       slices < 1 || slices > groups ||
       ppc < 1 || ppc > repro_ms::kMaxPairsPerCta || (ppc & (ppc - 1)) ||
       (slices > 1 && ppc != 1) ||
@@ -1199,19 +1588,20 @@ extern "C" int repro_mamba_decode(
                    reinterpret_cast<uintptr_t>(s0) % 16 == 0;
   const unsigned ctas = (unsigned)(((long long)p.pairs + ppc - 1) / ppc * slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return repro_ms::with_decode(dtype, vec, s0 != nullptr, [&](auto kernel) {
+  return repro_ms::with_decode(dtype, vec, s0 != nullptr, N > repro_ms::kMaxDim,
+                               [&](auto kernel) {
     kernel<<<ctas, repro_ms::kDecodeThreads, 0, s>>>(p);
     return (int)cudaGetLastError();
   });
 }
 
 // The residency of the decode kernel's instantiation (vec: 16-byte rows; s0:
-// with an initial state): CTAs per SM
+// with an initial state; wide: N > 128): CTAs per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and its static shared
 // memory per CTA.  Returns the cudaError_t of the queries.
-extern "C" int repro_mamba_decode_occupancy(int dtype, int vec, int s0,
+extern "C" int repro_mamba_decode_occupancy(int dtype, int vec, int s0, int wide,
                                             int* blocks, int* smem_bytes) {
-  return repro_ms::with_decode(dtype, vec != 0, s0 != 0, [&](auto kernel) {
+  return repro_ms::with_decode(dtype, vec != 0, s0 != 0, wide != 0, [&](auto kernel) {
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     if (e != cudaSuccess) return (int)e;

@@ -1,17 +1,19 @@
 """Deterministic synthetic data (`repro/data/pipeline.py`): token
-frontends in ``uniform`` and ``markov`` mode, their input specs, and a
-prefetching loader.
+batches in ``uniform`` and ``markov`` mode, the audio and vision stub
+frontends' batches, their input specs, and a prefetching loader.
 
-Tokens are a counter-based function of (step, salt) alone: numpy's
-Philox generator keyed by them, so every host computes the same batch
-for a step with no state to keep.  They are not the reference's tokens
-(it draws threefry bits through JAX, which the port does not import);
-a test that needs the same tokens in both packages hands them over.
-The ``markov`` stream is the reference's construction from the same
-source: a fixed bigram table of 4 successors a token, each sequence a
-walk through it, so the stream is learnable (its entropy is log 4, far
-below log V).  The audio and vision frontends wait for their slice
-(ROADMAP A12d).
+Tokens and embeddings are a counter-based function of (step, salt)
+alone: numpy's Philox generator keyed by them, so every host computes
+the same batch for a step with no state to keep.  They are not the
+reference's values (it draws threefry bits through JAX, which the port
+does not import); a test that needs the same inputs in both packages
+hands them over.  The ``markov`` stream is the reference's construction
+from the same source: a fixed bigram table of 4 successors a token,
+each sequence a walk through it, so the stream is learnable (its
+entropy is log 4, far below log V).  As in the reference, a model with a
+frontend ignores ``mode``: MusicGen's batch is ``frames`` (B, T, D),
+0.1 × a standard normal, with labels; Pixtral's is `N_PATCHES` patch
+embeddings (B, 256, D), drawn alike, in front of T − 256 tokens.
 """
 from __future__ import annotations
 
@@ -29,8 +31,11 @@ from repro_torch.configs.shapes import InputShape
 SEED = 0x5EED
 TABLE_SEED = 0xB16A      # the bigram table's key (the reference's table key)
 WALK_SEED = 0xC4A1       # the walks' key, with the step
+FRAMES_SEED = 0xA0D10    # the audio stub's key, with the step
+PATCHES_SEED = 0x714E1   # the vision stub's key, with the step
 SUCCESSORS = 4
 MODES = ("uniform", "markov")
+N_PATCHES = 256          # pixtral stub: vision patches per sequence
 
 
 def _philox(*key: int) -> np.random.Generator:
@@ -65,21 +70,40 @@ def _markov_tokens(step: int, shape: tuple, vocab: int) -> torch.Tensor:
     return torch.from_numpy(out)
 
 
-def _check(cfg: ArchConfig, mode: str) -> None:
-    if cfg.frontend:
-        raise NotImplementedError(f"the {cfg.frontend} frontend is not ported yet")
+def _embeddings(key: int, step: int, shape: tuple, dtype) -> torch.Tensor:
+    """0.1 × a standard normal of ``shape`` from Philox keyed by (key,
+    step), drawn in f32 and cast to ``dtype``."""
+    x = _philox(key, step).standard_normal(shape, dtype=np.float32)
+    return (torch.from_numpy(x) * 0.1).to(dtype)
+
+
+def _check(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; have {MODES}")
 
 
 def make_batch(cfg: ArchConfig, shape: InputShape, step: int,
-               mode: str = "uniform") -> Dict[str, torch.Tensor]:
-    """``{"tokens", "labels"}``, (global_batch, seq_len) int32 CPU tensors
-    of ``shape``, labels the tokens shifted by one; ``mode`` "uniform"
-    draws every token alike, "markov" walks the bigram table."""
-    _check(cfg, mode)
+               mode: str = "uniform",
+               embed_dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """CPU tensors of ``shape`` (B = global_batch, T = seq_len): for a
+    token model ``{"tokens", "labels"}``, (B, T) int32, labels the tokens
+    shifted by one, ``mode`` "uniform" drawing every token alike and
+    "markov" walking the bigram table; for the audio stub ``{"frames"
+    (B, T, D) in ``embed_dtype``, "labels" (B, T)}``; for the vision stub
+    ``{"patches" (B, N_PATCHES, D), "tokens", "labels" (B, T −
+    N_PATCHES)}`` (`repro/data/pipeline.py:51-80`)."""
+    _check(mode)
+    B, T = shape.global_batch, shape.seq_len
+    if cfg.frontend == "audio_frames":
+        return {"frames": _embeddings(FRAMES_SEED, step, (B, T, cfg.d_model), embed_dtype),
+                "labels": _tokens(step, (B, T), cfg.vocab_size, 1)}
+    if cfg.frontend == "vision_patches":
+        toks = _tokens(step, (B, T - N_PATCHES + 1), cfg.vocab_size)
+        return {"patches": _embeddings(PATCHES_SEED, step, (B, N_PATCHES, cfg.d_model),
+                                       embed_dtype),
+                "tokens": toks[:, :-1], "labels": toks[:, 1:]}
     draw = _markov_tokens if mode == "markov" else _tokens
-    toks = draw(step, (shape.global_batch, shape.seq_len + 1), cfg.vocab_size)
+    toks = draw(step, (B, T + 1), cfg.vocab_size)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
@@ -88,17 +112,29 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
-def input_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, TensorSpec]:
-    """Shapes and dtypes of every model input of this shape: a decode
-    step's one token, a prefill's tokens, and a training step's labels
-    besides (`repro/data/pipeline.py:87`)."""
-    _check(cfg, "uniform")
+def input_specs(cfg: ArchConfig, shape: InputShape,
+                embed_dtype: torch.dtype = torch.bfloat16) -> Dict[str, TensorSpec]:
+    """Shapes and dtypes of every model input of this shape
+    (`repro/data/pipeline.py:87-116`): a decode step's one token (the
+    audio stub's one frame), a prefill's tokens (frames; patches and the
+    text tokens), and a training step's labels besides (of the text
+    tail for the vision stub)."""
     B, T = shape.global_batch, shape.seq_len
-    if shape.kind == "decode":
-        return {"tokens": TensorSpec((B, 1), torch.int32)}
-    specs = {"tokens": TensorSpec((B, T), torch.int32)}
+    i32 = torch.int32
+    if cfg.frontend == "audio_frames":
+        if shape.kind == "decode":
+            return {"frames": TensorSpec((B, 1, cfg.d_model), embed_dtype)}
+        specs = {"frames": TensorSpec((B, T, cfg.d_model), embed_dtype)}
+    elif shape.kind == "decode":
+        return {"tokens": TensorSpec((B, 1), i32)}
+    elif cfg.frontend == "vision_patches":
+        T -= N_PATCHES
+        specs = {"patches": TensorSpec((B, N_PATCHES, cfg.d_model), embed_dtype),
+                 "tokens": TensorSpec((B, T), i32)}
+    else:
+        specs = {"tokens": TensorSpec((B, T), i32)}
     if shape.kind == "train":
-        specs["labels"] = TensorSpec((B, T), torch.int32)
+        specs["labels"] = TensorSpec((B, T), i32)
     return specs
 
 
@@ -110,7 +146,7 @@ class DataLoader:
 
     def __init__(self, cfg: ArchConfig, shape: InputShape, start_step: int = 0,
                  prefetch: int = 2, **kw):
-        _check(cfg, kw.get("mode", "uniform"))
+        _check(kw.get("mode", "uniform"))
         self.cfg, self.shape, self.kw = cfg, shape, kw
         self.step, self.prefetch = start_step, prefetch
         self._ready: collections.deque = collections.deque()

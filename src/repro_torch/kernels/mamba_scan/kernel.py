@@ -9,7 +9,11 @@ other T takes the chunked form, three launches with the chunks in
 parallel (`ssd_state_kernel`: each chunk's local end state;
 `ssd_carry_kernel`: the states carried across chunks; `ssd_output_kernel`:
 each chunk's y), on the grid `chunk_grid` gives, with the intra-chunk
-products on tensor cores.  Both read xd (B,T,H,P), da (B,T,H) and B/C
+products on tensor cores.  N or P above 128 (xLSTM's mLSTM, N = P = 512,
+and its normaliser, P = 1) take the wide state and output passes, one
+head a CTA with P in 128-column blocks and the output pass streaming C
+and the carried state in 64-row N blocks; the decode kernel's wide
+instantiation holds 16 values of C and B a lane.  Both read xd (B,T,H,P), da (B,T,H) and B/C
 (B,T,H,N) through their strides, in bf16 or f32, so the launcher
 transposes, pads and copies nothing: a Mamba2 group-shared B/C may be a
 broadcast view, and then a CTA of the chunked form takes two heads.
@@ -44,10 +48,11 @@ _SIGNATURES = {
     "repro_mamba_scan": (_I, (_P,) * 9 + (_I,) + (_LL,) * 18 + (_I, _P)),
     "repro_mamba_chunk_occupancy": (_I, (_I, _I, _LL, _LL, _LL, _IP, _IP)),
     "repro_mamba_decode": (_I, (_P,) * 7 + (_I,) + (_LL,) * 12 + (_I, _I, _P)),
-    "repro_mamba_decode_occupancy": (_I, (_I, _I, _I, _IP, _IP)),
+    "repro_mamba_decode_occupancy": (_I, (_I, _I, _I, _I, _IP, _IP)),
     "repro_error_string": (ctypes.c_char_p, (_I,)),
 }
-MAX_DIM = 128      # N and P capacity (`csrc/mamba_scan.cu:kMaxDim`)
+NARROW_DIM = 128   # N and P of the narrow instantiations (`csrc/mamba_scan.cu:kMaxDim`)
+MAX_DIM = 512      # N and P capacity (`kMaxWide`)
 MAX_CHUNK = 512
 SCAN_ROUTES = ("decode", "chunks")
 DECODE_THREADS = 256   # `csrc/mamba_scan.cu:kDecodeThreads`
@@ -55,6 +60,7 @@ MAX_PAIRS_PER_CTA = 8  # `kMaxPairsPerCta`
 CHUNK_BLOCK = 64       # `kBlk`: rows of a j block and of a state block
 OUTPUT_ROWS = 128      # `kOutRows`: rows of an output-pass CTA (8 warps of 16)
 CARRY_THREADS = 256    # `kCarryThreads`
+COL_BLOCK = 128        # `kColBlk`: columns of P a wide CTA takes
 
 
 def scan_shapes(xd, da, Bm, Cm) -> tuple:
@@ -76,7 +82,7 @@ def scan_route(T: int, P: int, N: int, chunk: int) -> str:
     """Which kernel a scan launch of these shapes takes: ``"decode"``
     (`mamba_decode_kernel`) for a decode step, T = 1; ``"chunks"`` (the
     chunked form's three passes) for every other T.  Raises on an N or P
-    outside [1, 128] or a chunk outside [1, 512], whichever the route: a
+    outside [1, 512] or a chunk outside [1, 512], whichever the route: a
     call that one kernel refuses, the other refuses too.  A choice by shape between two
     kernels, each held to `ssd_chunk_ref` on the card; nothing overrides
     it."""
@@ -135,7 +141,9 @@ class ChunkGrid(NamedTuple):
     ``row_blocks`` 128-row blocks of a chunk (one output CTA each),
     ``state_blocks`` 64-row blocks of the (N padded to 16) state,
     ``carry_blocks`` carry CTAs per (batch, head); the CTAs of the three
-    passes; the f32 workspace (each chunk's state, then its decay)."""
+    passes; the f32 workspace (each chunk's state, then its decay);
+    ``col_blocks`` 128-column blocks of P a CTA of the wide passes takes
+    (1 on the narrow ones, whose CTAs take every column)."""
 
     B: int
     H: int
@@ -150,17 +158,29 @@ class ChunkGrid(NamedTuple):
     carry_ctas: int
     output_ctas: int
     workspace_floats: int
+    col_blocks: int = 1
+
+    def _cols(self, pb: int) -> range:
+        if self.col_blocks == 1:
+            return range(self.P)
+        return range(pb * COL_BLOCK, min(self.P, (pb + 1) * COL_BLOCK))
 
     def state_cta(self, i: int) -> tuple:
         """(batch, chunk, heads, state rows) of state-pass CTA ``i``, as
-        `ssd_state_kernel` reads its ``blockIdx.x``."""
+        `ssd_state_kernel` (`ssd_state_wide_kernel`) reads its
+        ``blockIdx.x``; `state_cols` its columns."""
         mb, i = i % self.state_blocks, i // self.state_blocks
+        i //= self.col_blocks
         groups = self.H // self.heads_per_cta
         g, i = i % groups, i // groups
         c, b = i % self.chunks, i // self.chunks
         h0 = g * self.heads_per_cta
         return (b, c, range(h0, h0 + self.heads_per_cta),
                 range(mb * CHUNK_BLOCK, min(self.N, (mb + 1) * CHUNK_BLOCK)))
+
+    def state_cols(self, i: int) -> range:
+        """The columns of P state-pass CTA ``i`` computes."""
+        return self._cols(i // self.state_blocks % self.col_blocks)
 
     def carry_cta(self, i: int) -> tuple:
         """(batch, head, state elements) of carry-pass CTA ``i`` (4
@@ -172,8 +192,10 @@ class ChunkGrid(NamedTuple):
 
     def output_cta(self, i: int) -> tuple:
         """(batch, chunk, heads, first row) of output-pass CTA ``i``, as
-        `ssd_output_kernel` reads its ``blockIdx.x`` (a row block past a
-        short last chunk returns at once)."""
+        `ssd_output_kernel` (`ssd_output_wide_kernel`) reads its
+        ``blockIdx.x`` (a row block past a short last chunk returns at
+        once); `output_cols` its columns."""
+        i //= self.col_blocks
         groups = self.H // self.heads_per_cta
         g, i = i % groups, i // groups
         rb, i = i % self.row_blocks, i // self.row_blocks
@@ -181,17 +203,27 @@ class ChunkGrid(NamedTuple):
         h0 = g * self.heads_per_cta
         return b, c, range(h0, h0 + self.heads_per_cta), rb * OUTPUT_ROWS
 
+    def output_cols(self, i: int) -> range:
+        """The columns of P output-pass CTA ``i`` computes."""
+        return self._cols(i % self.col_blocks)
+
+
+def is_wide(P: int, N: int) -> bool:
+    """Whether these widths take the wide passes (`csrc/mamba_scan.cu:is_wide`)."""
+    return N > NARROW_DIM or P > NARROW_DIM
+
 
 def chunk_heads_per_cta(H: int, P: int, shared_bc: bool,
-                        dtype: torch.dtype = torch.bfloat16) -> int:
+                        dtype: torch.dtype = torch.bfloat16, N: int = 0) -> int:
     """2 when B and C are head-broadcast views (``shared_bc``: head stride
     0), H is even, P pads to at most 64 (two heads' accumulators fit a
-    thread's registers) and the inputs are bf16: C·Bᵀ is then computed
-    once for both heads; else 1.  With f32 inputs (hi and lo planes) two
-    heads take one output CTA per SM, and one head a CTA ran faster on the
-    card (PERF.md section 6, probes/scan_chunks/ab.py --heads)."""
+    thread's registers), N is narrow and the inputs are bf16: C·Bᵀ is
+    then computed once for both heads; else 1.  With f32 inputs (hi and lo
+    planes) two heads take one output CTA per SM, and one head a CTA ran
+    faster on the card (PERF.md section 6, probes/scan_chunks/ab.py
+    --heads)."""
     return (2 if shared_bc and H % 2 == 0 and _pad16(P) <= 64 and dtype == torch.bfloat16
-            else 1)
+            and N <= NARROW_DIM else 1)
 
 
 def chunk_grid(B: int, T: int, H: int, P: int, N: int, chunk: int,
@@ -201,16 +233,20 @@ def chunk_grid(B: int, T: int, H: int, P: int, N: int, chunk: int,
     64 state rows), the carry pass one per (batch, head, 1,024 state
     elements), the output pass one per (batch, chunk, 128-row block, head
     group), the head groups fastest so that CTAs sharing B and C run
-    together."""
-    hpc = chunk_heads_per_cta(H, P, shared_bc, dtype)
+    together.  The wide passes (N or P > 128) take one head a CTA and one
+    128-column block of P (next fastest after the state rows, fastest in
+    the output pass)."""
+    hpc = chunk_heads_per_cta(H, P, shared_bc, dtype, N)
     nc = -(-T // chunk)
     rblocks = -(-chunk // OUTPUT_ROWS)
     mblocks = -(-_pad16(N) // CHUNK_BLOCK)
     eblocks = -(-(N * P) // (4 * CARRY_THREADS))
+    pblocks = -(-P // COL_BLOCK) if is_wide(P, N) else 1
     groups = H // hpc
     return ChunkGrid(B, H, N, P, hpc, nc, rblocks, mblocks, eblocks,
-                     B * nc * groups * mblocks, B * H * eblocks,
-                     B * nc * groups * rblocks, B * H * nc * (N * P + 1))
+                     B * nc * groups * mblocks * pblocks, B * H * eblocks,
+                     B * nc * groups * rblocks * pblocks, B * H * nc * (N * P + 1),
+                     pblocks)
 
 
 def chunk_workspace(B: int, T: int, H: int, P: int, N: int, chunk: int,
@@ -241,14 +277,15 @@ def chunk_residency(device: torch.device, dtype: torch.dtype, heads_per_cta: int
 
 @lru_cache(maxsize=None)
 def decode_residency(device: torch.device, dtype: torch.dtype, vec: bool = True,
-                     s0: bool = False) -> tuple[int, int]:
+                     s0: bool = False, wide: bool = False) -> tuple[int, int]:
     """(CTAs per SM, static shared bytes per CTA) of the decode kernel's
-    instantiation (``vec``: 16-byte rows; ``s0``: with an initial state)."""
+    instantiation (``vec``: 16-byte rows; ``s0``: with an initial state;
+    ``wide``: N > 128)."""
     lib = _build.load("mamba_scan", _SIGNATURES)
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         code = lib.repro_mamba_decode_occupancy(DTYPE_CODES[dtype], int(vec), int(s0),
-                                                ctypes.byref(blocks),
+                                                int(wide), ctypes.byref(blocks),
                                                 ctypes.byref(smem))
     raise_on_error(lib, code, "mamba_scan decode occupancy query")
     return blocks.value, smem.value
@@ -336,7 +373,7 @@ def mamba_scan_fwd(xd: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
                 da.stride(0), da.stride(1), da.stride(2),
                 Bm.stride(0), Bm.stride(1), Bm.stride(2),
                 Cm.stride(0), Cm.stride(1), Cm.stride(2),
-                chunk_heads_per_cta(H, P, shared, xd.dtype),
+                chunk_heads_per_cta(H, P, shared, xd.dtype, N),
                 torch.cuda.current_stream(xd.device).cuda_stream)
     raise_on_error(lib, code, f"mamba_scan_fwd ({route} route)")
     mamba_scan_fwd.launches += 1

@@ -4,9 +4,12 @@ decode of one model on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --reduced --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-The model runs on CUDA unless ``--device cpu`` is given (and the
-launcher raises when CUDA is asked for and missing); its weights are
-random from seed 0, in float32, the reference's default.  ``--runtime``
+Every registered architecture builds (``--reduced``: its tiny
+same-family config); MusicGen's audio stub raises, as `greedy_decode`
+says why: its step takes frames.  The model runs on CUDA unless
+``--device cpu`` is given (and the launcher raises when CUDA is asked
+for and missing); its weights are random from seed 0, in float32, the
+reference's default.  ``--runtime``
 routes each decode step's GEMMs through the online concurrency runtime
 in shadow dispatch and prints its telemetry (``--mixed-ops``: the whole
 op bundle; ``--graph``: the step as a dependency graph).  The mesh (the

@@ -6,9 +6,11 @@ Caches are fixed-capacity buffers of S_max slots, written in place at
 synchronisation for it).  Prefill runs the port's `flash_attention`
 (on the card the hand-written kernel) against the written cache; a
 decode step (T = 1) reads the whole cache through einsums with float32
-scores.  MLA prefill expands the latents and runs `flash_attention`
-with dv ≠ dqk; MLA decode stays in latent space.  The sliding window
-and the sharding pins wait for later slices (`Model` refuses a window).
+scores.  GQA takes a sliding ``window`` (Gemma3's local layers): the
+kernel masks keys ``window`` or more positions behind each query, and so
+does the decode step's mask.  MLA prefill expands the latents and runs
+`flash_attention` with dv ≠ dqk; MLA decode stays in latent space.  The
+sharding pins wait for distribution (A13).
 """
 from __future__ import annotations
 
@@ -63,10 +65,11 @@ def init_kv_cache(cfg: ArchConfig, batch: int, s_max: int, dtype,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def gqa_apply(p, x, cfg: ArchConfig, positions,
+def gqa_apply(p, x, cfg: ArchConfig, positions, window: int = 0,
               cache: Optional[KVCache] = None, cache_len: int = 0):
     """x (B, T, D), positions (B, T); returns (y, cache), the cache (when
-    given) written in place at ``cache_len``."""
+    given) written in place at ``cache_len``.  ``window`` > 0: each query
+    sees the keys less than ``window`` positions behind it."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -85,7 +88,8 @@ def gqa_apply(p, x, cfg: ArchConfig, positions,
 
     if cache is None:
         out = _heads_first(flash_attention(
-            _heads_first(q), _heads_first(k), _heads_first(v), causal=True))
+            _heads_first(q), _heads_first(k), _heads_first(v), causal=True,
+            window=window))
     else:
         kc, vc = cache
         kc[:, cache_len:cache_len + T] = k
@@ -97,17 +101,18 @@ def gqa_apply(p, x, cfg: ArchConfig, positions,
             # the output comes back in x's.
             out = _heads_first(flash_attention(
                 _heads_first(q.to(kc.dtype)), _heads_first(kc), _heads_first(vc),
-                causal=True, q_offset=0)).to(x.dtype)
+                causal=True, window=window, q_offset=0)).to(x.dtype)
         else:
             out = _attend_cache(q, kc, vc, q_pos=positions,
-                                length=cache_len + T)
+                                length=cache_len + T, window=window)
     y = out.reshape(B, T, hq * hd) @ p.wo
     return y, cache
 
 
-def _attend_cache(q, kc, vc, *, q_pos, length: int):
+def _attend_cache(q, kc, vc, *, q_pos, length: int, window: int = 0):
     """Decode attention against a fixed-size cache: q (B,T,Hq,hd), kc/vc
-    (B,S,Hkv,hd), q_pos (B,T), ``length`` valid tokens.  q is rounded to
+    (B,S,Hkv,hd), q_pos (B,T), ``length`` valid tokens, keys ``window``
+    or more positions behind a query masked when ``window`` > 0.  q is rounded to
     the cache's dtype once, the products are summed in float32 (the
     reference's ``preferred_element_type``), the probabilities are
     rounded to the cache's dtype before the value product."""
@@ -117,6 +122,8 @@ def _attend_cache(q, kc, vc, *, q_pos, length: int):
     s = torch.einsum("bthrd,bshd->bthrs", qf.float(), kc.float())
     kpos = torch.arange(S, device=q.device)
     mask = (kpos < length)[None, None, :] & (q_pos[..., None] >= kpos)
+    if window:
+        mask &= q_pos[..., None] - kpos < window
     s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
     pattn = torch.softmax(s, dim=-1).to(vc.dtype)
     out = torch.einsum("bthrs,bshd->bthrd", pattn.float(), vc.float())

@@ -1,7 +1,8 @@
 """Block assembly (`repro/models/blocks.py`): the dense and MoE
-transformer blocks and the zamba2 hybrid layer with its shared
-attention block.  MoE blocks take the capacity path; the
-expert-parallel path and the xLSTM groups wait for later slices."""
+transformer blocks (a GQA block may attend through a sliding window),
+the zamba2 hybrid layer with its shared attention block, and the xLSTM
+group (k−1 mLSTM layers, then one sLSTM layer).  MoE blocks take the
+capacity path; the expert-parallel path waits for distribution (A13)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,7 +13,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import gqa_apply, gqa_specs, mla_apply, mla_specs
 from repro_torch.models.common import mlp_apply, mlp_specs, rms_norm, rms_norm_spec
 from repro_torch.models.moe import moe_capacity_apply, moe_specs
+from repro_torch.models.spec import stack_specs
 from repro_torch.models.ssm import mamba_apply, mamba_specs
+from repro_torch.models.xlstm import mlstm_apply, mlstm_specs, slstm_apply, slstm_specs
 
 
 # ==================================================== dense / moe blocks
@@ -30,12 +33,18 @@ def attn_block_specs(cfg: ArchConfig, d_ff: int, moe: bool) -> dict:
 
 
 def attn_block_apply(p, x, cfg: ArchConfig, positions, *, moe: bool,
-                     cache=None, cache_len: int = 0,
+                     window: int = 0, cache=None, cache_len: int = 0,
                      moe_capacity_factor: float = 1.25):
-    """One pre-norm block; returns (x, cache, MoE aux loss)."""
+    """One pre-norm block; returns (x, cache, MoE aux loss).  ``window``
+    > 0: GQA attends to the last ``window`` positions only (MLA, as in the
+    reference, takes no window)."""
     h = rms_norm(p.attn_norm, x, cfg.norm_eps)
-    attend = mla_apply if cfg.attn_type == "mla" else gqa_apply
-    a, cache = attend(p.attn, h, cfg, positions, cache=cache, cache_len=cache_len)
+    if cfg.attn_type == "mla":
+        a, cache = mla_apply(p.attn, h, cfg, positions, cache=cache,
+                             cache_len=cache_len)
+    else:
+        a, cache = gqa_apply(p.attn, h, cfg, positions, window=window,
+                             cache=cache, cache_len=cache_len)
     x = x + a
     h = rms_norm(p.mlp_norm, x, cfg.norm_eps)
     if moe:
@@ -70,4 +79,23 @@ def zamba_layer_apply(p, shared_p, x, cfg: ArchConfig, positions, layer_idx: int
         x, _, _ = attn_block_apply(
             shared_p, x, cfg, positions, moe=False,
             cache=cache["kv"] if cache is not None else None, cache_len=cache_len)
+    return x, cache
+
+
+# ========================================================== xLSTM groups
+def xlstm_group_specs(cfg: ArchConfig) -> dict:
+    """k−1 mLSTM layers (a stack within the group) and one sLSTM layer."""
+    return {"mlstm": stack_specs(mlstm_specs(cfg), cfg.slstm_every - 1),
+            "slstm": slstm_specs(cfg)}
+
+
+def xlstm_group_apply(p, x, cfg: ArchConfig, cache: Optional[dict] = None):
+    """The group's mLSTM layers in order, then its sLSTM layer.  ``cache``
+    is this group's ``{"mlstm": MLSTMCache stacked over the group's
+    mLSTM layers, "slstm": SLSTMCache}`` (updated in place) or None."""
+    for i, pi in enumerate(p.mlstm):
+        x, _ = mlstm_apply(pi, x, cfg, cache=None if cache is None else
+                           type(cache["mlstm"])(*(t[i] for t in cache["mlstm"])))
+    x, _ = slstm_apply(p.slstm, x, cfg,
+                       cache=None if cache is None else cache["slstm"])
     return x, cache

@@ -6,10 +6,11 @@ training loop's `train_state_from_reference` carries a reference
 ``TrainState`` across with it).
 
 Both packages keep the same dict keys and (in, out) layouts, so a
-weight is a copy, never a transpose; the reference's scanned layer axis
-(a leading dim on every leaf of a stack) is unstacked into the
-`ModuleList`.  Every shape is checked, and any leaf left unread or any
-parameter left unfilled raises.
+weight is a copy, never a transpose; the reference's scanned layer axes
+(a leading dim on every leaf of a stack, two on xLSTM's mLSTM leaves: a
+stack within each group of a stack) are unstacked into nested
+`ModuleList`s.  Every shape is checked, and any leaf left unread (but an
+empty stack's) or any parameter left unfilled raises.
 """
 from __future__ import annotations
 
@@ -53,6 +54,8 @@ def unstacked(model, tree: dict) -> Dict[str, np.ndarray]:
         stacks.setdefault(key, set()).add(index)
     for key, leaf in leaves.items():
         seen = stacks.get(key)
+        if seen is None and leaf.size == 0:
+            continue   # a stack of no layers (xLSTM under 4 layers): nothing to place
         if seen is None:
             raise ValueError(f"from_reference: leaf {'/'.join(key)} "
                              f"{leaf.shape} matches no parameter")

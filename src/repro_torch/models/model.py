@@ -6,13 +6,20 @@ its `ArchConfig`, as one `nn.Module`.
     loss(batch)              — training loss: cross-entropy + MoE aux
     init_cache / prefill / decode_step — serving with per-family caches
 
-Ported families: dense, moe (capacity path) and hybrid (zamba2).  A
-layer stack is a `ModuleList` run in a Python loop (the reference scans
-stacked weights).  Caches keep the reference's layout, a leading layer
-axis on each buffer, and are written in place; ``cache_len`` is a host
-integer.  Training passes no cache (`loss`); on the card the attention
-and scan kernels then run through their autograd Functions.  A family
-or option not ported yet raises `NotImplementedError` naming it.
+Every family of the reference: dense (Gemma3's local layers attend
+through a sliding window), moe (capacity path), hybrid (zamba2), ssm
+(xLSTM groups), and audio and vlm, dense stacks behind stub frontends
+(``frames`` replace the embedding; ``patches`` go in front of the
+tokens).  A frontend's embeddings are cast to the model's dtype (the
+reference's JAX promotes bf16 frames to f32 weights after the first
+norm).  A layer stack is a `ModuleList` run in a Python loop (the
+reference scans stacked weights).  Caches keep the reference's layout,
+leading stack axes on each buffer (two for xLSTM's mLSTM layers), and
+are written in place; ``cache_len`` is a host integer.  Training passes
+no cache (`loss`); on the card the attention and scan kernels then run
+through their autograd Functions.  ``remat``, expert parallelism and
+``cache_pspecs`` wait for distribution (A13) and raise
+`NotImplementedError` naming them.
 """
 from __future__ import annotations
 
@@ -35,21 +42,16 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.spec import build_params, init_params, param_count, stack_specs
 from repro_torch.models.ssm import init_mamba_cache
+from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache
 
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+DENSE = ("dense", "audio", "vlm")      # one stack of dense attention blocks
 MOE_AUX_COEF = 1e-3
 
 
 def _check_ported(cfg: ArchConfig, moe_mode: str, remat: str) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ported: {', '.join(FAMILIES)})")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is "
-                                  "not ported yet")
-    if cfg.sliding_window:
-        raise NotImplementedError(f"{cfg.name}: sliding_window is not ported yet")
+        raise ValueError(cfg.family)
     if remat != "none":
         raise NotImplementedError(f"remat={remat!r} is not ported yet")
     if moe_mode not in ("auto", "capacity"):
@@ -85,7 +87,7 @@ class Model(nn.Module):
         s: Dict[str, Any] = {"embed": embed_specs(cfg.vocab_size, cfg.d_model,
                                                   cfg.tie_embeddings),
                              "final_norm": rms_norm_spec(cfg.d_model)}
-        if cfg.family == "dense":
+        if cfg.family in DENSE:
             s["layers"] = stack_specs(
                 B.attn_block_specs(cfg, cfg.d_ff, moe=False), cfg.n_layers)
         elif cfg.family == "moe":
@@ -94,9 +96,12 @@ class Model(nn.Module):
                 cfg.first_dense_layers)
             s["layers"] = stack_specs(B.attn_block_specs(cfg, cfg.d_ff, moe=True),
                                       cfg.n_layers - cfg.first_dense_layers)
-        else:  # hybrid
+        elif cfg.family == "hybrid":
             s["layers"] = stack_specs(B.zamba_layer_specs(cfg), cfg.n_layers)
             s["shared"] = B.zamba_shared_specs(cfg)
+        else:  # ssm: xLSTM groups
+            s["layers"] = stack_specs(B.xlstm_group_specs(cfg),
+                                      cfg.n_layers // cfg.slstm_every)
         return s
 
     def param_count(self) -> int:
@@ -107,55 +112,91 @@ class Model(nn.Module):
         init_params(self, self.specs(), gen)
         return self
 
+    # ------------------------------------------------------- embeddings
+    def _embed_inputs(self, batch):
+        """The stack's input (`repro/models/model.py:86-93`): the audio
+        stub's ``frames`` (B, T, D) in place of the embedding; the vision
+        stub's ``patches`` (B, n, D) in front of the embedded tokens."""
+        frontend, dt = self.cfg.frontend, self.embed.tok.dtype
+        if frontend == "audio_frames":
+            return batch["frames"].to(dt)
+        x = embed_apply(self.embed, batch["tokens"])
+        if frontend == "vision_patches":
+            x = torch.cat([batch["patches"].to(dt), x], dim=1)
+        return x
+
     # ------------------------------------------------------------ layers
     def _run_layers(self, x, positions, cache=None, cache_len: int = 0):
         cfg = self.cfg
         aux = torch.zeros((), device=x.device)
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("moe", *DENSE):
             if cfg.family == "moe" and cfg.first_dense_layers:
                 x, _ = self._run_attn(self.dense_layers, x, positions, moe=False,
                                       cache=None if cache is None else cache["dense"],
-                                      cache_len=cache_len)
+                                      cache_len=cache_len, layer_offset=0)
             x, aux = self._run_attn(self.layers, x, positions,
                                     moe=cfg.family == "moe",
                                     cache=None if cache is None else cache["main"],
-                                    cache_len=cache_len)
-        else:
+                                    cache_len=cache_len,
+                                    layer_offset=cfg.first_dense_layers)
+        elif cfg.family == "hybrid":
             for i, p in enumerate(self.layers):
                 c = None if cache is None else {
                     "mamba": _layer(cache["mamba"], i), "kv": _layer(cache["kv"], i)}
                 x, _ = B.zamba_layer_apply(p, self.shared, x, cfg, positions, i,
                                            cache=c, cache_len=cache_len)
+        else:  # ssm
+            for g, p in enumerate(self.layers):
+                c = None if cache is None else {
+                    "mlstm": _layer(cache["mlstm"], g), "slstm": _layer(cache["slstm"], g)}
+                x, _ = B.xlstm_group_apply(p, x, cfg, cache=c)
         return rms_norm(self.final_norm, x, cfg.norm_eps), aux
 
-    def _run_attn(self, stack, x, positions, *, moe: bool, cache, cache_len: int):
+    def window(self, i: int) -> int:
+        """The attention window of layer ``i`` (counted over the whole
+        model, `repro/models/model.py:136-171`): with a local/global ratio
+        r, layer i is global (window 0) when i % (r + 1) == r and local
+        (the sliding window) otherwise; without a ratio every layer takes
+        the window (0 when the config has none)."""
+        cfg = self.cfg
+        r = cfg.local_global_ratio
+        if cfg.sliding_window and r and i % (r + 1) == r:
+            return 0
+        return cfg.sliding_window
+
+    def _run_attn(self, stack, x, positions, *, moe: bool, cache, cache_len: int,
+                  layer_offset: int):
         aux = torch.zeros((), device=x.device)
         for i, p in enumerate(stack):
             x, _, a = B.attn_block_apply(
-                p, x, self.cfg, positions, moe=moe,
+                p, x, self.cfg, positions, moe=moe, window=self.window(layer_offset + i),
                 cache=None if cache is None else _layer(cache, i),
                 cache_len=cache_len, moe_capacity_factor=self.moe_capacity_factor)
             aux = aux + a
         return x, aux
 
-    def _positions(self, tokens, start: int, T: int):
-        return (torch.arange(start, start + T, device=tokens.device)[None]
-                .expand(tokens.shape[0], T))
+    def _positions(self, x, start: int, T: int):
+        return (torch.arange(start, start + T, device=x.device)[None]
+                .expand(x.shape[0], T))
 
     # ----------------------------------------------------------- forward
     def forward(self, batch):
-        """Full-sequence logits (B, T, V) and the MoE aux loss."""
-        tokens = batch["tokens"]
-        x = embed_apply(self.embed, tokens)
-        x, aux = self._run_layers(x, self._positions(tokens, 0, tokens.shape[1]))
+        """Full-sequence logits (B, T, V) and the MoE aux loss; ``batch``
+        holds ``tokens``, or the frontend's ``frames`` or ``patches`` and
+        ``tokens``."""
+        x = self._embed_inputs(batch)
+        x, aux = self._run_layers(x, self._positions(x, 0, x.shape[1]))
         return lm_head_apply(self.embed, x), aux
 
     def loss(self, batch):
         """The training loss (`repro/models/model.py:235-242`): mean token
         cross-entropy of ``batch["labels"]`` (labels < 0 ignored) plus
         `MOE_AUX_COEF` × the MoE load-balance loss; returns (loss,
-        {"ce", "aux"})."""
+        {"ce", "aux"}).  The vision stub's patches are unsupervised
+        context: the labels align with the text tail."""
         logits, aux = self(batch)
+        if self.cfg.frontend == "vision_patches":
+            logits = logits[:, -batch["labels"].shape[1]:]
         ce = cross_entropy(logits, batch["labels"])
         return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}
 
@@ -164,13 +205,19 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16) -> dict:
-        """Zeroed caches, each buffer with a leading layer axis; the SSM
-        state is float32 whatever ``dtype``."""
+        """Zeroed caches, each buffer with a leading layer axis (xLSTM's
+        mLSTM buffers two: group, layer of the group); the SSM and xLSTM
+        states are float32 whatever ``dtype``."""
         cfg, dev = self.cfg, self.device
         kv = init_mla_cache if cfg.attn_type == "mla" else init_kv_cache
-        if cfg.family == "dense":
+        if cfg.family in DENSE:
             return {"dense": None,
                     "main": kv(cfg, batch, s_max, dtype, dev, cfg.n_layers)}
+        if cfg.family == "ssm":
+            groups = cfg.n_layers // cfg.slstm_every
+            return {"mlstm": init_mlstm_cache(cfg, batch, dtype, dev,
+                                              (groups, cfg.slstm_every - 1)),
+                    "slstm": init_slstm_cache(cfg, batch, dtype, dev, (groups,))}
         if cfg.family == "moe":
             return {"dense": kv(cfg, batch, s_max, dtype, dev, cfg.first_dense_layers),
                     "main": kv(cfg, batch, s_max, dtype, dev,
@@ -179,20 +226,24 @@ class Model(nn.Module):
                 "kv": init_kv_cache(cfg, batch, s_max, dtype, dev, cfg.n_layers)}
 
     def prefill(self, batch, cache):
-        """Feed a prompt; returns (last-token logits (B, 1, V), the cache
-        written in place, its new length)."""
-        tokens = batch["tokens"]
-        T = tokens.shape[1]
-        x = embed_apply(self.embed, tokens)
-        x, _ = self._run_layers(x, self._positions(tokens, 0, T), cache=cache,
+        """Feed a prompt (``batch`` as `forward` takes it); returns
+        (last-position logits (B, 1, V), the cache written in place, its
+        new length: the positions fed, patches included)."""
+        x = self._embed_inputs(batch)
+        T = x.shape[1]
+        x, _ = self._run_layers(x, self._positions(x, 0, T), cache=cache,
                                 cache_len=0)
         return lm_head_apply(self.embed, x[:, -1:]), cache, T
 
     def decode_step(self, tokens, cache, cache_len: int):
-        """One token per sequence, tokens (B, 1), at position ``cache_len``;
-        returns (logits (B, 1, V), the cache, cache_len + 1)."""
-        x = embed_apply(self.embed, tokens)
-        x, _ = self._run_layers(x, self._positions(tokens, cache_len, 1),
+        """One position per sequence at ``cache_len``: tokens (B, 1), or
+        for the audio stub frames (B, 1, D); returns (logits (B, 1, V),
+        the cache, cache_len + 1)."""
+        if self.cfg.frontend == "audio_frames":
+            x = tokens.to(self.embed.tok.dtype)
+        else:
+            x = embed_apply(self.embed, tokens)
+        x, _ = self._run_layers(x, self._positions(x, cache_len, 1),
                                 cache=cache, cache_len=cache_len)
         return lm_head_apply(self.embed, x), cache, cache_len + 1
 

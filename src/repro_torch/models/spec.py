@@ -9,9 +9,12 @@ submodule, each list a `ModuleList`), their initialisation from a
 A stack of layers is a list of per-layer spec dicts (`stack_specs`), not
 a leading axis: the port runs its layers in a Python loop, one module
 each.  `models/convert.py` unstacks the reference's scanned axis into
-that list.  Each per-layer `Spec` of a stack carries the stack's size
-(``stack``), so that its random init keeps the reference's rule, which
-reads shape[0] of the stacked leaf (`Spec.fan_in`).  Logical axes are
+that list.  Each per-layer `Spec` of a stack carries the outermost
+stack's size (``stack``) and its count of stacked axes (``stacked``: 2
+for xLSTM's mLSTM layers, a stack within each group of a stack), so
+that its random init keeps the reference's rule, which reads shape[0]
+of the stacked leaf (`Spec.fan_in`), and its dims are the declared
+leaf's (`Spec.ndim`).  Logical axes are
 kept for the sharding rules to come; the port does not read them yet.
 """
 from __future__ import annotations
@@ -32,8 +35,10 @@ class Spec:
     scale: float = 1.0
     # custom(generator, shape, device) -> float32 tensor
     custom: Optional[Callable[..., torch.Tensor]] = None
-    # layers of the `stack_specs` stack this spec is one layer of, if any
+    # layers of the outermost `stack_specs` stack this spec is in, if any
     stack: Optional[int] = None
+    # stacked axes the reference declares in front of ``shape``
+    stacked: int = 0
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -47,9 +52,10 @@ class Spec:
         """The reference's fan of this leaf (`repro/models/spec.py:55`):
         shape[0] of the leaf as the reference declares it, or its size
         for a vector.  A layer of a stack is declared there with the
-        stack's axis in front, so its fan is the stack's size; an
-        unstacked expert tensor's is E; an unstacked matrix's its first
-        dim (a weight's input width, the token table's vocabulary)."""
+        stack's axis in front (the outer stack's, for a stack within a
+        stack), so its fan is that stack's size; an unstacked expert
+        tensor's is E; an unstacked matrix's its first dim (a weight's
+        input width, the token table's vocabulary)."""
         if self.stack is not None:
             return self.stack
         return self.shape[0] if len(self.shape) > 1 else self.size
@@ -57,16 +63,16 @@ class Spec:
     @property
     def ndim(self) -> int:
         """Dims of this leaf as the reference declares it: a layer of a
-        stack has the stack's axis in front.  The reference's training
+        stack has each stack's axis in front.  The reference's training
         step casts and weight-decays a leaf by this count
         (`repro/train/train_loop.py:34`, `repro/optim/adamw.py:78`), so a
         per-layer vector of a stack is a matrix there."""
-        return len(self.shape) + (self.stack is not None)
+        return len(self.shape) + self.stacked
 
 
 def _in_stack(specs, n: int):
     if isinstance(specs, Spec):
-        return replace(specs, stack=n)
+        return replace(specs, stack=n, stacked=specs.stacked + 1)
     if isinstance(specs, dict):
         return {k: _in_stack(v, n) for k, v in specs.items()}
     return [_in_stack(v, n) for v in specs]
@@ -74,7 +80,8 @@ def _in_stack(specs, n: int):
 
 def stack_specs(specs: dict, n: int) -> list:
     """``n`` layers of ``specs``: one entry per layer of the stack, each
-    spec marked as one layer of ``n`` (`Spec.stack`)."""
+    spec marked as one layer of ``n`` (`Spec.stack`) under one more
+    stacked axis (`Spec.stacked`)."""
     return [_in_stack(specs, n)] * n
 
 

@@ -46,12 +46,19 @@ def greedy_decode(
     """Greedy generation: (B, steps) int64 tokens on ``device``.
 
     ``device`` must be the model's (CUDA unless asked for the CPU; raises
-    without it); the prompt's tensors are moved there.  ``runtime``, as
+    without it); the prompt's tensors are moved there.  An audio-stub
+    model raises `ValueError`: its step takes frames, not tokens.  ``runtime``, as
     in the reference: each decode step's GEMM requests (``mixed_ops``:
     its whole op bundle; ``graph``: its `decode_step_graph`, drained per
     step) are submitted in shadow and flushed.  ``on_step(logits)``, when
     given, sees the prefill's and every decode step's logits (B, 1, V).
     Nothing waits for the card before the final `torch.cat`."""
+    if model.cfg.frontend == "audio_frames":
+        raise ValueError(
+            f"greedy_decode: {model.cfg.name}'s decode step takes a frame "
+            "embedding (B, 1, D), and a greedy loop has only the argmax codes "
+            "to feed back (the reference's loop feeds them as tokens and cannot "
+            "run it either); drive Model.prefill and Model.decode_step with frames")
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"greedy_decode on {device}: the model is on {model.device}")

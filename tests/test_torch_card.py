@@ -55,6 +55,15 @@ and without an initial state, head-broadcast and per-head B/C, (N, P) of
 16; a strided xd; ``out=`` buffers, one of them unaligned; the same bits
 on a second run.  A T = 2 call still takes the chunked form.
 
+The scan's wide passes (N or P above 128: xLSTM's N = P = 512 and its
+normaliser's P = 1, odd wide widths, both routes, bf16 and f32, with and
+without an initial state, ragged T) must match `ssd_chunk_ref` within the
+same tolerance plus 2⁻¹⁶ of the terms' magnitude (`_scan_close`), give
+the same bits on a second run, fit a CTA's shared memory, and a run with
+one 64-row N block of C zeroed must fail the check.  Attention's cases
+include Gemma3's windowed and StableLM's D 80 prefills, and the reduced
+models every family, xLSTM on the rescaled tree.
+
 The scan's chunked form (every T > 1: three launches, the chunks in
 parallel, the products on tensor cores) must match `ssd_chunk_ref` within
 the same tolerance at every T > 1 shape of `chip_smoke.py`'s SCAN_CASES,
@@ -102,6 +111,8 @@ with exactly the launches `ragged_chunks` gives.  A reduced-width
 DeepSeek-V2-Lite op bundle through an executing runtime, every member
 held to its plain version, every grouped member on the ragged kernel.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -170,7 +181,11 @@ from repro_torch.kernels.mamba_scan import (
     ssd_chunk_ref,
     ssd_chunk_states_ref,
 )
-from repro_torch.kernels.mamba_scan.kernel import chunk_residency, decode_residency
+from repro_torch.kernels.mamba_scan.kernel import (
+    NARROW_DIM,
+    chunk_residency,
+    decode_residency,
+)
 from repro_torch.kernels.mamba_scan.ref import ssd_lost_carry
 from repro_torch.runtime import (
     FAMILY_SLOTS,
@@ -185,6 +200,7 @@ from repro_torch.runtime import (
 )
 from repro_torch.runtime.graph import slot_shape
 from repro_torch.models import build_model
+from repro_torch.models.spec import tree_params
 from repro_torch.train.serve_loop import greedy_decode
 
 pytestmark = pytest.mark.cuda
@@ -515,6 +531,8 @@ ATTN_CASES = [  # B, Hq, Hkv, T, S, D, Dv, causal, window, q_offset, bq, bkv
     (1, 4, 2, 50, 1500, 128, 64, True, 0, -10, 64, 128),     # negative q_offset
     (2, 4, 4, 9, 1400, 192, 128, False, 0, 0, 8, 128),       # dv != dqk, 256 wide
     (1, 8, 2, 1, 1100, 36, 36, True, 0, 1099, 8, 128),       # 72-byte rows: no TMA
+    (4, 32, 16, 2048, 2057, 128, 128, True, 1024, 0, 128, 128),  # Gemma3's local prefill
+    (4, 32, 32, 1000, 1009, 80, 80, True, 0, 0, 128, 128),   # StableLM's D 80 prefill
 ]
 
 
@@ -679,20 +697,30 @@ def test_weight_neither_row_nor_column_contiguous_raises(card):
 
 # ------------------------------------------------------ the scan's decode step
 SCAN_TOL = 3e-4   # tests/test_kernel_mamba.py's f32 tolerance
+WIDE_SUM_TOL = 2.0 ** -16   # of the terms' magnitude, N or P > 128
 
 
 def _scan_close(y, state, xd, da, bm, cm, s0, what):
     """y and the state against `ssd_chunk_ref` on f32 copies of the same
     inputs (bf16 converts exactly), within SCAN_TOL + SCAN_TOL·|plain|,
-    plus half a bf16 unit (2⁻⁸·|plain|) for a bf16 y's one rounding."""
-    y_ref, s_ref = ssd_chunk_ref(xd.float(), da.float(), bm.float(), cm.float(),
-                                 chunk=64, initial_state=s0)
+    plus half a bf16 unit (2⁻⁸·|plain|) for a bf16 y's one rounding; where
+    N or P exceeds 128 (the wide passes) plus WIDE_SUM_TOL·Σ|terms|, the
+    plain version on |xd|, |B|, |C| and |s0| (`chip_smoke.py:scan_excess`
+    says why)."""
+    f32 = [t.float() for t in (xd, da, bm, cm)]
+    y_ref, s_ref = ssd_chunk_ref(*f32, chunk=64, initial_state=s0)
+    atol = (SCAN_TOL, SCAN_TOL)
+    if max(bm.shape[-1], xd.shape[-1]) > NARROW_DIM:
+        mags = ssd_chunk_ref(f32[0].abs(), f32[1], f32[2].abs(), f32[3].abs(), chunk=64,
+                             initial_state=None if s0 is None else s0.abs())
+        atol = tuple(SCAN_TOL + WIDE_SUM_TOL * m for m in mags)
     rtol = SCAN_TOL + (2.0 ** -8 if y.dtype == torch.bfloat16 else 0.0)
-    for out, ref, rt, name in ((y, y_ref, rtol, "y"), (state, s_ref, SCAN_TOL, "state")):
+    for out, ref, at, rt, name in ((y, y_ref, atol[0], rtol, "y"),
+                                   (state, s_ref, atol[1], SCAN_TOL, "state")):
         assert out.shape == ref.shape, (what, name)
         assert torch.isfinite(out.float()).all(), (what, name)
         err = (out.float() - ref.float()).abs()
-        assert bool((err <= SCAN_TOL + rt * ref.float().abs()).all()), \
+        assert bool((err <= at + rt * ref.float().abs()).all()), \
             f"{what} {name}: max |err| {err.max().item():.3g}"
 
 
@@ -916,6 +944,79 @@ def test_scan_chunk_residency(card):
     assert min(blocks) >= 2, blocks
     blocks, smem = chunk_residency(card, torch.float32, 1, 128, 128, 512)
     assert min(blocks) >= 1 and max(smem) <= 232448
+
+
+# ------------------------------------------------ the scan's wide passes
+# (B, T, H, P, N, chunk, initial state, head-broadcast B/C): xLSTM-350M's
+# prompt scans at batch 4 (its memory, N = P = 512, and its normaliser,
+# P = 1) and decode steps, odd wide widths, ragged T, a wide P under a
+# narrow N, a wide N under a narrow P.
+WIDE_CASES = [(4, 1000, 4, 512, 512, 128, True, False), (4, 1000, 4, 1, 512, 128, True, False),
+              (1, 300, 2, 512, 512, 128, False, False), (2, 97, 2, 200, 300, 64, True, True),
+              (1, 130, 1, 130, 8, 64, False, False), (1, 77, 3, 1, 512, 32, False, True),
+              (4, 1, 4, 512, 512, 128, True, False), (4, 1, 4, 1, 512, 128, True, False),
+              (2, 1, 3, 300, 200, 128, False, True), (1, 1, 2, 512, 512, 128, False, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_scan_wide_matches_plain(card, case, dtype):
+    """N or P above 128 on both routes (the wide passes for T > 1, the
+    decode kernel's wide instantiation for a wide N at T = 1) against
+    `ssd_chunk_ref`, and on the chunks route its carried states, within
+    the scan tolerance."""
+    B, T, H, P, N, L, with_s0, bcast = case
+    xd, da, bm, cm = _scan_inputs(card, B, T, H, P, N, dtype, bcast, T + N + P)
+    g = torch.Generator(device=card).manual_seed(L + 1)
+    s0 = torch.randn((B, H, N, P), generator=g, device=card) if with_s0 else None
+    if T == 1:
+        y, state = _decode(xd, da, bm, cm, initial_state=s0)
+        _scan_close(y, state, xd, da, bm, cm, s0, f"wide decode {case}")
+        return
+    y, state, (incoming, decay) = _chunks(xd, da, bm, cm, L, initial_state=s0)
+    _scan_close(y, state, xd, da, bm, cm, s0, f"wide chunks {case}")
+    want_in, _ = ssd_carry_ref(*ssd_chunk_states_ref(*(t.float() for t in (xd, da, bm, cm)),
+                                                     chunk=L), s0)
+    err = (incoming - want_in).abs()
+    assert bool((err <= SCAN_TOL + SCAN_TOL * want_in.abs()).all()), err.max().item()
+
+
+def test_scan_wide_second_run_is_bitwise_equal(card):
+    for dtype in (torch.bfloat16, torch.float32):
+        for T in (300, 1):
+            xd, da, bm, cm = _scan_inputs(card, 2, T, 2, 512, 512, dtype, False, 32)
+            s0 = torch.randn((2, 2, 512, 512), device=card)
+            first = mamba_scan_fwd(xd, da, bm, cm, chunk=128, initial_state=s0)
+            again = mamba_scan_fwd(xd, da, bm, cm, chunk=128, initial_state=s0)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_scan_wide_planted_dropped_n_block_fails_the_check(card):
+    """At xLSTM's prompt shape, the kernel run with C's third 64-row N block
+    zeroed, which is what a wide output pass that dropped that block of
+    C·S_prev and of G = C·Bᵀ would give, must fail the check against the
+    true inputs, in bf16 and f32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        xd, da, bm, cm = _scan_inputs(card, 4, 1000, 4, 512, 512, dtype, False, 33)
+        s0 = torch.randn((4, 4, 512, 512), device=card)
+        y, state, _ = _chunks(xd, da, bm, cm, 128, initial_state=s0)
+        _scan_close(y, state, xd, da, bm, cm, s0, "wide prompt scan")
+        dropped = cm.clone()
+        dropped[..., 128:192] = 0
+        fy, fs, _ = _chunks(xd, da, bm, dropped, 128, initial_state=s0)
+        with pytest.raises(AssertionError):
+            _scan_close(fy, fs, xd, da, bm, cm, s0, "dropped N block")
+
+
+def test_scan_wide_residency(card):
+    """The wide passes fit a CTA's 227 KB at the widest f32 instantiation
+    (N = P = 512, L = 512), one CTA or more per SM each; the decode
+    kernel's wide instantiation keeps two or more per SM with a state."""
+    for dtype in (torch.bfloat16, torch.float32):
+        blocks, smem = chunk_residency(card, dtype, 1, 512, 512, 512)
+        assert min(blocks) >= 1 and max(smem) <= 232448, (blocks, smem)
+        per_sm, _ = decode_residency(card, dtype, True, True, wide=True)
+        assert per_sm >= 2
 
 
 # ----------------------------------------------------------------- measure
@@ -1264,22 +1365,52 @@ def _model_launches():
             ggk.grouped_matmul.launches)
 
 
-@pytest.mark.parametrize("name", ["qwen3-14b", "zamba2-1.2b", "deepseek-v2-lite-16b"])
+# depths that reach a reduced model's structure: two xLSTM groups (the
+# reduced 2 layers hold none), Gemma3's global layer (layer 5 of 12)
+REDUCED_DEPTH = {"xlstm-350m": 8, "gemma3-27b": 12}
+# models held on the rescaled tree, as the CPU tests hold them
+# (`tests/test_torch_models.py:fan_in_rescaled` says why): at the
+# reference's σ (scale/√2 for xLSTM's twice-stacked leaves at 2 groups)
+# the residual grows to ~10² and the f32 logits move with any order of
+# summation
+RESCALED_CARD = ("xlstm-350m",)
+
+
+@torch.no_grad()
+def _rescale(model):
+    """Each normal matrix weight from σ = scale/√fan_in to scale/√(its
+    input width)."""
+    for path, spec, p in tree_params(model, model.specs()):
+        if spec.init == "normal" and len(spec.shape) >= 2:
+            p.mul_((spec.fan_in / spec.shape[-2]) ** 0.5)
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "zamba2-1.2b", "deepseek-v2-lite-16b",
+                                  "stablelm-3b", "gemma3-27b", "xlstm-350m",
+                                  "pixtral-12b"])
 def test_reduced_model_greedy_on_the_card_matches_the_cpu(card, name, monkeypatch):
     """One reduced-width model per family: `greedy_decode` on the card
     with every plain version made to raise (the kernels alone run: one
     attention launch per attention layer in the prefill, the scan on the
-    chunks route per Mamba layer in the prefill and on the decode kernel
-    per layer and step, three grouped launches per MoE layer and
-    forward), then the same weights on the CPU fed the card's tokens:
-    every call's logits within MODEL_TOL.  The 150-token prompt spans two
-    of the scan's 128-row chunks."""
+    chunks route per Mamba layer (two per mLSTM layer) in the prefill and
+    on the decode kernel per layer and step, three grouped launches per
+    MoE layer and forward), then the same weights on the CPU fed the
+    card's tokens: every call's logits within MODEL_TOL.  The 150-token
+    prompt spans two of the scan's 128-row chunks and Gemma3's reduced
+    64-token window; Pixtral's 256 patches go in front of it."""
     cfg = get_arch(name).reduced()
+    cfg = dataclasses.replace(cfg, n_layers=REDUCED_DEPTH.get(name, cfg.n_layers))
     model = build_model(cfg, device=card, seed=11)
+    if name in RESCALED_CARD:
+        _rescale(model)
     cpu = build_model(cfg, device="cpu", seed=None)
     cpu.load_state_dict(model.state_dict())
-    prompt = torch.randint(0, cfg.vocab_size, (2, 150),
-                           generator=torch.Generator().manual_seed(5))
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (2, 150),
+                                      generator=torch.Generator().manual_seed(5))}
+    if cfg.frontend == "vision_patches":
+        prompt["patches"] = 0.1 * torch.randn((2, 256, cfg.d_model),
+                                              generator=torch.Generator().manual_seed(6))
+    T = 150 + (256 if "patches" in prompt else 0)
     steps, seen = 4, []
 
     def plain(*a, **kw):
@@ -1290,20 +1421,22 @@ def test_reduced_model_greedy_on_the_card_matches_the_cpu(card, name, monkeypatc
                         (ggops, "grouped_gemm_ref"), (ggops, "ragged_gemm_ref")):
             m.setattr(mod, fn, plain)
         attn0, routes0, grouped0 = _model_launches()
-        toks = greedy_decode(model, {"tokens": prompt}, s_max=156, steps=steps,
+        toks = greedy_decode(model, prompt, s_max=T + steps + 2, steps=steps,
                              device=card, on_step=seen.append).cpu()
         attn1, routes1, grouped1 = _model_launches()
-    hybrid, moe = cfg.family == "hybrid", cfg.family == "moe"
-    mamba = cfg.n_layers if hybrid else 0
-    assert attn1 - attn0 == (cfg.n_layers // cfg.attn_every if hybrid else cfg.n_layers)
+    hybrid, moe, ssm = cfg.family == "hybrid", cfg.family == "moe", cfg.family == "ssm"
+    mamba = (cfg.n_layers if hybrid else
+             2 * cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1) if ssm else 0)
+    assert attn1 - attn0 == (cfg.n_layers // cfg.attn_every if hybrid else
+                             0 if ssm else cfg.n_layers)
     assert {k: routes1[k] - routes0[k] for k in routes1} == {"decode": mamba * steps,
                                                              "chunks": mamba}
     moe_layers = cfg.n_layers - cfg.first_dense_layers if moe else 0
     assert grouped1 - grouped0 == (steps + 1) * 3 * moe_layers * -(
         -cfg.n_routed_experts // ggk.MAX_MEMBERS)
     with torch.inference_mode():
-        cache = cpu.init_cache(2, 156, torch.float32)
-        logits, cache, n = cpu.prefill({"tokens": prompt}, cache)
+        cache = cpu.init_cache(2, T + steps + 2, torch.float32)
+        logits, cache, n = cpu.prefill(prompt, cache)
         ref = [logits]
         for i in range(steps):
             logits, cache, n = cpu.decode_step(toks[:, i:i + 1], cache, n)

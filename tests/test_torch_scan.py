@@ -194,8 +194,8 @@ def test_scan_route_is_decode_only_at_t1(T):
 
 @pytest.mark.parametrize("T", [1, 64])
 @pytest.mark.parametrize("P, N, chunk, match", [
-    (64, 0, 32, "N=0 and P=64"), (64, 129, 32, "N=129 and P=64"),
-    (0, 64, 32, "N=64 and P=0"), (130, 64, 32, "N=64 and P=130"),
+    (64, 0, 32, "N=0 and P=64"), (64, 513, 32, "N=513 and P=64"),
+    (0, 64, 32, "N=64 and P=0"), (514, 64, 32, "N=64 and P=514"),
     (64, 64, 0, "chunk=0"), (64, 64, 513, "chunk=513")])
 def test_scan_route_raises_alike_on_both_routes(T, P, N, chunk, match):
     with pytest.raises(ValueError, match=match):
@@ -207,7 +207,10 @@ def test_scan_route_raises_alike_on_both_routes(T, P, N, chunk, match):
 GRID_CASES = [(1024, 64, 64, 132), (64, 64, 64, 132), (1024, 128, 128, 132),
               (64, 128, 128, 132), (48, 30, 10, 132), (3, 4, 1, 132),
               (8, 16, 8, 132), (1, 30, 10, 132), (256, 16, 8, 132),
-              (64, 64, 64, 16), (5, 7, 3, 132)]
+              (64, 64, 64, 16), (5, 7, 3, 132),
+              # xLSTM-350M's decode step at batch 4 (4 heads): its memory and
+              # its normaliser
+              (16, 512, 512, 132), (16, 1, 512, 132)]
 
 
 @pytest.mark.parametrize("pairs, P, N, sms", GRID_CASES, ids=str)
@@ -240,6 +243,15 @@ def test_decode_grid_covers_every_state_element_once(pairs, P, N, sms):
     assert (y_hits == 1).all()
     groups = -(-P // 4)
     assert g.ctas >= sms or 2 * g.slices > groups
+
+
+def test_decode_grid_of_xlstm_steps():
+    """xLSTM-350M's decode step at batch 4 (16 pairs of N = 512): its
+    memory (P = 512) in 16 column slices of 32 columns (256 CTAs on the
+    H100's 132 SMs, 16 rows a thread); its normaliser (P = 1), one pair a
+    CTA of 256 row lanes."""
+    assert decode_grid(16, 512, 512, 132) == (256, 16, 1, 8, 32)
+    assert decode_grid(16, 1, 512, 132) == (16, 1, 1, 1, 256)
 
 
 def test_decode_grid_of_the_serving_member():

@@ -208,38 +208,46 @@ def test_split_bf16_parts():
 GRID_CASES = [(1, 4096, 64, 64, 64, 128, True), (4, 1024, 64, 64, 64, 128, True),
               (1, 600, 2, 128, 128, 512, False), (2, 97, 2, 128, 32, 128, True),
               (2, 70, 3, 16, 8, 32, True), (1, 300, 2, 30, 10, 8, False),
-              (3, 65, 4, 64, 80, 64, True), (2, 2, 64, 64, 64, 32, True)]
+              (3, 65, 4, 64, 80, 64, True), (2, 2, 64, 64, 64, 32, True),
+              # the wide passes: xLSTM's memory and normaliser, odd widths
+              (1, 300, 2, 512, 512, 128, False), (2, 200, 2, 1, 512, 128, True),
+              (1, 90, 3, 300, 20, 64, False), (1, 70, 2, 8, 200, 32, True)]
 
 
 @pytest.mark.parametrize("case", GRID_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_chunk_grid_covers_every_batch_head_chunk_once(case):
     """Every (batch, head, chunk) is covered exactly once by each pass:
-    the state pass once per 64-row state block (all of N's rows), the
-    output pass once per real row of the chunk (128-row blocks; those past
-    a short last chunk return), the carry pass once per state element."""
+    the state pass once per 64-row state block and column (all of N's
+    rows and P's columns), the output pass once per real row of the chunk
+    and column (128-row blocks; those past a short last chunk return; the
+    wide passes' 128-column blocks), the carry pass once per state
+    element."""
     B, T, H, P, N, chunk, shared = case
     g = chunk_grid(B, T, H, P, N, chunk, shared)
     nc = -(-T // chunk)
-    assert g.heads_per_cta == chunk_heads_per_cta(H, P, shared)
+    assert g.heads_per_cta == chunk_heads_per_cta(H, P, shared, N=N)
     assert H % g.heads_per_cta == 0
-    state_rows = np.zeros((B, H, nc, N), dtype=np.int64)
+    assert g.col_blocks == (-(-P // 128) if max(N, P) > 128 else 1)
+    state = np.zeros((B, H, nc, N, P), dtype=np.int64)
     for i in range(g.state_ctas):
         b, c, heads, rows = g.state_cta(i)
+        cols = g.state_cols(i)
         for h in heads:
-            state_rows[b, h, c, rows.start:rows.stop] += 1
-    assert (state_rows == 1).all()
-    out_rows = np.zeros((B, H, nc, chunk), dtype=np.int64)
+            state[b, h, c, rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (state == 1).all()
+    out = np.zeros((B, H, nc, chunk, P), dtype=np.int64)
     for i in range(g.output_ctas):
         b, c, heads, i0 = g.output_cta(i)
+        cols = g.output_cols(i)
         lr = min(chunk, T - c * chunk)
         if i0 >= lr:
             continue
         for h in heads:
-            out_rows[b, h, c, i0:min(i0 + OUTPUT_ROWS, lr)] += 1
+            out[b, h, c, i0:min(i0 + OUTPUT_ROWS, lr), cols.start:cols.stop] += 1
     real = np.zeros((nc, chunk), dtype=bool)
     for c in range(nc):
         real[c, :min(chunk, T - c * chunk)] = True
-    assert (out_rows[:, :, real] == 1).all() and (out_rows[:, :, ~real] == 0).all()
+    assert (out[:, :, real] == 1).all() and (out[:, :, ~real] == 0).all()
     elems = np.zeros((B, H, N * P), dtype=np.int64)
     for i in range(g.carry_ctas):
         b, h, e = g.carry_cta(i)
@@ -307,6 +315,8 @@ def test_scan_family_buffers_take_the_tiles_chunk(bm, chunk):
 def test_two_heads_a_cta_only_with_shared_b_and_c(H, P, shared, dtype, want):
     assert chunk_heads_per_cta(H, P, shared, TDT[dtype]) == want
     assert chunk_grid(1, 256, H, P, 16, 128, shared, TDT[dtype]).heads_per_cta == want
+    # a wide N takes the wide passes, one head a CTA
+    assert chunk_grid(1, 256, H, P, 512, 128, shared, TDT[dtype]).heads_per_cta == 1
 
 
 def _c_params(name: str) -> int:

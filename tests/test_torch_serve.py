@@ -28,7 +28,9 @@ from repro_torch.runtime import Runtime
 from repro_torch.train.serve_loop import greedy_decode, make_serve_fns
 from tests.test_torch_models import pair, to_np, tokens
 
-ARCHS = ["qwen3-14b", "zamba2-1.2b", "deepseek-v2-lite-16b"]
+ARCHS = ["deepseek-v2-236b", "deepseek-v2-lite-16b", "gemma3-27b", "musicgen-medium",
+         "pixtral-12b", "qwen2-72b", "qwen3-14b", "stablelm-3b", "xlstm-350m",
+         "zamba2-1.2b"]
 # planner telemetry both packages must agree on
 TELEMETRY = ("submitted", "completed", "flushes", "groups", "mean_cd", "max_cd",
              "modes", "plan_cache_hit_rate", "prewarmed_plans", "graphs_submitted",
@@ -165,17 +167,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
 
 # ----------------------------------------------------------- the converter
-def _reference_tree(name: str, seed: int = 0):
-    cfg = jget_arch(name).reduced()
+def _reference_tree(name: str, seed: int = 0, **kw):
+    cfg = dataclasses.replace(jget_arch(name).reduced(), **kw)
     jm = jbuild_model(cfg)
-    return get_arch(name).reduced(), to_np(jax.jit(jm.init)(jax.random.PRNGKey(seed)))
+    return (dataclasses.replace(get_arch(name).reduced(), **kw),
+            to_np(jax.jit(jm.init)(jax.random.PRNGKey(seed))))
 
 
-@pytest.mark.parametrize("name", ARCHS)
-def test_from_reference_unstacks_every_leaf(name):
-    """Layer i of a stack holds slice i of its stacked leaf, unstacked
-    leaves as they are; every parameter is filled."""
-    cfg, tree = _reference_tree(name, 3)
+@pytest.mark.parametrize("name,kw", [(n, {}) for n in ARCHS] +
+                         [("xlstm-350m", {"n_layers": 8})], ids=str)
+def test_from_reference_unstacks_every_leaf(name, kw):
+    """Layer i of a stack holds slice i of its stacked leaf (xLSTM's mLSTM
+    layer j of group i slice (i, j)), unstacked leaves as they are; every
+    parameter is filled; a stack of no layers (the reduced xLSTM's 2
+    layers make no group) places nothing."""
+    cfg, tree = _reference_tree(name, 3, **kw)
     model = from_reference(build_model(cfg, device="cpu", seed=None), tree)
     np.testing.assert_array_equal(model.embed.tok.numpy(), tree["embed"]["tok"])
     np.testing.assert_array_equal(model.final_norm.numpy(), tree["final_norm"])
@@ -184,6 +190,10 @@ def test_from_reference_unstacks_every_leaf(name):
         if cfg.family == "hybrid":
             np.testing.assert_array_equal(layer.mamba.in_proj.numpy(),
                                           stack["mamba"]["in_proj"][i])
+        elif cfg.family == "ssm":
+            for j, sub in enumerate(layer.mlstm):
+                np.testing.assert_array_equal(sub.wq.numpy(), stack["mlstm"]["wq"][i, j])
+            np.testing.assert_array_equal(layer.slstm.wr.numpy(), stack["slstm"]["wr"][i])
         else:
             np.testing.assert_array_equal(layer.attn.wo.numpy(), stack["attn"]["wo"][i])
     if cfg.family == "moe":
@@ -194,11 +204,16 @@ def test_from_reference_unstacks_every_leaf(name):
     if cfg.family == "hybrid":
         np.testing.assert_array_equal(model.shared.attn.wq.numpy(),
                                       tree["shared"]["attn"]["wq"])
-    n_leaves = len(jax.tree.leaves(tree))
-    n_params = len(list(model.parameters()))
-    stacked = sum(len(jax.tree.leaves(tree[k])) * (len(getattr(model, k)) - 1)
-                  for k in ("layers", "dense_layers") if k in tree)
-    assert n_params == n_leaves + stacked
+    # one parameter per layer slice of each leaf: its stacked dims' product
+    depth = {}
+    for n, _ in model.named_parameters():
+        parts = n.split(".")
+        depth["/".join(p for p in parts if not p.isdigit())] = sum(p.isdigit() for p in parts)
+    slices = 0
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        key = "/".join(k.key for k in path)
+        slices += int(np.prod(leaf.shape[:depth[key]])) if key in depth else leaf.size
+    assert len(list(model.parameters())) == slices
 
 
 def test_from_reference_refuses_what_it_cannot_place():
