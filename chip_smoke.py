@@ -141,8 +141,8 @@ Phases, each fatal on failure (nothing here catches an error):
    scans: one per call, which on the chunks route is three kernel
    launches (state, carry, output), on the decode route one;
 7. op-bundle serving: for Qwen3-14B (40 layers, context 4,096),
-   Zamba2-1.2B (38 layers, context 2,048) and DeepSeek-V2-Lite-16B (27
-   layers, context 2,048), at full width, every layer's whole
+   Zamba2-1.2B (38 layers, context 2,048) and DeepSeek-V2-Lite-16B (14
+   of 27 layers, `OP_LAYERS`, context 2,048), at full width, every layer's whole
    decode-step bundle (`decode_step_op_descs`: the GEMMs, the attention
    read over the KV cache, for Zamba2 the SSD state update, for
    DeepSeek the two expert pools) submitted per tenant as one bundle and
@@ -299,10 +299,9 @@ Phases, each fatal on failure (nothing here catches an error):
    leaf's gradient within GRAD_TOL, masters within MASTER_TOL where |g|
    is above its tolerance, launches and recomputes exact; (b) bf16
    compute with f32 masters: Zamba2-1.2B at full depth through
-   `repro_torch.launch.train.main` (batch 4, 512 tokens, 8 steps,
-   checkpoints at 4 and 8), then the step-8 checkpoint removed and the
-   same command resuming at step 4 (its losses printed beside the first
-   run's), and Qwen3-14B at 2 of 40 layers through `build_model`,
+   `repro_torch.launch.train.main` (batch 4, 512 tokens, 8 steps; its
+   checkpoints and a resumed run are phase 12b's), and Qwen3-14B at 2
+   of 40 layers through `build_model`,
    `train_init` and `make_train_step` for 8 steps: losses and gradient
    norms finite, launches exact (per step `flash_attention` once per
    attention layer, `mamba_scan` once per Mamba layer on the chunks
@@ -310,7 +309,26 @@ Phases, each fatal on failure (nothing here catches an error):
    time of steps 3-8 (CUDA events), tokens/s, peak memory and the bound
    (`train_bound`), one step each under the profiler.  (b)'s launches
    are the kernels line's ``train`` path;
-12. one JSON line ``{"kernels": [...]}`` and, last, the device line.
+12. distribution, after phase 11, the plain versions raising outside
+   their VJPs in (a) and (b): (a) remat: Zamba2-1.2B at full width and
+   depth (``remat="full"``) and Qwen3-14B at 2 of 40 layers (``"dots"``),
+   bf16 compute, batch 4 × 512, one step without and one with from the
+   same fresh state, twice in turns: loss bitwise, every gradient leaf
+   within REMAT_TOL (the bitwise leaves counted), peak memory
+   (`max_memory_allocated` from the same base) lower with remat, step
+   ms (CUDA events, the second turn), launches exact (the forward's
+   kernels again in the recompute, one VJP recompute each); (b)
+   `repro_torch.launch.train.main` with ``--mesh Nx1 --compress-grads``
+   on NCCL, one rank (this process; N = 1), Zamba2-1.2B at full depth,
+   4 steps, checkpoints at 2 and 4, then the step-4 checkpoint removed
+   and the run resumed at 2: losses, masters and error-feedback buffers
+   bitwise the uninterrupted run's, optimizer bytes per rank printed,
+   launches exact; (c) a runtime derated by `Runtime.set_mesh` to a
+   (1, 4) mesh serving Qwen3-14B's decode GEMM bundles at full width on
+   4 layers: every launch's CD within the slot budget of 4, results
+   held to the plain versions, no fault or fallback.  Its launches are
+   the kernels line's ``dist`` path;
+13. one JSON line ``{"kernels": [...]}`` and, last, the device line.
 
 Tolerance of every comparison of a GEMM or of partials (float32, kernel
 vs plain version on the same inputs): |kernel − plain| ≤ 2⁻⁷·|plain| +
@@ -474,6 +492,7 @@ from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
 )
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models import Model, build_model  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
@@ -494,6 +513,7 @@ from repro_torch.runtime import (  # noqa: E402
     decode_step_op_descs,
     decode_step_requests,
 )
+from repro_torch.train import train_loop  # noqa: E402
 from repro_torch.train.serve_loop import greedy_decode  # noqa: E402
 from repro_torch.train.train_loop import TrainState, make_train_step, train_init  # noqa: E402
 
@@ -539,6 +559,7 @@ LAUNCHERS = {
 PER_CLASS_KERNELS = ("matmul", "grouped_matmul", "ragged_matmul")
 MIXED_KERNELS = ("matmul", "splitk_matmul", "stream_k_matmul")
 OP_BUNDLE_KERNELS = ("flash_attention", "mamba_scan")
+DIST_KERNELS = ("flash_attention", "mamba_scan", "matmul")
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 SLEEP_CYCLES = 500_000_000   # ~0.25 s of the card's clock: time to queue work
 
@@ -2430,6 +2451,9 @@ def prompt_scan_phase(device="cuda", prompt: int = ZAMBA_PROMPT, layers=None) ->
 
 # --------------------------------------------------- op-bundle serving
 OP_CONFIGS = (("qwen3-14b", 4096), ("zamba2-1.2b", 2048), ("deepseek-v2-lite-16b", 2048))
+# Layers served where not the config's: DeepSeek-V2-Lite-16B's 27 cut to 14
+# to make room for phase 12 in the script's time.
+OP_LAYERS = {"deepseek-v2-lite-16b": 14}
 OP_WINDOWS = (([1], 16), ([4, 8, 8, 16], 4))
 
 
@@ -4454,11 +4478,12 @@ GEMM_BWD_TILES = (("matmul", TileConfig(8, 128, 128)),
                   ("split-K s4", TileConfig(8, 128, 128, split_k=4)),
                   ("Stream-K g8", TileConfig(8, 128, 128, stream_k=8)))
 # (b) bf16 compute, f32 masters: Zamba2-1.2B at full depth through the
-# launcher (then resumed at step 4), Qwen3-14B at 2 of 40 layers through
-# build_model, train_init and make_train_step.
-TRAIN_ARGS = ("--batch", "4", "--seq", "512", "--steps", "8", "--ckpt-every", "4",
+# launcher, Qwen3-14B at 2 of 40 layers through build_model, train_init
+# and make_train_step.  The launcher's checkpoints and a resumed run are
+# phase 12's (b), on the mesh.
+TRAIN_ARGS = ("--batch", "4", "--seq", "512", "--steps", "8", "--ckpt-every", "0",
               "--log-every", "1")
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_RESUME = 4, 512, 8, 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 8
 QWEN_TRAIN_LAYERS = 2
 TRAIN_KERNELS = ("flash_attention", "mamba_scan", "grouped_matmul")
 # The optimizer's bytes a parameter: f32 master, first and second moments
@@ -4815,22 +4840,19 @@ def timed_steps(marks: list):
     return make
 
 
-def zamba_train(plain: PlainCalls, ckpt_dir: str) -> dict:
+def zamba_train(plain: PlainCalls) -> dict:
     """(b), Zamba2-1.2B at full width and depth through
-    `repro_torch.launch.train.main`: 8 steps with checkpoints at 4 and 8,
-    then the step-8 checkpoint removed (a run lost after step 4) and the
-    same command again, which resumes at step 4; its losses for steps 5-8
-    printed beside the first run's.  Launches and recomputes exact; step
-    times, peak memory and one profiled step."""
+    `repro_torch.launch.train.main`: 8 steps, launches and recomputes
+    exact; step times, peak memory and one profiled step."""
     t0 = time.perf_counter()
     cfg = get_arch(ZAMBA)
-    args = ["--arch", ZAMBA, "--ckpt-dir", ckpt_dir, *TRAIN_ARGS]
     marks: list = []
     train_launcher.make_train_step = timed_steps(marks)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     plain.take()
-    first = train_launcher.main(args)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:   # nothing to resume
+        first = train_launcher.main(["--arch", ZAMBA, "--ckpt-dir", tmp, *TRAIN_ARGS])
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -4838,38 +4860,18 @@ def zamba_train(plain: PlainCalls, ckpt_dir: str) -> dict:
     counts = take_counts()
     check_train_launches("zamba2 training", cfg, TRAIN_STEPS, counts, routes, plain.take())
     steps_ms = [a.elapsed_time(b) for a, b in marks]
-    n_params = sum(p.numel() for p in first["state"].params.values())
-    del first["state"]
-    free()
-    saved = ckpt.all_steps(ckpt_dir)
-    shutil.rmtree(Path(ckpt_dir) / f"{ckpt.STEP_PREFIX}{TRAIN_STEPS:08d}")
-    reset_counts()
-    t1 = time.perf_counter()
-    second = train_launcher.main(args)
-    t_second = time.perf_counter() - t1
-    routes2 = dict(mamba_scan_fwd.routes)
-    counts2 = take_counts()
-    check_train_launches("zamba2 resumed training", cfg, TRAIN_STEPS - TRAIN_RESUME,
-                         counts2, routes2, plain.take())
     losses = first["losses"]
-    resumed = second["losses"]
-    if (len(losses) != TRAIN_STEPS or len(resumed) != TRAIN_STEPS - TRAIN_RESUME
-            or not all(math.isfinite(x) for x in losses + resumed)
-            or second["final_step"] != TRAIN_STEPS):
-        raise AssertionError(f"zamba2 training: losses {losses}, resumed {resumed}, "
-                             f"final step {second['final_step']}")
-    diff = max(abs(a - b) for a, b in zip(losses[TRAIN_RESUME:], resumed))
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"zamba2 training: losses {losses}")
+    state = first.pop("state")
+    n_params = sum(p.numel() for p in state.params.values())
     print(f"# training {ZAMBA} at full width and depth through launch.train, bf16 "
           f"compute, f32 masters ({n_params / 1e9:.3f} B parameters), batch "
-          f"{TRAIN_BATCH}, {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps, checkpoints {saved}; "
-          f"losses {[round(x, 5) for x in losses]}; kernel launches {dict(counts)} + "
-          f"{dict(counts2)} resumed, scan routes {routes} + {routes2}, every plain "
-          f"version raising outside its VJP")
-    print(f"#   resumed at step {TRAIN_RESUME}: losses of steps 5-8 {resumed} beside "
-          f"{losses[TRAIN_RESUME:]}, largest difference {diff:.3g}")
+          f"{TRAIN_BATCH}, {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps; losses "
+          f"{[round(x, 5) for x in losses]}; kernel launches {dict(counts)}, scan routes "
+          f"{routes}, every plain version raising outside its VJP")
     res = step_line(ZAMBA, cfg, n_params, steps_ms, peak)
     train_launcher.make_train_step = make_train_step
-    state = second.pop("state")
     model = build_model(cfg, device="meta", seed=None)   # the step reads the masters
     step_fn = make_train_step(model, AdamW(AdamWConfig(total_steps=TRAIN_STEPS)))
     batch = make_batch(cfg, InputShape("t", TRAIN_SEQ, TRAIN_BATCH, "train"), TRAIN_STEPS)
@@ -4879,11 +4881,10 @@ def zamba_train(plain: PlainCalls, ckpt_dir: str) -> dict:
     take_counts()
     del state, step_fn
     free()
-    print(f"#   {ZAMBA} training: {time.perf_counter() - t0:.1f} s (host clock): the first "
-          f"launcher run {t_first:.1f} s, the resumed one {t_second:.1f} s (model, masters, "
-          f"host snapshot, checkpoints and steps), the profiled step "
-          f"{time.perf_counter() - t2:.1f} s")
-    return dict(counts=counts + counts2, **res)
+    print(f"#   {ZAMBA} training: {time.perf_counter() - t0:.1f} s (host clock): the "
+          f"launcher run {t_first:.1f} s (model, masters, host snapshot and steps), the "
+          f"profiled step {time.perf_counter() - t2:.1f} s")
+    return dict(counts=counts, **res)
 
 
 def qwen_train(plain: PlainCalls) -> dict:
@@ -4946,14 +4947,259 @@ def training_phase() -> dict:
     for name, layers, tree in TRAIN_CHECKS:
         train_check(name, layers, plain, tree)
         free()
-    disk = shutil.disk_usage(_build.BUILD_DIR)
-    print(f"# checkpoints under the build directory: {disk.free / 1e9:.1f} GB free")
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        zamba = zamba_train(plain, tmp)
+    zamba = zamba_train(plain)
     qwen = qwen_train(plain)
     plain.restore()
     print(f"# training phase: {time.perf_counter() - t0:.1f} s (host clock)")
     return dict(counts=zamba["counts"] + qwen["counts"], zamba=zamba, qwen=qwen)
+
+
+# ---------------------------------------------------------- distribution
+# (a) remat: one step without and one with, from the same state, on the
+# training phase's shapes; ZAMBA at full depth under "full", Qwen3-14B at
+# QWEN_TRAIN_LAYERS under "dots" (the hybrid family honours "full" only).
+REMAT_RUNS = ((ZAMBA, None, "full"), ("qwen3-14b", QWEN_TRAIN_LAYERS, "dots"))
+# Remat against no remat, per leaf: the recompute repeats the forward's
+# kernels on the same values, so the forward's saved activations are the
+# same bits; only a reduction whose order is not fixed (an atomic add)
+# could round otherwise, by ulps of the leaf: within 2⁻²⁰·max(1, max |g|).
+REMAT_TOL = 2.0 ** -20
+# (b) the launcher on the mesh: ZAMBA at full depth, 4 steps, checkpoints
+# at 2 and 4, then the step-4 checkpoint removed and the run resumed at 2
+# (with no checkpoint of its own), repeating steps 3 and 4.
+DIST_ARGS = ("--batch", "4", "--seq", "512", "--steps", "4", "--log-every", "1",
+             "--compress-grads")
+DIST_STEPS, DIST_RESUME = 4, 2
+# (c) a runtime derated to a (1, 4) mesh's per-shard budget serving
+# Qwen3-14B's decode GEMM bundles (batches per tenant) on DERATED_LAYERS.
+DERATED_MESH = MeshShape(data=1, model=4)
+DERATED_BATCHES, DERATED_LAYERS = [4, 8, 8, 16], 4
+
+
+def fresh(state: TrainState, masters: dict) -> TrainState:
+    """``state`` put back to step 0 on ``masters`` (zero moments), in place."""
+    for k, p in state.params.items():
+        p.copy_(masters[k])
+        state.opt.mu[k].zero_()
+        state.opt.nu[k].zero_()
+    state.opt.step.zero_()
+    state.step.zero_()
+    return state
+
+
+def remat_run(name: str, layers, remat: str, plain: PlainCalls) -> Counter:
+    """(a) for one model: bf16-compute steps without and with ``remat``, each
+    from the same fresh state, twice in turns (the second pair timed):
+    losses bitwise, gradients within REMAT_TOL, peak memory, step ms and
+    launches (the forward's kernels again in the recompute; one VJP
+    recompute each)."""
+    t0 = time.perf_counter()
+    cfg = get_arch(name) if layers is None else replace(get_arch(name), n_layers=layers)
+    model = build_model(cfg, device="cuda", dtype=torch.float32, seed=SEED + 11)
+    opt = AdamW(AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=2))
+    state = train_init(model, opt)
+    model.to("meta")
+    masters = {k: p.clone() for k, p in state.params.items()}
+    free()
+    batch = make_batch(cfg, InputShape("t", TRAIN_SEQ, TRAIN_BATCH, "train"), 0)
+    runs, total = {}, Counter()
+    held = []     # memory allocated when the forward returns: what the backward holds
+    real_forward = train_loop._Loss.forward
+
+    def forward(self, b):
+        out = real_forward(self, b)
+        held.append(torch.cuda.memory_allocated())
+        return out
+    train_loop._Loss.forward = forward
+    for turn in range(2):
+        for r in ("none", remat):
+            grads = {}
+
+            def keep(g):
+                grads.update(g)
+                return g
+            step = make_train_step(Model(cfg, device="meta", remat=r), opt,
+                                   grad_transform=keep)
+            fresh(state, masters)
+            grads.clear()
+            held.clear()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            plain.take()
+            a = mark()
+            _, metrics = step(state, batch)
+            b = mark()
+            torch.cuda.synchronize()
+            routes = dict(mamba_scan_fwd.routes)
+            counts, recomputes = take_counts(), plain.take()
+            total += counts
+            again = 2 if r != "none" else 1
+            want = train_launches(cfg, 1)
+            want_counts = Counter({k: n * again for k, n in want.items()})
+            if (counts != want_counts or recomputes != want
+                    or routes != {"decode": 0, "chunks": want_counts["mamba_scan"]}):
+                raise AssertionError(f"{name} remat={r}: launches {dict(counts)}, routes "
+                                     f"{routes}, VJP recomputes {dict(recomputes)}; want "
+                                     f"{dict(want_counts)} and one recompute each")
+            runs[r] = dict(loss=float(metrics["loss"]), ms=a.elapsed_time(b),
+                           peak=torch.cuda.max_memory_allocated(), base=base,
+                           held=held[0] - base, counts=dict(counts))
+            if turn:   # kept on the host: every step starts from the same bytes
+                runs[r]["grads"] = {k: g.cpu() for k, g in grads.items()}
+            grads.clear()
+        none, rem = runs["none"], runs[remat]
+        if not math.isfinite(none["loss"]) or rem["loss"] != none["loss"]:
+            raise AssertionError(f"{name}: loss {none['loss']} without remat, "
+                                 f"{rem['loss']} with remat={remat}")
+        if turn == 0:
+            first = dict(runs)
+    train_loop._Loss.forward = real_forward
+    worst, exact = 0.0, 0
+    for k, g in none["grads"].items():
+        if torch.equal(rem["grads"][k], g):
+            exact += 1
+            continue
+        d = float((rem["grads"][k].float() - g.float()).abs().max())
+        if d > REMAT_TOL * max(1.0, float(g.float().abs().max())):
+            raise AssertionError(f"{name} remat={remat}: gradient {k} moved by {d:.3g}")
+        worst = max(worst, d)
+    print(f"# remat={remat} on {name} at full width, {cfg.n_layers} layers, bf16 compute, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: loss {none['loss']:.6f} with and without "
+          f"(bitwise); gradients {exact} of {len(none['grads'])} leaves bitwise, largest "
+          f"|Δ| {worst:.3g}; held for the backward when the forward returns "
+          f"{none['held'] / 1e9:.3f} GB without, {rem['held'] / 1e9:.3f} GB with; "
+          f"peak memory {none['peak'] / 1e9:.3f} GB without, "
+          f"{rem['peak'] / 1e9:.3f} GB with (the step's own above the state's "
+          f"{none['base'] / 1e9:.3f} GB: {(none['peak'] - none['base']) / 1e9:.3f} and "
+          f"{(rem['peak'] - rem['base']) / 1e9:.3f}); step ms {none['ms']:.3f} without, "
+          f"{rem['ms']:.3f} with ({rem['ms'] / none['ms']:.3f}x; first turn "
+          f"{first['none']['ms']:.3f} and {first[remat]['ms']:.3f}); launches "
+          f"{none['counts']} without, {rem['counts']} with")
+    # "full" drops every layer's activations; "dots" keeps the matmul
+    # outputs, so it holds less at the forward's end but may leave the peak
+    # where it was when the peak is the head's (Qwen3 at 2 layers).
+    lower = rem["held"] < none["held"] and (
+        rem["peak"] < none["peak"] if remat == "full" else rem["peak"] <= none["peak"])
+    if not lower or rem["base"] != none["base"]:
+        raise AssertionError(f"{name}: remat={remat} held {rem['held']}, peak "
+                             f"{rem['peak']} from {rem['base']}; without {none['held']}, "
+                             f"{none['peak']} from {none['base']}")
+    del state, masters, runs, none, rem
+    free()
+    print(f"#   {name} remat: {time.perf_counter() - t0:.1f} s (host clock)")
+    return total
+
+
+def dist_launcher(plain: PlainCalls, ckpt_dir: str) -> Counter:
+    """(b): `repro_torch.launch.train.main` with ``--mesh Nx1
+    --compress-grads`` on NCCL, one rank per card (N = 1 here: this
+    process), then resumed at DIST_RESUME: losses, masters and
+    error-feedback buffers bitwise; optimizer bytes per rank."""
+    t0 = time.perf_counter()
+    cfg = get_arch(ZAMBA)
+    n = 1
+    args = ["--arch", ZAMBA, "--ckpt-dir", ckpt_dir, "--mesh", f"{n}x1", *DIST_ARGS]
+    reset_counts()
+    plain.take()
+    marks: list = []
+    train_launcher.make_train_step = timed_steps(marks)
+    first = train_launcher.main(args + ["--ckpt-every", str(DIST_RESUME)])
+    train_launcher.make_train_step = make_train_step
+    steps_ms = [a.elapsed_time(b) for a, b in marks]
+    routes = dict(mamba_scan_fwd.routes)
+    counts = take_counts()
+    check_train_launches("launcher on the mesh", cfg, DIST_STEPS, counts, routes,
+                         plain.take())
+    params = {k: p.cpu() for k, p in first["state"].params.items()}
+    ef = {k: e.cpu() for k, e in first.pop("ef").items()}
+    del first["state"]
+    free()
+    saved = ckpt.all_steps(ckpt_dir)
+    shutil.rmtree(Path(ckpt_dir) / f"{ckpt.STEP_PREFIX}{DIST_STEPS:08d}")
+    t1 = time.perf_counter()
+    second = train_launcher.main(args + ["--ckpt-every", "0"])
+    t_second = time.perf_counter() - t1
+    routes = dict(mamba_scan_fwd.routes)
+    counts2 = take_counts()
+    check_train_launches("launcher on the mesh, resumed", cfg, DIST_STEPS - DIST_RESUME,
+                         counts2, routes, plain.take())
+    same = (second["losses"] == first["losses"][DIST_RESUME:]
+            and all(torch.equal(p.cpu(), params[k])
+                    for k, p in second["state"].params.items())
+            and all(torch.equal(e.cpu(), ef[k]) for k, e in second["ef"].items()))
+    if (not same or first["ranks"] != n or second["final_step"] != DIST_STEPS
+            or not all(math.isfinite(x) for x in first["losses"])):
+        raise AssertionError(f"launcher on the mesh: losses {first['losses']}, resumed "
+                             f"{second['losses']}, ranks {first['ranks']}, bitwise {same}")
+    print(f"# launch.train --mesh {n}x1 --compress-grads on NCCL: {first['ranks']} rank(s) "
+          f"({torch.cuda.device_count()} card(s) here), {ZAMBA} at full depth, "
+          f"{DIST_STEPS} steps, checkpoints {saved}; losses "
+          f"{[round(x, 5) for x in first['losses']]}; resumed at step {DIST_RESUME}: "
+          f"losses {second['losses']}, masters and error-feedback buffers bitwise the "
+          f"uninterrupted run's; optimizer bytes per rank {first['opt_bytes']:,} of "
+          f"{first['opt_bytes_total']:,}; step ms {[round(t, 3) for t in steps_ms]} "
+          f"(CUDA events; compression and the data-parallel step included); kernel "
+          f"launches {dict(counts)} + {dict(counts2)} resumed")
+    del second, params, ef
+    free()
+    print(f"#   launcher on the mesh: {time.perf_counter() - t0:.1f} s (host clock; the "
+          f"resumed run {t_second:.1f} s)")
+    return counts + counts2
+
+
+def derated_serving() -> Counter:
+    """(c): a runtime derated by `set_mesh` to DERATED_MESH serves Qwen3-14B's
+    decode GEMM bundles at full width: every launch's CD within the slot
+    budget, every result held to the plain version, no fault."""
+    cfg = get_arch("qwen3-14b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    weights = make_unfused_weights(cfg, DERATED_LAYERS, gen, "cuda")
+    rt = Runtime(ConcurrencyController(), RuntimeConfig(window_s=0.0, execute=True),
+                 device="cuda")
+    res = rt.set_mesh(DERATED_MESH)
+    reset_counts()
+    w = mixed_window(rt, cfg, weights, DERATED_BATCHES, gen)
+    counts = take_counts()
+    cds = Counter(ln.plan.cd for ln in w["launch_list"])
+    check_healthy(rt, "derated serving")
+    if max(cds) > res.slot_budget or rt.available != res.slot_budget:
+        raise AssertionError(f"derated serving: CDs {dict(cds)} past the slot budget "
+                             f"{res.slot_budget}")
+    for kind, name in (("split-K", "splitk_matmul"), ("Stream-K", "stream_k_matmul")):
+        planned_n = w["split_k" if kind == "split-K" else "stream_k"]
+        if counts[name] != planned_n:
+            raise AssertionError(f"derated serving: {counts[name]} {kind} launches for "
+                                 f"{planned_n} planned")
+    print(f"# derated runtime, set_mesh({DERATED_MESH}): frac {res.frac}, slot budget "
+          f"{res.slot_budget}, spec {res.spec.name} (VMEM {res.spec.vmem_bytes:,} B); "
+          f"qwen3-14b decode bundles, batches {DERATED_BATCHES}, {DERATED_LAYERS} layers: "
+          f"{w['requests']} requests in launches {w['launches']} at CDs {dict(cds)}, "
+          f"members {w['members']}, every result within the GEMM tolerance of its plain "
+          f"version; kernel launches {dict(counts)}")
+    del weights, w
+    free()
+    return counts
+
+
+def dist_phase() -> dict:
+    """Phase 12: (a) remat, (b) the launcher on the mesh, (c) derating;
+    the plain versions raise outside their VJPs for (a) and (b).  The
+    three parts' launches are the kernels line's ``dist`` path."""
+    t0 = time.perf_counter()
+    plain = PlainCalls()
+    counts = Counter()
+    for name, layers, remat in REMAT_RUNS:
+        counts += remat_run(name, layers, remat, plain)
+    disk = shutil.disk_usage(_build.BUILD_DIR)
+    print(f"# checkpoints under the build directory: {disk.free / 1e9:.1f} GB free")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        counts += dist_launcher(plain, tmp)
+    plain.restore()
+    counts += derated_serving()
+    print(f"# distribution phase: {time.perf_counter() - t0:.1f} s (host clock)")
+    return dict(counts=counts)
 
 
 # ------------------------------------------------------------------- main
@@ -5001,7 +5247,7 @@ def main() -> int:
     for name, context in OP_CONFIGS:
         gc.collect()
         torch.cuda.empty_cache()
-        ops[name] = op_bundle_phase(name, context)
+        ops[name] = op_bundle_phase(name, context, layers=OP_LAYERS.get(name))
     op_counts = {k: sum(o["counts"][k] for o in ops.values())
                  for k in OP_BUNDLE_KERNELS + ("ragged_matmul",)}
     scan_routes = {k: sum(o["scan_routes"][k] for o in ops.values()) + prompt["routes"][k]
@@ -5033,6 +5279,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = training_phase()
     scan_routes["chunks"] += trained["counts"]["mamba_scan"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    distributed = dist_phase()
+    scan_routes["chunks"] += distributed["counts"]["mamba_scan"]
+    missing = [k for k in DIST_KERNELS if distributed["counts"][k] <= 0]
+    if missing:
+        raise AssertionError(f"the distribution path never launched {missing}")
     kernels = []
     for name, replaces in REPLACES:
         r, *more = rows[name]
@@ -5048,6 +5301,7 @@ def main() -> int:
             by_path["model_zoo"] = zoo["counts"][name]
         if name in TRAIN_KERNELS:
             by_path["train"] = trained["counts"][name]
+        by_path["dist"] = distributed["counts"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "shape": r["shape"],

@@ -21,8 +21,9 @@ import chip_smoke  # noqa: E402
 def main() -> None:
     for name, context in chip_smoke.OP_CONFIGS:
         cfg = chip_smoke.get_arch(name)
+        layers = chip_smoke.OP_LAYERS.get(name, cfg.n_layers)
         for batches, available, run, sig, stats in chip_smoke.graph_shadow(
-                cfg, context, cfg.n_layers, "cpu"):
+                cfg, context, layers, "cpu"):
             del stats["device_s"], stats["wall_s"]
             print(f"{name} {run} batches {batches} available {available}: "
                   f"{len(sig)} launches, {stats}")

@@ -1,6 +1,7 @@
 """DeepSeek-V2-Lite-16B's windows of `chip_smoke.py`'s phase 7 in shadow
 mode on the CPU: the port's planner alone, operand-free, at full width and
-depth (27 layers, context 2,048).  Prints, per op-bundle window (cold and
+depth it serves there (`chip_smoke.OP_LAYERS`: 14 of 27 layers, context
+2,048).  Prints, per op-bundle window (cold and
 warm plans) and per graph window and run (graph cold, graph warm, waves),
 the launches by mode, mean CD and flushes, and the `ragged_matmul`
 launches the grouped members make at their planned tiles (`ragged_chunks`
@@ -21,6 +22,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 NAME, CONTEXT = cs.MOE, 2048
+LAYERS = cs.OP_LAYERS[NAME]
 
 
 def bundle_windows(cfg) -> None:
@@ -30,7 +32,7 @@ def bundle_windows(cfg) -> None:
         rt.set_available(available)
         for run in ("cold", "warm"):
             launches = []
-            for _ in range(cfg.n_layers):
+            for _ in range(LAYERS):
                 for ti, batch in enumerate(batches):
                     rt.submit([cs.bind_operands(d)
                                for d in cs.decode_step_op_descs(cfg, batch, CONTEXT)],
@@ -54,7 +56,7 @@ def bundle_windows(cfg) -> None:
 def graph_windows(cfg) -> None:
     for batches, available, run, res in cs.graph_windows(
             cfg, CONTEXT, "cpu",
-            lambda ti, b: cs.decode_step_graph(cfg, b, CONTEXT, layers=cfg.n_layers),
+            lambda ti, b: cs.decode_step_graph(cfg, b, CONTEXT, layers=LAYERS),
             shadow=True):
         launches, stats = res[1], res[-1]
         del stats["device_s"], stats["wall_s"]

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import math
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Sequence
 
 import numpy as np
@@ -61,6 +61,17 @@ class TPUSpec:
 
     def peak(self, dtype: str) -> float:
         return self.peak_flops_fp32 if dtype == "f32" else self.peak_flops_bf16
+
+    def scaled(self, frac: float) -> "TPUSpec":
+        """The resource-constrained variant (the paper's GPU/2, GPU/4):
+        VMEM and bandwidth times ``frac``, as the reference's
+        (`repro/core/cost_model.py:83-90`)."""
+        return replace(
+            self,
+            name=f"{self.name}/{round(1 / frac)}" if frac != 1.0 else self.name,
+            vmem_bytes=int(self.vmem_bytes * frac),
+            hbm_bw=self.hbm_bw * frac,
+        )
 
 
 DEFAULT_SPEC = TPUSpec()

@@ -15,6 +15,11 @@ by an earlier crash is removed by the next save of that step.
 ``like``'s device in its dtype.  ``keep`` prunes old steps after every
 save.  `save_async` copies the state to host memory first, then writes
 on a daemon thread: the caller may update its tensors in place at once.
+A ZeRO-1 run's checkpoint is its full state, as one process's: rank 0
+writes it after the moments are gathered, and every rank restores the
+whole of it and keeps its slice (`fault_tolerance.py`, `zero1.py`);
+`restore` places each array on its ``like`` leaf's device and dtype
+whatever that leaf's shape.
 """
 from __future__ import annotations
 

@@ -23,6 +23,15 @@ The step may update its state in place (`AdamW.update` does, as the
 reference's jitted step donates it): rollback never reads the state a
 failed step was given; it restores from the checkpoint store or from the
 snapshot taken at construction.
+
+Under data parallelism (``ranks``, a `dist.zero1.Zero1`) the ranks act
+alike: a checkpoint gathers the ZeRO-1 moments whole on every rank
+(`Zero1.full`), rank 0 alone writes the full state, as the reference
+saves global arrays, and a barrier follows; a restore reads the same
+files on every rank and each keeps its slice (`Zero1.shard_state`).  The
+step's loss is the ranks' mean, so a NaN rollback is decided alike, and
+a stop request on any rank stops every rank at the same step
+(`Zero1.any`).  Checkpoints are written synchronously there.
 """
 from __future__ import annotations
 
@@ -80,10 +89,14 @@ class _Run:
 
 
 class FaultTolerantDriver:
-    def __init__(self, step_fn: Callable, state: Any, cfg: FTConfig):
+    def __init__(self, step_fn: Callable, state: Any, cfg: FTConfig, ranks=None):
+        if ranks is not None and cfg.async_ckpt:
+            raise ValueError("async checkpoints are written by one thread of one "
+                             "process; with ranks, checkpoints are synchronous")
         self.step_fn = step_fn
         self.state = state
         self.cfg = cfg
+        self.ranks = ranks
         # Host snapshot for a rollback before the first checkpoint.
         self._init_host = ckpt.to_host(state)
         self._stop = threading.Event()
@@ -100,7 +113,11 @@ class FaultTolerantDriver:
         step = ckpt.latest_step(self.cfg.ckpt_dir)
         if step is None:
             return 0
-        self.state, step = ckpt.restore(self.cfg.ckpt_dir, self.state, step=step)
+        return self._restore(step)
+
+    def _restore(self, step: int) -> int:
+        state, step = ckpt.restore(self.cfg.ckpt_dir, self.state, step=step)
+        self.state = state if self.ranks is None else self.ranks.shard_state(state)
         return step
 
     # ------------------------------------------------------------- saving
@@ -111,7 +128,13 @@ class FaultTolerantDriver:
 
     def _save(self, step: int) -> None:
         self._join_pending()
-        if self.cfg.async_ckpt:
+        if self.ranks is not None:
+            full = self.ranks.full(self.state)
+            if self.ranks.writer:
+                ckpt.save(self.cfg.ckpt_dir, full, step, keep=self.cfg.keep)
+            del full
+            self.ranks.barrier()
+        elif self.cfg.async_ckpt:
             self._pending_save = ckpt.save_async(self.cfg.ckpt_dir, self.state, step,
                                                  keep=self.cfg.keep)
         else:
@@ -121,10 +144,11 @@ class FaultTolerantDriver:
         """Restore the newest checkpoint (or the initial snapshot); returns
         the step the state was rolled back to."""
         self._join_pending()
+        if self.ranks is not None:
+            self.ranks.barrier()
         step = ckpt.latest_step(self.cfg.ckpt_dir)
         if step is not None:
-            self.state, step = ckpt.restore(self.cfg.ckpt_dir, self.state, step=step)
-            return step
+            return self._restore(step)
         loaded = iter(ckpt.tree_leaves(self._init_host))
         self.state = ckpt.tree_map(lambda ref: ckpt.place(next(loaded).copy(), ref),
                                    self.state)
@@ -145,7 +169,10 @@ class FaultTolerantDriver:
             for step_id, batch in batches:
                 if completed >= total_steps:
                     break
-                if self._stop.is_set():
+                stop = self._stop.is_set()
+                if self.ranks is not None:
+                    stop = self.ranks.any(stop)
+                if stop:
                     stopped = True
                     self._save(completed)
                     break

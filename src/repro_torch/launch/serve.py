@@ -12,9 +12,12 @@ for and missing); its weights are random from seed 0, in float32, the
 reference's default.  ``--runtime``
 routes each decode step's GEMMs through the online concurrency runtime
 in shadow dispatch and prints its telemetry (``--mixed-ops``: the whole
-op bundle; ``--graph``: the step as a dependency graph).  The mesh (the
-reference's ``runtime.set_mesh`` derating and sharded parameters) waits
-for the distribution slice: the runtime here plans for one device.
+op bundle; ``--graph``: the step as a dependency graph).  With
+``--runtime`` the mesh comes from the ranks there are
+(`make_mesh_from_devices`: a group of this process alone outside
+torchrun) and the runtime is derated to it (`Runtime.set_mesh`), as the
+reference's launcher does; a mesh with a model axis above 1 would shard
+the parameters over it, which is ROADMAP A13b, and raises.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.shapes import InputShape
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import make_batch
+from repro_torch.launch.mesh import MODEL_AXIS, Ranks, make_mesh_from_devices, mesh_shape
 from repro_torch.models import build_model
 from repro_torch.runtime import Runtime
 from repro_torch.train.serve_loop import greedy_decode
@@ -61,7 +65,20 @@ def main(argv=None):
     shape = InputShape("serve", args.prompt_len, args.batch, "prefill")
     prompt = make_batch(cfg, shape, 0)
     prompt.pop("labels")
-    runtime = Runtime(device=device) if args.runtime else None
+    runtime = None
+    if args.runtime:
+        runtime = Runtime(device=device)
+        with Ranks(device):
+            mesh = make_mesh_from_devices(device)
+            if mesh_shape(mesh)[MODEL_AXIS] > 1:
+                raise NotImplementedError(
+                    f"a mesh of {mesh_shape(mesh)}: serving with parameters sharded "
+                    "over the model axis waits for ROADMAP A13b")
+            # Derate the available CD slots and the cost model's spec to
+            # the per-shard fraction of the serving mesh.
+            res = runtime.set_mesh(mesh)
+        print(f"[serve] runtime derated for mesh={res.mesh_shape}: "
+              f"per-shard frac={res.frac:.2f} slot_budget={res.slot_budget}")
 
     t0 = time.perf_counter()
     toks = greedy_decode(

@@ -10,7 +10,7 @@ scores.  GQA takes a sliding ``window`` (Gemma3's local layers): the
 kernel masks keys ``window`` or more positions behind each query, and so
 does the decode step's mask.  MLA prefill expands the latents and runs
 `flash_attention` with dv ≠ dqk; MLA decode stays in latent space.  The
-sharding pins wait for distribution (A13).
+sharding pins are the model axis, ROADMAP A13b.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 transformer blocks (a GQA block may attend through a sliding window),
 the zamba2 hybrid layer with its shared attention block, and the xLSTM
 group (k−1 mLSTM layers, then one sLSTM layer).  MoE blocks take the
-capacity path; the expert-parallel path waits for distribution (A13)."""
+capacity path; the expert-parallel path is the model axis, ROADMAP A13b."""
 from __future__ import annotations
 
 from typing import Optional
@@ -85,7 +85,8 @@ def zamba_layer_apply(p, shared_p, x, cfg: ArchConfig, positions, layer_idx: int
 # ========================================================== xLSTM groups
 def xlstm_group_specs(cfg: ArchConfig) -> dict:
     """k−1 mLSTM layers (a stack within the group) and one sLSTM layer."""
-    return {"mlstm": stack_specs(mlstm_specs(cfg), cfg.slstm_every - 1),
+    return {"mlstm": stack_specs(mlstm_specs(cfg), cfg.slstm_every - 1,
+                                 "sublayers"),
             "slstm": slstm_specs(cfg)}
 
 

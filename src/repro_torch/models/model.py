@@ -17,16 +17,34 @@ reference scans stacked weights).  Caches keep the reference's layout,
 leading stack axes on each buffer (two for xLSTM's mLSTM layers), and
 are written in place; ``cache_len`` is a host integer.  Training passes
 no cache (`loss`); on the card the attention and scan kernels then run
-through their autograd Functions.  ``remat``, expert parallelism and
-``cache_pspecs`` wait for distribution (A13) and raise
-`NotImplementedError` naming them.
+through their autograd Functions.
+
+``remat`` (`repro/models/model.py:178-186, 205, 220`) recomputes a
+layer's activations in the backward instead of keeping them: "full"
+checkpoints each layer's call (one xLSTM group, one Zamba2 layer with
+its shared block) with `torch.utils.checkpoint`; "dots" does so for the
+attention stacks keeping the 2-D matmul outputs (`aten.mm`,
+`aten.addmm`: the dense GEMMs are `torch.matmul`), the analogue of
+`dots_with_no_batch_dims_saveable`, and, as in the reference, remats
+nothing in the hybrid and ssm families.  Under remat each layer's
+attention and scan kernels launch twice a step: in the forward and in
+its recompute.  Expert parallelism (``moe_mode="ep"``) is the model
+axis, ROADMAP A13b, and raises `NotImplementedError` naming it.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
@@ -40,23 +58,52 @@ from repro_torch.models.common import (
     rms_norm,
     rms_norm_spec,
 )
-from repro_torch.models.spec import build_params, init_params, param_count, stack_specs
+from repro_torch.models.spec import (
+    build_params,
+    init_params,
+    param_axes,
+    param_count,
+    stack_specs,
+    stacked_specs,
+)
 from repro_torch.models.ssm import init_mamba_cache
 from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 DENSE = ("dense", "audio", "vlm")      # one stack of dense attention blocks
 MOE_AUX_COEF = 1e-3
+REMAT = ("none", "full", "dots")
+# The matmuls whose outputs "dots" keeps: 2-D products, no batch dims.
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _check_ported(cfg: ArchConfig, moe_mode: str, remat: str) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
-    if remat != "none":
-        raise NotImplementedError(f"remat={remat!r} is not ported yet")
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: one of {REMAT}")
     if moe_mode not in ("auto", "capacity"):
-        raise NotImplementedError(f"moe_mode={moe_mode!r} (expert parallelism) "
-                                  "is not ported yet")
+        raise NotImplementedError(f"moe_mode={moe_mode!r} (expert parallelism over the "
+                                  "model axis) waits for ROADMAP A13b")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+class _Layer(nn.Module):
+    """``fn(*modules, *args)`` as a module call, so that a recompute can
+    run it on the tensors its forward saw (`Model._remat`)."""
+
+    def __init__(self, fn, *modules: nn.Module):
+        super().__init__()
+        self.fn = fn
+        for i, m in enumerate(modules):
+            self.add_module(str(i), m)
+
+    def forward(self, *args):
+        return self.fn(*self._modules.values(), *args)
 
 
 class Model(nn.Module):
@@ -73,6 +120,7 @@ class Model(nn.Module):
         super().__init__()
         _check_ported(cfg, moe_mode, remat)
         self.cfg = cfg
+        self.remat = remat
         self.moe_capacity_factor = moe_capacity_factor
         build_params(self, self.specs(), resolve_device(device), dtype,
                      requires_grad)
@@ -107,6 +155,11 @@ class Model(nn.Module):
     def param_count(self) -> int:
         return param_count(self.specs())
 
+    def param_axes(self):
+        """The logical axes of every leaf of the reference's parameter tree
+        (its stacked declaration, `stacked_specs`)."""
+        return param_axes(stacked_specs(self.specs()))
+
     def init(self, gen: torch.Generator) -> "Model":
         """Initialise every parameter from ``gen`` (on the model's device)."""
         init_params(self, self.specs(), gen)
@@ -126,6 +179,25 @@ class Model(nn.Module):
         return x
 
     # ------------------------------------------------------------ layers
+    def _remat(self, fn, modules: tuple, *args, attention: bool = False):
+        """``fn(*modules, *args)``, checkpointed when the model remats and
+        grad is on (the serving path never is); "dots" applies to the
+        ``attention`` stacks only.  The recompute runs on the tensors the
+        forward saw: under the training step's `functional_call` those
+        are its cast leaves, not the modules' own."""
+        if (self.remat == "none" or not torch.is_grad_enabled()
+                or (self.remat == "dots" and not attention)):
+            return fn(*modules, *args)
+        layer = _Layer(fn, *modules)
+        tensors = dict(layer.named_parameters())
+
+        def run(*a):
+            return functional_call(layer, tensors, a)
+        ctx = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                _dots_policy)}
+               if self.remat == "dots" else {})
+        return checkpoint(run, *args, use_reentrant=False, **ctx)
+
     def _run_layers(self, x, positions, cache=None, cache_len: int = 0):
         cfg = self.cfg
         aux = torch.zeros((), device=x.device)
@@ -143,13 +215,16 @@ class Model(nn.Module):
             for i, p in enumerate(self.layers):
                 c = None if cache is None else {
                     "mamba": _layer(cache["mamba"], i), "kv": _layer(cache["kv"], i)}
-                x, _ = B.zamba_layer_apply(p, self.shared, x, cfg, positions, i,
-                                           cache=c, cache_len=cache_len)
+                x, _ = self._remat(
+                    functools.partial(B.zamba_layer_apply, cfg=cfg, positions=positions,
+                                      layer_idx=i, cache=c, cache_len=cache_len),
+                    (p, self.shared), x)
         else:  # ssm
             for g, p in enumerate(self.layers):
                 c = None if cache is None else {
                     "mlstm": _layer(cache["mlstm"], g), "slstm": _layer(cache["slstm"], g)}
-                x, _ = B.xlstm_group_apply(p, x, cfg, cache=c)
+                x, _ = self._remat(functools.partial(B.xlstm_group_apply, cfg=cfg, cache=c),
+                                   (p,), x)
         return rms_norm(self.final_norm, x, cfg.norm_eps), aux
 
     def window(self, i: int) -> int:
@@ -168,10 +243,12 @@ class Model(nn.Module):
                   layer_offset: int):
         aux = torch.zeros((), device=x.device)
         for i, p in enumerate(stack):
-            x, _, a = B.attn_block_apply(
-                p, x, self.cfg, positions, moe=moe, window=self.window(layer_offset + i),
+            block = functools.partial(
+                B.attn_block_apply, cfg=self.cfg, positions=positions, moe=moe,
+                window=self.window(layer_offset + i),
                 cache=None if cache is None else _layer(cache, i),
                 cache_len=cache_len, moe_capacity_factor=self.moe_capacity_factor)
+            x, _, a = self._remat(block, (p,), x, attention=True)
             aux = aux + a
         return x, aux
 
@@ -201,7 +278,58 @@ class Model(nn.Module):
         return ce + MOE_AUX_COEF * aux, {"ce": ce, "aux": aux}
 
     def cache_pspecs(self, mesh, cache):
-        raise NotImplementedError("Model.cache_pspecs waits for distribution")
+        """Pspecs of ``cache`` (an `init_cache` tree: tensors, or anything
+        with a shape), the reference's layout
+        (`repro/models/model.py:328-389`): batch over the data-parallel
+        axes where they divide it (dropping the inner first), head and
+        channel dims over "model" where it divides them."""
+        from repro_torch.dist.sharding import entry
+        from repro_torch.launch.mesh import mesh_shape
+
+        shape = mesh_shape(mesh)
+        dp_all = tuple(a for a in ("pod", "data") if a in shape)
+        msize = shape.get("model", 1)
+
+        def dp_for(b):
+            dp = dp_all
+            while dp and b % math.prod(shape[a] for a in dp) != 0:
+                dp = dp[:-1]
+            return entry(dp)
+
+        def m_for(d):
+            return "model" if (msize > 1 and d % msize == 0) else None
+
+        def each(fn, tree):
+            return None if tree is None else type(tree)(
+                *(None if t is None else fn(t.shape) for t in tree))
+
+        def kv_one(sh):   # k/v (L, B, S, H, hd); MLA ckv (L, B, S, r), krope
+            if len(sh) == 5:
+                return (None, dp_for(sh[1]), None, m_for(sh[3]), None)
+            return (None, dp_for(sh[1]), None, None)
+
+        def mamba_one(sh):
+            if len(sh) == 5:   # state (L, B, H, N, P)
+                return (None, dp_for(sh[1]), m_for(sh[2]), None, None)
+            return (None, dp_for(sh[1]), None, m_for(sh[3]))   # conv
+
+        def ml_one(sh):    # (G, k-1, B, ...)
+            rest = [None] * (len(sh) - 3)
+            if len(sh) >= 5:
+                rest[0] = m_for(sh[3])
+            return (None, None, dp_for(sh[2]), *rest)
+
+        def sl_one(sh):    # (G, B, H, P)
+            return (None, dp_for(sh[1]), m_for(sh[2]), None)
+
+        fam = self.cfg.family
+        if fam in DENSE:
+            return {"dense": None, "main": each(kv_one, cache["main"])}
+        if fam == "moe":
+            return {"dense": each(kv_one, cache["dense"]), "main": each(kv_one, cache["main"])}
+        if fam == "hybrid":
+            return {"mamba": each(mamba_one, cache["mamba"]), "kv": each(kv_one, cache["kv"])}
+        return {"mlstm": each(ml_one, cache["mlstm"]), "slstm": each(sl_one, cache["slstm"])}
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16) -> dict:

@@ -4,7 +4,7 @@ mesh-free capacity path: copies sorted into an (E, C, D) buffer and the
 expert FFNs run as grouped GEMMs, through the port's `grouped_gemm` (on
 the card the hand-written grouped kernel, at the GO tile the library
 picks for CD = min(16, E)).  Copies past an expert's capacity are
-dropped.  The expert-parallel path waits for the distribution slice.
+dropped.  The expert-parallel path is the model axis, ROADMAP A13b.
 
 The reference's ``mode="drop"`` scatters become scatters into a buffer
 one row longer than the capacity buffer, whose last row (the sentinel

@@ -14,8 +14,10 @@ stack's size (``stack``) and its count of stacked axes (``stacked``: 2
 for xLSTM's mLSTM layers, a stack within each group of a stack), so
 that its random init keeps the reference's rule, which reads shape[0]
 of the stacked leaf (`Spec.fan_in`), and its dims are the declared
-leaf's (`Spec.ndim`).  Logical axes are
-kept for the sharding rules to come; the port does not read them yet.
+leaf's (`Spec.ndim`).  A stack is a `Stack`, which keeps its layer's
+specs and its axis name, so that `stacked_specs` can give back the
+reference's stacked declaration, on which the sharding rules
+(`dist/sharding.py`) read the logical axes.
 """
 from __future__ import annotations
 
@@ -70,19 +72,51 @@ class Spec:
         return len(self.shape) + self.stacked
 
 
+class Stack(list):
+    """The layers of a stack, one spec dict each, and what the list alone
+    would lose: the layer's specs (``layer``, kept for a stack of no
+    layers too) and the stack's logical axis name (``axis``), which the
+    reference's stacked leaf carries in front of its own axes."""
+
+    def __init__(self, layers, layer, axis: str):
+        super().__init__(layers)
+        self.layer = layer
+        self.axis = axis
+
+
 def _in_stack(specs, n: int):
     if isinstance(specs, Spec):
         return replace(specs, stack=n, stacked=specs.stacked + 1)
     if isinstance(specs, dict):
         return {k: _in_stack(v, n) for k, v in specs.items()}
-    return [_in_stack(v, n) for v in specs]
+    return Stack([_in_stack(v, n) for v in specs], _in_stack(specs.layer, n), specs.axis)
 
 
-def stack_specs(specs: dict, n: int) -> list:
+def stack_specs(specs: dict, n: int, axis: str = "layers") -> Stack:
     """``n`` layers of ``specs``: one entry per layer of the stack, each
     spec marked as one layer of ``n`` (`Spec.stack`) under one more
-    stacked axis (`Spec.stacked`)."""
-    return [_in_stack(specs, n)] * n
+    stacked axis (`Spec.stacked`); ``axis`` is the stacked axis's
+    logical name, as the reference's `stack_specs` names it."""
+    layer = _in_stack(specs, n)
+    return Stack([layer] * n, layer, axis)
+
+
+def stacked_specs(specs):
+    """The reference's declaration of ``specs``: each stack one dict of
+    leaves whose shape and axes lead with the stack's size and axis name
+    (two of each for xLSTM's mLSTM layers: group, then layer of the
+    group), the per-layer fields `Spec.stack` and `Spec.stacked` cleared.
+    The sharding rules run on these leaves."""
+    if isinstance(specs, Spec):
+        return replace(specs, stack=None, stacked=0)
+    if isinstance(specs, dict):
+        return {k: stacked_specs(v) for k, v in specs.items()}
+
+    def lead(s):
+        if isinstance(s, Spec):
+            return replace(s, shape=(len(specs), *s.shape), axes=(specs.axis, *s.axes))
+        return {k: lead(v) for k, v in s.items()}
+    return lead(stacked_specs(specs.layer))
 
 
 def iter_specs(specs, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Spec]]:
@@ -93,6 +127,14 @@ def iter_specs(specs, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Spec]]:
             yield prefix + (k,), s
         else:
             yield from iter_specs(s, prefix + (k,))
+
+
+def param_axes(specs):
+    """The logical axes of every leaf of a dict tree of specs (as
+    `stacked_specs` gives), in its tree."""
+    if isinstance(specs, Spec):
+        return specs.axes
+    return {k: param_axes(v) for k, v in specs.items()}
 
 
 def declared_ndims(specs) -> Dict[str, int]:

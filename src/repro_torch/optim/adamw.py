@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -73,12 +73,17 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: AdamWState,
                params: Dict[str, torch.Tensor],
-               ndims: Optional[Dict[str, int]] = None):
+               ndims: Optional[Dict[str, int]] = None,
+               view: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None):
         """One step: returns (params, state, {"gnorm", "lr"}), the new values
         written into ``params``, ``state.mu`` and ``state.nu`` (module
         docstring).  ``ndims``: each leaf's dims for the decay rule, by
-        default its tensor's.  Every scalar stays on the device: nothing
-        here waits for the card."""
+        default its tensor's.  ``view(name, tensor)``: update only that
+        slice of each parameter (ZeRO-1, `dist/zero1.py`), whose moments
+        are ``state.mu`` and ``state.nu``; the clipping norm is the whole
+        gradient's, and every update is elementwise, so the slices get
+        exactly the elements of the whole update.  Every scalar stays on
+        the device: nothing here waits for the card."""
         cfg = self.cfg
         step = state.step + 1
         gsq = sum(torch.sum(g.float() ** 2) for g in grads.values())
@@ -88,16 +93,21 @@ class AdamW:
         b1c = 1 - cfg.b1 ** step.float()
         b2c = 1 - cfg.b2 ** step.float()
         for k, p in params.items():
+            ndim = p.dim() if ndims is None else ndims[k]
+            g = grads[k]
+            if view is not None:
+                p, g = view(k, p), view(k, g)
+            m, v = state.mu[k], state.nu[k]
+            if not p.numel():
+                continue
             # The reference's expression, one rounding per operation in its
             # order; written in place to spare the allocations.
-            g = grads[k].float() * scale
-            m, v = state.mu[k], state.nu[k]
+            g = g.float() * scale
             m.mul_(cfg.b1).add_(g * (1 - cfg.b1))           # b1·m + (1−b1)·g
             t = torch.mul(g, 1 - cfg.b2).mul_(g)             # (1−b2)·g·g
             v.mul_(cfg.b2).add_(t)
             torch.div(v, b2c, out=t).sqrt_().add_(cfg.eps)   # √(v/b2c) + ε
             delta = torch.div(m, b1c, out=g).div_(t)         # (m/b1c) / (…)
-            ndim = p.dim() if ndims is None else ndims[k]
             if ndim >= 2:  # decoupled weight decay on matrices only
                 delta.add_(torch.mul(p, cfg.weight_decay, out=t))
             p.sub_(delta.mul_(lr))                           # p − lr·δ

@@ -104,7 +104,8 @@ Departures from the reference:
   a ValueError naming the node and the slot, before anything is
   queued, so no check fires halfway through a flush.
 
-Meshes (`set_mesh`, A13) are not ported.
+`set_mesh` derates to a mesh's per-shard budget (`dist/resources.py`);
+it reads only the mesh's axis names and sizes.
 """
 from __future__ import annotations
 
@@ -124,6 +125,7 @@ from repro_torch.core.cost_model import (
 )
 from repro_torch.core.device import resolve_device
 from repro_torch.core.gemm_desc import GemmDesc
+from repro_torch.core.library import GOLibrary
 from repro_torch.core.op_desc import SlicePlan, family_of, slice_plan
 from repro_torch.core.scheduler import (
     CP_OVERHEAD_S,
@@ -377,6 +379,11 @@ class Runtime:
         # available slots: CD_exec = min(CD_preferred, available); part of
         # the plan-cache key
         self.available = self.ctrl.max_cd
+        # the device's spec and library, so that set_mesh re-derives from
+        # them and never compounds
+        self._chip_spec = self.ctrl.spec
+        self._chip_lib = self.ctrl.lib
+        self.mesh_resources = None
         self.device_free_t = 0.0
         self._queues: Dict[str, _ClassQueue] = {}
         self._rr = 0                    # round-robin cursor over class order
@@ -631,6 +638,30 @@ class Runtime:
         not available).  Part of the plan-cache key, so a plan made for
         another count is never reused."""
         self.available = max(1, int(n))
+
+    def set_mesh(self, mesh):
+        """Derate the runtime for a mesh (`repro/runtime/runtime.py:607-637`):
+        tensor-parallel shards co-resident on each device shrink what a
+        concurrent group can claim, so the controller's spec and its GO
+        library switch to the per-shard `TPUSpec.scaled` variant (a fresh
+        library when the fraction is below 1; tiles tuned for the whole
+        device would be wrong under a shard's share) and ``available``
+        drops to the per-shard slot budget.  Always derived from the spec
+        and library captured at construction: a new mesh re-derives, never
+        compounds.  Prewarm after set_mesh, not before.  Returns the
+        `MeshResources`."""
+        from repro_torch.dist.resources import mesh_resources
+
+        res = mesh_resources(mesh, spec=self._chip_spec, max_cd=self.ctrl.max_cd)
+        self.ctrl.spec = res.spec
+        self.ctrl.lib = self._chip_lib if res.frac == 1.0 else GOLibrary(spec=res.spec)
+        # memoized CD and feature decisions came from the previous spec
+        self.ctrl.invalidate_caches()
+        self.set_available(res.slot_budget)
+        self.invalidate_plans()
+        self._iso_cache.clear()   # admission estimates were per device spec
+        self.mesh_resources = res
+        return res
 
     def queue_depths(self) -> Dict[str, int]:
         return {k: len(q) for k, q in self._queues.items() if q}

@@ -18,6 +18,15 @@ microbatches' f32 gradients and divides once (the loss likewise); the
 metrics are the last microbatch's.
 
 `train_state_from_reference` carries a reference ``TrainState`` across.
+
+With a `dist.zero1.Zero1` plan (``zero1=``) the step is data parallel:
+each rank takes its rows of the batch, the gradients' mean over ranks
+is all-reduced before the transform and the optimizer, which updates
+this rank's slice of the masters and moments, and the masters are
+all-gathered; the loss and the loss's metrics are the ranks' mean (a
+mean of per-rank means: the global mean where every rank has as many
+labelled tokens; the MoE aux loss is per rank's rows).  `train_init`
+then makes the moments of this rank's slices only.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from repro_torch.dist.zero1 import Zero1
 from repro_torch.models.convert import unstacked
 from repro_torch.models.model import Model
 from repro_torch.models.spec import declared_ndims
@@ -40,11 +50,13 @@ class TrainState(NamedTuple):
     step: torch.Tensor                 # int32, 0-dim
 
 
-def train_init(model: Model, optimizer: AdamW) -> TrainState:
+def train_init(model: Model, optimizer: AdamW, zero1: Optional[Zero1] = None) -> TrainState:
     """f32 masters copied from the model's weights (its init from a seed,
-    `build_model`), the optimizer's zero state, and step 0."""
+    `build_model`), the optimizer's zero state (of this rank's ZeRO-1
+    slices, with ``zero1``), and step 0."""
     params = {k: p.detach().float().clone() for k, p in model.named_parameters()}
-    return TrainState(params, optimizer.init(params),
+    owned = params if zero1 is None else {k: zero1.view(k, p) for k, p in params.items()}
+    return TrainState(params, optimizer.init(owned),
                       torch.zeros((), dtype=torch.int32, device=model.device))
 
 
@@ -98,18 +110,22 @@ def _value_and_grad(loss_call: _Loss, cparams: Dict[str, torch.Tensor], batch):
 
 def make_train_step(model: Model, optimizer: AdamW, *,
                     compute_dtype=torch.bfloat16, n_microbatches: int = 1,
-                    grad_transform: Optional[Callable] = None):
+                    grad_transform: Optional[Callable] = None,
+                    zero1: Optional[Zero1] = None):
     """``train_step(state, batch) -> (state, metrics)``: metrics are the
     loss's (``ce``, ``aux``), ``loss`` and the optimizer's (``gnorm``,
     ``lr``), all 0-dim tensors on the model's device.  The batch's
     tensors are moved to that device; the state is updated in place
     (`AdamW.update`).  A batch that ``n_microbatches`` does not divide
-    raises, as the reference's reshape does."""
+    raises, as the reference's reshape does.  ``zero1``: the data-parallel
+    step over its ranks (module docstring); ``batch`` is the global one."""
     loss_call = _Loss(model)
     ndims = declared_ndims(model.specs())
 
     def train_step(state: TrainState, batch):
         dev = next(iter(state.params.values())).device
+        if zero1 is not None:
+            batch = zero1.local_batch(batch)
         batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
         rows = next(iter(batch.values())).shape[0]
         if rows % n_microbatches:
@@ -134,10 +150,17 @@ def make_train_step(model: Model, optimizer: AdamW, *,
             grads = {k: x / n_microbatches for k, x in grads.items()}
             loss = loss / n_microbatches
         del cparams
+        if zero1 is not None:
+            grads = zero1.allreduce_mean(grads)
+            loss = zero1.mean(loss)
+            metrics = {k: zero1.mean(v) for k, v in metrics.items()}
         if grad_transform is not None:
             grads = grad_transform(grads)
-        params, opt, opt_metrics = optimizer.update(grads, state.opt, state.params,
-                                                    ndims)
+        params, opt, opt_metrics = optimizer.update(
+            grads, state.opt, state.params, ndims,
+            view=None if zero1 is None else zero1.view)
+        if zero1 is not None:
+            zero1.gather_into(params)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return TrainState(params, opt, state.step + 1), metrics
 

@@ -1636,6 +1636,36 @@ def test_reduced_model_train_step_on_the_card_matches_the_cpu(card, name, monkey
         assert err <= MODEL_TOL * max(1.0, float(want.abs().max())), (k, err)
 
 
+@pytest.mark.parametrize("name,remat", [("zamba2-1.2b", "full"), ("qwen3-14b", "full"),
+                                        ("qwen3-14b", "dots")])
+def test_remat_gradients_on_the_card_equal_no_remat(card, name, remat):
+    """A reduced model's f32 loss and gradients on the card under remat
+    against the same model without: the recompute repeats the forward's
+    kernels on the same values, so the loss is bitwise and each leaf
+    within 2⁻²⁰·max(1, max |leaf|) (ulps, should a reduction's order
+    not be fixed); the attention and scan kernels launch twice."""
+    cfg = get_arch(name).reduced()
+    toks = torch.randint(0, cfg.vocab_size, (2, 151),
+                         generator=torch.Generator().manual_seed(8))
+    batch = {"tokens": toks[:, :-1].to(card), "labels": toks[:, 1:].to(card)}
+    got = {}
+    for r in ("none", remat):
+        model = build_model(cfg, device=card, seed=14, remat=r)
+        params = [p.requires_grad_(True) for p in model.parameters()]
+        before = _model_launches()
+        loss, _ = model.loss(batch)
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        after = _model_launches()
+        got[r] = (loss.detach(), grads, after[0] - before[0],
+                  after[1]["chunks"] - before[1]["chunks"])
+    loss, grads, attn, scans = got["none"]
+    rloss, rgrads, rattn, rscans = got[remat]
+    assert attn > 0 and (rattn, rscans) == (2 * attn, 2 * scans)
+    assert torch.equal(rloss, loss)
+    for g, rg in zip(grads, rgrads):
+        assert float((rg - g).abs().max()) <= 2.0 ** -20 * max(1.0, float(g.abs().max()))
+
+
 def test_moe_training_on_the_card_raises_naming_the_grouped_backward(card):
     """The grouped kernels have no backward (nor has the reference's Pallas
     grouped GEMM): a DeepSeek-V2-Lite training step on the card raises,

@@ -9,9 +9,9 @@ completion time, and keep the same telemetry — bitwise, in shadow mode
 over random traces too.  Executed, on the CPU against the reference's
 Pallas bodies in interpret mode: integer-valued float32 operands, so
 GEMM results are bitwise equal; attention within the reference tests'
-3e-4.  `set_mesh` is not ported; its test's other half, the admission
-estimate cache following the library, is held here through
-`process_retunes` and a quarantine."""
+3e-4.  The admission estimate cache follows the library, held here
+through `process_retunes` and a quarantine (and through `set_mesh` in
+`tests/test_torch_dist.py`)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,9 +7,10 @@ first checkpoint) and `tests/test_launchers.py`'s two training tests
 (end to end, and a run resumed from its checkpoints), ported; the
 checkpoint layout and its atomic publication; the signal handlers put
 back however a run ends; a launcher run resumed after a lost step
-reproducing the uninterrupted run bit for bit; ``--mesh`` and
-``--compress-grads`` refused, naming ROADMAP A13; ``--runtime``'s slot
-budget equal to the reference runtime's on a 1×1 mesh; and the
+reproducing the uninterrupted run bit for bit; ``--mesh 1x2`` and
+``2x2`` refused, naming ROADMAP A13b (the model axis; ``--mesh Dx1`` and
+``--compress-grads`` run in `tests/test_torch_zero1.py`); ``--runtime``'s
+slot budget equal to the reference runtime's on a 1×1 mesh; and the
 launcher's refusal without CUDA.
 """
 import json
@@ -247,9 +248,10 @@ def test_resumed_launcher_run_reproduces_the_uninterrupted_one(tmp_path):
         assert torch.equal(p, second["state"].params[k]), k
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "4x1"], ["--compress-grads"]])
+@pytest.mark.parametrize("flag", [["--mesh", "1x2"], ["--mesh", "2x2"]])
 def test_train_launcher_refuses_distribution(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="A13"):
+    """A model axis above 1 is tensor parallelism, ROADMAP A13b."""
+    with pytest.raises(NotImplementedError, match="A13b"):
         train_main(_args(tmp_path) + flag)
 
 
