@@ -140,9 +140,9 @@ Phases, each fatal on failure (nothing here catches an error):
    calls on both of its paths, the op bundles (phase 7) and these prompt
    scans: one per call, which on the chunks route is three kernel
    launches (state, carry, output), on the decode route one;
-7. op-bundle serving: for Qwen3-14B (40 layers, context 4,096),
-   Zamba2-1.2B (38 layers, context 2,048) and DeepSeek-V2-Lite-16B (14
-   of 27 layers, `OP_LAYERS`, context 2,048), at full width, every layer's whole
+7. op-bundle serving: for Qwen3-14B (20 of 40 layers, context 4,096),
+   Zamba2-1.2B (19 of 38 layers, context 2,048) and DeepSeek-V2-Lite-16B
+   (14 of 27 layers; `OP_LAYERS`, context 2,048), at full width, every layer's whole
    decode-step bundle (`decode_step_op_descs`: the GEMMs, the attention
    read over the KV cache, for Zamba2 the SSD state update, for
    DeepSeek the two expert pools) submitted per tenant as one bundle and
@@ -319,7 +319,7 @@ Phases, each fatal on failure (nothing here catches an error):
    ms (CUDA events, the second turn), launches exact (the forward's
    kernels again in the recompute, one VJP recompute each); (b)
    `repro_torch.launch.train.main` with ``--mesh Nx1 --compress-grads``
-   on NCCL, one rank (this process; N = 1), Zamba2-1.2B at full depth,
+   on NCCL, one rank (this process; N = 1), Zamba2-1.2B at 12 of 38 layers,
    4 steps, checkpoints at 2 and 4, then the step-4 checkpoint removed
    and the run resumed at 2: losses, masters and error-feedback buffers
    bitwise the uninterrupted run's, optimizer bytes per rank printed,
@@ -328,7 +328,29 @@ Phases, each fatal on failure (nothing here catches an error):
    4 layers: every launch's CD within the slot budget of 4, results
    held to the plain versions, no fault or fallback.  Its launches are
    the kernels line's ``dist`` path;
-13. one JSON line ``{"kernels": [...]}`` and, last, the device line.
+13. the model axis, after phase 12 (`model_axis_phase`): the one-rank
+   models' greedy runs (Qwen3-14B at 8 of 40 layers, DeepSeek-V2-Lite-16B
+   at 6 of 27, full width, f32, batch 4, 1,000-token prompts, 8 steps,
+   from a seed; DeepSeek's prefill on the EP path) kept on the host and
+   freed; then M = 2 and M = 4 rank processes (spawned, sharing the card
+   over gloo, `init_ranks(backend="gloo")`) serve each model sharded on a
+   (1, M) mesh through `greedy_decode` with the plain versions raising:
+   every rank's tokens equal rank 0's and the one-rank model's, the
+   gathered prefill logits within MODEL_TOL of the one-rank logits,
+   DeepSeek's prefill on EP and its steps on the capacity path with the
+   experts cut (both counted), each rank's `flash_attention` and
+   `grouped_matmul` launches those of its shard's shapes; the backend,
+   world, mesh, heads and experts a rank, and each rank's peak memory are
+   printed.  Two processes asking NCCL for the one card must both be
+   refused by `init_ranks`, naming the cause.  Then
+   ``python -m repro_torch.launch.serve --arch qwen3-14b``
+   at world 1 on NCCL (full width and depth, f32), and the kernels at a
+   rank's shapes (M = 4: Qwen3's prefill attention on 10 and 2 heads,
+   DeepSeek's MLA on 4 heads, its EP up-projection on 16 experts at
+   C2 = 704) held to their plain versions and timed beside SDPA and
+   `bmm`.  The ranks' launches are the kernels line's ``model_axis``
+   path;
+14. one JSON line ``{"kernels": [...]}`` and, last, the device line.
 
 Tolerance of every comparison of a GEMM or of partials (float32, kernel
 vs plain version on the same inputs): |kernel − plain| ≤ 2⁻⁷·|plain| +
@@ -384,17 +406,20 @@ import json
 import math
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import time
 from collections import Counter
 from dataclasses import replace
+from datetime import timedelta
 from itertools import cycle
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -492,7 +517,7 @@ from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
 )
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
-from repro_torch.launch.mesh import MeshShape  # noqa: E402
+from repro_torch.launch.mesh import MeshShape, init_ranks, make_debug_mesh  # noqa: E402
 from repro_torch.models import Model, build_model  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
@@ -560,6 +585,7 @@ PER_CLASS_KERNELS = ("matmul", "grouped_matmul", "ragged_matmul")
 MIXED_KERNELS = ("matmul", "splitk_matmul", "stream_k_matmul")
 OP_BUNDLE_KERNELS = ("flash_attention", "mamba_scan")
 DIST_KERNELS = ("flash_attention", "mamba_scan", "matmul")
+TP_KERNELS = ("flash_attention", "grouped_matmul")
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 SLEEP_CYCLES = 500_000_000   # ~0.25 s of the card's clock: time to queue work
 
@@ -2452,8 +2478,9 @@ def prompt_scan_phase(device="cuda", prompt: int = ZAMBA_PROMPT, layers=None) ->
 # --------------------------------------------------- op-bundle serving
 OP_CONFIGS = (("qwen3-14b", 4096), ("zamba2-1.2b", 2048), ("deepseek-v2-lite-16b", 2048))
 # Layers served where not the config's: DeepSeek-V2-Lite-16B's 27 cut to 14
-# to make room for phase 12 in the script's time.
-OP_LAYERS = {"deepseek-v2-lite-16b": 14}
+# to make room for phase 12 in the script's time, Qwen3-14B's 40 to 20 and
+# Zamba2-1.2B's 38 to 19 for phase 13.
+OP_LAYERS = {"qwen3-14b": 20, "zamba2-1.2b": 19, "deepseek-v2-lite-16b": 14}
 OP_WINDOWS = (([1], 16), ([4, 8, 8, 16], 4))
 
 
@@ -4964,11 +4991,15 @@ REMAT_RUNS = ((ZAMBA, None, "full"), ("qwen3-14b", QWEN_TRAIN_LAYERS, "dots"))
 # same bits; only a reduction whose order is not fixed (an atomic add)
 # could round otherwise, by ulps of the leaf: within 2⁻²⁰·max(1, max |g|).
 REMAT_TOL = 2.0 ** -20
-# (b) the launcher on the mesh: ZAMBA at full depth, 4 steps, checkpoints
+# (b) the launcher on the mesh: ZAMBA at DIST_LAYERS, 4 steps, checkpoints
 # at 2 and 4, then the step-4 checkpoint removed and the run resumed at 2
 # (with no checkpoint of its own), repeating steps 3 and 4.
 DIST_ARGS = ("--batch", "4", "--seq", "512", "--steps", "4", "--log-every", "1",
              "--compress-grads")
+# ZAMBA's depth in (b): 12 of 38 layers (its shared block twice), cut for the
+# script's time (the full depth's two 19.2 GB checkpoints and their read
+# were most of (b)), through the launcher's own `get_arch`.
+DIST_LAYERS = 12
 DIST_STEPS, DIST_RESUME = 4, 2
 # (c) a runtime derated to a (1, 4) mesh's per-shard budget serving
 # Qwen3-14B's decode GEMM bundles (batches per tenant) on DERATED_LAYERS.
@@ -5098,7 +5129,8 @@ def dist_launcher(plain: PlainCalls, ckpt_dir: str) -> Counter:
     process), then resumed at DIST_RESUME: losses, masters and
     error-feedback buffers bitwise; optimizer bytes per rank."""
     t0 = time.perf_counter()
-    cfg = get_arch(ZAMBA)
+    cfg = replace(get_arch(ZAMBA), n_layers=DIST_LAYERS)
+    train_launcher.get_arch = lambda name: replace(get_arch(name), n_layers=DIST_LAYERS)
     n = 1
     args = ["--arch", ZAMBA, "--ckpt-dir", ckpt_dir, "--mesh", f"{n}x1", *DIST_ARGS]
     reset_counts()
@@ -5121,6 +5153,7 @@ def dist_launcher(plain: PlainCalls, ckpt_dir: str) -> Counter:
     t1 = time.perf_counter()
     second = train_launcher.main(args + ["--ckpt-every", "0"])
     t_second = time.perf_counter() - t1
+    train_launcher.get_arch = get_arch
     routes = dict(mamba_scan_fwd.routes)
     counts2 = take_counts()
     check_train_launches("launcher on the mesh, resumed", cfg, DIST_STEPS - DIST_RESUME,
@@ -5134,7 +5167,8 @@ def dist_launcher(plain: PlainCalls, ckpt_dir: str) -> Counter:
         raise AssertionError(f"launcher on the mesh: losses {first['losses']}, resumed "
                              f"{second['losses']}, ranks {first['ranks']}, bitwise {same}")
     print(f"# launch.train --mesh {n}x1 --compress-grads on NCCL: {first['ranks']} rank(s) "
-          f"({torch.cuda.device_count()} card(s) here), {ZAMBA} at full depth, "
+          f"({torch.cuda.device_count()} card(s) here), {ZAMBA} at {DIST_LAYERS} of "
+          f"{get_arch(ZAMBA).n_layers} layers, "
           f"{DIST_STEPS} steps, checkpoints {saved}; losses "
           f"{[round(x, 5) for x in first['losses']]}; resumed at step {DIST_RESUME}: "
           f"losses {second['losses']}, masters and error-feedback buffers bitwise the "
@@ -5202,8 +5236,276 @@ def dist_phase() -> dict:
     return dict(counts=counts)
 
 
+# ------------------------------------------------------- model axis (13)
+# Serving over M ranks of one card (NCCL refuses two ranks on one device:
+# the ranks join over gloo, `init_ranks(backend="gloo")`, every tensor on
+# the card; gloo moves CUDA tensors itself).  Full width, the depth cut
+# to TP_SERVE's layers (Qwen3-14B 8 of 40; DeepSeek-V2-Lite-16B 6 of 27:
+# its dense layer and 5 MoE layers), batch 4, 1,000-token prompts (which
+# M = 2 and 4 divide, so DeepSeek's prefill takes expert parallelism), 8
+# greedy steps, in TP_DTYPE.  The one-rank model, from the same seed, is
+# the reference; for DeepSeek its prefill runs the EP path on one rank
+# and its steps the capacity path, the choice "auto" makes on the mesh.
+TP_WORLDS = (2, 4)
+TP_SERVE = (("qwen3-14b", 8), ("deepseek-v2-lite-16b", 6))
+TP_BATCH, TP_PROMPT, TP_STEPS = 4, 1000, 8
+TP_DTYPE = torch.float32
+TP_COLLECTIVE_S = 120    # a hung collective fails instead of stalling
+TP_JOIN_S = 600          # the ranks of one world, every model included
+# The per-rank kernel rows (bf16, M = 4): Qwen3-14B's prefill attention on
+# its 10 query and 2 KV heads of a rank, DeepSeek's MLA prefill on 4 heads,
+# and DeepSeek's EP expert up-projection on a rank's 16 experts at the C2
+# its prefill gives (cap = ⌈1000·6/4·1.25⌉ = 1875 copies a destination,
+# C2 = ⌈4·1875/16·1.5⌉ = 704 rows an expert).
+TP_ATTENTION = (("qwen3-14b M4 rank", (4, 10, 2, 1000, 1009, 128, 128, 0)),
+                ("deepseek-v2-lite-16b M4 rank", (4, 4, 4, 1000, 1000, 192, 128, 0)))
+TP_EP_EXPERTS, TP_EP_C2 = 16, 704
+
+
+def tp_cfg(name: str, layers: int):
+    return replace(get_arch(name), n_layers=layers)
+
+
+def tp_prompt(cfg, dtype) -> dict:
+    return model_prompt(cfg, TP_BATCH, TP_PROMPT, dtype)
+
+
+@torch.inference_mode()
+def tp_one_rank(cfg, dtype) -> dict:
+    """The one-rank model's greedy run: the tokens and the prefill's logits
+    (on the host).  A MoE model's prefill on the EP path (one rank), its
+    steps on the capacity path."""
+    model = build_model(cfg, device="cuda", dtype=dtype, seed=SEED)
+    batch = {k: v.cuda() for k, v in tp_prompt(cfg, dtype).items()}
+    cache = model.init_cache(TP_BATCH, TP_PROMPT + TP_STEPS + 1, dtype)
+    model.moe_mode = "ep" if cfg.family == "moe" else "auto"
+    logits, cache, n = model.prefill(batch, cache)
+    model.moe_mode = "capacity"
+    first, out = logits.float().cpu(), []
+    for _ in range(TP_STEPS):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(tok)
+        logits, cache, n = model.decode_step(tok, cache, n)
+    res = {"tokens": torch.cat(out, 1).cpu(), "logits": first}
+    del model, cache
+    free()
+    return res
+
+
+def tp_rank(rank: int, world: int, port: int, out: str, dtype) -> None:
+    """One rank of phase 13 (a spawned process): join the group over gloo,
+    serve each model of TP_SERVE sharded on the (1, world) mesh through
+    `greedy_decode` with the plain versions raising, the launch counts
+    zeroed just before and read just after; its results saved to
+    ``out``.  A failure raises and exits non-zero."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_ranks("cuda", timedelta(seconds=TP_COLLECTIVE_S), backend="gloo",
+                        init_method=f"tcp://localhost:{port}", world_size=world,
+                        rank=rank)
+    mesh = make_debug_mesh(1, world, device=device)
+    restore = plain_versions_raise()
+    res = {"backend": str(dist.get_backend()), "device": str(device)}
+    for name, layers in TP_SERVE:
+        cfg = tp_cfg(name, layers)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device=device, dtype=dtype, seed=SEED, mesh=mesh)
+        attn = model.layers[0].attn
+        heads = (attn.wuk.shape[-1] // cfg.qk_nope_head_dim if cfg.attn_type == "mla"
+                 else (attn.wq.shape[-1] // cfg.resolved_head_dim,
+                       attn.wk.shape[-1] // cfg.resolved_head_dim))
+        batch, logits = tp_prompt(cfg, dtype), []
+        reset_counts()
+        model_moe.paths.clear()
+        t0 = time.perf_counter()
+        toks = greedy_decode(model, batch, s_max=TP_PROMPT + TP_STEPS + 1, steps=TP_STEPS,
+                             cache_dtype=dtype, device=device,
+                             on_step=logits.append).cpu()
+        wall = time.perf_counter() - t0
+        res[name] = {"tokens": toks, "logits": logits[0].float().cpu(),
+                     "counts": take_counts(), "paths": dict(model_moe.paths),
+                     "heads": heads, "wall_s": wall,
+                     "experts": model.layers[-1].moe.wg.shape[0] if cfg.family == "moe"
+                     else 0, "peak": torch.cuda.max_memory_allocated()}
+        del model
+    restore()
+    dist.destroy_process_group()
+    torch.save(res, out)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def tp_spawn(world: int, tmp: str, dtype) -> list:
+    """Run `tp_rank` on ``world`` spawned processes; each rank's results.
+    Fails if a rank fails or outlives TP_JOIN_S (every rank is stopped)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [f"{tmp}/tp{world}-rank{r}.pt" for r in range(world)]
+    procs = [ctx.Process(target=tp_rank, args=(r, world, port, outs[r], dtype))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.perf_counter() + TP_JOIN_S
+    for proc in procs:
+        proc.join(max(1.0, deadline - time.perf_counter()))
+    hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    codes = [proc.exitcode for proc in procs]
+    if hung or codes != [0] * world:
+        raise AssertionError(f"model axis, M = {world}: exit codes {codes}, ranks {hung} "
+                             f"still running after {TP_JOIN_S} s")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def tp_check(name: str, world: int, ranks: list, ref: dict, dtype) -> Counter:
+    """Phase 13's checks of one model at one M: every rank's tokens equal
+    rank 0's and the one-rank model's; each rank's gathered prefill logits
+    within MODEL_TOL of the one-rank logits; the routed paths (a MoE
+    prefill on EP, its steps on the capacity path with the experts cut);
+    each rank's launches those of its own shard's shapes.  Prints what it
+    saw, then raises on any failure.  Returns the launches summed over
+    the ranks."""
+    cfg = tp_cfg(name, dict(TP_SERVE)[name])
+    moe_layers = cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
+    want_paths = ({"ep": moe_layers, "sharded_capacity": moe_layers * TP_STEPS}
+                  if moe_layers else {})
+    tol = MODEL_TOL * max(1.0, float(ref["logits"].abs().max()))
+    total, errs, faults = Counter(), [], []
+    for r, res in enumerate(ranks):
+        got = res[name]
+        if not torch.equal(got["tokens"], ranks[0][name]["tokens"]):
+            faults.append(f"rank {r}'s tokens differ from rank 0's")
+        if not torch.equal(got["tokens"], ref["tokens"]):
+            diff = (got["tokens"] != ref["tokens"]).nonzero().tolist()
+            faults.append(f"rank {r}'s tokens differ from the one-rank model's at "
+                          f"(sequence, step) {diff[:8]}")
+        errs.append(float((got["logits"] - ref["logits"]).abs().max()))
+        if not errs[-1] <= tol:
+            faults.append(f"rank {r}'s prefill logits max |Δ| {errs[-1]:.4g} > {tol:.4g}")
+        if got["paths"] != want_paths:
+            faults.append(f"rank {r}'s routed paths {got['paths']}, want {want_paths}")
+        shard = replace(cfg, n_routed_experts=got["experts"]) if moe_layers else cfg
+        want, _ = model_launches(shard, TP_STEPS)
+        if got["counts"] != want:
+            faults.append(f"rank {r}'s launches {dict(got['counts'])}, its shard makes "
+                          f"{dict(want)}")
+        total += got["counts"]
+    peaks = [round(res[name]["peak"] / 1e9, 2) for res in ranks]
+    print(f"# model axis {name} ({cfg.n_layers} of {get_arch(name).n_layers} layers, "
+          f"{str(dtype).removeprefix('torch.')}), backend {ranks[0]['backend']}, world "
+          f"{world}, mesh (data 1, model {world}), every rank on {ranks[0]['device']}: "
+          f"heads a rank {ranks[0][name]['heads']}"
+          + (f", experts a rank {ranks[0][name]['experts']}" if moe_layers else "")
+          + f"; tokens {'equal' if not faults else 'CHECKED'} on every rank and the "
+          f"one-rank model's; prefill logits max |Δ| per rank "
+          f"{[f'{e:.3g}' for e in errs]} (bound {tol:.3g}); routed paths "
+          f"{ranks[0][name]['paths']}; launches per rank "
+          f"{[dict(res[name]['counts']) for res in ranks]}; peak memory per rank "
+          f"{peaks} GB; greedy wall per rank "
+          f"{[round(res[name]['wall_s'], 2) for res in ranks]} s")
+    if faults:
+        raise AssertionError(f"model axis {name} M{world}: " + "; ".join(faults))
+    return total
+
+
+def tp_nccl_refused() -> None:
+    """Two ranks asking NCCL for the one card: `init_ranks` must refuse
+    them, naming the cause, in each process (no collective runs)."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(ROOT / 'src')!r}); "
+         "from repro_torch.launch.mesh import init_ranks; "
+         f"init_ranks('cuda', backend='nccl', init_method='tcp://localhost:{port}', "
+         f"world_size=2, rank={r})"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    deadline = time.perf_counter() + TP_COLLECTIVE_S
+    while any(proc.poll() is None for proc in procs) and time.perf_counter() < deadline:
+        time.sleep(0.5)
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+    outs = [proc.communicate() for proc in procs]
+    said = [next((ln for ln in err.splitlines() if "refuses two ranks on one card" in ln),
+                 err.strip()[-300:]) for _, err in outs]
+    if any(proc.returncode == 0 or "refuses two ranks on one card" not in line
+           for proc, line in zip(procs, said)):
+        raise AssertionError(f"two NCCL ranks on one card: exit codes "
+                             f"{[proc.returncode for proc in procs]}, {said}")
+    print(f"# two ranks on one card under NCCL refused by init_ranks: {said[0]}")
+
+
+def tp_launcher() -> None:
+    """``python -m repro_torch.launch.serve --arch qwen3-14b`` as a user runs
+    it on one card: a world of one rank on NCCL, the mesh from the ranks,
+    the model (full width and depth, f32) built on it."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT / 'src')!r}); import runpy; "
+            "runpy.run_module('repro_torch.launch.serve', run_name='__main__', "
+            "alter_sys=True)")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code, "--arch", "qwen3-14b"], cwd=ROOT,
+                       capture_output=True, text=True)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("[serve]")]
+    if r.returncode or not lines or "'model': 1" not in lines[0]:
+        print(r.stdout[-4000:], r.stderr[-4000:], sep="\n")
+        raise AssertionError(f"launch.serve --arch qwen3-14b: exit {r.returncode}")
+    print(f"# python -m repro_torch.launch.serve --arch qwen3-14b (world 1, NCCL): "
+          f"{lines[0]} ({time.perf_counter() - t0:.1f} s with start-up)")
+
+
+def tp_kernel_rows(gen) -> dict:
+    """The kernels at a rank's shapes (M = 4), each held to its plain
+    version and timed beside it and the PyTorch call."""
+    rows = {"flash_attention": [model_attention_row(n, shape, gen)
+                                for n, shape in TP_ATTENTION]}
+    cfg = get_arch("deepseek-v2-lite-16b")
+    w = randn((TP_EP_EXPERTS, cfg.d_model, cfg.moe_d_ff), gen,
+              scale=cfg.d_model ** -0.5)
+    rows["grouped_matmul"] = [grouped_row("deepseek-v2-lite-16b", "EP rank of 4, prefill",
+                                          TP_EP_C2, w, gen)]
+    print_rows(rows)
+    return rows
+
+
+def tp_serving(dtype=TP_DTYPE) -> Counter:
+    """Phase 13's serving: the one-rank references computed and freed, then
+    each M of TP_WORLDS as rank processes sharing the card, checked;
+    the ranks' launches, summed."""
+    free()
+    refs = {name: tp_one_rank(tp_cfg(name, layers), dtype) for name, layers in TP_SERVE}
+    counts = Counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for world in TP_WORLDS:
+            ranks = tp_spawn(world, tmp, dtype)
+            for name, _ in TP_SERVE:
+                counts += tp_check(name, world, ranks, refs[name], dtype)
+    return counts
+
+
+def model_axis_phase(gen) -> dict:
+    """Phase 13: `tp_serving`, the launcher at world 1, the per-rank kernel
+    rows.  The ranks' launches are the kernels line's ``model_axis``
+    path."""
+    t0 = time.perf_counter()
+    counts = tp_serving()
+    tp_nccl_refused()
+    tp_launcher()
+    rows = tp_kernel_rows(gen)
+    print(f"# model axis phase: {time.perf_counter() - t0:.1f} s (host clock)")
+    return dict(counts=counts, rows=rows)
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -5286,6 +5588,14 @@ def main() -> int:
     missing = [k for k in DIST_KERNELS if distributed["counts"][k] <= 0]
     if missing:
         raise AssertionError(f"the distribution path never launched {missing}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    axis = model_axis_phase(gen)
+    missing = [k for k in TP_KERNELS if axis["counts"][k] <= 0]
+    if missing:
+        raise AssertionError(f"the model-axis path never launched {missing}")
+    for name, more in axis["rows"].items():
+        rows[name] += more
     kernels = []
     for name, replaces in REPLACES:
         r, *more = rows[name]
@@ -5302,6 +5612,8 @@ def main() -> int:
         if name in TRAIN_KERNELS:
             by_path["train"] = trained["counts"][name]
         by_path["dist"] = distributed["counts"][name]
+        if name in TP_KERNELS:
+            by_path["model_axis"] = axis["counts"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": replaces, "shape": r["shape"],
@@ -5333,6 +5645,8 @@ def main() -> int:
                 "bound_by": m["bound"][1], "library_ms": m["library_ms"]}
                 for m in more]} if more else {}),
         })
+    print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s (host clock, the build "
+          "included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,16 +18,28 @@ tree and may put the data axis on a stacked axis; `dist/zero1.py` reads
 that as a rank owning whole layers.  Only the mesh's axis names and
 sizes are read (`launch.mesh.mesh_shape`); `named` turns pspecs into
 `DTensor` placements for a `DeviceMesh`.
+
+The port's own model-axis layout (`tp_layouts`, one `LeafLayout` per
+parameter of a rank's shard) is read from `params_pspecs`, with one
+departure: the port cuts only whole heads.  An attention module whose
+head counts the model axis does not divide (its query heads, and for
+GQA its KV heads) is held whole on every rank and computed there with
+no collective, where GSPMD may cut its (heads·head_dim)-wide dims mid
+head (Qwen3-14B's 40 query heads at M = 16: 2.5 a shard).  Every other
+leaf is cut where its pspec puts the model axis: whole rows or columns
+(an MLP's hidden units, whole experts, rows of the vocabulary, the
+untied table's embedding columns).  `shard_leaf` takes a rank's slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from dataclasses import replace
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 from torch.distributed.tensor import Replicate, Shard
 
-from repro_torch.launch.mesh import mesh_shape
-from repro_torch.models.spec import Spec, stacked_specs
+from repro_torch.launch.mesh import MODEL_AXIS, mesh_shape
+from repro_torch.models.spec import Spec, Stack, iter_specs, stacked_specs
 
 # logical axis → mesh axis (None: always replicated).  Tensor parallelism
 # ("model") shards the per-layer contraction-free dims; "embed" stays
@@ -169,3 +181,78 @@ def placements(mesh, pspec: tuple) -> tuple:
 def named(mesh, tree: Any) -> Any:
     """A pspec tree → a tree of `DTensor` placements on ``mesh``."""
     return map_pspecs(lambda p: placements(mesh, p), tree)
+
+
+# ------------------------------------------------------ the model axis
+class LeafLayout(NamedTuple):
+    """How one parameter lies over the model axis: ``dim`` cut into
+    ``parts`` equal slices, one per rank in rank order; ``dim`` None: the
+    whole leaf on every rank."""
+    dim: Optional[int] = None
+    parts: int = 1
+
+
+WHOLE = LeafLayout()
+
+
+def attention_cut(cfg, size: int) -> bool:
+    """Whether an attention module of ``cfg`` is cut over a model axis of
+    ``size``: every rank takes whole query heads and, for GQA, whole KV
+    heads (the same condition as `Model.cache_pspecs` puts on the KV
+    cache's head dim)."""
+    if size == 1:
+        return False
+    if cfg.attn_type == "mla":
+        return cfg.n_heads % size == 0
+    return cfg.n_heads % size == 0 and cfg.n_kv_heads % size == 0
+
+
+def tp_layouts(model, mesh) -> Dict[str, LeafLayout]:
+    """Each parameter of ``model`` (by its name, as `named_parameters`
+    gives it) → its `LeafLayout` on ``mesh``'s model axis: the dim its
+    reference leaf's pspec (`params_pspecs`) cuts over "model", less the
+    leaf's stacked axes, but whole for an attention module whose heads
+    the axis does not divide (`attention_cut`)."""
+    size = mesh_shape(mesh).get(MODEL_AXIS, 1)
+    pspecs = params_pspecs(model, mesh)
+    cut_attn = attention_cut(model.cfg, size)
+    out: Dict[str, LeafLayout] = {}
+    for path, _ in iter_specs(model.specs()):
+        key = [k for k in path if not isinstance(k, int)]
+        pspec = pspecs
+        for k in key:
+            pspec = pspec[k]
+        depth = len(path) - len(key)
+        dims = [i - depth for i, e in enumerate(pspec) if MODEL_AXIS in entry_axes(e)]
+        if not dims or ("attn" in key and not cut_attn):
+            out[".".join(map(str, path))] = WHOLE
+        else:
+            out[".".join(map(str, path))] = LeafLayout(dims[0], size)
+    return out
+
+
+def shard_leaf(full, layout: LeafLayout, rank: int):
+    """Rank ``rank``'s slice of ``full`` (a tensor or array) under
+    ``layout``: a view, or ``full`` itself for a whole leaf."""
+    if layout.dim is None:
+        return full
+    n = full.shape[layout.dim] // layout.parts
+    index = [slice(None)] * len(full.shape)
+    index[layout.dim] = slice(rank * n, (rank + 1) * n)
+    return full[tuple(index)]
+
+
+def shard_specs(specs, layouts: Dict[str, LeafLayout], prefix: Tuple = ()):
+    """``specs`` with each leaf's shape cut as ``layouts`` says: the specs
+    of one rank's shard (its init still draws by the whole leaf's)."""
+    if isinstance(specs, Spec):
+        lay = layouts.get(".".join(map(str, prefix)), WHOLE)
+        if lay.dim is None:
+            return specs
+        shape = list(specs.shape)
+        shape[lay.dim] //= lay.parts
+        return replace(specs, shape=tuple(shape))
+    if isinstance(specs, dict):
+        return {k: shard_specs(v, layouts, prefix + (k,)) for k, v in specs.items()}
+    return Stack([shard_specs(v, layouts, prefix + (i,)) for i, v in enumerate(specs)],
+                 specs.layer, specs.axis)

@@ -22,8 +22,8 @@ whole; each rank updates its own slice of the masters and moments
 hold the full state: `full` gathers the moments, rank 0 writes, and
 `shard` takes a rank's slice of a restored one.
 
-Only the model axis's size 1 is taken: tensor parallelism is ROADMAP
-A13b.  With a world of one rank every collective is skipped.
+Only the model axis's size 1 is taken: ZeRO-1 with tensor parallelism
+is ROADMAP A13c.  With a world of one rank every collective is skipped.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.core.device import resolve_device
 from repro_torch.dist.sharding import DP_AXES, batch_pspecs, entry_axes, zero1_pspecs
 from repro_torch.launch.mesh import MODEL_AXIS, mesh_shape
 from repro_torch.models.spec import iter_specs
@@ -88,20 +89,22 @@ class _Leaf:
 class Zero1:
     """The ZeRO-1 plan of ``model`` on ``mesh`` for ``rank`` (this
     process's rank in the group by default) and its collectives, on the
-    default group (which the mesh covers) with tensors on ``device``.
+    default group (which the mesh covers) with tensors on ``device``
+    (CUDA unless asked for the CPU; raises without it, `resolve_device`).
     The plan alone (`view`, `shard`, `local_batch`) needs no group."""
 
-    def __init__(self, model, mesh, rank: Optional[int] = None, device="cpu"):
+    def __init__(self, model, mesh, rank: Optional[int] = None, device="cuda"):
         self.shape = mesh_shape(mesh)
         if self.shape.get(MODEL_AXIS, 1) > 1:
             raise NotImplementedError(
-                f"a mesh with {self.shape[MODEL_AXIS]} model shards is tensor parallelism "
-                "over the model axis, ROADMAP A13b; ZeRO-1 here runs on the data axes")
+                f"a mesh with {self.shape[MODEL_AXIS]} model shards: ZeRO-1 combined with "
+                "tensor parallelism waits for ROADMAP A13c; ZeRO-1 here runs on the "
+                "data axes")
         self.mesh = mesh
         self.coords = rank_coords(mesh)
         self.world = len(self.coords)
         self.rank = dist.get_rank() if rank is None else rank
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.shapes: Dict[str, Tuple[int, ...]] = {}
         z = zero1_pspecs(model, mesh)
         leaves: Dict[Tuple, _Leaf] = {}

@@ -5,8 +5,11 @@ A mesh is a `DeviceMesh` over the process group's ranks, one rank per
 device, with dims named ``("data", "model")`` (``("pod", "data",
 "model")`` for the multi-pod production mesh).  The ranks must exist
 first: `init_ranks` (or ``with Ranks(device)``) joins torchrun's group,
-or makes a group of this process alone outside torchrun.  Meshes run on CUDA (NCCL) unless the caller asks for the
-CPU (gloo).
+a group given by its address, or makes a group of this process alone.
+Meshes run on CUDA (NCCL) unless the caller asks for the CPU (gloo) or
+names the backend: ranks that share one card (NCCL refuses two ranks on
+one device) join over gloo, ``init_ranks(backend="gloo")``, and
+`init_ranks` raises where NCCL would seat two ranks on one card.
 
 The sharding rules and the resource derating read a mesh only through
 its axis names and sizes (`mesh_shape`), so they take a `DeviceMesh`,
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import math
 import os
+import socket
 import tempfile
 from datetime import timedelta
 from typing import Dict, Optional, Tuple
@@ -50,20 +54,29 @@ def mesh_shape(mesh) -> Dict[str, int]:
     return {a: int(mesh.shape[a]) for a in mesh.axis_names}
 
 
-def init_ranks(device="cuda", timeout: Optional[timedelta] = None) -> torch.device:
+def init_ranks(device="cuda", timeout: Optional[timedelta] = None, *,
+               backend: Optional[str] = None, init_method: Optional[str] = None,
+               world_size: int = 1, rank: int = 0) -> torch.device:
     """Join the process group (once per process) and return this rank's
-    device.  Under torchrun the group is torchrun's, by its env
-    rendezvous; otherwise it is this process alone.  A CUDA rank takes
-    the card of its rank on the node; CUDA asked for and missing raises
-    (`resolve_device`)."""
+    device.  ``backend``: NCCL for CUDA and gloo for the CPU unless
+    named.  The group is torchrun's (its env rendezvous) under torchrun,
+    else the one at ``init_method`` (``tcp://localhost:<port>``) as
+    ``rank`` of ``world_size``, else this process alone.  A CUDA rank
+    takes the card of its rank on the node (modulo the cards there); two
+    ranks seated on one card under NCCL raise, naming the cause, and no
+    other backend is taken in its place.  CUDA asked for and missing
+    raises (`resolve_device`)."""
     device = torch.device(device)
     if device.type == "cuda":
         resolve_device(device)
     if not dist.is_initialized():
-        backend = "nccl" if device.type == "cuda" else "gloo"
+        backend = backend or ("nccl" if device.type == "cuda" else "gloo")
         kw = {} if timeout is None else {"timeout": timeout}
         if dist.is_torchelastic_launched():
             dist.init_process_group(backend, init_method="env://", **kw)
+        elif init_method is not None:
+            dist.init_process_group(backend, init_method=init_method,
+                                    world_size=world_size, rank=rank, **kw)
         else:
             fd, store = tempfile.mkstemp(prefix="repro_torch_rank0_")
             os.close(fd)
@@ -73,7 +86,38 @@ def init_ranks(device="cuda", timeout: Optional[timedelta] = None) -> torch.devi
     if device.type == "cuda":
         device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
         torch.cuda.set_device(device)
+        if "nccl" in str(dist.get_backend()) and dist.get_world_size() > 1:
+            _one_rank_per_card(device)
     return device
+
+
+def shared_card(seats) -> Optional[tuple]:
+    """The first two ranks whose seats ((host, card index) by rank) are
+    the same, and that seat; None when every rank has a card of its own."""
+    first: Dict[tuple, int] = {}
+    for r, seat in enumerate(seats):
+        seat = tuple(seat)
+        if seat in first:
+            return first[seat], r, seat
+        first[seat] = r
+    return None
+
+
+def _one_rank_per_card(device: torch.device) -> None:
+    """Raise if NCCL would seat two ranks of the group on one card (it
+    refuses them at the first collective: "Duplicate GPU detected").
+    The seats are exchanged over a gloo group of their own."""
+    check = dist.new_group(backend="gloo")
+    seats = [None] * dist.get_world_size()
+    dist.all_gather_object(seats, (socket.gethostname(), device.index), group=check)
+    dist.destroy_process_group(check)
+    clash = shared_card(seats)
+    if clash is not None:
+        a, b, (host, index) = clash
+        raise RuntimeError(
+            f"ranks {a} and {b} would share cuda:{index} of {host} under NCCL, which "
+            "refuses two ranks on one card; give each rank its own card, or join the "
+            "ranks with init_ranks(backend='gloo')")
 
 
 class Ranks:

@@ -20,7 +20,7 @@ the error-feedback buffers under "ef" with ``--compress-grads``).
 state (`dist/zero1.py`): under torchrun (its env rendezvous; one rank
 per card on CUDA, NCCL; gloo on the CPU), or, for ``1x1`` outside
 torchrun, on a group of this process alone.  The world must hold D·M
-ranks; M > 1 is tensor parallelism, ROADMAP A13b, and raises.  The
+ranks; M > 1 is training on the model axis, ROADMAP A13c, and raises.  The
 result adds "ranks", "opt_bytes" (this rank's moments) and
 "opt_bytes_total".  ``--compress-grads`` compresses the mean gradient
 (int8 with error feedback, `dist/compress.py`); the error-feedback
@@ -77,7 +77,7 @@ def main(argv=None):
                     help="train the reduced (smoke) config of the arch")
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="data x model mesh over the ranks, e.g. 2x1: ZeRO-1 over "
-                         "data (M > 1 is ROADMAP A13b)")
+                         "data (M > 1 is ROADMAP A13c)")
     ap.add_argument("--runtime", action="store_true",
                     help="shadow-dispatch each step's GEMMs via repro_torch.runtime "
                          "with the mesh-derated slot budget")
@@ -96,8 +96,9 @@ def main(argv=None):
     data, tp = parse_mesh(args.mesh)
     if tp > 1:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: {tp} model shards is tensor parallelism over the "
-            "model axis, which waits for ROADMAP A13b; use --mesh Dx1")
+            f"--mesh {args.mesh}: {tp} model shards: training on the model axis "
+            "(autograd through the collectives, a vocab-parallel cross-entropy, ZeRO-1 "
+            "with tensor parallelism) waits for ROADMAP A13c; use --mesh Dx1")
     if data > 1 and not (dist.is_initialized() or dist.is_torchelastic_launched()):
         raise RuntimeError(f"--mesh {args.mesh} needs {data} ranks: run it under "
                            f"torchrun --nproc-per-node {data}")

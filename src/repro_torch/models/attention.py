@@ -9,8 +9,21 @@ decode step (T = 1) reads the whole cache through einsums with float32
 scores.  GQA takes a sliding ``window`` (Gemma3's local layers): the
 kernel masks keys ``window`` or more positions behind each query, and so
 does the decode step's mask.  MLA prefill expands the latents and runs
-`flash_attention` with dv ≠ dqk; MLA decode stays in latent space.  The
-sharding pins are the model axis, ROADMAP A13b.
+`flash_attention` with dv ≠ dqk; MLA decode stays in latent space.
+
+On a model axis (`Model(mesh=...)`) a module whose heads the axis
+divides holds its rank's whole heads: GQA its Hq/M query and Hkv/M KV
+heads with their biases (``q_norm``, ``k_norm`` whole), MLA its heads'
+columns of ``wq``/``wuq``, ``wuk`` and ``wuv`` (``wdq``, ``wdkv`` and
+the norms whole); ``wo`` holds the matching rows.  Each module reads its
+head counts off its weights, attends on its local heads (the prefill's
+`flash_attention` at the per-rank shape), and sums the ranks' ``wo``
+products with one `all_reduce_sum` over ``p.tp``.  GQA's cache holds
+the local KV heads; MLA's latent cache is whole on every rank (the
+reference's `_pin_cache` and `cache_pspecs`).  GSPMD may instead cut a
+(heads·head_dim) dim mid head where the axis divides it but not the head
+counts; the port then keeps the module whole on every rank, with no
+collective: the same function, another layout (`dist.sharding`).
 """
 from __future__ import annotations
 
@@ -19,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.tp import all_reduce_sum
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import apply_rope, rms_norm
 from repro_torch.models.spec import Spec
@@ -57,10 +71,12 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, s_max: int, dtype,
-                  device, layers: int = 0) -> KVCache:
-    """Zeroed K/V buffers; ``layers`` > 0 stacks that many."""
+                  device, layers: int = 0, heads: int | None = None) -> KVCache:
+    """Zeroed K/V buffers of ``heads`` KV heads (default all); ``layers``
+    > 0 stacks that many."""
     lead = (layers,) if layers else ()
-    shape = (*lead, batch, s_max, cfg.n_kv_heads, cfg.resolved_head_dim)
+    heads = cfg.n_kv_heads if heads is None else heads
+    shape = (*lead, batch, s_max, heads, cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -72,7 +88,7 @@ def gqa_apply(p, x, cfg: ArchConfig, positions, window: int = 0,
     sees the keys less than ``window`` positions behind it."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    hq, hkv = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd   # this rank's heads
 
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
@@ -106,7 +122,14 @@ def gqa_apply(p, x, cfg: ArchConfig, positions, window: int = 0,
             out = _attend_cache(q, kc, vc, q_pos=positions,
                                 length=cache_len + T, window=window)
     y = out.reshape(B, T, hq * hd) @ p.wo
-    return y, cache
+    return _sum_heads(p, y), cache
+
+
+def _sum_heads(p, y):
+    """The output projection summed over the ranks' heads when the module
+    is cut over the model axis."""
+    tp = getattr(p, "tp", None)
+    return y if tp is None else all_reduce_sum(y, tp)
 
 
 def _attend_cache(q, kc, vc, *, q_pos, length: int, window: int = 0):
@@ -167,9 +190,9 @@ def init_mla_cache(cfg: ArchConfig, batch: int, s_max: int, dtype, device,
                     device=device))
 
 
-def _mla_q(p, x, cfg: ArchConfig, positions):
+def _mla_q(p, x, cfg: ArchConfig, positions, h: int):
     B, T, _ = x.shape
-    h, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
         q = rms_norm(p.q_norm, x @ p.wdq, cfg.norm_eps) @ p.wuq
     else:
@@ -181,12 +204,12 @@ def _mla_q(p, x, cfg: ArchConfig, positions):
 def mla_apply(p, x, cfg: ArchConfig, positions,
               cache: Optional[MLACache] = None, cache_len: int = 0):
     B, T, _ = x.shape
-    h = cfg.n_heads
     r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
                      cfg.qk_rope_head_dim, cfg.v_head_dim)
+    h = p.wuk.shape[-1] // dn   # this rank's heads
     scale = (dn + dr) ** -0.5
 
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, h)
     ckv_full = x @ p.wdkv
     ckv = rms_norm(p.kv_norm, ckv_full[..., :r], cfg.norm_eps)
     # one rope head shared by all heads: (B, T, dr)
@@ -221,4 +244,4 @@ def mla_apply(p, x, cfg: ArchConfig, positions,
         out = torch.einsum("bthr,rhd->bthd", o_lat,
                            p.wuv.reshape(r, h, dv).float()).to(x.dtype)
     y = out.reshape(B, T, h * dv) @ p.wo
-    return y, cache
+    return _sum_heads(p, y), cache

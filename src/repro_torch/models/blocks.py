@@ -1,8 +1,12 @@
 """Block assembly (`repro/models/blocks.py`): the dense and MoE
 transformer blocks (a GQA block may attend through a sliding window),
 the zamba2 hybrid layer with its shared attention block, and the xLSTM
-group (k−1 mLSTM layers, then one sLSTM layer).  MoE blocks take the
-capacity path; the expert-parallel path is the model axis, ROADMAP A13b."""
+group (k−1 mLSTM layers, then one sLSTM layer).  A MoE block picks its
+routed path as the reference's (`repro/models/blocks.py:85-97`):
+expert parallelism (`moe.moe_ep_apply`) when ``moe_mode`` is "ep", or
+"auto" on a model axis above 1 that divides the block's length (a
+prefill); else the capacity path (a decode step: the experts cut over
+the axis, `moe.moe_capacity_apply`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,9 +14,10 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.tp import ModelAxis
 from repro_torch.models.attention import gqa_apply, gqa_specs, mla_apply, mla_specs
 from repro_torch.models.common import mlp_apply, mlp_specs, rms_norm, rms_norm_spec
-from repro_torch.models.moe import moe_capacity_apply, moe_specs
+from repro_torch.models.moe import moe_capacity_apply, moe_ep_apply, moe_specs
 from repro_torch.models.spec import stack_specs
 from repro_torch.models.ssm import mamba_apply, mamba_specs
 from repro_torch.models.xlstm import mlstm_apply, mlstm_specs, slstm_apply, slstm_specs
@@ -34,10 +39,12 @@ def attn_block_specs(cfg: ArchConfig, d_ff: int, moe: bool) -> dict:
 
 def attn_block_apply(p, x, cfg: ArchConfig, positions, *, moe: bool,
                      window: int = 0, cache=None, cache_len: int = 0,
-                     moe_capacity_factor: float = 1.25):
+                     moe_capacity_factor: float = 1.25, moe_mode: str = "auto",
+                     axis: ModelAxis = ModelAxis()):
     """One pre-norm block; returns (x, cache, MoE aux loss).  ``window``
     > 0: GQA attends to the last ``window`` positions only (MLA, as in the
-    reference, takes no window)."""
+    reference, takes no window).  ``axis``: the model axis the block's
+    modules may be cut over."""
     h = rms_norm(p.attn_norm, x, cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, cache = mla_apply(p.attn, h, cfg, positions, cache=cache,
@@ -47,7 +54,10 @@ def attn_block_apply(p, x, cfg: ArchConfig, positions, *, moe: bool,
                              cache=cache, cache_len=cache_len)
     x = x + a
     h = rms_norm(p.mlp_norm, x, cfg.norm_eps)
-    if moe:
+    if moe and (moe_mode == "ep" or (moe_mode == "auto" and axis.size > 1
+                                     and h.shape[1] % axis.size == 0)):
+        m, aux = moe_ep_apply(p.moe, h, cfg, axis, capacity_factor=moe_capacity_factor)
+    elif moe:
         m, aux = moe_capacity_apply(p.moe, h, cfg,
                                     capacity_factor=moe_capacity_factor)
     else:

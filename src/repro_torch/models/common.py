@@ -2,12 +2,24 @@
 embeddings and the LM head, as plain functions on tensors.  ``p`` is a
 `ParamTree` whose parameters carry the reference's dict keys; weights
 are (in, out), applied as ``x @ W``.  `cross_entropy` is the training
-loss."""
+loss.
+
+On a model axis (``p.tp`` set: `ParamTree`) the MLP holds its rank's
+hidden units (``gate`` and ``up`` by columns, ``down`` by rows) and sums
+the ranks' products with one `all_reduce_sum`.  The untied table
+(vocab, d) is cut over d (the reference's ``mlp`` axis there): each rank
+looks up its columns and `all_gather` joins them; the untied head is cut
+over the vocabulary, and its logits are gathered.  The tied table is cut
+over the vocabulary: a lookup masked to the rank's rows, summed over the
+ranks, and logits over the local rows, gathered.  Every rank returns the
+whole activations and the whole logits, so greedy's argmax breaks ties
+on the first index, as the reference's."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.tp import all_gather, all_reduce_sum
 from repro_torch.models.spec import Spec
 
 
@@ -51,7 +63,9 @@ def mlp_specs(d: int, ff: int) -> dict:
 
 
 def mlp_apply(p, x):
-    return (F.silu(x @ p.gate) * (x @ p.up)) @ p.down
+    y = (F.silu(x @ p.gate) * (x @ p.up)) @ p.down
+    tp = getattr(p, "tp", None)
+    return y if tp is None else all_reduce_sum(y, tp)
 
 
 # ------------------------------------------------------------- embeddings
@@ -65,12 +79,28 @@ def embed_specs(vocab: int, d: int, tie: bool) -> dict:
 
 
 def embed_apply(p, tokens):
-    return F.embedding(tokens, p.tok)
+    tp, w, head = getattr(p, "tp", None), p.tok, getattr(p, "head", None)
+    if tp is None:
+        return F.embedding(tokens, w)
+    if head is None:           # tied: this rank's rows of the vocabulary
+        local = tokens - tp.rank * w.shape[0]
+        mine = (local >= 0) & (local < w.shape[0])
+        x = F.embedding(torch.where(mine, local, 0), w)
+        return all_reduce_sum(torch.where(mine[..., None], x, 0.0), tp)
+    if w.shape[1] < head.shape[0]:   # untied, cut over d
+        return all_gather(F.embedding(tokens, w), -1, tp)
+    return F.embedding(tokens, w)
 
 
 def lm_head_apply(p, x):
-    w = getattr(p, "head", None)
-    return x @ (p.tok.T if w is None else w)
+    tp, w = getattr(p, "tp", None), getattr(p, "head", None)
+    if w is None:              # tied: logits of this rank's rows
+        logits = x @ p.tok.T
+        return logits if tp is None else all_gather(logits, -1, tp)
+    logits = x @ w
+    if tp is not None and w.shape[1] < p.tok.shape[0]:   # cut over the vocabulary
+        return all_gather(logits, -1, tp)
+    return logits
 
 
 # ----------------------------------------------------------------- losses

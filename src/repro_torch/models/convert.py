@@ -10,7 +10,9 @@ weight is a copy, never a transpose; the reference's scanned layer axes
 (a leading dim on every leaf of a stack, two on xLSTM's mLSTM leaves: a
 stack within each group of a stack) are unstacked into nested
 `ModuleList`s.  Every shape is checked, and any leaf left unread (but an
-empty stack's) or any parameter left unfilled raises.
+empty stack's) or any parameter left unfilled raises.  A shard
+(`Model(mesh=...)`) takes its rank's slice of each leaf, by the same
+layout it was built with (`dist.sharding.shard_leaf`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import WHOLE, shard_leaf
 from repro_torch.models.spec import tree_params
 
 
@@ -68,14 +71,15 @@ def unstacked(model, tree: dict) -> Dict[str, np.ndarray]:
 
 @torch.no_grad()
 def from_reference(model, tree: dict):
-    """Fill every parameter of ``model`` from ``tree`` (`unstacked`);
-    returns ``model``."""
+    """Fill every parameter of ``model`` from ``tree`` (`unstacked`), a
+    shard with its rank's slices; returns ``model``."""
     values = unstacked(model, tree)
     params = dict(model.named_parameters())
     unfilled = [n for n in params if n not in values]
     if unfilled:
         raise ValueError(f"from_reference: parameters left unfilled: {unfilled}")
     for name, p in params.items():
-        p.copy_(torch.tensor(values[name]))
+        p.copy_(torch.tensor(shard_leaf(values[name], model.layouts.get(name, WHOLE),
+                                        model.tp.rank)))
     return model
 

@@ -7,10 +7,10 @@ its `ArchConfig`, as one `nn.Module`.
     init_cache / prefill / decode_step — serving with per-family caches
 
 Every family of the reference: dense (Gemma3's local layers attend
-through a sliding window), moe (capacity path), hybrid (zamba2), ssm
-(xLSTM groups), and audio and vlm, dense stacks behind stub frontends
-(``frames`` replace the embedding; ``patches`` go in front of the
-tokens).  A frontend's embeddings are cast to the model's dtype (the
+through a sliding window), moe (capacity or expert-parallel path),
+hybrid (zamba2), ssm (xLSTM groups), and audio and vlm, dense stacks
+behind stub frontends (``frames`` replace the embedding; ``patches`` go
+in front of the tokens).  A frontend's embeddings are cast to the model's dtype (the
 reference's JAX promotes bf16 frames to f32 weights after the first
 norm).  A layer stack is a `ModuleList` run in a Python loop (the
 reference scans stacked weights).  Caches keep the reference's layout,
@@ -28,8 +28,24 @@ attention stacks keeping the 2-D matmul outputs (`aten.mm`,
 `dots_with_no_batch_dims_saveable`, and, as in the reference, remats
 nothing in the hybrid and ssm families.  Under remat each layer's
 attention and scan kernels launch twice a step: in the forward and in
-its recompute.  Expert parallelism (``moe_mode="ep"``) is the model
-axis, ROADMAP A13b, and raises `NotImplementedError` naming it.
+its recompute.
+
+The model axis (serving; the reference's GSPMD on a mesh with "model"
+above 1): ``Model(cfg, mesh=...)`` builds this rank's shard of the
+dense and MoE families, leaf by leaf (`dist.sharding.tp_layouts`), and
+each module computes on its local shard with explicit collectives over
+the mesh's model dim (`dist.tp`): attention on whole local heads and
+the MLPs on their hidden units, each followed by one `all_reduce_sum`;
+the vocabulary's table and head as `common.embed_apply` and
+`lm_head_apply` say; the routed experts over `all_to_all` in a prefill
+whose length the axis divides (``moe_mode="auto"``, as the reference's
+`repro/models/blocks.py:85-97`; "ep" forces it) and otherwise on the
+capacity path with the experts cut.  An attention module whose heads
+the axis does not divide is whole on every rank, and so is its KV
+cache (`Model.cache_pspecs`' rule).  Every rank ends a call with the
+same residual stream and the same gathered logits.  The hybrid and ssm
+families on a model axis above 1 raise (ROADMAP A13d), and so does a
+sharded model that would train (A13c).
 """
 from __future__ import annotations
 
@@ -48,6 +64,9 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.dist import sharding as shd   # a module: it imports models.spec
+from repro_torch.dist.tp import ModelAxis
+from repro_torch.launch.mesh import MODEL_AXIS, mesh_shape
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import init_kv_cache, init_mla_cache
 from repro_torch.models.common import (
@@ -59,12 +78,15 @@ from repro_torch.models.common import (
     rms_norm_spec,
 )
 from repro_torch.models.spec import (
+    ParamTree,
     build_params,
     init_params,
+    init_tensor,
     param_axes,
     param_count,
     stack_specs,
     stacked_specs,
+    tree_params,
 )
 from repro_torch.models.ssm import init_mamba_cache
 from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache
@@ -73,18 +95,28 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 DENSE = ("dense", "audio", "vlm")      # one stack of dense attention blocks
 MOE_AUX_COEF = 1e-3
 REMAT = ("none", "full", "dots")
+MOE_MODES = ("auto", "capacity", "ep")
 # The matmuls whose outputs "dots" keeps: 2-D products, no batch dims.
 SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _check_ported(cfg: ArchConfig, moe_mode: str, remat: str) -> None:
+def _check_ported(cfg: ArchConfig, moe_mode: str, remat: str, model_axis: int,
+                  requires_grad: bool) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
     if remat not in REMAT:
         raise ValueError(f"remat={remat!r}: one of {REMAT}")
-    if moe_mode not in ("auto", "capacity"):
-        raise NotImplementedError(f"moe_mode={moe_mode!r} (expert parallelism over the "
-                                  "model axis) waits for ROADMAP A13b")
+    if moe_mode not in MOE_MODES:
+        raise ValueError(f"moe_mode={moe_mode!r}: one of {MOE_MODES}")
+    if model_axis > 1 and cfg.family not in ("moe", *DENSE):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a model axis of {model_axis}: Mamba's in_proj "
+            "and xLSTM's up-projection concatenate their streams in one cut dim; "
+            "tensor parallelism of the hybrid and ssm families waits for ROADMAP A13d")
+    if model_axis > 1 and requires_grad:
+        raise NotImplementedError(
+            f"training on a model axis of {model_axis} (autograd through the collectives, "
+            "a vocab-parallel cross-entropy) waits for ROADMAP A13c")
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -108,22 +140,39 @@ class _Layer(nn.Module):
 
 class Model(nn.Module):
     """``cfg``'s model with empty parameters on ``device`` in ``dtype``
-    (`build_model` initialises them).  ``moe_mode`` "auto" is the
-    capacity path here (no mesh).  ``requires_grad``: whether the
+    (`build_model` initialises them).  ``moe_mode``: "auto" (expert
+    parallelism in a prefill the model axis divides, else the capacity
+    path), "capacity" or "ep".  ``requires_grad``: whether the
     parameters require grad (serving leaves them frozen; the training
-    step differentiates with respect to its own cast of the masters)."""
+    step differentiates with respect to its own cast of the masters).
+
+    ``mesh`` (a `DeviceMesh` over the ranks, as `launch.mesh` makes it):
+    this rank's shard of the model on the mesh's model axis (see the
+    module's docstring); None, or a model axis of 1, is the whole model.
+    ``rank`` with a mesh of shapes alone (`launch.mesh.MeshShape`) builds
+    that rank's shard with no process group: its parameters, not its
+    calls, which need the ranks' collectives."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype = torch.float32, moe_mode: str = "auto",
                  moe_capacity_factor: float = 1.25, remat: str = "none",
-                 requires_grad: bool = False):
+                 requires_grad: bool = False, mesh=None, rank: int | None = None):
         super().__init__()
-        _check_ported(cfg, moe_mode, remat)
+        axis = 1 if mesh is None else mesh_shape(mesh).get(MODEL_AXIS, 1)
+        _check_ported(cfg, moe_mode, remat, axis, requires_grad)
         self.cfg = cfg
         self.remat = remat
+        self.moe_mode = moe_mode
         self.moe_capacity_factor = moe_capacity_factor
-        build_params(self, self.specs(), resolve_device(device), dtype,
-                     requires_grad)
+        self.tp = ModelAxis.of(mesh) if rank is None else ModelAxis.plan(mesh, rank)
+        self.layouts = shd.tp_layouts(self, mesh) if axis > 1 else {}
+        build_params(self, shd.shard_specs(self.specs(), self.layouts),
+                     resolve_device(device), dtype, requires_grad)
+        for name, module in self.named_modules() if self.layouts else ():
+            if isinstance(module, ParamTree) and any(
+                    self.layouts[f"{name}.{leaf}"].dim is not None
+                    for leaf, _ in module.named_parameters(recurse=False)):
+                module.tp = self.tp     # its own leaves are cut: it sums or gathers
 
     @property
     def device(self) -> torch.device:
@@ -161,8 +210,21 @@ class Model(nn.Module):
         return param_axes(stacked_specs(self.specs()))
 
     def init(self, gen: torch.Generator) -> "Model":
-        """Initialise every parameter from ``gen`` (on the model's device)."""
-        init_params(self, self.specs(), gen)
+        """Initialise every parameter from ``gen`` (on the model's device).
+        A shard draws every leaf whole, in the one-rank order, and keeps
+        its slice: its leaves are bitwise the one-rank model's slices."""
+        if not self.layouts:
+            init_params(self, self.specs(), gen)
+            return self
+        with torch.no_grad():
+            for path, spec, p in tree_params(self, self.specs()):
+                layout = self.layouts[".".join(map(str, path))]
+                if layout.dim is None:
+                    init_tensor(p, spec, gen)
+                    continue
+                full = torch.empty(spec.shape, dtype=torch.float32, device=p.device)
+                init_tensor(full, spec, gen)
+                p.copy_(shd.shard_leaf(full, layout, self.tp.rank))
         return self
 
     # ------------------------------------------------------- embeddings
@@ -247,7 +309,8 @@ class Model(nn.Module):
                 B.attn_block_apply, cfg=self.cfg, positions=positions, moe=moe,
                 window=self.window(layer_offset + i),
                 cache=None if cache is None else _layer(cache, i),
-                cache_len=cache_len, moe_capacity_factor=self.moe_capacity_factor)
+                cache_len=cache_len, moe_capacity_factor=self.moe_capacity_factor,
+                moe_mode=self.moe_mode, axis=self.tp)
             x, _, a = self._remat(block, (p,), x, attention=True)
             aux = aux + a
         return x, aux
@@ -283,9 +346,7 @@ class Model(nn.Module):
         (`repro/models/model.py:328-389`): batch over the data-parallel
         axes where they divide it (dropping the inner first), head and
         channel dims over "model" where it divides them."""
-        from repro_torch.dist.sharding import entry
-        from repro_torch.launch.mesh import mesh_shape
-
+        entry = shd.entry
         shape = mesh_shape(mesh)
         dp_all = tuple(a for a in ("pod", "data") if a in shape)
         msize = shape.get("model", 1)
@@ -337,7 +398,11 @@ class Model(nn.Module):
         mLSTM buffers two: group, layer of the group); the SSM and xLSTM
         states are float32 whatever ``dtype``."""
         cfg, dev = self.cfg, self.device
-        kv = init_mla_cache if cfg.attn_type == "mla" else init_kv_cache
+        if cfg.attn_type == "mla":
+            kv = init_mla_cache       # the latents: whole on every rank
+        else:                         # this rank's KV heads
+            kv = functools.partial(init_kv_cache, heads=cfg.n_kv_heads // (
+                self.tp.size if shd.attention_cut(cfg, self.tp.size) else 1))
         if cfg.family in DENSE:
             return {"dense": None,
                     "main": kv(cfg, batch, s_max, dtype, dev, cfg.n_layers)}
@@ -386,7 +451,8 @@ def build_model(cfg: ArchConfig, *, device="cuda", dtype: torch.dtype = torch.fl
     """``cfg``'s model on ``device`` (CUDA unless asked for the CPU; raises
     without it), its weights random from ``seed`` by a `torch.Generator`
     on that device, or left empty for `convert.from_reference` when
-    ``seed`` is None."""
+    ``seed`` is None.  With ``mesh=`` (and ``rank=``) it is this rank's
+    shard (`Model`), drawn leaf by leaf: no rank holds the whole model."""
     model = Model(cfg, device=device, dtype=dtype, **kw)
     if seed is not None:
         model.init(torch.Generator(device=model.device).manual_seed(seed))

@@ -177,7 +177,14 @@ class ParamTree(nn.Module):
     them.  Parameters are allocated empty (`init_params` fills them) and
     require grad only when asked: serving leaves them frozen, and the
     training step differentiates with respect to its own cast of the
-    masters (`train/train_loop.py`)."""
+    masters (`train/train_loop.py`).
+
+    ``tp`` is the model axis (`dist.tp.ModelAxis`) that this module's own
+    leaves are cut over on a sharded model (`Model` sets it on each
+    module with a cut leaf), None where they are whole: the module's
+    function then reduces or gathers over it."""
+
+    tp = None
 
     def __init__(self, specs: dict, device, dtype: torch.dtype,
                  requires_grad: bool = False):

@@ -8,6 +8,13 @@ logic plans and meters the step's GEMM bundle (``mixed_ops``: the whole
 op bundle; ``graph``: the step as a dependency graph) while the model
 does the math.  Telemetry then reports CD, modes and plan-cache
 behaviour for the run.
+
+A model sharded on a model axis (`Model(mesh=...)`) runs here unchanged:
+each rank calls `greedy_decode` on its shard, every call ends with the
+whole logits on every rank, and every rank returns the same tokens.  The
+runtime's requests stay those of the whole model (`decode_step_requests`
+of its config, global shapes), as in the reference; `Runtime.set_mesh`
+derates its budget to the mesh.
 """
 from __future__ import annotations
 

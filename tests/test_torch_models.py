@@ -400,9 +400,18 @@ def test_build_model_initialises_from_a_generator():
 
 
 def test_unported_options_raise():
-    """Expert parallelism is the model axis (ROADMAP A13b); remat and
+    """Expert parallelism builds (``moe_mode="ep"``, `tests/test_torch_tp.py`);
+    the hybrid and ssm families on a model axis above 1 are ROADMAP A13d,
+    and raise naming it; an unknown mode raises; remat and
     ``cache_pspecs`` are ported (`tests/test_torch_remat.py`,
     `tests/test_torch_dist.py`)."""
+    from repro_torch.launch.mesh import MeshShape
+
     cfg = get_arch("qwen3-14b").reduced()
-    with pytest.raises(NotImplementedError, match="moe_mode.*A13b"):
-        Model(cfg, device="meta", moe_mode="ep")
+    assert Model(cfg, device="meta", moe_mode="ep").moe_mode == "ep"
+    with pytest.raises(ValueError, match="moe_mode"):
+        Model(cfg, device="meta", moe_mode="dense")
+    for name in ("zamba2-1.2b", "xlstm-350m"):
+        with pytest.raises(NotImplementedError, match="A13d"):
+            Model(get_arch(name).reduced(), device="meta",
+                  mesh=MeshShape(data=1, model=2), rank=0)

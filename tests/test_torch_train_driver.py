@@ -8,7 +8,7 @@ first checkpoint) and `tests/test_launchers.py`'s two training tests
 checkpoint layout and its atomic publication; the signal handlers put
 back however a run ends; a launcher run resumed after a lost step
 reproducing the uninterrupted run bit for bit; ``--mesh 1x2`` and
-``2x2`` refused, naming ROADMAP A13b (the model axis; ``--mesh Dx1`` and
+``2x2`` refused, naming ROADMAP A13c (training on the model axis; ``--mesh Dx1`` and
 ``--compress-grads`` run in `tests/test_torch_zero1.py`); ``--runtime``'s
 slot budget equal to the reference runtime's on a 1×1 mesh; and the
 launcher's refusal without CUDA.
@@ -250,8 +250,9 @@ def test_resumed_launcher_run_reproduces_the_uninterrupted_one(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mesh", "1x2"], ["--mesh", "2x2"]])
 def test_train_launcher_refuses_distribution(tmp_path, flag):
-    """A model axis above 1 is tensor parallelism, ROADMAP A13b."""
-    with pytest.raises(NotImplementedError, match="A13b"):
+    """A model axis above 1 is training under tensor parallelism, ROADMAP
+    A13c."""
+    with pytest.raises(NotImplementedError, match="A13c"):
         train_main(_args(tmp_path) + flag)
 
 

@@ -67,7 +67,7 @@ def _close(got: torch.Tensor, want: torch.Tensor, what: str, atol: float = 0.0) 
 def test_each_rank_holds_only_its_slice(arch, data, kinds):
     model = Model(reduced(arch), device="meta")
     mesh = MeshShape(data=data, model=1)
-    plans = [Zero1(model, mesh, rank=r) for r in range(data)]
+    plans = [Zero1(model, mesh, rank=r, device="cpu") for r in range(data)]
     seen = set()
     for name, p in model.named_parameters():
         cover = torch.zeros(p.shape, dtype=torch.int32)
@@ -96,9 +96,21 @@ def test_each_rank_holds_only_its_slice(arch, data, kinds):
 
 
 def test_model_axis_waits_for_a13b():
-    with pytest.raises(NotImplementedError, match="A13b"):
+    """ZeRO-1 with tensor parallelism is ROADMAP A13c (the serving half of
+    the model axis, A13b, is `tests/test_torch_tp.py`)."""
+    with pytest.raises(NotImplementedError, match="A13c"):
         Zero1(Model(reduced("qwen3-14b"), device="meta"), MeshShape(data=1, model=2),
-              rank=0)
+              rank=0, device="cpu")
+
+
+def test_zero1_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """The device rule (ROADMAP A1): the collectives' tensors go to CUDA
+    unless the CPU is asked for, and CUDA asked for and missing raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, mesh = Model(reduced("qwen3-14b"), device="meta"), MeshShape(data=2, model=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Zero1(model, mesh, rank=0)
+    assert Zero1(model, mesh, rank=0, device="cpu").device == torch.device("cpu")
 
 
 # ---------------------------------------------------------- multi-rank
