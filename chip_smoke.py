@@ -85,9 +85,11 @@ Phases, each fatal on failure (nothing here catches an error):
    printed, not gated; and each window runs once more under the
    profiler, which counts its split-K and Stream-K launches beside the
    GEMMs planned and finds no reduce and no fixup kernel;
-6. attention and scan kernels: the flash-attention kernel and both scan
-   routes (the decode kernel at T = 1, the chunked form's three passes
-   otherwise, each case checked to have launched on the route
+6. attention and scan kernels: both attention routes (the prefill
+   kernel for bf16 prefills, the split-KV kernel for the rest, each case
+   checked to have launched on the route `attention_route` names) and
+   both scan routes (the decode kernel at T = 1, the chunked form's three
+   passes otherwise, each case checked to have launched on the route
    `scan_route` names)
    against their plain versions on small cases (GQA and MHA,
    causal with ``q_offset``, a window, S not a multiple of ``bkv``,
@@ -249,8 +251,10 @@ Phases, each fatal on failure (nothing here catches an error):
    1,000-token prompts, 32 greedy steps, with the plain versions of
    attention, the scan and the grouped GEMM made to raise for the whole
    run: tokens in range, logits finite at every call, the launches exact
-   (`flash_attention` once per attention layer per prefill and never in
-   decode; `mamba_scan` once per Mamba layer on the chunks route per
+   (flash attention once per attention layer per prefill, on the
+   prefill route (``flash_prefill``) in bf16 and on the decode route in
+   f32, and never in decode; `mamba_scan` once per Mamba layer on the
+   chunks route per
    prefill and on the decode kernel per layer and step; per forward
    three grouped GEMMs per MoE layer, one `grouped_matmul` launch per
    16 experts), the prefill's and the decode steps' times (CUDA events:
@@ -259,7 +263,10 @@ Phases, each fatal on failure (nothing here catches an error):
    run first.  (c) `repro_torch.launch.serve.main` on Zamba2-1.2B at
    full width in f32, `--runtime --graph`, its launches exact.  (b)'s
    launches are the kernels line's ``model_serve`` path.  Then the
-   kernel rows at the models' prefill shapes.
+   kernel rows at the models' prefill shapes, on the prefill route, each
+   with its grid, shared memory and CTAs per SM; at Qwen3-14B's, two
+   planted faults (a walk that skipped one kv tile, a q block's diagonal
+   tiles unmasked) must fail the attention check.
    10d. the model zoo, the seven other architectures through the same
    entry points (MusicGen, whose step takes a frame, by `Model.prefill`
    and `Model.decode_step` on seeded frames: `greedy_decode` refuses it):
@@ -465,7 +472,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_ref,
 )
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    PREFILL_KV_TILE,
+    PREFILL_ROWS,
+    attention_route,
     kernel_resources,
+    prefill_grid,
+    prefill_resources,
+    prefill_width,
     split_geometry,
     tma_loads,
     width_for,
@@ -560,6 +573,7 @@ REPLACES = (
     ("grouped_matmul", "src/repro/kernels/grouped_gemm/kernel.py:41 _grouped_kernel"),
     ("ragged_matmul", "src/repro/kernels/grouped_gemm/kernel.py:93 _ragged_kernel"),
     ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:23 _flash_kernel"),
+    ("flash_prefill", "src/repro/kernels/flash_attention/kernel.py:23 _flash_kernel"),
     ("mamba_scan", "src/repro/kernels/mamba_scan/kernel.py:24 _mamba_kernel"),
 )
 SOURCES = {
@@ -569,6 +583,7 @@ SOURCES = {
     "grouped_matmul": "src/repro_torch/csrc/grouped_gemm.cu",
     "ragged_matmul": "src/repro_torch/csrc/grouped_gemm.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_prefill": "src/repro_torch/csrc/flash_prefill.cu",
     "mamba_scan": "src/repro_torch/csrc/mamba_scan.cu",
 }
 LAUNCHERS = {
@@ -580,11 +595,18 @@ LAUNCHERS = {
     "flash_attention": flash_attention_fwd,
     "mamba_scan": mamba_scan_fwd,
 }
-# Kernels each serving path must launch at least once.
+# Attention has two kernels, one per route of `flash_attention_fwd`
+# (`attention_route`): the launches are counted per route, and the
+# counts below name them "flash_attention" (the decode route,
+# csrc/flash_attention.cu) and "flash_prefill" (csrc/flash_prefill.cu).
+ATTENTION_ROUTES = {"decode": "flash_attention", "prefill": "flash_prefill"}
+# Kernels each serving path must launch at least once.  Decode members
+# take the decode route; bf16 prefills the prefill route; the model axis
+# serves in f32 (MODEL_TOL is f32's), the decode route's home.
 PER_CLASS_KERNELS = ("matmul", "grouped_matmul", "ragged_matmul")
 MIXED_KERNELS = ("matmul", "splitk_matmul", "stream_k_matmul")
 OP_BUNDLE_KERNELS = ("flash_attention", "mamba_scan")
-DIST_KERNELS = ("flash_attention", "mamba_scan", "matmul")
+DIST_KERNELS = ("flash_prefill", "mamba_scan", "matmul")
 TP_KERNELS = ("flash_attention", "grouped_matmul")
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 SLEEP_CYCLES = 500_000_000   # ~0.25 s of the card's clock: time to queue work
@@ -704,13 +726,31 @@ def reset_counts() -> None:
         fn.launches = 0
     gemm_kernel.matmul.feeds.update(dict.fromkeys(gemm_kernel.matmul.feeds, 0))
     mamba_scan_fwd.routes.update(dict.fromkeys(mamba_scan_fwd.routes, 0))
+    flash_attention_fwd.routes.update(dict.fromkeys(flash_attention_fwd.routes, 0))
+
+
+def launch_counts() -> dict:
+    """The launches since `reset_counts` by kernel: each launcher's count,
+    attention's per route (`ATTENTION_ROUTES`)."""
+    counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
+    counts.update({ATTENTION_ROUTES[r]: n for r, n in flash_attention_fwd.routes.items()})
+    return counts
 
 
 def take_counts() -> Counter:
     """The launch counts since `reset_counts`, then `reset_counts`."""
-    counts = +Counter({name: fn.launches for name, fn in LAUNCHERS.items()})
+    counts = +Counter(launch_counts())
     reset_counts()
     return counts
+
+
+def attention_kernel(dtype, T: int) -> str:
+    """The count key of a model's attention over T query positions in
+    ``dtype``: the kernel `attention_route` gives such operands.  Every
+    model's head dims (64, 80, 128, 192/128) are instantiated on both
+    routes, so dtype and T decide."""
+    q = torch.empty((1, 1, T, 64), dtype=dtype, device="meta")
+    return ATTENTION_ROUTES[attention_route(q, q, q)]
 
 
 def check_feeds(label: str, device) -> dict:
@@ -1433,6 +1473,7 @@ KERNEL_KINDS = (("stream_k_matmul_kernel", "stream_k_matmul"),
                 ("splitk_kernel", "splitk_matmul"),
                 ("fixup_kernel", "stream-K fixup"),
                 ("ragged_kernel", "ragged_matmul"), ("flash_bf16_kernel", "flash_attention"),
+                ("flash_prefill_kernel", "flash_prefill"),
                 ("mamba_decode_kernel", "mamba_scan"), ("ssd_state_kernel", "mamba_scan"),
                 ("ssd_carry_kernel", "mamba_scan"), ("ssd_output_kernel", "mamba_scan"),
                 ("Cat", "stack/cat copy"), ("indexSelect", "pool packing"),
@@ -1525,7 +1566,7 @@ def serving_phase(device="cuda", cfg=None, layers=None) -> dict:
                   f"device {w['device_s']:.6f} s, "
                   f"{w['request_weight_gb'] / w['wall_s']:.1f} request-weight GB/s, "
                   f"{model_gb / w['wall_s']:.1f} model-weight GB/s")
-    counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
+    counts = launch_counts()
     modes = rt.telemetry.mode_counts()
     print(f"# serving modes {modes}; kernel launches {counts}")
     check_healthy(rt, "per-class serving")
@@ -1717,7 +1758,7 @@ def dynamic_logic_phase(cfg, weights, gen, device) -> None:
     pred = train_phase(lib, device)
     differ = predicted_serving(cfg, weights, pred, gen, device)
     measure_phase(cfg, pred, lib, device)
-    counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
+    counts = launch_counts()
     print(f"# dynamic logic: {differ} launches differ from the oracle's plans; "
           f"kernel launches of this phase (not in the kernels line) {counts}")
     reset_counts()
@@ -1898,7 +1939,7 @@ def mixed_phase(device="cuda", cfg=None, layers=None) -> dict:
     plan = {kind: sum(w[key] for w in windows) +
             sum(n for d, n in sched.items() if d.startswith(kind))
             for kind, key in (("split-K", "split_k"), ("Stream-K", "stream_k"))}
-    counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
+    counts = launch_counts()
     print(f"# bundle serving modes {rt.telemetry.mode_counts()}; kernel launches {counts}; "
           f"GEMMs planned by decomposition {plan}")
     check_feeds("bundle serving", device)
@@ -1959,6 +2000,8 @@ ATTN_CASES = (
     (1, 4, 4, 9, 140, 192, 128, True, 0, 8, 128),     # dv != dqk, 256-wide
     (2, 4, 2, 300, 300, 128, 128, True, 100, 128, 128),  # a windowed prefill
     (2, 4, 4, 100, 100, 80, 80, True, 0, 128, 128),   # D 80 on the 128-wide kernel
+    (1, 4, 4, 140, 200, 192, 128, True, 0, 128, 128),  # MLA's 192/128 over a longer cache
+    (1, 10, 2, 333, 400, 128, 64, True, 50, 64, 128),  # ragged T, dv < dqk, a window
 )
 # (B, T, H, P, N, chunk, initial state, head-broadcast B/C)
 SCAN_CASES = (
@@ -2095,8 +2138,11 @@ def attention_scan_cases(gen) -> int:
                 q, k, v = (randn((B, Hq, T, D), gen, dtype), randn((B, Hkv, S, D), gen, dtype),
                            randn((B, Hkv, S, Dv), gen, dtype))
             off = S - T if causal else 0
+            route, before = attention_route(q, k, v), dict(flash_attention_fwd.routes)
             out = flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=off,
                                       bq=bq, bkv=bkv)
+            if flash_attention_fwd.routes[route] != before[route] + 1:
+                raise AssertionError(f"{what}: not launched on the {route} route")
             check_attention(out, q, k, v, off, what, causal=causal, window=window)
             n += 1
         for (B, T, H, P, N, L, with_s0, bcast) in SCAN_CASES:
@@ -2703,16 +2749,18 @@ def op_bundle_phase(name: str, context: int, device="cuda", layers=None,
                   f"{w['device_s']:.6f} s; "
                   f"weights {w['weight_gb']:.3f} GB + KV {w['kv_gb']:.3f} GB read, "
                   f"{(w['weight_gb'] + w['kv_gb']) / w['wall_s']:.1f} GB/s of wall")
-    counts = {k: LAUNCHERS[k].launches for k in LAUNCHERS}
+    counts = launch_counts()
     members = sum((Counter(w["families"]) for w in windows), Counter())
     print(f"# {cfg.name} op-bundle modes {rt.telemetry.mode_counts()}; kernel launches "
           f"{counts}; members {dict(members)}")
     check_feeds(f"{cfg.name} op-bundle serving", device)
     check_healthy(rt, f"{cfg.name} op-bundle serving")
     if device == "cuda" and (counts["flash_attention"] != members["flash_attention"]
+                             or counts["flash_prefill"]
                              or counts["mamba_scan"] != members["mamba_scan"]):
         raise AssertionError(f"{cfg.name}: attention/scan launches {counts} differ from "
-                             f"the members submitted {dict(members)}")
+                             f"the members submitted {dict(members)}, every attention "
+                             "member on the decode route")
     routes = dict(mamba_scan_fwd.routes)
     if members["mamba_scan"]:
         print(f"# {cfg.name} op-bundle scan launches by route {routes}: "
@@ -3003,6 +3051,7 @@ def graph_part(cfg, weights, kv, context: int, gen, device, experts=None) -> Non
           f"{routes}, nodes by family {dict(nodes)}, {time.perf_counter() - t0:.1f} s "
           "(host clock, checks included)")
     if device == "cuda" and (counts["flash_attention"] != nodes["flash_attention"]
+                             or counts["flash_prefill"]
                              or counts["mamba_scan"] != nodes["mamba_scan"]
                              or routes["decode"] != nodes["mamba_scan"]
                              or routes["chunks"]):
@@ -3464,6 +3513,15 @@ def slo_window(name: str, cfg, weights, kv, acts, attn_ref, gen, device, prompt:
                                                          prompt, context)
     feeds, routes = dict(gemm_kernel.matmul.feeds), dict(mamba_scan_fwd.routes)
     counts = take_counts()
+    attn_prompt = sum(len(leaves(op_of(tk))) for tk in prompt_tickets
+                      if op_of(tk).desc.family == "flash_attention")
+    attn_decode = sum(len(leaves(m)) for h in bundles for m in h.members
+                      if m.desc.family == "flash_attention")
+    if device == "cuda" and (counts["flash_prefill"] != attn_prompt
+                             or counts["flash_attention"] != attn_decode):
+        raise AssertionError(f"window {name}: attention launches {dict(counts)}; the "
+                             f"prompt's {attn_prompt} must take the prefill route, the "
+                             f"decode bundles' {attn_decode} the decode route")
     check_prompt(prompt_tickets, attn_ref, f"window {name}")
     if not all(h.done for h in bundles):
         raise AssertionError(f"window {name}: a decode bundle was left unfinished")
@@ -3642,7 +3700,7 @@ MODEL_TOL = 2e-3
 # (b) each model at full width and depth in bf16, the serving traffic
 SERVE_MODELS = ("qwen3-14b", "zamba2-1.2b", "deepseek-v2-lite-16b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 1000, 32
-MODEL_KERNELS = ("flash_attention", "mamba_scan", "grouped_matmul")
+MODEL_KERNELS = ("flash_prefill", "mamba_scan", "grouped_matmul")
 # The plain versions the model path could reach on the card; made to raise
 # while (b) and (c) run.
 PLAIN_VERSIONS = ((flash_ops, "flash_ref"), (scan_ops, "ssd_chunk_ref"),
@@ -3684,26 +3742,27 @@ def scan_layers(cfg) -> int:
     return 0
 
 
-def model_launches(cfg, steps: int) -> tuple[Counter, dict]:
+def model_launches(cfg, steps: int, dtype, T: int) -> tuple[Counter, dict]:
     """The kernel launches (and scan routes) of one greedy run of ``steps``
-    decode steps: flash attention once per attention layer in the prefill
-    (a decode step reads the cache by einsums), the scan once per call of
-    `scan_layers` on the chunks route in the prefill and on the decode
-    kernel per step, and per forward three grouped GEMMs per MoE layer,
-    each one launch per `MAX_MEMBERS` experts."""
+    decode steps after a prompt of T positions in ``dtype``: flash
+    attention once per attention layer in the prefill, on the kernel of
+    `attention_kernel` (a decode step reads the cache by einsums), the
+    scan once per call of `scan_layers` on the chunks route in the prefill
+    and on the decode kernel per step, and per forward three grouped GEMMs
+    per MoE layer, each one launch per `MAX_MEMBERS` experts."""
     attn = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else
             0 if cfg.family == "ssm" else cfg.n_layers)
     mamba = scan_layers(cfg)
     moe = cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
     grouped = moe * 3 * -(-cfg.n_routed_experts // grouped_kernel.MAX_MEMBERS)
-    want = +Counter(flash_attention=attn, mamba_scan=mamba * (1 + steps),
-                    grouped_matmul=grouped * (1 + steps))
+    want = +Counter({attention_kernel(dtype, T): attn, "mamba_scan": mamba * (1 + steps),
+                     "grouped_matmul": grouped * (1 + steps)})
     return want, {"decode": mamba * steps, "chunks": mamba}
 
 
 def check_model_launches(label: str, cfg, steps: int, counts: Counter,
-                         routes: dict) -> None:
-    want, want_routes = model_launches(cfg, steps)
+                         routes: dict, dtype, T: int) -> None:
+    want, want_routes = model_launches(cfg, steps, dtype, T)
     if counts != want or routes != want_routes:
         raise AssertionError(f"{label}: launches {dict(counts)}, scan routes {routes}; "
                              f"the model path makes {dict(want)}, {want_routes}")
@@ -3777,7 +3836,8 @@ def model_check(name: str, layers: int, prompt_len: int = CHECK_PROMPT,
                     cache_dtype=torch.float32, on_step=seen.append).cpu()
     routes = dict(mamba_scan_fwd.routes)
     counts = take_counts()
-    check_model_launches(f"{name} at {layers} layers", cfg, CHECK_STEPS, counts, routes)
+    check_model_launches(f"{name} at {layers} layers", cfg, CHECK_STEPS, counts, routes,
+                         torch.float32, prompt_len)
     audio = cfg.frontend == "audio_frames"
     fed = ([f.cpu() for f in step_frames(cfg, CHECK_BATCH, CHECK_STEPS, torch.float32)]
            if audio else [toks[:, i:i + 1] for i in range(CHECK_STEPS)])
@@ -4020,7 +4080,8 @@ def model_serve(name: str, layers: int | None = None, prompt_len: int = SERVE_PR
     routes = dict(mamba_scan_fwd.routes)
     counts = take_counts()
     model_moe._route = real_route
-    check_model_launches(f"{name} serving", cfg, steps, counts, routes)
+    check_model_launches(f"{name} serving", cfg, steps, counts, routes, torch.bfloat16,
+                         prompt_len)
     if toks.shape != (SERVE_BATCH, steps) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"{name} serving: tokens {tuple(toks.shape)} out of range")
@@ -4062,6 +4123,9 @@ def model_serve(name: str, layers: int | None = None, prompt_len: int = SERVE_PR
                 bounds=bd)
 
 
+LAUNCHER_PROMPT = 32   # `launch.serve`'s default prompt, positions
+
+
 def launcher_on_card() -> None:
     """(c): `repro_torch.launch.serve.main` as a user runs it, on Zamba2-1.2B
     at full width and depth in its default f32, the decode steps shadowed
@@ -4075,7 +4139,8 @@ def launcher_on_card() -> None:
     restore()
     if toks.shape != (4, 16) or toks.device.type != "cuda":
         raise AssertionError(f"launcher: tokens {tuple(toks.shape)} on {toks.device}")
-    check_model_launches("launcher", get_arch(ZAMBA), 16, counts, routes)
+    check_model_launches("launcher", get_arch(ZAMBA), 16, counts, routes, torch.float32,
+                         LAUNCHER_PROMPT)
     print(f"# launcher on the card (zamba2-1.2b, f32, --runtime --graph): kernel "
           f"launches {dict(counts)}, scan routes {routes}")
 
@@ -4117,9 +4182,21 @@ def model_attention_row(name: str, shape: tuple, gen) -> dict:
     k[:, :T], v[:, :T] = randn((B, T, Hkv, D), gen), randn((B, T, Hkv, Dv), gen)
     k, v = k.transpose(1, 2), v.transpose(1, 2)
     kw = dict(causal=True, window=window, q_offset=0)
+    before = flash_attention_fwd.routes["prefill"]
     out = flash_attention_fwd(q, k, v, **kw)
+    if flash_attention_fwd.routes["prefill"] != before + 1:
+        raise AssertionError(f"{name} prefill attention missed the prefill route")
     err = check_attention(out, q, k, v, 0, f"{name} prefill attention", causal=True,
                           window=window)
+    dq, dv = prefill_width(D, Dv)
+    per_sm, smem = prefill_resources(q.device, dq, dv)
+    grid = prefill_grid(B, Hq, T)
+    print(f"# flash_prefill grid at {name}: {grid[0] * grid[1]} CTAs = {grid[0]} (batch, "
+          f"q head) x {grid[1]} blocks of {PREFILL_ROWS} positions, {PREFILL_KV_TILE}-key "
+          f"tiles; {dq}/{dv} instantiation, {smem} B shared memory per CTA, {per_sm} CTAs "
+          "per SM")
+    if name == MODEL_ATTENTION[0][0]:
+        planted_prefill_faults(q, k, v, name)
     if window:
         mask = window_mask(T, S, window, q.device)
 
@@ -4137,12 +4214,47 @@ def model_attention_row(name: str, shape: tuple, gen) -> dict:
     return dict(
         shape=f"{name} prefill B{B} Hq{Hq} Hkv{Hkv} T{T} S{S} D{D}/{Dv} bf16, causal"
               + (f", window {window}" if window else "") + ", the model's strided views",
-        instantiation=f"bf16 head dim ≤ {width_for(D, Dv)}, bq 128, bkv 128",
+        instantiation=(f"bf16 {dq}/{dv}, {grid[0] * grid[1]} CTAs of {PREFILL_ROWS} "
+                       f"positions, {smem} B shared"),
+        grid=dict(ctas=grid[0] * grid[1], q_blocks=grid[1], kv_tile=PREFILL_KV_TILE,
+                  ctas_per_sm=per_sm, smem_bytes=smem),
         max_abs_err=err,
         ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
         plain_ms=time_ms(lambda: flash_ref(q, k, v, **kw), reps=3, warmup=1),
         library_ms=time_ms(sdpa),
         bound=bound(nbytes, 2 * seen * (D + Dv), torch.bfloat16))
+
+
+def planted_prefill_faults(q, k, v, name: str) -> None:
+    """The prefill route's check at the main shape (causal, q_offset 0):
+    the kernel run as a walk that skipped one kv tile would run (keys
+    [lo, lo + PREFILL_KV_TILE) left out, the rows past them at their
+    positions), and one q block's diagonal tiles without their mask (the
+    block non-causal over the keys up to its end); each must fail
+    `check_attention`.  Prints how far off each is."""
+    T, kt = q.shape[2], PREFILL_KV_TILE
+    ref = attention_f32_ref(q, k, v, 0)
+    atol, rtol = attention_tol(q.dtype)
+    lo, q0 = 2 * kt, 2 * PREFILL_ROWS
+    keep = torch.ones(k.shape[2], dtype=torch.bool, device=k.device)
+    keep[lo:lo + kt] = False
+    rows = slice(lo + kt, T)
+    faults = {
+        f"keys [{lo}, {lo + kt}) skipped": (
+            flash_attention_fwd(q[:, :, rows], k[:, :, keep], v[:, :, keep], causal=True,
+                                q_offset=lo), ref[:, :, rows]),
+        f"block [{q0}, {q0 + PREFILL_ROWS}) unmasked": (
+            flash_attention_fwd(q[:, :, q0:q0 + PREFILL_ROWS], k[:, :, :q0 + PREFILL_ROWS],
+                                v[:, :, :q0 + PREFILL_ROWS], causal=False),
+            ref[:, :, q0:q0 + PREFILL_ROWS]),
+    }
+    for what, (fault, want) in faults.items():
+        err, n_bad = tol_excess(fault, want, atol, rtol, f"planted fault ({what})")
+        print(f"# planted prefill fault ({what}) at {name}: max |err| {err:.4g}; {n_bad} of "
+              f"{fault.numel()} outputs beyond {atol} + {rtol:.6g}·|ref|")
+        if not n_bad:
+            raise AssertionError(f"the attention tolerance lets a prefill fault through "
+                                 f"({what})")
 
 
 def grouped_row(name: str, what: str, C: int, w, gen) -> dict:
@@ -4180,8 +4292,8 @@ def model_kernel_rows(gen) -> dict:
     (float32 xd and da, B/C head-broadcast views of (B, T, N), chunk
     128); DeepSeek-V2-Lite-16B's grouped up-projection at the prefill's
     capacity (C 469) and a decode step's (C 1), at the GO tile for CD 16."""
-    rows = {"flash_attention": [model_attention_row(n, sh, gen)
-                                for n, sh in MODEL_ATTENTION]}
+    rows = {"flash_prefill": [model_attention_row(n, sh, gen)
+                              for n, sh in MODEL_ATTENTION]}
     torch.cuda.empty_cache()
     B, T, H, P, N, L = 4, SERVE_PROMPT, 64, 64, 64, 128
     f32 = torch.float32
@@ -4309,9 +4421,9 @@ def zoo_kernel_rows(gen) -> dict:
     grouped up-projection (160 experts, d 5120, expert d_ff 1536) at the
     prefill's capacity (C 188) and a decode step's (C 1); xLSTM's wide
     scans (`wide_scan_rows`)."""
-    rows = {"flash_attention": []}
+    rows = {"flash_prefill": []}
     for n, sh in ZOO_ATTENTION:
-        rows["flash_attention"].append(model_attention_row(n, sh, gen))
+        rows["flash_prefill"].append(model_attention_row(n, sh, gen))
         torch.cuda.empty_cache()
     cfg = get_arch("deepseek-v2-236b")
     w = randn((cfg.n_routed_experts, cfg.d_model, cfg.moe_d_ff), gen,
@@ -4512,7 +4624,7 @@ TRAIN_ARGS = ("--batch", "4", "--seq", "512", "--steps", "8", "--ckpt-every", "0
               "--log-every", "1")
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 8
 QWEN_TRAIN_LAYERS = 2
-TRAIN_KERNELS = ("flash_attention", "mamba_scan", "grouped_matmul")
+TRAIN_KERNELS = ("flash_prefill", "mamba_scan", "grouped_matmul")
 # The optimizer's bytes a parameter: f32 master, first and second moments
 # read and written (24), the bf16 gradient read (2).
 OPT_BYTES = 26
@@ -4554,24 +4666,31 @@ class PlainCalls:
             setattr(m, n, real)
 
 
-def train_launches(cfg, steps: int) -> Counter:
+def train_launches(cfg, steps: int, attention: str = "flash_prefill") -> Counter:
     """Kernel launches of ``steps`` training steps: per forward one
-    attention launch per attention layer run, one chunks-route scan per
-    Mamba layer, no grouped launch (MoE training raises on the card); the
-    backward launches none (its VJPs are plain recomputes, one per
-    launch)."""
+    attention launch per attention layer run (on ``attention``: the
+    prefill kernel for bf16 compute, the decode route's for f32), one
+    chunks-route scan per Mamba layer, no grouped launch (MoE training
+    raises on the card); the backward launches none (its VJPs are plain
+    recomputes, one per launch, counted by family: `recomputes`)."""
     attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
     mamba = cfg.n_layers if cfg.family == "hybrid" else 0
-    return +Counter(flash_attention=attn * steps, mamba_scan=mamba * steps)
+    return +Counter({attention: attn * steps, "mamba_scan": mamba * steps})
+
+
+def recomputes(cfg, steps: int) -> Counter:
+    """`PlainCalls`' VJP recomputes of ``steps`` steps: one per launch,
+    under the family's name whichever attention route the forward took."""
+    return train_launches(cfg, steps, "flash_attention")
 
 
 def check_train_launches(label: str, cfg, steps: int, counts: Counter, routes: dict,
-                         recomputes: Counter) -> None:
-    want = train_launches(cfg, steps)
+                         recomputed: Counter, attention: str = "flash_prefill") -> None:
+    want = train_launches(cfg, steps, attention)
     want_routes = {"decode": 0, "chunks": want["mamba_scan"]}
-    if counts != want or routes != want_routes or recomputes != want:
+    if counts != want or routes != want_routes or recomputed != recomputes(cfg, steps):
         raise AssertionError(f"{label}: launches {dict(counts)}, scan routes {routes}, "
-                             f"VJP recomputes {dict(recomputes)}; the training path "
+                             f"VJP recomputes {dict(recomputed)}; the training path "
                              f"makes {dict(want)}, {want_routes}, one recompute each")
 
 
@@ -4683,7 +4802,8 @@ def train_check(name: str, layers: int, plain: PlainCalls, tree: str) -> None:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     routes = dict(mamba_scan_fwd.routes)
-    check_train_launches(f"train check {name}", cfg, 1, take_counts(), routes, plain.take())
+    check_train_launches(f"train check {name}", cfg, 1, take_counts(), routes, plain.take(),
+                         attention="flash_attention")   # f32: the decode route
     masters = {k: p.clone() for k, p in host.params.items()} if tree == "sensitivity" else None
     new_cpu, m_cpu = make_train_step(cpu, opt, compute_dtype=torch.float32,
                                      grad_transform=keep("cpu"))(host, batch)
@@ -4758,6 +4878,7 @@ def train_bound(cfg, n_params: int) -> dict:
 
 
 TRAIN_KINDS = (("flash_attention", ("flash_bf16", "flash_f32")),
+               ("flash_prefill", ("flash_prefill",)),
                ("ssd state", ("ssd_state_kernel",)), ("ssd carry", ("ssd_carry_kernel",)),
                ("ssd output", ("ssd_output_kernel",)),
                ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "splitKreduce")))
@@ -5064,15 +5185,15 @@ def remat_run(name: str, layers, remat: str, plain: PlainCalls) -> Counter:
             b = mark()
             torch.cuda.synchronize()
             routes = dict(mamba_scan_fwd.routes)
-            counts, recomputes = take_counts(), plain.take()
+            counts, recomputed = take_counts(), plain.take()
             total += counts
             again = 2 if r != "none" else 1
             want = train_launches(cfg, 1)
             want_counts = Counter({k: n * again for k, n in want.items()})
-            if (counts != want_counts or recomputes != want
+            if (counts != want_counts or recomputed != recomputes(cfg, 1)
                     or routes != {"decode": 0, "chunks": want_counts["mamba_scan"]}):
                 raise AssertionError(f"{name} remat={r}: launches {dict(counts)}, routes "
-                                     f"{routes}, VJP recomputes {dict(recomputes)}; want "
+                                     f"{routes}, VJP recomputes {dict(recomputed)}; want "
                                      f"{dict(want_counts)} and one recompute each")
             runs[r] = dict(loss=float(metrics["loss"]), ms=a.elapsed_time(b),
                            peak=torch.cuda.max_memory_allocated(), base=base,
@@ -5393,7 +5514,7 @@ def tp_check(name: str, world: int, ranks: list, ref: dict, dtype) -> Counter:
         if got["paths"] != want_paths:
             faults.append(f"rank {r}'s routed paths {got['paths']}, want {want_paths}")
         shard = replace(cfg, n_routed_experts=got["experts"]) if moe_layers else cfg
-        want, _ = model_launches(shard, TP_STEPS)
+        want, _ = model_launches(shard, TP_STEPS, dtype, TP_PROMPT)
         if got["counts"] != want:
             faults.append(f"rank {r}'s launches {dict(got['counts'])}, its shard makes "
                           f"{dict(want)}")
@@ -5464,8 +5585,8 @@ def tp_launcher() -> None:
 def tp_kernel_rows(gen) -> dict:
     """The kernels at a rank's shapes (M = 4), each held to its plain
     version and timed beside it and the PyTorch call."""
-    rows = {"flash_attention": [model_attention_row(n, shape, gen)
-                                for n, shape in TP_ATTENTION]}
+    rows = {"flash_prefill": [model_attention_row(n, shape, gen)
+                              for n, shape in TP_ATTENTION]}
     cfg = get_arch("deepseek-v2-lite-16b")
     w = randn((TP_EP_EXPERTS, cfg.d_model, cfg.moe_d_ff), gen,
               scale=cfg.d_model ** -0.5)
@@ -5531,6 +5652,7 @@ def main() -> int:
     rows["ragged_matmul"] += moe_ragged_rows(gen, default_library())
     rows.update(split_stream_kernels(gen))
     rows.update(attention_scan_kernels(gen, default_library()))
+    rows["flash_prefill"] = []      # the models' prefill shapes, from phase 10 on
     torch.cuda.empty_cache()
     prompt = prompt_scan_phase()
     gc.collect()
@@ -5601,7 +5723,7 @@ def main() -> int:
         r, *more = rows[name]
         by_path = ({"per_class": serving["counts"][name]} if name in PER_CLASS_KERNELS else
                    {"op_bundles": op_counts[name]} if name in OP_BUNDLE_KERNELS else
-                   {"mixed": mixed["counts"][name]})
+                   {"mixed": mixed["counts"][name]} if name in MIXED_KERNELS else {})
         if name == "ragged_matmul":
             by_path["op_bundles"] = op_counts[name]
         if name == "mamba_scan":

@@ -1,5 +1,6 @@
 // TMA boxes and reading them, shared by the port's TMA-fed kernels
-// (flash_attention.cu's K/V ring and gemm.cu's `matmul` feed).
+// (flash_attention.cu's K/V ring, flash_prefill.cu's Q tile and K/V ring,
+// and gemm.cu's `matmul` feed).
 //
 // A producer lane asks the TMA unit for whole boxes of a tensor map into a
 // ring of shared-memory stages; each stage completes on an mbarrier's
@@ -183,6 +184,31 @@ inline bool tensor_map_2d(CUtensorMap* map, const void* base, int64_t rows,
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a bf16 tensor (batch, heads, rows, cols) with element
+// strides s_row, s_head, s_batch and contiguous cols, in boxes of 64 rows
+// x 64 columns (128 bytes) under 128-byte swizzling; elements past the
+// tensor read as zero.  False when the TMA unit cannot read it: a base or
+// a stride not a multiple of 16 bytes.
+inline bool tensor_map_4d(CUtensorMap* map, const void* base, int64_t cols,
+                          int64_t rows, int64_t heads, int64_t batch,
+                          int64_t s_row, int64_t s_head, int64_t s_batch) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
+      s_row <= 0 || s_head <= 0 || s_batch <= 0 || (s_row * 2) % 16 != 0 ||
+      (s_head * 2) % 16 != 0 || (s_batch * 2) % 16 != 0)
+    return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(s_row * 2), (cuuint64_t)(s_head * 2),
+                                 (cuuint64_t)(s_batch * 2)};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("gemm", "gemm_split_k", "gemm_stream_k", "grouped_gemm",
-           "flash_attention", "mamba_scan")
+           "flash_attention", "flash_prefill", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,13 +2,16 @@
 (`repro/kernels/flash_attention/ops.py:53-98`).
 
 CPU tensors take the plain version (`ref.flash_ref`), as the reference
-does off the TPU; CUDA tensors take the hand-written kernel or raise.
-`attention_buffers` (the family's ``buffers`` hook) allocates the output
-and, on the card, the kernel's split partials, so a mixed launch
-allocates them before it forks.  The q/kv block sizes are the family's
-tile axes: `attention_for_desc` maps a GO-library `TileConfig` onto them
-(bm → bq, bn → bkv), so the scheduler runs an `AttentionDesc` member at
-its tuned tile.
+does off the TPU; CUDA tensors take one of the two hand-written kernels
+(`kernel.attention_route`: the prefill kernel for bf16 prefills, the
+split-KV kernel for the rest) or raise.  `attention_buffers` (the
+family's ``buffers`` hook) allocates the output and, on the card's
+decode route, the kernel's split partials, so a mixed launch allocates
+them before it forks.  The q/kv block sizes are the family's tile axes:
+`attention_for_desc` maps a GO-library `TileConfig` onto them (bm → bq,
+bn → bkv), so the scheduler runs an `AttentionDesc` member at its tuned
+tile; on the prefill route they change no result and do not size the
+CTA, which wgmma's 64-row minimum fixes (128 positions, 64-key tiles).
 
 The backward (`repro/kernels/flash_attention/ops.py:25-50`): on the card,
 where an operand requires grad, `flash_attention` runs `FlashAttention`,

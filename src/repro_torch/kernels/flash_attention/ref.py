@@ -6,10 +6,13 @@
                 the CPU path of `ops.flash_attention` and the version
                 `chip_smoke.py` holds the CUDA kernel against, within
                 ``attention_tol``.
-``flash_split_ref`` / ``flash_combine_ref`` — the kernel's split-KV
-                arithmetic: per split of the kv range, each row's f32
-                (m, l, acc) in the kernel's partial layout, and their
-                merge in split order.
+``flash_split_ref`` / ``flash_combine_ref`` — the decode kernel's
+                split-KV arithmetic: per split of the kv range, each
+                row's f32 (m, l, acc) in the kernel's partial layout, and
+                their merge in split order.
+``flash_prefill_ref`` — the prefill kernel's arithmetic: its tile walk
+                (`kernel.prefill_tiles`) in order, P split into bf16 high
+                and low parts.
 
 Layouts: q (B, Hq, T, D); k, v (B, Hkv, S, D); GQA via Hq % Hkv == 0 (q
 head h reads kv head h // (Hq/Hkv)).  ``window > 0`` is sliding-window
@@ -20,7 +23,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.kernel import (
+    PREFILL_KV_TILE,
+    PREFILL_ROWS,
+    PREFILL_WG_ROWS,
+    prefill_tiles,
+)
+
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def _mask(qpos, kpos, causal: bool, window: int):
@@ -141,6 +152,65 @@ def flash_combine_ref(part_acc, part_ml, dtype):
     out = torch.where(l_sum[..., None] == 0, 0.0,
                       acc / torch.where(l_sum == 0, 1.0, l_sum)[..., None])
     return out.to(dtype)
+
+
+def flash_prefill_ref(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
+                      precision="bf16x2"):
+    """The prefill kernel's arithmetic in plain PyTorch, in f32: per block
+    of `PREFILL_ROWS` query positions and per warpgroup of its
+    `PREFILL_WG_ROWS` rows, the tiles of `prefill_tiles` in order —
+    nothing on a "skip" tile, the per-element mask on a "mask" tile —
+    with the running max in base 2 (the raw scores' max times scale·log₂e),
+    each weight 2^(s·scale·log₂e − m), the rescale by 2^(m_old − m), and
+    P·V with P split into a bf16 high part
+    and the bf16 of what it leaves out (``precision="bf16x2"``, the
+    kernel's; ``"bf16"`` rounds P once).  A row that sees no key gives 0.
+    Returns q's dtype."""
+    if precision not in ("bf16x2", "bf16"):
+        raise ValueError(f"precision {precision!r}: 'bf16x2' or 'bf16'")
+    B, Hq, T, D = q.shape
+    _, Hkv, S, _ = k.shape
+    Dv = v.shape[-1]
+    scale2 = (scale if scale is not None else D ** -0.5) * LOG2E
+    rep = Hq // Hkv
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    out = torch.zeros((B, Hq, T, Dv), dtype=torch.float32, device=q.device)
+    for q0, tiles in prefill_tiles(T, S, causal=causal, window=window,
+                                   q_offset=q_offset):
+        for wg in range(PREFILL_ROWS // PREFILL_WG_ROWS):
+            r0 = q0 + wg * PREFILL_WG_ROWS
+            r1 = min(r0 + PREFILL_WG_ROWS, T)
+            if r1 <= r0:
+                continue
+            qf = q[:, :, r0:r1].float()
+            qpos = torch.arange(r0, r1, device=q.device) + q_offset
+            m = torch.full((B, Hq, r1 - r0), NEG_INF, device=q.device)
+            l = torch.zeros((B, Hq, r1 - r0), device=q.device)
+            acc = torch.zeros((B, Hq, r1 - r0, Dv), device=q.device)
+            for tile in tiles:
+                if tile.modes[wg] == "skip":
+                    continue
+                k0, k1 = tile.k0, min(tile.k0 + PREFILL_KV_TILE, S)
+                s = torch.einsum("bhtd,bhsd->bhts", qf, kf[:, :, k0:k1])
+                if tile.modes[wg] == "mask":
+                    msk = _mask(qpos, torch.arange(k0, k1, device=q.device), causal,
+                                window)
+                    s = torch.where(msk[None, None], s, -torch.inf)
+                m_new = torch.maximum(m, s.amax(-1) * scale2)
+                alpha = torch.exp2(m - m_new)
+                w = torch.exp2(s * scale2 - m_new[..., None])   # a masked key: 0
+                l = l * alpha + w.sum(-1)
+                hi = w.to(torch.bfloat16).float()
+                pv = torch.einsum("bhts,bhsd->bhtd", hi, vf[:, :, k0:k1])
+                if precision == "bf16x2":
+                    lo = (w - hi).to(torch.bfloat16).float()
+                    pv = pv + torch.einsum("bhts,bhsd->bhtd", lo, vf[:, :, k0:k1])
+                acc = acc * alpha[..., None] + pv
+                m = m_new
+            out[:, :, r0:r1] = torch.where(
+                l[..., None] == 0, 0.0, acc / torch.where(l == 0, 1.0, l)[..., None])
+    return out.to(q.dtype)
 
 
 def attention_tol(dtype: torch.dtype) -> tuple[float, float]:

@@ -19,7 +19,13 @@ finish.  Attention must match `flash_ref` on f32 copies of its inputs
 within `attention_tol`; its split partials must match `flash_split_ref`,
 its output (merged in the kernel by the last CTA of each row group) must
 match `flash_combine_ref` on the kernel's own partials, and the row
-groups' counters must be zero again after the launch.
+groups' counters must be zero again after the launch.  bf16 prefills
+take the prefill route (`attention_route`; `csrc/flash_prefill.cu`): it
+must match `flash_ref` within `attention_tol` at ragged T, S > T, a
+q_offset either way, a window, rep 1, 2, 4, 5 and 8, D 64, 80, 128 and
+192/128 and the models' strided views, with no split buffers, one launch
+counted on its route, a row that sees no key 0 and the same bits on a
+rerun; a misaligned view and a non-positive scale raise before launching.
 
 `matmul` takes TMA boxes for bf16 operands with 16-byte-aligned bases
 and rows (`matmul_feed`), and the `cp.async` ring otherwise: the TMA
@@ -145,6 +151,9 @@ from repro_torch.kernels.flash_attention import (
     kv_splits,
 )
 from repro_torch.kernels.flash_attention.kernel import (
+    PREFILL_WIDTHS,
+    attention_route,
+    prefill_resources,
     resident_slots,
     split_geometry,
     tma_loads,
@@ -550,16 +559,18 @@ def test_split_kv_attention_matches_plain(card, case, dtype):
     assert (splits, split_len) == kv_splits(B, Hkv, Hq // Hkv, T, S, slots)
     if dtype == torch.bfloat16:
         assert tma_loads(k, v) == (D % 8 == 0)
+    route = attention_route(q, k, v)    # bf16 prefills: the prefill kernel, unsplit
     bufs = attention_buffers(q, k, v)
-    before = flash_attention_fwd.launches
+    before = (flash_attention_fwd.launches, flash_attention_fwd.routes[route])
     out = flash_attention_fwd(q, k, v, bq=bq, bkv=bkv, out=bufs, **kw)
-    assert flash_attention_fwd.launches == before + 1 and out is bufs.out
+    assert (flash_attention_fwd.launches, flash_attention_fwd.routes[route]) == \
+        (before[0] + 1, before[1] + 1) and out is bufs.out
     seen = (torch.arange(T, device=card) + off) >= 0   # rows that see a key
     ref = flash_ref(q.float(), k.float(), v.float(), **kw)
     atol, rtol = attention_tol(dtype)
     err = (out.float() - ref).abs()[:, :, seen]
     assert bool((err <= atol + rtol * ref.abs()[:, :, seen]).all()), err.max().item()
-    if splits == 1:
+    if splits == 1 or route == "prefill":
         assert bufs.part_acc is None
         return
     assert not bufs.counter.any()            # the last CTAs reset them
@@ -577,6 +588,86 @@ def test_split_kv_attention_matches_plain(card, case, dtype):
     plain = flash_combine_ref(bufs.part_acc, bufs.part_ml, dtype)
     assert torch.allclose(out.float()[:, :, seen], plain.float()[:, :, seen], atol=1e-6,
                           rtol=2.0 ** -7 if dtype == torch.bfloat16 else 1e-6)
+
+
+# ----------------------------------------------------- attention, prefill route
+PREFILL_CARD_CASES = [  # B, Hq, Hkv, T, S, D, Dv, window, q_offset, the models' views
+    (1, 2, 2, 200, 200, 64, 64, 0, 0, False),        # rep 1, D 64
+    (2, 4, 2, 333, 400, 128, 128, 0, 67, True),      # rep 2, ragged T, S > T, q_offset
+    (1, 5, 1, 130, 170, 128, 128, 0, 0, True),       # rep 5: the written cache, S > T
+    (1, 8, 1, 257, 300, 128, 128, 100, 43, False),   # rep 8, a window, q_offset
+    (2, 4, 4, 100, 109, 80, 80, 0, 0, True),         # D 80 on the 128-wide kernel
+    (1, 4, 4, 300, 300, 192, 128, 0, 0, True),       # MLA's 192/128
+    (1, 4, 4, 65, 1000, 192, 128, 64, 935, False),   # 192/128, a window, a suffix
+    (1, 4, 2, 100, 160, 64, 32, 0, -30, False),      # rows that see no key: 0
+    (4, 40, 8, 1000, 1033, 128, 128, 0, 0, True),    # Qwen3-14B's prefill
+    (4, 32, 32, 1000, 1033, 64, 64, 0, 0, True),     # Zamba2-1.2B's
+    (4, 32, 16, 2048, 2057, 128, 128, 1024, 0, True),  # Gemma3-27B's local layers
+]
+
+
+def _prefill_operands(card, B, Hq, Hkv, T, S, D, Dv, views, seed):
+    """bf16 q, k, v: contiguous, or as the models hand them over (q a
+    transposed (B, T, Hq, D) view, k and v transposed views of a (B, S,
+    Hkv, D) cache)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=card).to(torch.bfloat16)
+
+    if views:
+        return (rnd(B, T, Hq, D).transpose(1, 2), rnd(B, S, Hkv, D).transpose(1, 2),
+                rnd(B, S, Hkv, Dv).transpose(1, 2))
+    return rnd(B, Hq, T, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, Dv)
+
+
+@pytest.mark.parametrize("case", PREFILL_CARD_CASES, ids=str)
+def test_prefill_route_matches_plain(card, case):
+    """The prefill kernel against `flash_ref` on f32 copies within
+    `attention_tol`: one launch counted on the "prefill" route, no split
+    buffers, a row that sees no key 0, and the same bits on a rerun."""
+    B, Hq, Hkv, T, S, D, Dv, window, off, views = case
+    q, k, v = _prefill_operands(card, B, Hq, Hkv, T, S, D, Dv, views, B * S + T)
+    kw = dict(causal=True, window=window, q_offset=off)
+    assert attention_route(q, k, v) == "prefill"
+    bufs = attention_buffers(q, k, v)
+    assert bufs.part_acc is None and bufs.part_ml is None and bufs.counter is None
+    before = (flash_attention_fwd.launches, dict(flash_attention_fwd.routes))
+    out = flash_attention_fwd(q, k, v, out=bufs, **kw)
+    assert out is bufs.out and flash_attention_fwd.launches == before[0] + 1
+    assert flash_attention_fwd.routes == {**before[1],
+                                          "prefill": before[1]["prefill"] + 1}
+    ref = flash_ref(q.float(), k.float(), v.float(), **kw)
+    seen = (torch.arange(T, device=card) + off) >= 0
+    atol, rtol = attention_tol(torch.bfloat16)
+    err = (out.float() - ref).abs()[:, :, seen]
+    assert bool((err <= atol + rtol * ref.abs()[:, :, seen]).all()), err.max().item()
+    assert not out[:, :, ~seen].any()
+    first = out.clone()
+    assert torch.equal(flash_attention_fwd(q, k, v, out=bufs, **kw), first)
+
+
+def test_prefill_route_refuses_what_its_tma_boxes_cannot_read(card):
+    """A view one element past an aligned base, and a non-positive scale,
+    raise before launching: the prefill route never falls back."""
+    g = torch.Generator(device=card).manual_seed(3)
+    flat = torch.randn(1 + 2 * 4 * 128 * 64, generator=g, device=card).to(torch.bfloat16)
+    q = flat[1:].view(2, 4, 128, 64)
+    k = torch.randn((2, 4, 128, 64), generator=g, device=card).to(torch.bfloat16)
+    assert attention_route(q, k, k) == "prefill"
+    before = dict(flash_attention_fwd.routes)
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_fwd(q, k, k)
+    with pytest.raises(ValueError, match="positive scale"):
+        flash_attention_fwd(k, k, k, scale=0.0)
+    assert flash_attention_fwd.routes == before
+
+
+@pytest.mark.parametrize("widths", PREFILL_WIDTHS, ids=str)
+def test_prefill_residency(card, widths):
+    """One CTA of 384 threads per SM, its ring within the SM's 227 KB."""
+    per_sm, smem = prefill_resources(card, *widths)
+    assert per_sm == 1 and 64 * 1024 < smem <= 232448
 
 
 def test_split_counts_fill_one_wave_of_the_card(card):
